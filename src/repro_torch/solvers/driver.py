@@ -1,0 +1,891 @@
+"""Generic ESR solve loop for any :class:`RecoverableSolver` (port of
+``repro/solvers/driver.py``: the config, campaign, planner, report,
+persistence pipeline and solve loop; the spec advisor, the batched
+service step and sharded solves are not ported yet).
+
+The runtime machinery of the paper:
+
+- the persistence schedule (classic ESR: every iteration; ESRP: bursts of
+  ``schema.history`` successive iterations every period ``T``),
+- the persistence *pipeline*: synchronous (persist on the critical path,
+  the paper's host-pull baseline) or overlapped (``session.begin`` stages
+  the payload, ``session.commit`` flushes it while the next iteration's
+  compute is in flight),
+- failure injection — single plans or multi-event :class:`FailureCampaign`
+  scenarios (overlapping failures during an in-flight recovery, repeated
+  failures of the same block, ``prd=True`` events that crash the
+  persistence service itself),
+- campaign *planning* (:func:`plan_campaign`) against the backend's
+  declared :class:`~repro_torch.nvm.backend.BackendCapabilities`,
+- the survivor-side snapshot at the last *durable* persistence run,
+- recovery (backend fetch + solver-specific exact reconstruction) with
+  the rollback-agreement cross-check,
+- convergence monitoring and reporting.
+
+The solve runs on the device of the right-hand side ``b``.  Per
+iteration the host reads one scalar (the residual norm) and, at each
+persistence point, the persisted vector (``RecoverableSolver.host_shard``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.nvm.backend import (
+    BackendCapabilities,
+    UnrecoverableFailure,
+    open_persist_session,
+)
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.solvers.base import device_norm
+
+PERSIST_MODES = ("sync", "overlap")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveConfig:
+    tol: float = 1e-10            # relative residual tolerance ||r|| / ||b||
+    maxiter: int = 10_000
+    persistence_period: int = 1   # T=1: classic ESR; T>1: ESRP bursts
+    local_solve: str = "auto"     # reconstruction local solver
+    persist_mode: str = "sync"    # "sync": persist on the critical path;
+    #                               "overlap": commit hides behind compute
+    plan_campaign: bool = True    # pre-flight plan_campaign() against the
+    #                               backend's declared capabilities; False
+    #                               runs unplanned (failures surface at the
+    #                               recovery fetch instead)
+    fused_persist: bool = False   # fused persist staging (DESIGN.md §13)
+    #                               belongs to the erasure slice of the
+    #                               port, which has not landed: True raises
+    tracer: Optional[object] = None  # a repro_torch.obs.Tracer records
+    #                               spans / events through the pipeline;
+    #                               None (or any falsy tracer) keeps the
+    #                               hot path a strict no-op
+
+    def __post_init__(self):
+        if self.fused_persist:
+            raise NotImplementedError(
+                "fused_persist=True needs the erasure slice of the port "
+                "(GF(256) parity kernel K3 and the fused update+staging "
+                "kernel K4), which is not ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class FailurePlan:
+    """Inject a failure of ``blocks`` right after iteration ``at_iteration``
+    (the single-event form, kept for the pre-campaign API)."""
+
+    at_iteration: int
+    blocks: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureEvent:
+    """One failure in a :class:`FailureCampaign`.
+
+    Exactly one trigger must be set:
+
+    - ``at_iteration`` — fire when the solver reaches this iteration
+      (equivalent to a :class:`FailurePlan`).
+    - ``during_recovery_at`` — fire *while the recovery* of the
+      ``at_iteration`` event with this trigger value is in flight: the
+      driver has already fetched recovery payloads for the earlier failed
+      set when this event lands, so that fetch is discarded and the
+      recovery restarts with the enlarged union (an overlapping failure).
+      ``blocks`` may repeat already-failed blocks (a second crash of the
+      same node mid-recovery).
+
+    ``prd=True`` additionally crashes the **persistence-service node**
+    (the PRD node / pool service) at the trigger: staged payloads die,
+    unflushed epochs are torn away, and — unless the backend's
+    :class:`~repro_torch.nvm.backend.BackendCapabilities` declare
+    ``survives_prd_loss`` (a mirrored composite, not ported yet) — any
+    later recovery fetch raises
+    :class:`~repro_torch.nvm.backend.UnrecoverableFailure`.  A ``prd`` event
+    may carry no blocks (the PRD dies alone; the solve itself
+    continues, unprotected).
+
+    ``shard`` names a *device shard* of a sharded solve; the port runs
+    unsharded solves only, so a ``shard`` event is refused before
+    iteration 0 (there is no device to kill)."""
+
+    blocks: Tuple[int, ...] = ()
+    at_iteration: Optional[int] = None
+    during_recovery_at: Optional[int] = None
+    prd: bool = False
+    shard: Optional[int] = None
+
+    def __post_init__(self):
+        if not self.blocks and self.shard is None and not self.prd:
+            raise ValueError("a FailureEvent needs at least one block")
+        if (self.at_iteration is None) == (self.during_recovery_at is None):
+            raise ValueError(
+                "set exactly one of at_iteration / during_recovery_at")
+        if self.at_iteration is not None and self.at_iteration < 1:
+            raise ValueError(
+                f"FailureEvent.at_iteration must be >= 1 (iteration 0 "
+                f"precedes the first persisted recovery point), got "
+                f"{self.at_iteration}")
+        if self.shard is not None and self.shard < 0:
+            raise ValueError(
+                f"FailureEvent.shard must be >= 0, got {self.shard}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureCampaign:
+    """A multi-failure scenario: iteration-triggered events plus
+    overlapping events that land during those events' recoveries."""
+
+    events: Tuple[FailureEvent, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "events", tuple(self.events))
+        triggers = {e.at_iteration for e in self.events
+                    if e.at_iteration is not None}
+        for e in self.events:
+            if (e.during_recovery_at is not None
+                    and e.during_recovery_at not in triggers):
+                raise ValueError(
+                    f"during_recovery_at={e.during_recovery_at} matches no "
+                    f"at_iteration event in the campaign")
+
+
+class UnsurvivableCampaignError(UnrecoverableFailure):
+    """Raised by :func:`plan_campaign` *before iteration 0* for a
+    campaign the backend's declared capabilities provably cannot
+    survive.  Subclasses :class:`~repro_torch.nvm.backend.UnrecoverableFailure`
+    because it reports the same fact — a recovery fetch that cannot be
+    served — just at plan time instead of mid-solve."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedRecovery:
+    """One recovery the campaign will force: the iteration that triggers
+    it, the final failed-block union its fetch must serve (after all
+    overlapping events), how many persistence-service losses will have
+    accumulated by its last fetch, and how many stale-fetch restarts
+    overlapping events will cause."""
+
+    at_iteration: int
+    blocks: Tuple[int, ...]
+    storage_losses: int
+    restarts: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CampaignPlan:
+    """The planner's verdict on a survivable campaign: the recoveries it
+    will force, in trigger order, and the total storage losses."""
+
+    recoveries: Tuple[PlannedRecovery, ...]
+    storage_losses: int
+
+
+def resolve_shard_events(campaign) -> "FailureCampaign":
+    """Normalize ``campaign``; ``FailureEvent(shard=...)`` needs a sharded
+    solve, which the port does not run yet, so it is refused."""
+    campaign = _as_campaign(campaign)
+    if any(e.shard is not None for e in campaign.events):
+        raise ValueError(
+            "FailureEvent(shard=...) needs a sharded solve: the operator "
+            "carries no ShardLayout (address blocks directly)")
+    return campaign
+
+
+def plan_campaign(campaign, capabilities: BackendCapabilities,
+                  tracer=None) -> CampaignPlan:
+    """Check a campaign against a backend's declared capabilities.
+
+    Walks the campaign exactly as the solve loop will execute it —
+    iteration-triggered events in order, each recovery absorbing its
+    ``during_recovery_at`` events one refetch at a time — and verifies
+    that every recovery *fetch* the campaign forces can be served:
+
+    - the failed-block union at each fetch must not exceed
+      ``capabilities.max_block_failures`` (peer-RAM copy placement),
+    - the persistence-service losses accumulated by each fetch must not
+      exceed ``capabilities.max_storage_failures`` (mirror / parity
+      budget) — a ``prd=True`` event *after* the last fetch is
+      survivable and accepted, matching the runtime semantics,
+    - any failed blocks at all require ``capabilities.survives_node_loss``.
+
+    Returns the :class:`CampaignPlan` for a survivable campaign; raises
+    :class:`UnsurvivableCampaignError` naming the violating
+    :class:`FailureEvent` otherwise.  ``campaign`` may be a
+    :class:`FailureCampaign` or any sequence :func:`solve` accepts.
+    A ``tracer`` (repro_torch.obs) records the verdict as a ``plan.accept``
+    or ``plan.reject`` event.
+    """
+    trace = tracer or None
+    campaign = resolve_shard_events(campaign)
+    try:
+        plan = _plan_campaign_walk(campaign, capabilities)
+    except UnsurvivableCampaignError as e:
+        if trace is not None:
+            trace.event("plan.reject", reason=str(e))
+        raise
+    if trace is not None:
+        trace.event("plan.accept", recoveries=len(plan.recoveries),
+                    storage_losses=plan.storage_losses)
+    return plan
+
+
+def _plan_campaign_walk(campaign,
+                        capabilities: BackendCapabilities) -> CampaignPlan:
+    campaign = _as_campaign(campaign)
+    max_storage = capabilities.max_storage_failures
+    max_blocks = capabilities.max_block_failures
+    during: Dict[int, List[FailureEvent]] = {}
+    ordered: List[FailureEvent] = []
+    for ev in campaign.events:
+        if ev.at_iteration is None:
+            during.setdefault(ev.during_recovery_at, []).append(ev)
+        else:
+            ordered.append(ev)
+    ordered.sort(key=lambda e: e.at_iteration)
+
+    losses = 0
+    fatal_loss: Optional[FailureEvent] = None  # the loss past the budget
+    recoveries: List[PlannedRecovery] = []
+    for ev in ordered:
+        if ev.prd:
+            losses += 1
+            if losses > max_storage and fatal_loss is None:
+                fatal_loss = ev
+        if not ev.blocks:
+            # Storage-only event: no compute state lost, no recovery
+            # fetch here; the loss is latent until a later fetch.
+            continue
+        queue = list(during.pop(ev.at_iteration, ()))
+        union: set = set()
+        cur, restarts = ev, 0
+        while True:
+            union |= set(cur.blocks)
+            if union and not capabilities.survives_node_loss:
+                raise UnsurvivableCampaignError(
+                    f"campaign rejected before iteration 0: {cur} fails "
+                    f"compute blocks but the backend declares "
+                    f"survives_node_loss=False")
+            if max_blocks is not None and len(union) > max_blocks:
+                raise UnsurvivableCampaignError(
+                    f"campaign rejected before iteration 0: the recovery "
+                    f"at iteration {ev.at_iteration} must fetch the "
+                    f"{len(union)}-block union {tuple(sorted(union))}, "
+                    f"beyond capabilities.max_block_failures={max_blocks}; "
+                    f"violating event: {cur}")
+            if losses > max_storage:
+                raise UnsurvivableCampaignError(
+                    f"campaign rejected before iteration 0: the recovery "
+                    f"at iteration {ev.at_iteration} fetches after "
+                    f"{losses} persistence-service (PRD) losses, beyond "
+                    f"capabilities.max_storage_failures={max_storage}; "
+                    f"violating event: {fatal_loss}")
+            if not queue:
+                break
+            cur = queue.pop(0)
+            restarts += 1
+            if cur.prd:
+                losses += 1
+                if losses > max_storage and fatal_loss is None:
+                    fatal_loss = cur
+        recoveries.append(PlannedRecovery(
+            at_iteration=ev.at_iteration, blocks=tuple(sorted(union)),
+            storage_losses=losses, restarts=restarts))
+    return CampaignPlan(tuple(recoveries), losses)
+
+
+@dataclasses.dataclass
+class SolveReport:
+    """Outcome and accounting of one driver run.
+
+    Progress / outcome:
+
+    - ``iterations`` — completed iterations at exit (``int(state.k)``).
+    - ``wasted_iterations`` — iterations discarded by rollbacks: for each
+      recovery, the distance from the failure iteration back to the
+      durable recovery point (the ESRP trade-off, paper §2; also > 0 in
+      overlap mode when the failure aborts a staged-but-uncommitted
+      persist).
+    - ``failures_recovered`` — failure *events* recovered, including
+      overlapping events absorbed into a restarted recovery.
+    - ``recovery_restarts`` — recoveries that had to discard an
+      already-fetched payload and refetch because an overlapping failure
+      enlarged the failed set mid-recovery.
+    - ``storage_failures`` — persistence-service (PRD-node) crashes
+      injected by ``FailureEvent(prd=True)`` campaign events; survived
+      only by backends declaring ``survives_prd_loss``.
+    - ``converged`` — relative residual reached ``SolveConfig.tol``.
+    - ``final_relres`` — ``||b - A x|| / ||b||`` proxy at exit
+      (``solver.residual_norm / ||b||``).
+    - ``residual_history`` — the relative residual at the top of every
+      main-loop pass (recovered iterations appear twice, by design).
+    - ``solver`` — the solver's registry name.
+
+    Persistence accounting (modeled seconds — see ``nvm/store.py`` for
+    the simulation contract):
+
+    - ``persist_events`` — committed persistence events (aborted staged
+      events are not counted).
+    - ``persist_cost_s`` — total commit cost: the tier/network write the
+      backend models for a full persist of all blocks.
+    - ``persist_stage_s`` — staging cost (the local DRAM copy of the slot
+      payload) paid on the critical path in overlap mode; 0 in sync mode,
+      where the whole persist is on the critical path.
+    - ``persist_hidden_s`` — the part of ``persist_cost_s`` hidden behind
+      the next iteration's compute (overlap mode; per event
+      ``min(commit_cost, measured compute wall)``).
+    - ``persist_exposed_s`` — ``persist_cost_s - persist_hidden_s``: what
+      the solver actually waits for.  In sync mode this equals
+      ``persist_cost_s``.
+    - ``persist_drain_s`` — drain-barrier cost paid at recoveries and at
+      exit (committing leftover staged payloads; for the PRD backend also
+      joining the target-side exposure epoch).
+    - ``persist_mode`` — the pipeline that produced these numbers.
+
+    ``persist_hidden_fraction`` is the derived headline metric:
+    ``persist_hidden_s / persist_cost_s`` (0.0 for a sync run or when
+    nothing was persisted).
+
+    Traffic accounting — logical slot-payload bytes at the
+    driver/session boundary, metered by the session's
+    :class:`~repro_torch.nvm.backend.SessionTraffic` and surfaced through
+    the registry as ``persist.bytes`` / ``recovery.fetch_bytes`` counters
+    labeled ``shard=N`` (always shard 0 in the port):
+
+    - ``nshards`` — device shards of the solve (1 when unsharded).
+    - ``persist_bytes`` / ``persist_bytes_by_shard`` — slot bytes each
+      shard's blocks shipped to the persistence service.
+    - ``recovery_fetch_bytes`` / ``recovery_fetch_bytes_by_shard`` —
+      slot bytes recovery fetches moved back; proportional to the lost
+      shard, not the problem (the paper's recovery-traffic claim).
+
+    Observability (DESIGN.md §9):
+
+    - ``persist_aborts`` — staged-but-uncommitted persist events dropped
+      because the staging nodes died before the commit window.
+    - ``metrics`` — the :class:`~repro_torch.obs.MetricsRegistry` the
+      solve loop incremented; every numeric counter above is a *derived
+      view* of it (read back out at exit).
+    """
+
+    iterations: int = 0
+    wasted_iterations: int = 0
+    failures_recovered: int = 0
+    recovery_restarts: int = 0
+    storage_failures: int = 0
+    converged: bool = False
+    final_relres: float = float("nan")
+    persist_cost_s: float = 0.0
+    persist_stage_s: float = 0.0
+    persist_hidden_s: float = 0.0
+    persist_exposed_s: float = 0.0
+    persist_drain_s: float = 0.0
+    persist_events: int = 0
+    persist_aborts: int = 0
+    persist_mode: str = "sync"
+    nshards: int = 1
+    persist_bytes: int = 0
+    recovery_fetch_bytes: int = 0
+    persist_bytes_by_shard: Dict[int, int] = dataclasses.field(
+        default_factory=dict)
+    recovery_fetch_bytes_by_shard: Dict[int, int] = dataclasses.field(
+        default_factory=dict)
+    residual_history: List[float] = dataclasses.field(default_factory=list)
+    solver: str = ""
+    metrics: Optional[MetricsRegistry] = None
+
+    @property
+    def persist_hidden_fraction(self) -> float:
+        if self.persist_cost_s <= 0.0:
+            return 0.0
+        return self.persist_hidden_s / self.persist_cost_s
+
+    @property
+    def persist_exposed_per_iteration(self) -> float:
+        """Exposed persist seconds per completed iteration — the
+        paper's time-overhead quantity normalized to solver progress
+        (0.0 before any iteration completes)."""
+        if self.iterations <= 0:
+            return 0.0
+        return self.persist_exposed_s / self.iterations
+
+
+def should_persist(k: int, period: int, history: int = 2) -> bool:
+    """Persistence schedule: classic ESR persists every iteration; ESRP
+    persists bursts of ``history`` successive iterations every ``period``
+    (the burst must complete a full recovery run, so its length is the
+    schema's history)."""
+    if period <= 1:
+        return True
+    return k % period < history
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a tensor dtype (slot sizing and payloads)."""
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the queued device work (the overlap window's end)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _as_campaign(failures) -> FailureCampaign:
+    """Normalize the ``failures`` argument: a campaign passes through; a
+    sequence of plans/events becomes an iteration-triggered campaign."""
+    if isinstance(failures, FailureCampaign):
+        return failures
+    events = []
+    for f in failures:
+        if isinstance(f, FailureEvent):
+            events.append(f)
+        elif isinstance(f, FailurePlan):
+            # FailureEvent.__post_init__ re-validates at_iteration >= 1
+            events.append(FailureEvent(blocks=tuple(f.blocks),
+                                       at_iteration=f.at_iteration))
+        else:
+            raise TypeError(
+                f"failures must be FailurePlan/FailureEvent entries or a "
+                f"FailureCampaign, got {type(f).__name__}")
+    return FailureCampaign(tuple(events))
+
+
+class PersistencePipeline:
+    """The per-solve persistence + recovery engine.
+
+    The pipeline owns everything that is *not* the iteration itself:
+    the :class:`~repro_torch.nvm.backend.PersistSession` (opened, traced, and
+    shard-bound here), campaign normalization
+    (:func:`resolve_shard_events`) and pre-flight planning
+    (:func:`plan_campaign`), the survivor-side snapshot at the last
+    durable run, the sync/overlap persist pipeline
+    (:meth:`persist_point` / :meth:`persist_commit` /
+    :meth:`persist_abort`), failure injection (:meth:`pop_event` /
+    :meth:`inject`), the recovery engine (:meth:`run_recovery`), and
+    the derived-view report readback (:meth:`finalize`).  The caller
+    owns the state, the step function, and the loop.
+    """
+
+    def __init__(self, solver, op, precond, b, config: SolveConfig,
+                 backend, failures=(), *, metrics=None):
+        if config.persist_mode not in PERSIST_MODES:
+            raise ValueError(
+                f"persist_mode must be one of {PERSIST_MODES}, "
+                f"got {config.persist_mode!r}")
+        self.solver = solver
+        self.op = op
+        self.precond = precond
+        self.b = b
+        self.config = config
+        self.overlap = config.persist_mode == "overlap"
+        # Normalize the tracer ONCE: a falsy tracer (None, NULL_TRACER)
+        # becomes None here, and every instrumentation site below guards
+        # with an identity check — so with tracing disabled the loop
+        # executes zero tracer callables per iteration (the obs guard
+        # test).
+        self.trace = config.tracer or None
+        self.history = solver.schema.history
+        self.metrics = (MetricsRegistry(solver=solver.name,
+                                        mode=config.persist_mode)
+                        if metrics is None else metrics)
+        part = getattr(op, "partition", None)
+        self.session = None
+        if backend is not None:
+            self.session = open_persist_session(backend, solver.schema, part)
+            if self.trace is not None:
+                self.session.set_tracer(self.trace)
+            binder = getattr(self.session, "bind_shards", None)
+            if part is not None and binder is not None:
+                # The session meters persist/fetch bytes per device shard;
+                # an unsharded solve puts every block on shard 0.
+                shard_map = {blk: 0 for blk in range(part.nblocks)}
+                binder(shard_of_block=shard_map,
+                       slot_nbytes=solver.schema.slot_nbytes(
+                           part.block_size, _numpy_dtype(b.dtype)))
+
+        campaign = resolve_shard_events(failures)
+        if config.plan_campaign and campaign.events and backend is not None:
+            caps = getattr(backend, "capabilities", None)
+            if isinstance(caps, BackendCapabilities):
+                # Pre-flight: reject a campaign the backend provably
+                # cannot survive before any iteration runs (duck-typed
+                # backends declare nothing, so nothing is provable — they
+                # run unplanned and fail at the fetch instead).
+                plan_campaign(campaign, caps, tracer=self.trace)
+
+        self.at_events: Dict[int, List[FailureEvent]] = {}
+        self.during_events: Dict[int, List[FailureEvent]] = {}
+        for ev in campaign.events:
+            if ev.at_iteration is not None:
+                self.at_events.setdefault(ev.at_iteration, []).append(ev)
+            else:
+                self.during_events.setdefault(ev.during_recovery_at,
+                                              []).append(ev)
+
+        # Survivor-side snapshot at the last *durable* persistence run:
+        # the surviving processes' own state copy kept in their local RAM
+        # (cheap, one shard each).  Needed to roll back to the recovery
+        # point when persistence is periodic (ESRP trade-off, paper §2).
+        # In overlap mode the snapshot only advances when the run's final
+        # commit lands — a staged-but-uncommitted persist is not a
+        # recovery point.
+        self.snapshot = None
+        self.last_persisted_k: Optional[int] = None
+        self.consecutive = 0
+        self.staged_state = None  # payload staged, pending commit
+
+    # ------------------------------------------------------------------
+    def _note_committed(self, st, cost: float, window_s: float) -> None:
+        metrics, trace = self.metrics, self.trace
+        metrics.histogram("persist.commit_s", phase="persist").observe(cost)
+        metrics.counter("persist.commit").inc()
+        hidden = min(cost, window_s)
+        metrics.histogram("persist.hidden_s", phase="persist").observe(hidden)
+        metrics.histogram("persist.exposed_s",
+                          phase="persist").observe(cost - hidden)
+        if trace is not None:
+            trace.event("persist.commit", k=int(st.k), cost_s=cost,
+                        hidden_s=hidden, exposed_s=cost - hidden)
+        k_c = int(st.k)
+        self.consecutive = (self.consecutive + 1
+                            if self.last_persisted_k == k_c - 1 else 1)
+        self.last_persisted_k = k_c
+        if self.consecutive >= self.history:
+            # a full history-run is now durable -> new recovery point.
+            # (The k=0 persist alone is NOT one for history >= 2; the
+            # schedule persists iterations 0..history-1 consecutively, so
+            # the first recovery point completes at k = history-1.  A
+            # failure injected before that trips the snapshot assert in
+            # run_recovery with a clear message.)
+            self.snapshot = st
+
+    def persist_begin(self, st) -> None:
+        rset = self.solver.recovery_set(st)
+        stage_cost = self.session.begin(rset.k, rset.scalars, rset.vectors)
+        self.metrics.histogram("persist.stage_s",
+                               phase="persist").observe(stage_cost)
+        trace = self.trace
+        if trace is not None:
+            trace.event("persist.begin", k=rset.k, stage_s=stage_cost)
+        self.staged_state = st
+
+    def persist_commit(self, window_s: float = 0.0) -> None:
+        if self.staged_state is None:
+            return
+        cost = self.session.commit()
+        self._note_committed(self.staged_state, cost, window_s)
+        self.staged_state = None
+
+    def persist_abort(self) -> None:
+        # The session side is aborted by session.fail() / fail_storage();
+        # here we only drop the driver-side bookkeeping so the dead event
+        # is never counted or committed (it does count as an abort).
+        st = self.staged_state
+        if st is not None:
+            self.metrics.counter("persist.abort").inc()
+            trace = self.trace
+            if trace is not None:
+                trace.event("persist.abort", k=int(st.k))
+        self.staged_state = None
+
+    def persist_point(self, st) -> None:
+        """One scheduled persistence event.  Sync mode is the paper's
+        fully synchronous host pull: write straight through, no staging
+        copy, everything exposed.  Overlap mode stages now and commits
+        behind the next iteration's compute."""
+        if self.overlap:
+            self.persist_begin(st)
+        else:
+            rset = self.solver.recovery_set(st)
+            cost = self.session.persist(rset.k, rset.scalars, rset.vectors)
+            self._note_committed(st, cost, 0.0)
+
+    # ------------------------------------------------------------------
+    def pop_event(self, k: int) -> Optional[FailureEvent]:
+        """The next iteration-triggered event pending at ``k`` (one per
+        loop pass — a second event at the same k fires on the repeated
+        pass after the first one's rollback), or None."""
+        pending = self.at_events.get(k)
+        if not pending:
+            return None
+        ev = pending.pop(0)
+        if not pending:
+            del self.at_events[k]
+        return ev
+
+    def storage_kill(self, k: int) -> None:
+        self.session.fail_storage()
+        self.metrics.counter("storage.kill").inc()
+        trace = self.trace
+        if trace is not None:
+            trace.event("storage.kill", k=k)
+
+    def inject(self, ev: FailureEvent, state, k: int):
+        """Apply one iteration-triggered event: a storage-only event
+        kills the persistence service and returns the state unchanged
+        (the solve continues); a block event runs the full recovery and
+        returns the rolled-back, reconstructed state."""
+        if self.session is None:
+            raise RuntimeError(
+                "failure injected but no recovery backend configured")
+        trace = self.trace
+        if trace is not None:
+            trace.event("failure.inject", k=k, blocks=tuple(ev.blocks),
+                        prd=ev.prd, overlapping=False)
+        if not ev.blocks:
+            # Storage-only event: the PRD node dies but no compute
+            # state is lost, so the solve continues.  The loss
+            # surfaces — loudly — at the next recovery fetch unless
+            # the backend's capabilities cover it.
+            self.storage_kill(k)
+            return state
+        return self.run_recovery(ev, state, k)
+
+    def run_recovery(self, ev: FailureEvent, st, k: int):
+        """The campaign recovery engine.  Handles ``ev`` plus any events
+        triggered *during* this recovery: each overlapping event enlarges
+        the failed union and forces a refetch (the already-fetched
+        payloads are stale — their hosts may just have died).  A
+        ``prd=True`` event additionally crashes the persistence-service
+        node before its blocks are processed; the fetch then succeeds
+        only if the backend's capabilities cover the loss (mirrors)."""
+        solver, session = self.solver, self.session
+        metrics, trace, history = self.metrics, self.trace, self.history
+        self.persist_abort()  # an in-flight staged persist dies with the nodes
+        overlap_queue = list(self.during_events.pop(ev.at_iteration, ()))
+        failed: List[int] = []
+        new = list(ev.blocks)
+        prd_hit = ev.prd
+        st_wiped = st
+        while True:
+            metrics.counter("recovery.absorbed").inc()
+            if trace is not None:
+                trace.event("recovery.absorbed", blocks=tuple(new),
+                            prd=prd_hit)
+            if prd_hit:
+                session.fail_storage()
+                metrics.counter("storage.kill").inc()
+                if trace is not None:
+                    trace.event("storage.kill", k=k)
+                prd_hit = False
+            failed = sorted(set(failed) | set(new))
+            if new:
+                st_wiped = solver.wipe(st_wiped, self.op.partition, new)
+                session.fail(tuple(new))  # VM lost
+            # Drain barrier: outstanding persistence settles (or is torn
+            # away) before the durable recovery point is read.
+            drain_cost = session.drain()
+            metrics.histogram("persist.drain_s",
+                              phase="recovery").observe(drain_cost)
+            if trace is not None:
+                trace.event("persist.drain", cost_s=drain_cost)
+            assert self.snapshot is not None, \
+                "no completed persistence run before failure"
+            k_rec = int(self.snapshot.k)
+            ks = tuple(range(k_rec - history + 1, k_rec + 1))
+            if trace is None:
+                sets = session.fetch(tuple(failed), ks)
+            else:
+                with trace.span("recovery.fetch", blocks=tuple(failed),
+                                runs=ks):
+                    sets = session.fetch(tuple(failed), ks)
+            if overlap_queue:
+                # A second failure lands while this recovery is in
+                # flight: the fetch above is stale, restart with the
+                # enlarged union.
+                nxt = overlap_queue.pop(0)
+                new = list(nxt.blocks)
+                prd_hit = nxt.prd
+                metrics.counter("recovery.restart").inc()
+                if trace is not None:
+                    trace.event("failure.inject", k=k,
+                                blocks=tuple(nxt.blocks), prd=nxt.prd,
+                                overlapping=True)
+                    trace.event("recovery.restart", blocks=tuple(nxt.blocks))
+                continue
+            # Rollback-agreement cross-check (DESIGN.md §8): the backend
+            # answers the rollback question from its own slots; it must
+            # name the same durable run the driver's snapshot ends at.
+            # (Sessions without slot knowledge answer None and are
+            # exempt — there is nothing to cross-check against.)
+            dr = session.durable_run()
+            if dr is not None and dr != k_rec:
+                raise RuntimeError(
+                    f"rollback-point disagreement after recovery: the "
+                    f"driver's durable snapshot ends at iteration {k_rec} "
+                    f"but the backend's durable_run() reports {dr}; "
+                    f"backend and driver must agree before reconstruction "
+                    f"(DESIGN.md §8)")
+            if trace is None:
+                st_new = solver.reconstruct(
+                    self.op, self.precond, self.b,
+                    snapshot=self.snapshot,
+                    failed_blocks=list(failed),
+                    sets=sets,
+                    local_method=self.config.local_solve,
+                )
+            else:
+                with trace.span("recovery.reconstruct",
+                                blocks=tuple(failed), k_rec=k_rec):
+                    st_new = solver.reconstruct(
+                        self.op, self.precond, self.b,
+                        snapshot=self.snapshot,
+                        failed_blocks=list(failed),
+                        sets=sets,
+                        local_method=self.config.local_solve,
+                    )
+            metrics.counter("solve.wasted_iterations").inc(k - k_rec)
+            if trace is not None:
+                trace.event("recovery.rollback", from_k=k, to_k=k_rec,
+                            wasted=k - k_rec)
+            return st_new
+
+    # ------------------------------------------------------------------
+    def finalize(self, report: SolveReport, state, bnorm: float) -> None:
+        """Exit drain + derived-view readback (DESIGN.md §9): a staged
+        final event still commits (exposed — there is no further compute
+        to hide behind), then every numeric report counter is read back
+        OUT of the registry the loop incremented, so registry and report
+        agree by construction (check_report_consistency re-verifies;
+        check_trace_report closes the triangle to the trace)."""
+        self.persist_commit(0.0)
+        metrics = self.metrics
+        report.iterations = int(state.k)
+        report.final_relres = self.solver.residual_norm(state) / bnorm
+        report.converged = (report.converged
+                            or report.final_relres < self.config.tol)
+        report.wasted_iterations = metrics.counter_value(
+            "solve.wasted_iterations")
+        report.failures_recovered = metrics.counter_value("recovery.absorbed")
+        report.recovery_restarts = metrics.counter_value("recovery.restart")
+        report.storage_failures = metrics.counter_value("storage.kill")
+        report.persist_events = metrics.counter_value("persist.commit")
+        report.persist_aborts = metrics.counter_value("persist.abort")
+        report.persist_cost_s = metrics.histogram_total("persist.commit_s",
+                                                        phase="persist")
+        report.persist_stage_s = metrics.histogram_total("persist.stage_s",
+                                                         phase="persist")
+        report.persist_hidden_s = metrics.histogram_total("persist.hidden_s",
+                                                          phase="persist")
+        report.persist_exposed_s = metrics.histogram_total("persist.exposed_s",
+                                                           phase="persist")
+        report.persist_drain_s = metrics.histogram_total("persist.drain_s",
+                                                         phase="recovery")
+        # Traffic: fold the session's byte meter into the registry as
+        # shard-labeled counters, then read the report fields back OUT of
+        # the registry like every other counter above.
+        report.nshards = 1
+        traffic = getattr(self.session, "traffic", None)
+        if traffic is not None:
+            for shard, nbytes in sorted(traffic.persist_bytes.items()):
+                metrics.counter("persist.bytes", shard=shard).inc(nbytes)
+            for shard, nbytes in sorted(traffic.fetch_bytes.items()):
+                metrics.counter("recovery.fetch_bytes", shard=shard).inc(nbytes)
+        report.persist_bytes = metrics.counter_total("persist.bytes")
+        report.recovery_fetch_bytes = metrics.counter_total(
+            "recovery.fetch_bytes")
+        report.persist_bytes_by_shard = metrics.counter_by_label(
+            "persist.bytes", "shard")
+        report.recovery_fetch_bytes_by_shard = metrics.counter_by_label(
+            "recovery.fetch_bytes", "shard")
+        metrics.gauge("solve.iterations").set(report.iterations)
+        metrics.gauge("solve.converged").set(1.0 if report.converged else 0.0)
+        trace = self.trace
+        if trace is not None:
+            trace.event("solve.end", iterations=report.iterations,
+                        converged=report.converged,
+                        final_relres=report.final_relres)
+
+
+def solve(
+    solver,
+    op,
+    b,
+    precond,
+    config: SolveConfig = SolveConfig(),
+    backend=None,
+    failures: Union[FailureCampaign, Sequence[FailurePlan]] = (),
+    x0=None,
+    capture_states_at: Sequence[int] = (),
+):
+    """Run ``solver`` with optional ESR/NVM-ESR fault tolerance.
+
+    ``backend`` is any recovery backend
+    :func:`repro_torch.nvm.backend.open_persist_session` accepts — a
+    :class:`~repro_torch.nvm.backend.PersistenceBackend` or a
+    schema-duck-typed object — or None for an unprotected run.
+    ``failures`` injects block crashes — either a sequence of
+    :class:`FailurePlan` (the single-event form) or a
+    :class:`FailureCampaign` with overlapping / mid-burst / repeated /
+    PRD-loss events.  Returns the final state, a report, and any states
+    captured for verification.
+
+    The persistence/recovery machinery lives in
+    :class:`PersistencePipeline`; this function owns the state, the
+    step, and the loop.  Everything runs on ``b``'s device.
+    """
+    trace = config.tracer or None
+    if trace is not config.tracer:
+        # Normalize the falsy tracer away HERE so the pipeline's own
+        # `config.tracer or None` sees None — one truthiness call total
+        # on a disabled tracer (the obs zero-callable guard test).
+        config = dataclasses.replace(config, tracer=trace)
+    pipe = PersistencePipeline(solver, op, precond, b, config, backend,
+                               failures)
+    session = pipe.session
+
+    state = solver.init_state(op, precond, b, x0)
+    step = solver.make_step(op, precond)
+    bnorm = device_norm(b)
+    report = SolveReport(solver=solver.name, persist_mode=config.persist_mode,
+                         metrics=pipe.metrics)
+    captured: Dict[int, object] = {}
+    if trace is not None:
+        trace.event("solve.begin", solver=solver.name,
+                    mode=config.persist_mode, maxiter=config.maxiter)
+
+    # Iteration 0 counts as persisted so the first run completes early.
+    if session is not None:
+        pipe.persist_point(state)
+
+    while int(state.k) < config.maxiter:
+        k = int(state.k)
+        if k in capture_states_at:
+            captured[k] = state
+
+        relres = solver.residual_norm(state) / bnorm
+        report.residual_history.append(relres)
+        if relres < config.tol:
+            report.converged = True
+            break
+
+        # ---- failure injection + recovery ----
+        ev = pipe.pop_event(k)
+        if ev is not None:
+            state = pipe.inject(ev, state, k)
+            if int(state.k) in capture_states_at:
+                captured[int(state.k)] = state
+            continue
+
+        t0 = time.perf_counter()
+        if trace is None:          # identity guard: the disabled hot path
+            state = step(state)    # runs zero tracer callables
+        else:
+            with trace.span("iteration.step", k=k):
+                state = step(state)
+        if pipe.staged_state is not None:
+            # Overlap window: the commit of iteration k's payload rides
+            # behind iteration k+1's compute.
+            _synchronize(b.device)
+            pipe.persist_commit(time.perf_counter() - t0)
+        if session is not None and should_persist(
+                int(state.k), config.persistence_period, pipe.history):
+            pipe.persist_point(state)
+
+    pipe.finalize(report, state, bnorm)
+    return state, report, captured

@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers",
         "multi_device: runs a payload under faked XLA host devices in a "
         "subprocess (skipped when devices cannot be faked)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with nvcc (the port's hand-written "
+        "kernels); skipped when no CUDA device is visible")
 
 
 #: prepended to every payload — the flag must land before jax imports
