@@ -10,18 +10,28 @@ Phases (each prints its results on lines of its own; any failure exits
 non-zero and prints no result line):
 
 1. device — ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build — the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
+2. build — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the main path's shapes (256^3 float64) plus small float32/bfloat16
-   cases, with CUDA-event times (median of 25 launches) beside the
-   least time the card could take (``bound_ms``);
+   and ragged cases, with CUDA-event times (median of 25 launches)
+   beside the least time the card could take (``bound_ms``): K1
+   (stencil7), K2 (fused_cg_update) and det_dot, K3 (gf256_rs_encode)
+   and K4 (fused_cg_update_persist, bitwise K2 on its update outputs);
 4. main path — ``api.solve`` of the 256^3 float64 Poisson problem
    (``nblocks=8``, PCG, ``nvm-prd``): unprotected, persisted without
    failure, and with blocks (1, 2) failing at iteration 20 in sync and in
    overlap mode; the recovered runs must match the failure-free run at
-   rtol = atol = 1e-8 and every kernel must have launched;
-5. convergence — a 64^3 ``nvm-homogeneous`` solve with a block kill must
+   rtol = atol = 1e-8 and K1, K2 and det_dot must have launched;
+5. erasure path — the same problem on ``erasure(nvm-prd x4+2p)`` with
+   ``fused_persist=True`` in sync (K3 every event) and overlap (K4 every
+   step) mode, under a storage-only PRD kill at iteration 10 and blocks
+   (1, 2) failing with a second PRD kill at 20: both must recover onto
+   the failure-free run at rtol = atol = 1e-8 (and are checked bitwise
+   against phase 4's ``nvm-prd`` run of the same mode); at 64^3 the numpy
+   and fused routes of x4+p, x4+2p and x6+2p must be bitwise equal; K3
+   and K4 must have launched;
+6. convergence — a 64^3 ``nvm-homogeneous`` solve with a block kill must
    converge to 1e-10.
 
 The line before the last is the kernel summary ``{"kernels": [...]}``;
@@ -43,9 +53,16 @@ SRC = os.path.join(ROOT, "src")
 GRID = 256
 NBLOCKS = 8
 FAIL_AT = 20
-MAXITER = 40
+STORAGE_KILL_AT = 10
+MAXITER = 30
 REPS = 25
 DEVICE = "cuda"
+#: the erasure path's stripe: K data + P parity children
+STRIPE = "erasure(nvm-prd x4+2p)"
+K_DATA, NPARITY = 4, 2
+#: the stripes the small erasure check runs through every route
+SMALL_STRIPES = ("erasure(nvm-prd x4+p)", "erasure(nvm-prd x4+2p)",
+                 "erasure(nvm-prd x6+2p)")
 
 #: HBM rate (bytes/s) by card model, from NVIDIA's data sheets; the
 #: SXM part is the default for an H100 whose name says neither.
@@ -253,6 +270,103 @@ def phase_kernels(torch, rate: float):
         library_ms=library_ms)
     del x, r, p, ap, inv, got, want
 
+    # ---- K3 on the 256^3 p's four stripe chunks ------------------------
+    from repro_torch.kernels import gf256_encode as k3
+
+    pvec = randn(n)
+    data = k2.stripe_bytes(pvec.reshape(NBLOCKS, K_DATA, -1))
+    got = k3.gf256_rs_encode_cuda(data, NPARITY)
+    want = k3.gf256_rs_encode_plain(data, NPARITY)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, want)), "gf256_rs_encode != plain at 256^3")
+    say("kernels", kernel="gf256_rs_encode", shards=list(data.shape),
+        nparity=NPARITY, bitwise_equal=True)
+    ms = time_ms(torch, lambda: k3.gf256_rs_encode_cuda(data, NPARITY))
+    plain_ms = time_ms(torch, lambda: k3.gf256_rs_encode_plain(data, NPARITY))
+    k3_bytes = (K_DATA + NPARITY) * data.shape[1]
+    b_ms, b_by = bound_ms(k3_bytes, 0, "float64", rate)
+    say("kernels", kernel="gf256_rs_encode", kernel_ms=ms, plain_ms=plain_ms,
+        library_ms=None, library="no single PyTorch call computes it",
+        bytes=k3_bytes, bound_ms=b_ms, bound_by=b_by)
+    records["gf256_rs_encode"] = dict(
+        name="gf256_rs_encode", route="cuda",
+        source="src/repro_torch/kernels/csrc/gf256_encode.cu",
+        replaces="src/repro/kernels/gf256_encode.py:93", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    # small ragged cases, all-zero and all-0xFF shards
+    cpu_gen = torch.Generator().manual_seed(1)
+    for k_data in (2, 3, 6):
+        for nparity in (1, 2):
+            for length in (1, 7, 1023, 8205):
+                shards = torch.randint(0, 256, (k_data, length),
+                                       generator=cpu_gen,
+                                       dtype=torch.uint8).to(dev)
+                shards[0].zero_()
+                shards[-1].fill_(0xFF)
+                check(bool(torch.equal(
+                    k3.gf256_rs_encode_cuda(shards, nparity),
+                    k3.gf256_rs_encode_plain(shards, nparity))),
+                    f"gf256_rs_encode K={k_data} P={nparity} L={length}")
+    say("kernels", kernel="gf256_rs_encode", ragged_cases=24,
+        bitwise_equal=True)
+
+    # ---- K4 at the main path's shape, float64, K=4, P=2 ----------------
+    x, r, ap = (randn(n) for _ in range(3))
+    inv = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) + 0.5
+    args = (x, r, pvec, ap, alpha, inv, NBLOCKS, K_DATA, NPARITY)
+    got = k2.fused_cg_update_persist_cuda(*args)
+    k2_out = k2.fused_cg_update_cuda(x, r, pvec, ap, alpha, inv, NBLOCKS)
+    want = k2.fused_cg_update_persist_plain(*args)
+    k3_cut = k3.gf256_rs_encode_cuda(data, NPARITY)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(g, w)) for g, w in zip(got[:4], k2_out)),
+          "fused_cg_update_persist update != fused_cg_update bitwise")
+    check(bool(torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])),
+          "fused_cg_update_persist chunks/parity != plain")
+    check(bool(torch.equal(got[5].transpose(0, 1).reshape(NPARITY, -1),
+                           k3_cut)),
+          "fused_cg_update_persist parity != gf256_rs_encode of the cut")
+    vec_err = max(max_abs(g, w_) for g, w_ in zip(got[:3], want[:3]))
+    say("kernels", kernel="fused_cg_update_persist", dtype="float64", n=n,
+        nblocks=NBLOCKS, k_data=K_DATA, nparity=NPARITY,
+        update_bitwise_k2=True, stripe_bitwise_plain=True,
+        parity_bitwise_k3=True, vec_max_abs_err_vs_plain=vec_err)
+    ms = time_ms(torch, lambda: k2.fused_cg_update_persist_cuda(*args))
+    plain_ms = time_ms(torch, lambda: k2.fused_cg_update_persist_plain(*args))
+    k2_ms = time_ms(torch, lambda: k2.fused_cg_update_cuda(
+        x, r, pvec, ap, alpha, inv, NBLOCKS))
+    traffic = k2.fused_pass_traffic(n, 8, K_DATA, NPARITY)
+    b_ms, b_by = bound_ms(traffic["total_bytes"], 7 * n, "float64", rate)
+    say("kernels", kernel="fused_cg_update_persist", kernel_ms=ms,
+        plain_ms=plain_ms, k2_kernel_ms_same_call=k2_ms, library_ms=None,
+        library="no single PyTorch call computes it",
+        bytes=traffic["total_bytes"], bound_ms=b_ms, bound_by=b_by)
+    records["fused_cg_update_persist"] = dict(
+        name="fused_cg_update_persist", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_cg.cu",
+        replaces="src/repro/kernels/fused_cg.py:171", max_abs_err=vec_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    del x, r, ap, inv, pvec, data, got, want, k2_out, args
+
+    # ---- K4 small float32 (K2's float32 tolerances vs plain) -----------
+    m4 = 4 * 6 * 1000
+    vs = [randn(m4, dtype=torch.float32) for _ in range(5)]
+    a32 = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    got = k2.fused_cg_update_persist_cuda(*vs[:4], a32, vs[4], 4, 6, 2)
+    want = k2.fused_cg_update_persist_plain(*vs[:4], a32, vs[4], 4, 6, 2)
+    same_k2 = k2.fused_cg_update_cuda(*vs[:4], a32, vs[4], 4)
+    e = max(max_abs(g, w_) for g, w_ in zip(got[:3], want[:3]))
+    check(e <= 2e-5 and all(bool(torch.equal(g, w_))
+                            for g, w_ in zip(got[:4], same_k2))
+          and bool(torch.equal(got[4], want[4]))
+          and bool(torch.equal(got[5], want[5])),
+          f"fused_cg_update_persist f32 error {e}")
+    say("kernels", kernel="fused_cg_update_persist", dtype="float32", n=m4,
+        k_data=6, nparity=2, max_abs_err=e, tol=2e-5,
+        update_bitwise_k2=True, stripe_bitwise_plain=True)
+
     # ---- K2 float32, ragged n (reference tolerances) -------------------
     m = 128 * 64 + 37
     vs = [randn(m, dtype=torch.float32) for _ in range(5)]
@@ -341,6 +455,7 @@ def phase_main_path(torch):
 
     ops.reset_launch_counts()
     plain, plain_wall = run("unprotected", None)
+    recovered = {"free": (plain.state.x, plain.state.r)}
     base, _ = run("nvm-prd sync, no failure", api.ResilienceSpec("nvm-prd"))
     check(base.iterations == MAXITER == plain.iterations,
           f"expected {MAXITER} iterations, got {base.iterations}")
@@ -365,14 +480,137 @@ def phase_main_path(torch):
             say("main", mode=mode, check=what, max_abs_err=max_abs(got, want),
                 rtol=1e-8, atol=1e-8, ok=bool(ok))
             check(bool(ok), f"{mode}: {what} differs from the failure-free run")
+        recovered[mode] = (res.state.x, res.state.r)
         del res
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     say("main", launches=counts)
-    for name, count in counts.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
+    for name in ("stencil7", "fused_cg_update", "det_dot"):
+        check(counts[name] > 0, f"kernel {name} never launched on the main path")
     iteration_breakdown(torch, problem, base.state.p, plain_wall / MAXITER)
-    del plain, base, problem
+    del plain, base
+    return counts, problem, recovered
+
+
+def _campaign(api, nparity: int):
+    """A storage-only PRD kill at 10, then blocks (1, 2) failing at
+    FAIL_AT with a second PRD kill when the stripe has two parities."""
+    return api.FailureCampaign((
+        api.FailureEvent(at_iteration=STORAGE_KILL_AT, prd=True),
+        api.FailureEvent(blocks=(1, 2), at_iteration=FAIL_AT,
+                         prd=nparity == 2),
+    ))
+
+
+def erasure_breakdown(torch, problem, p):
+    """Where a fused erasure event's host time goes: K3's device encode
+    plus the one device-to-host copy of the K+P shards, against the six
+    children's persist writes (slot encode, CRC, simulated PRD stores)."""
+    from repro_torch.solvers.registry import make_backend
+
+    session = make_backend(STRIPE, problem.op).open_session()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        host = session._device_bytes(p).cpu()
+    encode_d2h_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for k in range(reps):
+        session.persist(k, {"beta": 0.5}, {"p": p})
+        session.drain()
+    event_s = (time.perf_counter() - t0) / reps
+    say("erasure", breakdown="seconds per fused sync event", event_s=event_s,
+        k3_encode_and_d2h_s=encode_d2h_s, d2h_bytes=host.numel(),
+        children_persist_s=event_s - encode_d2h_s)
+
+
+def phase_erasure(torch, problem, recovered):
+    """The erasure-coded stripe with the fused persist path at full width,
+    and its routes against each other at 64^3; returns the launch counts
+    of the two 256^3 solves."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, check_trace_report
+
+    spec = api.SolverSpec("pcg", tol=1e-10, maxiter=MAXITER)
+    free_x, free_r = recovered["free"]
+    n = problem.b.numel()
+    ops.reset_launch_counts()
+    for mode in ("overlap", "sync"):
+        tracer = Tracer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = api.solve(problem, spec,
+                        api.ResilienceSpec(STRIPE, persist_mode=mode,
+                                           fused_persist=True),
+                        failures=_campaign(api, NPARITY), tracer=tracer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = res.report
+        check_trace_report(tracer, rep)
+        routes = rep.metrics.counter_by_label("persist.route", "route")
+        d2h = rep.metrics.counter_total("persist.d2h_bytes")
+        writes = sum(routes.values())
+        say("erasure", run=f"{STRIPE} fused {mode}", iterations=rep.iterations,
+            wall_s=wall, s_per_iteration=wall / max(rep.iterations, 1),
+            relres=rep.final_relres, failures_recovered=rep.failures_recovered,
+            storage_failures=rep.storage_failures,
+            persist_events=rep.persist_events,
+            persist_aborts=rep.persist_aborts, persist_routes=routes,
+            d2h_bytes_per_event=d2h / max(writes, 1),
+            nvm_prd_d2h_bytes_per_event=n * 8,
+            persist_bytes=rep.persist_bytes,
+            recovery_fetch_bytes=rep.recovery_fetch_bytes,
+            wasted_iterations=rep.wasted_iterations,
+            recovery_s=_recovery_seconds(tracer))
+        check(rep.failures_recovered == 1 and rep.storage_failures == 2,
+              f"erasure {mode}: recovered {rep.failures_recovered}, storage "
+              f"kills {rep.storage_failures}")
+        check(res.iterations == MAXITER, f"erasure {mode}: k={res.iterations}")
+        check("K4" in routes if mode == "overlap" else set(routes) == {"K3"},
+              f"erasure {mode}: persist routes {routes}")
+        for what, got, want in (("final x", res.state.x, free_x),
+                                ("final r", res.state.r, free_r)):
+            ok = bool(torch.allclose(got, want, rtol=1e-8, atol=1e-8))
+            say("erasure", mode=mode, check=what, vs="failure-free run",
+                max_abs_err=max_abs(got, want), rtol=1e-8, atol=1e-8, ok=ok)
+            check(ok, f"erasure {mode}: {what} differs from the failure-free run")
+        prd_x, prd_r = recovered[mode]
+        say("erasure", mode=mode, vs=f"nvm-prd {mode} recovered run",
+            x_bitwise_equal=bool(torch.equal(res.state.x, prd_x)),
+            r_bitwise_equal=bool(torch.equal(res.state.r, prd_r)),
+            x_max_abs_diff=max_abs(res.state.x, prd_x))
+        del res
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()  # the two 256^3 solves' launches only
+    say("erasure", launches=counts)
+    for name in ("gf256_rs_encode", "fused_cg_update_persist"):
+        check(counts[name] > 0, f"kernel {name} never launched on the "
+              f"erasure path")
+    erasure_breakdown(torch, problem, problem.b)
+
+    # ---- 64^3: the numpy and fused routes, bitwise equal ----------------
+    small = api.Problem.poisson(64, nblocks=8, device=DEVICE)
+    for stripe in SMALL_STRIPES:
+        nparity = 2 if "+2p" in stripe else 1
+        for mode in ("sync", "overlap"):
+            runs = {}
+            for fused in (False, True):
+                res = api.solve(small, spec,
+                                api.ResilienceSpec(stripe, persist_mode=mode,
+                                                   fused_persist=fused),
+                                failures=_campaign(api, nparity))
+                check(res.report.failures_recovered == 1,
+                      f"64^3 {stripe} {mode} fused={fused} not recovered")
+                runs[fused] = res
+            same = all(bool(torch.equal(getattr(runs[True].state, f),
+                                        getattr(runs[False].state, f)))
+                       for f in ("x", "r", "p"))
+            say("erasure", grid=[64] * 3, stripe=stripe, mode=mode,
+                numpy_vs_fused_bitwise=same,
+                fused_routes=runs[True].report.metrics.counter_by_label(
+                    "persist.route", "route"))
+            check(same, f"64^3 {stripe} {mode}: fused != numpy route")
     torch.cuda.empty_cache()
     return counts
 
@@ -418,13 +656,19 @@ def main() -> int:
         say("device", hbm_bytes_per_s=rate)
         phase_build()
         records = phase_kernels(torch, rate)
-        counts = phase_main_path(torch)
+        counts, problem, recovered = phase_main_path(torch)
+        counts.update({name: count for name, count in
+                       phase_erasure(torch, problem, recovered).items()
+                       if name in ("gf256_rs_encode",
+                                   "fused_cg_update_persist")})
+        del problem, recovered
         phase_convergence(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
-    for key in ("stencil7", "fused_cg_update", "det_dot"):
+    for key in ("stencil7", "fused_cg_update", "det_dot", "gf256_rs_encode",
+                "fused_cg_update_persist"):
         rec = records[key]
         kernels.append({**rec, "launches": counts[key]})
     say("done", seconds=time.perf_counter() - t0)

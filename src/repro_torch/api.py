@@ -15,8 +15,10 @@ CUDA device unless the problem is built with ``device="cpu"``::
     )
     assert result.converged
 
-The solve takes its device from the problem's tensors.  The advisor,
-sharding, the multi-tenant service and the composite backends are not
+The solve takes its device from the problem's tensors.  Of the
+composite backends, the ``erasure(<child> xK+Pp)`` stripe is ported
+(with ``ResilienceSpec(fused_persist=True)``); the replicated and tiered
+composites, the advisor, sharding and the multi-tenant service are not
 ported yet.
 """
 from __future__ import annotations
@@ -139,14 +141,16 @@ class SolverSpec:
 class ResilienceSpec:
     """Which persistence backend, and how persistence is scheduled.
 
-    ``backend`` is a registry name (``"nvm-prd"``, ``"nvm-homogeneous"``),
-    an already-built :class:`~repro_torch.nvm.backend.PersistenceBackend`,
+    ``backend`` is a registry name or stripe spec (``"nvm-prd"``,
+    ``"nvm-homogeneous"``, ``"erasure(nvm-prd x4+2p)"``), an already-built :class:`~repro_torch.nvm.backend.PersistenceBackend`,
     or None for an unprotected run.  ``persist_mode`` picks the pipeline
     ("sync" or "overlap"); ``period`` the ESRP persistence period;
     ``plan_campaigns`` keeps the pre-flight campaign planner on.
-    ``fused_persist`` belongs to the erasure slice and raises until it is
-    ported.  ``dtype`` is the slot payload type; ``options`` go to the
-    backend factory."""
+    ``fused_persist`` takes the fused persist path: an ``erasure(...)``
+    stripe encodes its parity on the device (kernel K3) and, in overlap
+    mode, stages from the update pass (kernel K4); the solve is bitwise
+    the same as without it.  ``dtype`` is the slot payload type;
+    ``options`` go to the backend factory."""
 
     backend: Union[str, PersistenceBackend, None] = "nvm-prd"
     persist_mode: str = "sync"

@@ -261,8 +261,8 @@ class NVMESRPRD(SchemaDrivenBackend):
         """Recovery data stays reachable through arbitrary compute-node
         failures (the PRD architecture's defining property) but the PRD
         node itself is a single point of failure — the paper scopes the
-        RAID fix out; the reference's ``ReplicatedBackend``
-        composes it back in (not ported yet)."""
+        RAID fix out; the ``erasure(...)`` stripe of
+        ``nvm/backend.py`` composes it back in."""
         return BackendCapabilities(
             durability=self.prd.store.tier.value,
             survives_node_loss=True,

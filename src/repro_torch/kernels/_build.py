@@ -25,7 +25,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil7", "fused_cg")
+SOURCES = ("stencil7", "fused_cg", "gf256_encode")
 #: where the CUDA toolkit installs nvcc when neither CUDA_HOME nor PATH
 #: names it
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")

@@ -1,6 +1,7 @@
 """K2: the fused PCG vector update (Algorithm 1 lines 4-7a), hand-written
 CUDA for Hopper, the block-partial reduction it shares with ``det_dot``,
-and the plain PyTorch versions of both.
+K4 (the same update plus the erasure stripe's staging of ``p``), and the
+plain PyTorch versions of all three.
 
 Replaces ``src/repro/kernels/fused_cg.py::fused_cg_update_pallas`` (the
 TPU kernel ``_fused_cg_kernel`` with its per-tile partials and
@@ -19,6 +20,17 @@ float32 and bfloat16 accumulate in float32 (the TPU kernel's contract).
 The TPU kernel's ``n % 128`` and ``bm`` rules were (8, 128) tiling rules;
 this kernel takes any ``n`` divisible by ``nblocks`` and masks ragged
 tiles.
+
+K4 replaces ``fused_cg_update_persist_pallas`` (the TPU kernel
+``_make_persist_kernel``): K2's update, and from the same pass the
+stripe chunks of the input ``p`` (``(nblocks, K, block_size / K)``, ``p``
+in its own order) and their GF(2^8) P/Q parity bytes
+(``(nblocks, P, block_size / K * itemsize)`` uint8), byte for byte what
+``ErasureSession._shards`` and ``gf256.rs_encode`` make of the same
+``p``.  It is K2's CUDA kernel instantiated with staging on, so its
+``x', r', z', rz'`` are bitwise K2's.  It needs ``K | block_size``; the
+reference's ``128 | block_size`` rule was (8, 128) TPU tiling and is
+dropped, as K2 dropped it.
 """
 from __future__ import annotations
 
@@ -28,11 +40,15 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.gf256_encode import gf256_rs_encode_plain
+from repro_torch.nvm import gf256
 
 #: fused-update launches since the last reset
 update_launches = 0
 #: det_dot launches since the last reset
 dot_launches = 0
+#: fused update+staging (K4) launches since the last reset
+persist_launches = 0
 
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -150,3 +166,102 @@ def det_dot_cuda(a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"det_dot kernel launch failed: CUDA error {rc}")
     dot_launches += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# K4: the fused update plus the erasure stripe's staging of ``p``
+# ----------------------------------------------------------------------
+def check_stripe(n: int, nblocks: int, k_data: int, nparity: int) -> int:
+    """Validate K4's geometry (the reference's error texts); returns the
+    chunk length ``block_size // k_data``."""
+    if nblocks < 1 or n % nblocks != 0:
+        raise ValueError(f"n={n} not divisible by nblocks={nblocks}")
+    bs = n // nblocks
+    if bs % k_data != 0:
+        raise ValueError(
+            f"block_size={bs} not divisible by k_data={k_data}: the "
+            f"stripe pads chunks, which the fused pass does not model")
+    gf256.vandermonde(nparity, k_data)
+    return bs // k_data
+
+
+def stripe_bytes(chunks: torch.Tensor) -> torch.Tensor:
+    """The ``(K, nblocks * chunk * itemsize)`` uint8 data shards of a
+    ``(nblocks, K, chunk)`` chunk array: shard ``j`` is chunk ``j`` of
+    every block, in block order (the stripe's logical data shard)."""
+    return (chunks.transpose(0, 1).contiguous()
+            .view(torch.uint8).reshape(chunks.shape[1], -1))
+
+
+def fused_cg_update_persist_plain(x, r, p, ap, alpha, inv_diag, nblocks: int,
+                                  k_data: int, nparity: int):
+    """K2's plain update, then the chunks of ``p`` and their parity:
+    ``(x', r', z', rz', chunks, parity)``."""
+    chunk = check_stripe(p.shape[0], nblocks, k_data, nparity)
+    xn, rn, zn, rz = fused_cg_update_plain(x, r, p, ap, alpha, inv_diag,
+                                           nblocks)
+    chunks = p.reshape(nblocks, k_data, chunk).clone()
+    parity = gf256_rs_encode_plain(stripe_bytes(chunks), nparity)
+    parity = parity.reshape(nparity, nblocks, -1).transpose(0, 1).contiguous()
+    return xn, rn, zn, rz, chunks, parity
+
+
+def fused_cg_update_persist_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int,
+                                 k_data: int, nparity: int):
+    """Launch K4; ``alpha`` as for :func:`fused_cg_update_cuda`."""
+    global persist_launches
+    n = x.shape[0] if x.dim() == 1 else -1
+    _check("fused_cg_update_persist", (x, r, p, ap, inv_diag), n, nblocks)
+    chunk = check_stripe(n, nblocks, k_data, nparity)
+    if not (isinstance(alpha, torch.Tensor) and alpha.numel() == 1
+            and alpha.device == x.device and alpha.dtype == x.dtype):
+        raise ValueError("fused_cg_update_persist_cuda: alpha must be a "
+                         f"one-element {x.dtype} tensor on {x.device}")
+    fn = _build.function(
+        "fused_cg", f"fused_cg_update_persist_{_SUFFIX[x.dtype]}",
+        [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
+    alpha = alpha.contiguous()
+    xo, ro, zo = (torch.empty_like(x) for _ in range(3))
+    rz = torch.empty((), dtype=x.dtype, device=x.device)
+    partials = _partials(x, nblocks)
+    chunks = torch.empty((nblocks, k_data, chunk), dtype=x.dtype,
+                         device=x.device)
+    parity = torch.empty((nblocks, nparity, chunk * x.element_size()),
+                         dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+                inv_diag.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
+                ro.data_ptr(), zo.data_ptr(), partials.data_ptr(),
+                rz.data_ptr(), n, nblocks,
+                torch.cuda.current_stream(x.device).cuda_stream,
+                chunks.data_ptr(), parity.data_ptr(), k_data, nparity)
+    if rc != 0:
+        raise RuntimeError(f"fused_cg_update_persist kernel launch failed: "
+                           f"CUDA error {rc}")
+    persist_launches += 1
+    return xo, ro, zo, rz, chunks, parity
+
+
+def fused_pass_traffic(n: int, itemsize: int, k_data: int,
+                       nparity: int) -> dict:
+    """Device-memory traffic of the fused update+staging pass: the bare
+    update moves 5n reads + 3n writes; staging adds the chunk emission
+    (n values) and the parity emission (n * P/K values) as writes — the
+    encode's reads ride on the ``p`` read the update already does."""
+    update_read = 5 * n * itemsize
+    update_write = 3 * n * itemsize
+    staged_write = n * itemsize + (n * itemsize * nparity) // k_data
+    total = update_read + update_write + staged_write
+    return {
+        "update_read_bytes": update_read,
+        "update_write_bytes": update_write,
+        "staged_write_bytes": staged_write,
+        "total_bytes": total,
+        # share of the fused pass's traffic that is persist staging
+        "persist_bw_fraction": staged_write / total,
+        # what a standalone staging pass would add: re-read the vector
+        # (n) plus the same writes — the traffic the fusion removes
+        "unfused_extra_read_bytes": n * itemsize,
+    }

@@ -1,4 +1,5 @@
-"""The kernel seam: ``stencil7``, ``fused_cg_update`` and ``det_dot``.
+"""The kernel seam: ``stencil7``, ``fused_cg_update``, ``det_dot``,
+``rs_encode`` and ``fused_cg_update_persist``.
 
 Each call dispatches on its tensor's device and nothing else: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
@@ -14,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import fused_cg as _fused_cg
+from repro_torch.kernels import gf256_encode as _gf256_encode
 from repro_torch.kernels import stencil7 as _stencil7
 
 
@@ -51,14 +53,39 @@ def det_dot(a: torch.Tensor, b: torch.Tensor, nblocks: int = 1) -> torch.Tensor:
     return _fused_cg.block_dot_plain(a, b, nblocks)
 
 
+def rs_encode(data: torch.Tensor, nparity: int) -> torch.Tensor:
+    """GF(2^8) P/Q parity ``(P, L)`` of the ``(K, L)`` uint8 data shards
+    (K3 on CUDA); bitwise ``nvm.gf256.rs_encode``."""
+    if _route(data) == "cuda":
+        return _gf256_encode.gf256_rs_encode_cuda(data, nparity)
+    return _gf256_encode.gf256_rs_encode_plain(data, nparity)
+
+
+def fused_cg_update_persist(x, r, p, ap, alpha, inv_diag, nblocks: int,
+                            k_data: int, nparity: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """:func:`fused_cg_update` plus the erasure stripe's staging of ``p``:
+    ``(x', r', z', rz', chunks, parity)`` (K4 on CUDA); the first four are
+    bitwise :func:`fused_cg_update`'s."""
+    if _route(x) == "cuda":
+        return _fused_cg.fused_cg_update_persist_cuda(
+            x, r, p, ap, alpha, inv_diag, nblocks, k_data, nparity)
+    return _fused_cg.fused_cg_update_persist_plain(
+        x, r, p, ap, alpha, inv_diag, nblocks, k_data, nparity)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"stencil7": _stencil7.launches,
             "fused_cg_update": _fused_cg.update_launches,
-            "det_dot": _fused_cg.dot_launches}
+            "det_dot": _fused_cg.dot_launches,
+            "gf256_rs_encode": _gf256_encode.launches,
+            "fused_cg_update_persist": _fused_cg.persist_launches}
 
 
 def reset_launch_counts() -> None:
     _stencil7.launches = 0
     _fused_cg.update_launches = 0
     _fused_cg.dot_launches = 0
+    _gf256_encode.launches = 0
+    _fused_cg.persist_launches = 0

@@ -1,3 +1,4 @@
 """``repro_torch.nvm`` — the simulated persistence tiers (numpy only,
-copied from the reference package) and the persistence-backend API
-subset the main path needs (``nvm-prd``, ``nvm-homogeneous``)."""
+copied from the reference package), GF(2^8) Reed-Solomon arithmetic
+(``gf256``), and the persistence-backend API subset the port's paths
+need (``nvm-prd``, ``nvm-homogeneous``, ``erasure(...)``)."""

@@ -55,8 +55,10 @@ class RecoverableSolver(abc.ABC):
         """Return the one-iteration transition ``state -> state``."""
 
     @abc.abstractmethod
-    def recovery_set(self, state) -> RecoverySet:
-        """The minimal persisted payload at this iteration (host arrays)."""
+    def recovery_set(self, state, on_device: bool = False) -> RecoverySet:
+        """The minimal persisted payload at this iteration: host arrays,
+        or with ``on_device`` the state's own tensors (the erasure
+        stripe then encodes them before the device-to-host copy)."""
 
     @abc.abstractmethod
     def reconstruct(self, op, precond, b, snapshot, failed_blocks,
@@ -102,9 +104,9 @@ class IterateOnlyRecovery:
         x0 = torch.zeros_like(b) if x0 is None else x0
         return self.state_cls(x=x0, r=b - op.apply(x0), k=0)
 
-    def recovery_set(self, state) -> RecoverySet:
-        return RecoverySet(k=int(state.k), scalars={},
-                           vectors={"x": self.host_shard(state.x)})
+    def recovery_set(self, state, on_device: bool = False) -> RecoverySet:
+        x = state.x if on_device else self.host_shard(state.x)
+        return RecoverySet(k=int(state.k), scalars={}, vectors={"x": x})
 
     def reconstruct(self, op, precond, b, snapshot, failed_blocks,
                     sets: Sequence[RecoverySet], local_method: str = "auto"):

@@ -24,7 +24,9 @@ The runtime machinery of the paper:
 
 The solve runs on the device of the right-hand side ``b``.  Per
 iteration the host reads one scalar (the residual norm) and, at each
-persistence point, the persisted vector (``RecoverableSolver.host_shard``).
+persistence point, the persisted vector (``RecoverableSolver.host_shard``)
+or, on the fused persist path of an erasure stripe, its K+P stripe
+shards, encoded on the device first (kernel K3, or K4 inside the step).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ import torch
 
 from repro_torch.nvm.backend import (
     BackendCapabilities,
+    ErasureSession,
+    StagedStripe,
     UnrecoverableFailure,
     open_persist_session,
 )
@@ -58,20 +62,20 @@ class SolveConfig:
     #                               backend's declared capabilities; False
     #                               runs unplanned (failures surface at the
     #                               recovery fetch instead)
-    fused_persist: bool = False   # fused persist staging (DESIGN.md §13)
-    #                               belongs to the erasure slice of the
-    #                               port, which has not landed: True raises
+    fused_persist: bool = False   # fused persist path (DESIGN.md §13):
+    #                               an erasure stripe encodes parity on
+    #                               the device (K3) from the device
+    #                               recovery set; in overlap mode the
+    #                               staging is deferred into the next
+    #                               iteration's timed window and, when
+    #                               K | block_size, rides that step in
+    #                               kernel K4.  Slot bytes and commit
+    #                               order equal the numpy path's, so
+    #                               solves are bitwise identical either way
     tracer: Optional[object] = None  # a repro_torch.obs.Tracer records
     #                               spans / events through the pipeline;
     #                               None (or any falsy tracer) keeps the
     #                               hot path a strict no-op
-
-    def __post_init__(self):
-        if self.fused_persist:
-            raise NotImplementedError(
-                "fused_persist=True needs the erasure slice of the port "
-                "(GF(256) parity kernel K3 and the fused update+staging "
-                "kernel K4), which is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +107,7 @@ class FailureEvent:
     (the PRD node / pool service) at the trigger: staged payloads die,
     unflushed epochs are torn away, and — unless the backend's
     :class:`~repro_torch.nvm.backend.BackendCapabilities` declare
-    ``survives_prd_loss`` (a mirrored composite, not ported yet) — any
+    ``survives_prd_loss`` (the ``erasure(...)`` stripe) — any
     later recovery fetch raises
     :class:`~repro_torch.nvm.backend.UnrecoverableFailure`.  A ``prd`` event
     may carry no blocks (the PRD dies alone; the solve itself
@@ -508,6 +512,21 @@ class PersistencePipeline:
                        slot_nbytes=solver.schema.slot_nbytes(
                            part.block_size, _numpy_dtype(b.dtype)))
 
+        # Fused persist path (DESIGN.md §13): stripe sessions encode on
+        # the device.  The stripe is handed the device recovery set, and
+        # in overlap mode its geometry decides ONCE whether the deferred
+        # staging rides the next step in kernel K4 (stage_geometry =
+        # (K, P)) or is cut and encoded at the flush by K3.
+        self.fused = bool(config.fused_persist) and self.session is not None
+        self.device_vectors = False
+        self.stage_geometry = None
+        if self.fused:
+            self.device_vectors = isinstance(self.session, ErasureSession)
+            if (self.overlap and self.device_vectors
+                    and hasattr(solver, "make_persist_step")):
+                self.stage_geometry = self.session.fused_geometry(
+                    _numpy_dtype(b.dtype))
+
         campaign = resolve_shard_events(failures)
         if config.plan_campaign and campaign.events and backend is not None:
             caps = getattr(backend, "capabilities", None)
@@ -538,6 +557,10 @@ class PersistencePipeline:
         self.last_persisted_k: Optional[int] = None
         self.consecutive = 0
         self.staged_state = None  # payload staged, pending commit
+        # Fused overlap only: persist point reached but staging deferred
+        # into the next iteration's timed window (flush_pending_stage).
+        # At most one of staged_state / pending_state is set at a time.
+        self.pending_state = None
 
     # ------------------------------------------------------------------
     def _note_committed(self, st, cost: float, window_s: float) -> None:
@@ -564,14 +587,38 @@ class PersistencePipeline:
             # run_recovery with a clear message.)
             self.snapshot = st
 
-    def persist_begin(self, st) -> None:
-        rset = self.solver.recovery_set(st)
+    def _recovery_set(self, st, staged=None):
+        """``st``'s recovery set as the session takes it: host arrays, or
+        on the fused path of a stripe the device tensors, with any vector
+        K4 already staged (``staged``: name -> (chunks, parity)) handed
+        in as a :class:`~repro_torch.nvm.backend.StagedStripe`."""
+        rset = self.solver.recovery_set(st, on_device=self.device_vectors)
+        if self.fused:
+            # which kernel staged the event: the report's metrics and
+            # (persist.begin's label) the trace record the route choice
+            self.metrics.counter("persist.route", route=self._route(staged)
+                                 ).inc()
+        if not staged:
+            return rset
+        vectors = dict(rset.vectors)
+        for name, (chunks, parity) in staged.items():
+            vectors[name] = StagedStripe(chunks, parity)
+        return rset._replace(vectors=vectors)
+
+    def _route(self, staged) -> str:
+        if staged:
+            return "K4"
+        return "K3" if self.device_vectors else "host"
+
+    def persist_begin(self, st, staged=None) -> None:
+        rset = self._recovery_set(st, staged)
         stage_cost = self.session.begin(rset.k, rset.scalars, rset.vectors)
         self.metrics.histogram("persist.stage_s",
                                phase="persist").observe(stage_cost)
         trace = self.trace
         if trace is not None:
-            trace.event("persist.begin", k=rset.k, stage_s=stage_cost)
+            trace.event("persist.begin", k=rset.k, stage_s=stage_cost,
+                        route=self._route(staged))
         self.staged_state = st
 
     def persist_commit(self, window_s: float = 0.0) -> None:
@@ -584,24 +631,42 @@ class PersistencePipeline:
     def persist_abort(self) -> None:
         # The session side is aborted by session.fail() / fail_storage();
         # here we only drop the driver-side bookkeeping so the dead event
-        # is never counted or committed (it does count as an abort).
-        st = self.staged_state
+        # is never counted or committed (it does count as an abort).  A
+        # fused-mode pending (deferred, never staged) event aborts the
+        # same way, so persist_aborts agree between the two routes.
+        st = (self.staged_state if self.staged_state is not None
+              else self.pending_state)
         if st is not None:
             self.metrics.counter("persist.abort").inc()
             trace = self.trace
             if trace is not None:
                 trace.event("persist.abort", k=int(st.k))
         self.staged_state = None
+        self.pending_state = None
+
+    def flush_pending_stage(self, staged=None) -> None:
+        """Fused overlap only: run the deferred staging pass (no-op
+        otherwise).  The solve loop calls this inside the timed window
+        right after the next iteration's step, handing in the stripe K4
+        staged during that step (``staged``), if it ran K4."""
+        if self.pending_state is not None:
+            st, self.pending_state = self.pending_state, None
+            self.persist_begin(st, staged)
 
     def persist_point(self, st) -> None:
         """One scheduled persistence event.  Sync mode is the paper's
         fully synchronous host pull: write straight through, no staging
         copy, everything exposed.  Overlap mode stages now and commits
-        behind the next iteration's compute."""
+        behind the next iteration's compute; fused overlap defers even
+        the staging into that window (same commit order: the event is
+        still staged and committed before the following persist point)."""
         if self.overlap:
-            self.persist_begin(st)
+            if self.fused:
+                self.pending_state = st
+            else:
+                self.persist_begin(st)
         else:
-            rset = self.solver.recovery_set(st)
+            rset = self._recovery_set(st)
             cost = self.session.persist(rset.k, rset.scalars, rset.vectors)
             self._note_committed(st, cost, 0.0)
 
@@ -753,6 +818,7 @@ class PersistencePipeline:
         OUT of the registry the loop incremented, so registry and report
         agree by construction (check_report_consistency re-verifies;
         check_trace_report closes the triangle to the trace)."""
+        self.flush_pending_stage()  # a deferred final event still stages
         self.persist_commit(0.0)
         metrics = self.metrics
         report.iterations = int(state.k)
@@ -786,6 +852,10 @@ class PersistencePipeline:
                 metrics.counter("persist.bytes", shard=shard).inc(nbytes)
             for shard, nbytes in sorted(traffic.fetch_bytes.items()):
                 metrics.counter("recovery.fetch_bytes", shard=shard).inc(nbytes)
+        d2h = getattr(self.session, "device_to_host_bytes", None)
+        if d2h:
+            # the stripe shards the fused path copied device -> host
+            metrics.counter("persist.d2h_bytes").inc(d2h)
         report.persist_bytes = metrics.counter_total("persist.bytes")
         report.recovery_fetch_bytes = metrics.counter_total(
             "recovery.fetch_bytes")
@@ -841,6 +911,17 @@ def solve(
 
     state = solver.init_state(op, precond, b, x0)
     step = solver.make_step(op, precond)
+    persist_step = (None if pipe.stage_geometry is None else
+                    solver.make_persist_step(op, precond,
+                                             *pipe.stage_geometry))
+
+    def advance(st):
+        """One iteration; K4 in place of K2 when the pending persist
+        event is this step's input (its stripe rides the update pass)."""
+        if persist_step is not None and pipe.pending_state is st:
+            return persist_step(st)
+        return step(st), None
+
     bnorm = device_norm(b)
     report = SolveReport(solver=solver.name, persist_mode=config.persist_mode,
                          metrics=pipe.metrics)
@@ -874,10 +955,16 @@ def solve(
 
         t0 = time.perf_counter()
         if trace is None:          # identity guard: the disabled hot path
-            state = step(state)    # runs zero tracer callables
+            state, staged = advance(state)  # runs zero tracer callables
         else:
             with trace.span("iteration.step", k=k):
-                state = step(state)
+                state, staged = advance(state)
+        if pipe.pending_state is not None:
+            # Fused overlap (DESIGN.md §13): the deferred staging pass
+            # (the stripe's device-to-host copy, and K3's encode unless
+            # K4 staged it in the step) runs inside this window too.
+            _synchronize(b.device)
+            pipe.flush_pending_stage(staged)
         if pipe.staged_state is not None:
             # Overlap window: the commit of iteration k's payload rides
             # behind iteration k+1's compute.

@@ -26,20 +26,31 @@ class PCGSolver(RecoverableSolver):
     def init_state(self, op, precond, b, x0=None):
         return _core_pcg.init_state(op, precond, b, x0, dot=solver_dot(op))
 
-    def make_step(self, op, precond):
+    @staticmethod
+    def _inv_diag(precond):
         inv_diag = getattr(precond, "inv_diag", None)
         if inv_diag is None:
             raise NotImplementedError(
                 f"the port's PCG step fuses a diagonal preconditioner into "
                 f"kernel K2; {type(precond).__name__} exposes no inv_diag")
-        return _core_pcg.make_step(op.apply, inv_diag, op.nblocks)
+        return inv_diag
 
-    def recovery_set(self, state) -> RecoverySet:
-        return RecoverySet(
-            k=int(state.k),
-            scalars={"beta": float(state.beta_prev)},
-            vectors={"p": self.host_shard(state.p)},
-        )
+    def make_step(self, op, precond):
+        return _core_pcg.make_step(op.apply, self._inv_diag(precond),
+                                   op.nblocks)
+
+    def make_persist_step(self, op, precond, k_data: int, nparity: int):
+        """The step with K4 in place of K2: returns ``(state, staged)``,
+        ``staged`` mapping ``"p"`` (the input state's, the vector the
+        recovery set persists) to its stripe ``(chunks, parity)``."""
+        return _core_pcg.make_persist_step(op.apply, self._inv_diag(precond),
+                                           op.nblocks, k_data, nparity)
+
+    def recovery_set(self, state, on_device: bool = False) -> RecoverySet:
+        p = state.p if on_device else self.host_shard(state.p)
+        return RecoverySet(k=int(state.k),
+                           scalars={"beta": float(state.beta_prev)},
+                           vectors={"p": p})
 
     def reconstruct(self, op, precond, b, snapshot, failed_blocks,
                     sets: Sequence[RecoverySet], local_method: str = "auto"):

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch import api, convert
 from repro_torch.core import poisson
-from repro_torch.kernels import _build, fused_cg, ops, stencil7
+from repro_torch.kernels import _build, fused_cg, gf256_encode, ops, stencil7
+from repro_torch.solvers.driver import SolveConfig
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -91,8 +92,11 @@ def no_cuda(monkeypatch):
     lambda: convert.state_from_numpy(
         {f: np.zeros(4) for f in "xrzp"} | {"rz": 0.0, "beta_prev": 0.0,
                                             "k": 0}),
+    lambda: api.solve(api.Problem.poisson(8), "pcg",
+                      api.ResilienceSpec("erasure(nvm-prd x4+2p)",
+                                         fused_persist=True)),
 ], ids=["Problem.poisson", "make_poisson_problem", "StencilOperator",
-        "problem_from_numpy", "state_from_numpy"])
+        "problem_from_numpy", "state_from_numpy", "erasure solve"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -103,6 +107,20 @@ def test_cpu_is_served_when_asked(no_cuda):
     assert problem.device.type == "cpu"
     res = api.solve(problem, api.SolverSpec("pcg", maxiter=3))
     assert res.state.x.device.type == "cpu" and res.iterations == 3
+
+
+@pytest.mark.parametrize("mode", ["sync", "overlap"])
+def test_fused_persist_is_served_on_the_cpu_when_asked(no_cuda, mode):
+    """The NotImplementedError of the first slice is gone: the fused
+    erasure path runs, on the plain versions of K3/K4."""
+    assert SolveConfig(fused_persist=True).fused_persist
+    ops.reset_launch_counts()
+    problem = api.Problem.poisson(8, nblocks=4, device="cpu")
+    res = api.solve(problem, api.SolverSpec("pcg", maxiter=6),
+                    api.ResilienceSpec("erasure(nvm-prd x4+2p)",
+                                       persist_mode=mode, fused_persist=True))
+    assert res.iterations == 6 and res.report.persist_events == 7
+    assert set(ops.launch_counts().values()) == {0}
 
 
 class _FakeCudaTensor:
@@ -139,20 +157,27 @@ def broken_build(monkeypatch):
     monkeypatch.setattr(stencil7, "stencil7_plain", plain_called)
     monkeypatch.setattr(fused_cg, "fused_cg_update_plain", plain_called)
     monkeypatch.setattr(fused_cg, "block_dot_plain", plain_called)
+    monkeypatch.setattr(fused_cg, "fused_cg_update_persist_plain",
+                        plain_called)
+    monkeypatch.setattr(gf256_encode, "gf256_rs_encode_plain", plain_called)
 
 
 @pytest.mark.parametrize("call", [
-    lambda v, g: ops.stencil7(g),
-    lambda v, g: ops.det_dot(v, v, 4),
-    lambda v, g: ops.fused_cg_update(v, v, v, v, v, v, 4),
-], ids=["stencil7", "det_dot", "fused_cg_update"])
+    lambda v, g, b: ops.stencil7(g),
+    lambda v, g, b: ops.det_dot(v, v, 4),
+    lambda v, g, b: ops.fused_cg_update(v, v, v, v, v, v, 4),
+    lambda v, g, b: ops.rs_encode(b, 2),
+    lambda v, g, b: ops.fused_cg_update_persist(v, v, v, v, v, v, 4, 4, 2),
+], ids=["stencil7", "det_dot", "fused_cg_update", "rs_encode",
+        "fused_cg_update_persist"])
 def test_ops_never_fall_back_for_cuda_tensors(broken_build, call):
     # the fake reaches the failing build (or the wrapper's own checks);
     # a fallback would hit the patched plain versions' AssertionError
     vec = _FakeCudaTensor((64,))
     grid = _FakeCudaTensor((4, 4, 4))
+    shards = _FakeCudaTensor((4, 64), torch.uint8)
     with pytest.raises((RuntimeError, ValueError)):
-        call(vec, grid)
+        call(vec, grid, shards)
 
 
 def test_cuda_path_surfaces_the_build_failure(broken_build):
@@ -160,6 +185,33 @@ def test_cuda_path_surfaces_the_build_failure(broken_build):
         ops.stencil7(_FakeCudaTensor((4, 4, 4)))
     with pytest.raises(RuntimeError, match="build of fused_cg failed"):
         ops.det_dot(_FakeCudaTensor((64,)), _FakeCudaTensor((64,)), 4)
+    with pytest.raises(RuntimeError, match="build of gf256_encode failed"):
+        ops.rs_encode(_FakeCudaTensor((4, 64), torch.uint8), 1)
+
+
+def test_stripe_hands_tensors_to_the_kernel_seam(monkeypatch):
+    """Under a kernel encode mode the stripe encodes a tensor through
+    ``ops.rs_encode`` on the tensor's own device (K3 on a card), never
+    through the numpy route."""
+    from repro_torch.nvm import backend
+
+    seen = []
+
+    def spy(data, nparity):
+        seen.append((data.device.type, tuple(data.shape), nparity))
+        return gf256_encode.gf256_rs_encode_plain(data, nparity)
+
+    def numpy_route(*args, **kwargs):
+        raise AssertionError("a tensor took the numpy encode route")
+
+    monkeypatch.setattr(backend.ops, "rs_encode", spy)
+    monkeypatch.setattr(backend.gf256, "rs_encode", numpy_route)
+    session = backend.create_backend("erasure(nvm-prd x4+2p)", 4,
+                                     16).open_session()
+    session.persist(0, {"beta": 0.0},
+                    {"p": torch.arange(64, dtype=torch.float64)})
+    assert seen == [("cpu", (4, 4 * 4 * 8), 2)]
+    assert session.device_to_host_bytes == 6 * 4 * 4 * 8
 
 
 def test_ops_refuse_other_devices():

@@ -127,7 +127,8 @@ def test_cpu_calls_launch_no_kernel():
     ops.stencil7(u)
     ops.det_dot(u.reshape(-1), u.reshape(-1), 4)
     assert ops.launch_counts() == {"stencil7": 0, "fused_cg_update": 0,
-                                   "det_dot": 0}
+                                   "det_dot": 0, "gf256_rs_encode": 0,
+                                   "fused_cg_update_persist": 0}
 
 
 @pytest.mark.parametrize("nblocks", [1, 4])

@@ -91,9 +91,10 @@ def test_unsurvivable_and_unported_requests_raise(problems):
         api.solve(port_problem, "pcg", "nvm-prd",
                   failures=[api.FailureEvent(blocks=(1,), at_iteration=3,
                                              prd=True)])
-    with pytest.raises(NotImplementedError, match="erasure slice"):
-        api.solve(port_problem, "pcg",
-                  api.ResilienceSpec("nvm-prd", fused_persist=True))
+    # the erasure slice is ported: fused_persist no longer raises
+    fused = api.solve(port_problem, "pcg",
+                      api.ResilienceSpec("nvm-prd", fused_persist=True))
+    assert fused.converged
     with pytest.raises(KeyError, match="unknown backend"):
         api.solve(port_problem, "pcg", "replicated(nvm-prd x2)")
     with pytest.raises(ValueError, match="sharded solve"):
