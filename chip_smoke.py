@@ -12,12 +12,21 @@ non-zero and prints no result line):
 1. device — ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
-3. kernels — each kernel against its plain PyTorch version on the card,
-   at the main path's shapes (256^3 float64) plus small float32/bfloat16
-   and ragged cases, with CUDA-event times (median of 25 launches)
-   beside the least time the card could take (``bound_ms``): K1
-   (stencil7), K2 (fused_cg_update) and det_dot, K3 (gf256_rs_encode)
-   and K4 (fused_cg_update_persist, bitwise K2 on its update outputs);
+3. kernels — each kernel against its plain version on the card, at the
+   main path's shapes (256^3 float64) plus small float32/bfloat16,
+   ragged and unaligned cases, each timed two ways: the median of 25
+   single launches, each between its own CUDA events (``ms``: host work
+   per call included), and 25 launches back to back between two events
+   (``device_ms``, the median of three such windows), beside the least
+   time the card could take (``bound_ms``) and, where one PyTorch call
+   computes the same function, that call's two times: K1 (stencil7; conv3d in float64 and float32),
+   K2 (fused_cg_update, its ``rz'`` bitwise ``det_dot(r', z')`` and
+   ``det_dot_order_plain``), det_dot (bitwise ``det_dot_order_plain``,
+   at 256^3/8 and at recovery's local-CG shape, 2 blocks with
+   ``nblocks=1``, beside ``torch.dot``), K3 (gf256_rs_encode at P = 2
+   and P = 1, bitwise its plain version on the 256^3 chunks, 24 ragged
+   and 192 unaligned cases) and K4 (fused_cg_update_persist, bitwise K2
+   on its update outputs);
 4. main path — ``api.solve`` of the 256^3 float64 Poisson problem
    (``nblocks=8``, PCG, ``nvm-prd``): unprotected, persisted without
    failure, and with blocks (1, 2) failing at iteration 20 in sync and in
@@ -37,6 +46,11 @@ non-zero and prints no result line):
 The line before the last is the kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
+
+``python3 chip_smoke.py --times-only [--src DIR]`` runs phases 1-2 and
+prints both timing columns of every kernel at the main path's shapes,
+from the ``repro_torch`` under ``DIR`` (default ``src``): two checkouts
+timed in one call compare on one card.
 """
 from __future__ import annotations
 
@@ -60,6 +74,8 @@ DEVICE = "cuda"
 #: the erasure path's stripe: K data + P parity children
 STRIPE = "erasure(nvm-prd x4+2p)"
 K_DATA, NPARITY = 4, 2
+#: recovery's local CG: two failed blocks of the 256^3 grid, nblocks=1
+LOCAL_CG_N = 2 * GRID ** 3 // NBLOCKS
 #: the stripes the small erasure check runs through every route
 SMALL_STRIPES = ("erasure(nvm-prd x4+p)", "erasure(nvm-prd x4+2p)",
                  "erasure(nvm-prd x6+2p)")
@@ -113,6 +129,34 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = REPS, warmup: int = 3,
+              windows: int = 3) -> float:
+    """Device time of ``fn``: ``reps`` launches back to back between two
+    CUDA events, over ``reps`` (the host enqueues ahead of the card, so
+    its per-call work stays out of the window unless it is the longer);
+    the median of ``windows`` such windows, so one stall of the shared
+    host does not stand for the kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def both_ms(torch, fn):
+    """(per-call median, device time) of ``fn``."""
+    return time_ms(torch, fn), device_ms(torch, fn)
 
 
 def max_abs(a, b) -> float:
@@ -172,32 +216,42 @@ def phase_kernels(torch, rate: float):
     say("kernels", kernel="stencil7", dtype="float64", shape=[GRID] * 3,
         max_abs_err=err, tol=tol)
     check(err <= tol, f"stencil7 f64 error {err} > {tol}")
-    ms = time_ms(torch, lambda: k1.stencil7_cuda(u))
+    ms, dev_ms = both_ms(torch, lambda: k1.stencil7_cuda(u))
     plain_ms = time_ms(torch, lambda: k1.stencil7_plain(u))
-    # yardstick: one cuDNN convolution with the 7-point weights, float32
+    # yardsticks: one cuDNN convolution with the 7-point weights, in
+    # float64 (K1's own type) and in float32 (TF32 off)
     torch.backends.cudnn.allow_tf32 = False
-    w = torch.zeros(1, 1, 3, 3, 3, device=dev, dtype=torch.float32)
+    w = torch.zeros(1, 1, 3, 3, 3, device=dev, dtype=torch.float64)
     w[0, 0, 1, 1, 1] = 6.0
     for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
         w[(0, 0) + idx] = -1.0
-    u32 = u.float()
-    conv = lambda: F.conv3d(u32[None, None], w, padding=1)  # noqa: E731
+    conv64 = lambda: F.conv3d(u[None, None], w, padding=1)  # noqa: E731
+    conv64_err = max_abs(conv64()[0, 0], got)
+    library_ms, library_dev_ms = both_ms(torch, conv64)
+    u32, w32 = u.float(), w.float()
+    conv = lambda: F.conv3d(u32[None, None], w32, padding=1)  # noqa: E731
     k32 = k1.stencil7_cuda(u32)
     conv_err = max_abs(conv()[0, 0], k32)
-    library_ms = time_ms(torch, conv)
-    k32_ms = time_ms(torch, lambda: k1.stencil7_cuda(u32))
+    lib32_ms, lib32_dev_ms = both_ms(torch, conv)
+    k32_ms, k32_dev_ms = both_ms(torch, lambda: k1.stencil7_cuda(u32))
     b_ms, b_by = bound_ms(2 * n * 8, 7 * n, "float64", rate)
     b32_ms, _ = bound_ms(2 * n * 4, 7 * n, "float32", rate)
-    say("kernels", kernel="stencil7", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, library="conv3d float32 (tf32 off)",
-        bound_ms=b_ms, bound_by=b_by, f32_kernel_ms=k32_ms,
-        f32_bound_ms=b32_ms, conv_vs_kernel_f32_max_abs_err=conv_err)
+    say("kernels", kernel="stencil7", kernel_ms=ms, kernel_device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_device_ms=library_dev_ms, library="conv3d float64",
+        conv_vs_kernel_f64_max_abs_err=conv64_err, bound_ms=b_ms,
+        bound_by=b_by, f32_kernel_ms=k32_ms, f32_kernel_device_ms=k32_dev_ms,
+        f32_bound_ms=b32_ms, f32_library_ms=lib32_ms,
+        f32_library_device_ms=lib32_dev_ms,
+        f32_library="conv3d float32 (tf32 off)",
+        conv_vs_kernel_f32_max_abs_err=conv_err)
     records["stencil7"] = dict(
         name="stencil7", route="cuda",
         source="src/repro_torch/kernels/csrc/stencil7.cu",
         replaces="src/repro/kernels/stencil7.py:53", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms)
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
+        library_device_ms=library_dev_ms)
     del u, got, want, u32, k32
 
     # ---- K1 small float32 / bfloat16 (reference tolerances) -----------
@@ -231,43 +285,66 @@ def phase_kernels(torch, rate: float):
         rz_abs_err=rz_err, rz_tol=rz_tol)
     check(vec_err <= vec_tol and rz_err <= rz_tol,
           f"fused_cg_update f64 error vec {vec_err} rz {rz_err}")
-    # N2: the fused rz' and det_dot(r', z') share one rounding order
+    # N2: the fused rz' and det_dot(r', z') share one rounding order, the
+    # one det_dot_order_plain writes down
     same = k2.det_dot_cuda(got[1], got[2], NBLOCKS)
-    check(bool(same == got[3]), "det_dot(r', z') != fused rz' bitwise")
-    ms = time_ms(torch, lambda: k2.fused_cg_update_cuda(x, r, p, ap, alpha, inv, NBLOCKS))
+    check(bool(torch.equal(same, got[3])), "det_dot(r', z') != fused rz' bitwise")
+    check(bool(torch.equal(k2.det_dot_order_plain(got[1], got[2], NBLOCKS),
+                           got[3])), "fused rz' != det_dot_order_plain bitwise")
+    say("kernels", kernel="fused_cg_update", rz_bitwise_det_dot=True,
+        rz_bitwise_order_plain=True)
+    ms, dev_ms = both_ms(torch, lambda: k2.fused_cg_update_cuda(
+        x, r, p, ap, alpha, inv, NBLOCKS))
     plain_ms = time_ms(torch, lambda: k2.fused_cg_update_plain(x, r, p, ap, alpha, inv, NBLOCKS))
     b_ms, b_by = bound_ms(8 * n * 8, 7 * n, "float64", rate)
-    say("kernels", kernel="fused_cg_update", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=None, library="no single PyTorch call computes it",
-        bound_ms=b_ms, bound_by=b_by)
+    say("kernels", kernel="fused_cg_update", kernel_ms=ms,
+        kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+        library="no single PyTorch call computes it", bound_ms=b_ms,
+        bound_by=b_by)
     records["fused_cg_update"] = dict(
         name="fused_cg_update", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_cg.cu",
         replaces="src/repro/kernels/fused_cg.py:61",
-        max_abs_err=max(vec_err, rz_err), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=max(vec_err, rz_err), ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_device_ms=None)
 
-    # ---- det_dot (K2's reduction) at the main path's shape -------------
-    got_d = k2.det_dot_cuda(p, ap, NBLOCKS)
-    want_d = k2.block_dot_plain(p, ap, NBLOCKS)
-    d_err = max_abs(got_d, want_d)
-    d_tol = 1e-12 * float((p * ap).abs().sum())
-    say("kernels", kernel="det_dot", dtype="float64", n=n, nblocks=NBLOCKS,
-        max_abs_err=d_err, tol=d_tol)
-    check(d_err <= d_tol, f"det_dot error {d_err} > {d_tol}")
-    ms = time_ms(torch, lambda: k2.det_dot_cuda(p, ap, NBLOCKS))
-    plain_ms = time_ms(torch, lambda: k2.block_dot_plain(p, ap, NBLOCKS))
-    library_ms = time_ms(torch, lambda: torch.dot(p, ap))
-    b_ms, b_by = bound_ms(2 * n * 8, 2 * n, "float64", rate)
-    say("kernels", kernel="det_dot", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, library="torch.dot", bound_ms=b_ms,
-        bound_by=b_by)
+    # ---- det_dot (K2's reduction) at the main path's shape, and at the
+    # ---- shape of recovery's local CG (two failed blocks, nblocks=1) ----
+    dots = []
+    for label, a, b, nb in (("256^3/8", p, ap, NBLOCKS),
+                            ("local CG", p[:LOCAL_CG_N], ap[:LOCAL_CG_N], 1)):
+        got_d = k2.det_dot_cuda(a, b, nb)
+        order = k2.det_dot_order_plain(a, b, nb)
+        want_d = k2.block_dot_plain(a, b, nb)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got_d, order)),
+              f"det_dot != det_dot_order_plain bitwise at {label}")
+        d_err = max_abs(got_d, want_d)
+        d_tol = 1e-12 * float((a * b).abs().sum())
+        check(d_err <= d_tol, f"det_dot error {d_err} > {d_tol} at {label}")
+        ms, dev_ms = both_ms(torch, lambda: k2.det_dot_cuda(a, b, nb))
+        plain_ms = time_ms(torch, lambda: k2.block_dot_plain(a, b, nb))
+        lib_ms, lib_dev_ms = both_ms(torch, lambda: torch.dot(a, b))
+        m = a.numel()
+        b_ms, b_by = bound_ms(2 * m * 8, 2 * m, "float64", rate)
+        dots.append(dict(shape=label, n=m, nblocks=nb, max_abs_err=d_err,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        say("kernels", kernel="det_dot", dtype="float64", shape=label, n=m,
+            nblocks=nb, bitwise_order_plain=True, max_abs_err_vs_block_sum=d_err,
+            tol=d_tol, kernel_ms=ms, kernel_device_ms=dev_ms,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms, library="torch.dot",
+            bound_ms=b_ms, bound_by=b_by)
+    main_dot = {k: v for k, v in dots[0].items()
+                if k not in ("shape", "n", "nblocks")}
     records["det_dot"] = dict(
         name="det_dot", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_cg.cu",
-        replaces="src/repro/kernels/fused_cg.py:58", max_abs_err=d_err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms)
+        replaces="src/repro/kernels/fused_cg.py:58", **main_dot,
+        local_cg=dots[1])
     del x, r, p, ap, inv, got, want
 
     # ---- K3 on the 256^3 p's four stripe chunks ------------------------
@@ -275,25 +352,32 @@ def phase_kernels(torch, rate: float):
 
     pvec = randn(n)
     data = k2.stripe_bytes(pvec.reshape(NBLOCKS, K_DATA, -1))
-    got = k3.gf256_rs_encode_cuda(data, NPARITY)
-    want = k3.gf256_rs_encode_plain(data, NPARITY)
-    torch.cuda.synchronize()
-    check(bool(torch.equal(got, want)), "gf256_rs_encode != plain at 256^3")
-    say("kernels", kernel="gf256_rs_encode", shards=list(data.shape),
-        nparity=NPARITY, bitwise_equal=True)
-    ms = time_ms(torch, lambda: k3.gf256_rs_encode_cuda(data, NPARITY))
+    k3_times = {}
+    for nparity in (NPARITY, 1):
+        got = k3.gf256_rs_encode_cuda(data, nparity)
+        want = k3.gf256_rs_encode_plain(data, nparity)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)),
+              f"gf256_rs_encode P={nparity} != plain at 256^3")
+        ms, dev_ms = both_ms(torch, lambda: k3.gf256_rs_encode_cuda(data, nparity))
+        k3_bytes = (K_DATA + nparity) * data.shape[1]
+        b_ms, b_by = bound_ms(k3_bytes, 0, "float64", rate)
+        k3_times[nparity] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+        say("kernels", kernel="gf256_rs_encode", shards=list(data.shape),
+            nparity=nparity, bitwise_equal=True, kernel_ms=ms,
+            kernel_device_ms=dev_ms, bytes=k3_bytes, bound_ms=b_ms,
+            bound_by=b_by)
     plain_ms = time_ms(torch, lambda: k3.gf256_rs_encode_plain(data, NPARITY))
-    k3_bytes = (K_DATA + NPARITY) * data.shape[1]
-    b_ms, b_by = bound_ms(k3_bytes, 0, "float64", rate)
-    say("kernels", kernel="gf256_rs_encode", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=None, library="no single PyTorch call computes it",
-        bytes=k3_bytes, bound_ms=b_ms, bound_by=b_by)
+    say("kernels", kernel="gf256_rs_encode", nparity=NPARITY,
+        plain_ms=plain_ms, library_ms=None,
+        library="no single PyTorch call computes it")
     records["gf256_rs_encode"] = dict(
         name="gf256_rs_encode", route="cuda",
         source="src/repro_torch/kernels/csrc/gf256_encode.cu",
         replaces="src/repro/kernels/gf256_encode.py:93", max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        **k3_times[NPARITY], plain_ms=plain_ms, library_ms=None,
+        library_device_ms=None, p1=k3_times[1])
     # small ragged cases, all-zero and all-0xFF shards
     cpu_gen = torch.Generator().manual_seed(1)
     for k_data in (2, 3, 6):
@@ -309,6 +393,24 @@ def phase_kernels(torch, rate: float):
                     k3.gf256_rs_encode_plain(shards, nparity))),
                     f"gf256_rs_encode K={k_data} P={nparity} L={length}")
     say("kernels", kernel="gf256_rs_encode", ragged_cases=24,
+        bitwise_equal=True)
+    # unaligned shards: the tensor starts 0-15 bytes off a 16-byte
+    # boundary and rows are not multiples of 16 long
+    cases = 0
+    for k_data in (1, 16, 255):
+        for length in (1000, 4099):
+            buf = torch.randint(0, 256, (k_data * length + 16,),
+                                generator=cpu_gen, dtype=torch.uint8).to(dev)
+            for offset in range(16):
+                shards = buf[offset:offset + k_data * length].view(k_data, length)
+                for nparity in (1, 2):
+                    check(bool(torch.equal(
+                        k3.gf256_rs_encode_cuda(shards, nparity),
+                        k3.gf256_rs_encode_plain(shards, nparity))),
+                        f"gf256_rs_encode K={k_data} P={nparity} L={length} "
+                        f"offset={offset}")
+                    cases += 1
+    say("kernels", kernel="gf256_rs_encode", unaligned_cases=cases,
         bitwise_equal=True)
 
     # ---- K4 at the main path's shape, float64, K=4, P=2 ----------------
@@ -332,22 +434,23 @@ def phase_kernels(torch, rate: float):
         nblocks=NBLOCKS, k_data=K_DATA, nparity=NPARITY,
         update_bitwise_k2=True, stripe_bitwise_plain=True,
         parity_bitwise_k3=True, vec_max_abs_err_vs_plain=vec_err)
-    ms = time_ms(torch, lambda: k2.fused_cg_update_persist_cuda(*args))
+    ms, dev_ms = both_ms(torch, lambda: k2.fused_cg_update_persist_cuda(*args))
     plain_ms = time_ms(torch, lambda: k2.fused_cg_update_persist_plain(*args))
-    k2_ms = time_ms(torch, lambda: k2.fused_cg_update_cuda(
+    k2_ms, k2_dev_ms = both_ms(torch, lambda: k2.fused_cg_update_cuda(
         x, r, pvec, ap, alpha, inv, NBLOCKS))
     traffic = k2.fused_pass_traffic(n, 8, K_DATA, NPARITY)
     b_ms, b_by = bound_ms(traffic["total_bytes"], 7 * n, "float64", rate)
     say("kernels", kernel="fused_cg_update_persist", kernel_ms=ms,
-        plain_ms=plain_ms, k2_kernel_ms_same_call=k2_ms, library_ms=None,
-        library="no single PyTorch call computes it",
+        kernel_device_ms=dev_ms, plain_ms=plain_ms,
+        k2_kernel_ms_same_call=k2_ms, k2_kernel_device_ms_same_call=k2_dev_ms,
+        library_ms=None, library="no single PyTorch call computes it",
         bytes=traffic["total_bytes"], bound_ms=b_ms, bound_by=b_by)
     records["fused_cg_update_persist"] = dict(
         name="fused_cg_update_persist", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_cg.cu",
         replaces="src/repro/kernels/fused_cg.py:171", max_abs_err=vec_err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, library_device_ms=None)
     del x, r, ap, inv, pvec, data, got, want, k2_out, args
 
     # ---- K4 small float32 (K2's float32 tolerances vs plain) -----------
@@ -635,9 +738,52 @@ def phase_convergence(torch):
     check(res.report.failures_recovered == 1, "64^3 failure not recovered")
 
 
+def kernel_times(torch, rate: float) -> dict:
+    """Both timing columns of every kernel at the main path's shapes,
+    through the wrappers every slice of the port has had, so the same
+    call can time the kernels of another checkout (``--src``)."""
+    from repro_torch.kernels import fused_cg as k2
+    from repro_torch.kernels import gf256_encode as k3
+    from repro_torch.kernels import stencil7 as k1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = GRID ** 3
+    x, r, p, ap = (torch.randn(n, generator=gen, device=dev,
+                               dtype=torch.float64) for _ in range(4))
+    inv = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) + 0.5
+    alpha = torch.tensor(0.37, dtype=torch.float64, device=dev)
+    data = k2.stripe_bytes(p.reshape(NBLOCKS, K_DATA, -1))
+    m = LOCAL_CG_N
+    calls = {
+        "stencil7": lambda: k1.stencil7_cuda(p.view(GRID, GRID, GRID)),
+        "fused_cg_update": lambda: k2.fused_cg_update_cuda(
+            x, r, p, ap, alpha, inv, NBLOCKS),
+        "det_dot": lambda: k2.det_dot_cuda(p, ap, NBLOCKS),
+        "torch.dot": lambda: torch.dot(p, ap),
+        "det_dot local CG": lambda: k2.det_dot_cuda(p[:m], ap[:m], 1),
+        "torch.dot local CG": lambda: torch.dot(p[:m], ap[:m]),
+        "gf256_rs_encode P=2": lambda: k3.gf256_rs_encode_cuda(data, 2),
+        "gf256_rs_encode P=1": lambda: k3.gf256_rs_encode_cuda(data, 1),
+        "fused_cg_update_persist": lambda: k2.fused_cg_update_persist_cuda(
+            x, r, p, ap, alpha, inv, NBLOCKS, K_DATA, NPARITY),
+    }
+    times = {}
+    for name, fn in calls.items():
+        ms, dev_ms = both_ms(torch, fn)
+        times[name] = {"ms": ms, "device_ms": dev_ms}
+    say("times", src=SRC, hbm_bytes_per_s=rate, **times)
+    return times
+
+
 def main() -> int:
+    global SRC
     import torch
 
+    args = sys.argv[1:]
+    times_only = "--times-only" in args
+    if "--src" in args:
+        SRC = os.path.abspath(args[args.index("--src") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script drives "
               "the port on a GPU", file=sys.stderr)
@@ -655,6 +801,9 @@ def main() -> int:
         rate = hbm_rate(name)
         say("device", hbm_bytes_per_s=rate)
         phase_build()
+        if times_only:
+            kernel_times(torch, rate)
+            return 0
         records = phase_kernels(torch, rate)
         counts, problem, recovered = phase_main_path(torch)
         counts.update({name: count for name, count in

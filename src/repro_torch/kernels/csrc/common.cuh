@@ -32,3 +32,20 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+
+// Makes `device` current for a launch and restores the caller's device
+// (the wrappers pass the tensors' device instead of entering a Python
+// device context on every call).
+struct DeviceGuard {
+    int prev = -1;
+    explicit DeviceGuard(int device) {
+        int cur = device;
+        if (cudaGetDevice(&cur) == cudaSuccess && cur != device) {
+            prev = cur;
+            cudaSetDevice(device);
+        }
+    }
+    ~DeviceGuard() {
+        if (prev >= 0) cudaSetDevice(prev);
+    }
+};

@@ -9,22 +9,45 @@
 // with alpha read from device memory (no host round trip per iteration).
 //
 // Bound on the H100: memory.  5 reads + 3 writes of n values per call
-// (the minimum with the reduction fused), a handful of flops per value.
-// Design: a CTA of THREADS threads owns a tile of TILE consecutive values
-// inside ONE partition block (grid.y = partition block, grid.x = tile),
-// each thread strides by THREADS so warps load coalesced.  The reduction
-// is deterministic and atomic-free, in a fixed order:
-//   1. per thread, its ITEMS products in ascending order;
-//   2. per tile, a shared-memory tree over the CTA's threads;
-//   3. per partition block, a tree over that block's tile partials;
-//   4. a left-to-right chain over the nblocks block partials
-// (the order-pinned shape of the reference's make_det_dot).  det_dot
-// runs the SAME tiling and the same steps 1-4 on a * b, so the loop's
-// p.ap, its rz' and reconstruction's recomputed rz share one rounding
-// order.  float64 inputs accumulate in float64 (the main path's rz is a
-// float64 dot); float32/bf16 accumulate in float32 (the TPU contract).
-// Any n works (ragged tiles are masked); the reference's n % 128 and bm
-// rules were TPU (8, 128) tiling rules.
+// (the minimum with the reduction fused), a handful of flops per value;
+// det_dot reads 2 values per product.  Design: a CTA of THREADS threads
+// owns a tile of TILE = THREADS * ITEMS consecutive values inside ONE
+// partition block (grid.y = partition block, grid.x = tile).  A thread
+// owns ITEMS / V groups of V consecutive values, V = 16 / sizeof(T), so
+// one group is one 16-byte load per input (double2 / float4 / 8 bf16);
+// group g of thread t starts at tile offset (g * THREADS + t) * V, so a
+// warp's loads are coalesced and all of a thread's loads are in flight
+// before its arithmetic.  When a pointer is not 16-byte aligned or V
+// does not divide the block size, the same groups are loaded one value
+// at a time: the load width never changes which values a thread owns or
+// the order it adds them.  The reduction is deterministic, with no
+// atomic in its arithmetic, in this fixed order:
+//   1. per thread, its products in ascending offset (group by group,
+//      value by value), from +0; values past the block's end add nothing;
+//   2. per tile, a pairwise tree over the 32 lanes of each warp
+//      (__shfl_down_sync by 16, 8, 4, 2, 1: lane i adds lane i + s), then
+//      the same tree over the WARPS warp sums;
+//   3. per partition block, thread t of one CTA adds the block's tile
+//      partials t, t + THREADS, t + 2 THREADS, ... in ascending order
+//      from +0, and the tree of step 2 combines the threads;
+//   4. a left-to-right chain over the nblocks block sums.
+// (the order-pinned shape of the reference's make_det_dot; fused_cg.py's
+// det_dot_order_plain repeats it step by step in torch).  Steps 3 and 4
+// run in the same launch: each CTA stores its tile partial and takes a
+// ticket from its partition block's counter; the CTA that takes the
+// last ticket folds the block (step 3), stores the block sum, and takes
+// a ticket from the chain counter, whose last taker runs step 4.  A
+// ticket decides only WHICH CTA adds, never the order, so the bits are
+// the same in every run; each counter is reset to 0 by the CTA that took
+// its last ticket, so it is 0 again when the launch ends (the wrapper
+// keeps one counter array per stream).  The tiling depends on (n,
+// nblocks) alone, never on the card.  det_dot runs the SAME tiling and
+// steps 1-4 on a * b, so the loop's p.ap, its rz' and reconstruction's
+// recomputed rz share one rounding order.  float64 inputs accumulate in
+// float64 (the main path's rz is a float64 dot); float32/bf16 accumulate
+// in float32 (the TPU contract).  Any n divisible by nblocks works
+// (ragged tiles are masked); the reference's n % 128 and bm rules were
+// TPU (8, 128) tiling rules.
 //
 // K4: the same update plus the erasure stripe's staging of the input p
 // (replaces fused_cg.py::fused_cg_update_persist_pallas).  K4 is K2's
@@ -45,25 +68,118 @@
 // dropped, as K2 dropped it.
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "common.cuh"
 #include "gf256.cuh"
 
 #define THREADS 256
+#define WARPS (THREADS / 32)
 #define ITEMS 8
 #define TILE (THREADS * ITEMS)
 
-// Fixed-order tree over the CTA; every thread gets the total.
-template <typename A>
-__device__ __forceinline__ A cta_sum(A v, A* sh) {
-    sh[threadIdx.x] = v;
-    __syncthreads();
-    for (int s = THREADS / 2; s > 0; s >>= 1) {
-        if (threadIdx.x < s) sh[threadIdx.x] = add_rn(sh[threadIdx.x], sh[threadIdx.x + s]);
-        __syncthreads();
+// Values per 16-byte group.
+template <typename T> struct Vec { static constexpr int N = 16 / (int)sizeof(T); };
+
+// One group: the 16-byte word and its values.
+template <typename T> union Pack {
+    uint4 u;
+    T e[Vec<T>::N];
+};
+
+// Group load: `valid` leading values of p (WIDE: all or none, in one
+// 16-byte load); the rest are left unset and never read.
+template <typename T, bool WIDE>
+__device__ __forceinline__ void load_group(const T* __restrict__ p, int valid, Pack<T>& g) {
+    if constexpr (WIDE) {
+        if (valid > 0) g.u = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+#pragma unroll
+        for (int e = 0; e < Vec<T>::N; ++e)
+            if (e < valid) g.e[e] = p[e];
     }
-    const A total = sh[0];
+}
+
+template <typename T, bool WIDE>
+__device__ __forceinline__ void store_group(T* __restrict__ p, int valid, const Pack<T>& g) {
+    if constexpr (WIDE) {
+        if (valid > 0) *reinterpret_cast<uint4*>(p) = g.u;
+    } else {
+#pragma unroll
+        for (int e = 0; e < Vec<T>::N; ++e)
+            if (e < valid) p[e] = g.e[e];
+    }
+}
+
+// Values of the group starting at block offset off that lie in the block.
+__device__ __forceinline__ int group_valid(long long off, long long bs, int n) {
+    const long long left = bs - off;
+    return left <= 0 ? 0 : (left >= n ? n : (int)left);
+}
+
+// Tile offset of group g of this thread.
+template <typename T>
+__device__ __forceinline__ long long group_offset(int g) {
+    constexpr int N = Vec<T>::N;
+    return (long long)blockIdx.x * TILE + ((long long)g * THREADS + threadIdx.x) * N;
+}
+
+// Step 2's tree: lanes, then warps; the total lands in thread 0.
+template <typename A>
+__device__ __forceinline__ A cta_tree(A v, A* sh) {
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v = add_rn(v, __shfl_down_sync(0xffffffffu, v, s));
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) sh[warp] = v;
+    __syncthreads();
+    A total = A(0);
+    if (warp == 0) {
+        v = lane < WARPS ? sh[lane] : A(0);
+#pragma unroll
+        for (int s = WARPS / 2; s > 0; s >>= 1) v = add_rn(v, __shfl_down_sync(0xffffffffu, v, s));
+        total = v;
+    }
     __syncthreads();
     return total;
+}
+
+// Steps 2-4 from each thread's step-1 sum.  partials holds nblocks *
+// tiles tile partials, then nblocks block sums; tickets holds nblocks + 1
+// counters, all 0 on entry and again on exit.
+template <typename T>
+__device__ __forceinline__ void reduce_tiles(typename Acc<T>::type local,
+                                             typename Acc<T>::type* __restrict__ partials,
+                                             unsigned* __restrict__ tickets, T* __restrict__ out) {
+    typedef typename Acc<T>::type A;
+    __shared__ A sh[WARPS];
+    __shared__ bool last;
+    const unsigned tiles = gridDim.x, blk = blockIdx.y, nblocks = gridDim.y;
+    const A tile_sum = cta_tree(local, sh);
+    if (threadIdx.x == 0) {
+        partials[(long long)blk * tiles + blockIdx.x] = tile_sum;
+        __threadfence();
+        last = atomicAdd(&tickets[blk], 1u) == tiles - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const A* pb = partials + (long long)blk * tiles;
+    A s = A(0);
+    for (unsigned j = threadIdx.x; j < tiles; j += THREADS) s = add_rn(s, __ldcg(pb + j));
+    const A block_sum = cta_tree(s, sh);
+    if (threadIdx.x == 0) {
+        A* sums = partials + (long long)nblocks * tiles;
+        tickets[blk] = 0;
+        sums[blk] = block_sum;
+        __threadfence();
+        if (atomicAdd(&tickets[nblocks], 1u) == nblocks - 1) {
+            __threadfence();
+            A chain = __ldcg(sums);
+            for (unsigned b = 1; b < nblocks; ++b) chain = add_rn(chain, __ldcg(sums + b));
+            out[0] = from_acc<T>(chain);
+            tickets[nblocks] = 0;
+        }
+    }
 }
 
 // The unsigned word holding one element's bytes (the parity unit of K4).
@@ -74,19 +190,20 @@ template <> struct Word<__nv_bfloat16> { typedef uint16_t type; };
 
 // STAGE = false is K2; STAGE = true is K4 (chunks, parity, k_data,
 // nparity and chunk are read only then).
-template <typename T, bool STAGE>
+template <typename T, bool STAGE, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 fused_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ r,
                        const T* __restrict__ p, const T* __restrict__ ap,
                        const T* __restrict__ inv, const T* __restrict__ alpha_ptr,
                        T* __restrict__ xo, T* __restrict__ ro, T* __restrict__ zo,
                        typename Acc<T>::type* __restrict__ partials,
+                       unsigned* __restrict__ tickets, T* __restrict__ rz,
                        long long bs, T* __restrict__ chunks,
                        uint8_t* __restrict__ parity, int k_data, int nparity,
                        long long chunk) {
     typedef typename Acc<T>::type A;
     typedef typename Word<T>::type W;
-    __shared__ A sh[THREADS];
+    constexpr int N = Vec<T>::N;
     __shared__ uint8_t sexp[STAGE ? GF_EXP_SIZE : 1];
     __shared__ uint8_t slog[STAGE ? GF_LOG_SIZE : 1];
     if constexpr (STAGE) {
@@ -94,129 +211,140 @@ fused_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ r,
     }
     const A alpha = to_acc(alpha_ptr[0]);
     const long long base = (long long)blockIdx.y * bs;
-    const long long t0 = (long long)blockIdx.x * TILE + threadIdx.x;
     A local = A(0);
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const long long off = t0 + (long long)k * THREADS;
-        if (off < bs) {
-            const long long i = base + off;
-            const T pv = p[i];
-            const A xn = add_rn(to_acc(x[i]), mul_rn(alpha, to_acc(pv)));
-            const T rn = from_acc<T>(sub_rn(to_acc(r[i]), mul_rn(alpha, to_acc(ap[i]))));
-            const T zn = from_acc<T>(mul_rn(to_acc(rn), to_acc(inv[i])));
-            xo[i] = from_acc<T>(xn);
-            ro[i] = rn;
-            zo[i] = zn;
-            local = add_rn(local, mul_rn(to_acc(rn), to_acc(zn)));
-            if constexpr (STAGE) {
-                chunks[i] = pv;
-                if (off < chunk) {
-                    const W* pw = reinterpret_cast<const W*>(p + base + off);
-                    W pp = 0, qq = 0;
-                    for (int j = 0; j < k_data; ++j) {
-                        const W d = pw[(long long)j * chunk];
-                        pp ^= d;
-                        if (nparity == 2) qq ^= gf_mul_word<W>(d, j % 255, sexp, slog);
+    for (int g = 0; g < ITEMS / N; ++g) {
+        const long long off0 = group_offset<T>(g);
+        const int valid = group_valid(off0, bs, N);
+        const long long i0 = base + off0;
+        Pack<T> xv, rv, pv, apv, iv, xn, rn, zn;
+        load_group<T, WIDE>(x + i0, valid, xv);
+        load_group<T, WIDE>(r + i0, valid, rv);
+        load_group<T, WIDE>(p + i0, valid, pv);
+        load_group<T, WIDE>(ap + i0, valid, apv);
+        load_group<T, WIDE>(inv + i0, valid, iv);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+            if (e < valid) {
+                xn.e[e] = from_acc<T>(add_rn(to_acc(xv.e[e]), mul_rn(alpha, to_acc(pv.e[e]))));
+                rn.e[e] = from_acc<T>(sub_rn(to_acc(rv.e[e]), mul_rn(alpha, to_acc(apv.e[e]))));
+                zn.e[e] = from_acc<T>(mul_rn(to_acc(rn.e[e]), to_acc(iv.e[e])));
+                local = add_rn(local, mul_rn(to_acc(rn.e[e]), to_acc(zn.e[e])));
+                if constexpr (STAGE) {
+                    const long long off = off0 + e;
+                    if (off < chunk) {
+                        const W* pw = reinterpret_cast<const W*>(p + base + off);
+                        W pp = 0, qq = 0;
+                        for (int j = 0; j < k_data; ++j) {
+                            const W d = pw[(long long)j * chunk];
+                            pp ^= d;
+                            if (nparity == 2) qq ^= gf_mul_word<W>(d, j % 255, sexp, slog);
+                        }
+                        W* outw = reinterpret_cast<W*>(parity) +
+                                  (long long)blockIdx.y * nparity * chunk + off;
+                        outw[0] = pp;
+                        if (nparity == 2) outw[chunk] = qq;
                     }
-                    W* out = reinterpret_cast<W*>(parity) +
-                             (long long)blockIdx.y * nparity * chunk + off;
-                    out[0] = pp;
-                    if (nparity == 2) out[chunk] = qq;
                 }
             }
         }
+        store_group<T, WIDE>(xo + i0, valid, xn);
+        store_group<T, WIDE>(ro + i0, valid, rn);
+        store_group<T, WIDE>(zo + i0, valid, zn);
+        if constexpr (STAGE) store_group<T, WIDE>(chunks + i0, valid, pv);
     }
-    const A total = cta_sum(local, sh);
-    if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = total;
+    reduce_tiles<T>(local, partials, tickets, rz);
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-dot_partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    typename Acc<T>::type* __restrict__ partials, long long bs) {
+dot_kernel(const T* __restrict__ a, const T* __restrict__ b,
+           typename Acc<T>::type* __restrict__ partials, unsigned* __restrict__ tickets,
+           T* __restrict__ out, long long bs) {
     typedef typename Acc<T>::type A;
-    __shared__ A sh[THREADS];
+    constexpr int N = Vec<T>::N;
+    constexpr int G = ITEMS / N;
     const long long base = (long long)blockIdx.y * bs;
-    const long long t0 = (long long)blockIdx.x * TILE + threadIdx.x;
+    Pack<T> av[G], bv[G];
+    int valid[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+        const long long off0 = group_offset<T>(g);
+        valid[g] = group_valid(off0, bs, N);
+        load_group<T, WIDE>(a + base + off0, valid[g], av[g]);
+        load_group<T, WIDE>(b + base + off0, valid[g], bv[g]);
+    }
     A local = A(0);
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const long long off = t0 + (long long)k * THREADS;
-        if (off < bs) {
-            const long long i = base + off;
-            local = add_rn(local, mul_rn(to_acc(a[i]), to_acc(b[i])));
-        }
-    }
-    const A total = cta_sum(local, sh);
-    if (threadIdx.x == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = total;
-}
-
-// Steps 3-4: one CTA folds each partition block's tile partials with the
-// fixed tree, then chains the block sums left to right.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-finish_kernel(const typename Acc<T>::type* __restrict__ partials, int nblocks,
-              long long tiles, T* __restrict__ out) {
-    typedef typename Acc<T>::type A;
-    __shared__ A sh[THREADS];
-    A chain = A(0);
-    for (int blk = 0; blk < nblocks; ++blk) {
-        const typename Acc<T>::type* pb = partials + (long long)blk * tiles;
-        A local = A(0);
-        for (long long j = threadIdx.x; j < tiles; j += THREADS) local = add_rn(local, pb[j]);
-        const A block_sum = cta_sum(local, sh);
-        chain = blk == 0 ? block_sum : add_rn(chain, block_sum);
-    }
-    if (threadIdx.x == 0) out[0] = from_acc<T>(chain);
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+            if (e < valid[g]) local = add_rn(local, mul_rn(to_acc(av[g].e[e]), to_acc(bv[g].e[e])));
+    reduce_tiles<T>(local, partials, tickets, out);
 }
 
 static long long tiles_for(long long bs) { return (bs + TILE - 1) / TILE; }
 
+// 16-byte loads need every pointer 16-byte aligned and every block's
+// start on a group boundary.
+static bool wide_ok(long long bs, int n, std::initializer_list<const void*> ptrs) {
+    if (bs % n != 0) return false;
+    for (const void* q : ptrs)
+        if (q != nullptr && (uintptr_t)q % 16 != 0) return false;
+    return true;
+}
+
 template <typename T, bool STAGE>
 static int update(const void* x, const void* r, const void* p, const void* ap,
                   const void* inv, const void* alpha, void* xo, void* ro, void* zo,
-                  void* partials, void* rz, long long n, int nblocks, void* stream,
-                  void* chunks = nullptr, void* parity = nullptr, int k_data = 1,
-                  int nparity = 1) {
+                  void* partials, void* tickets, void* rz, long long n, int nblocks,
+                  int device, void* stream, void* chunks = nullptr, void* parity = nullptr,
+                  int k_data = 1, int nparity = 1) {
     typedef typename Acc<T>::type A;
+    DeviceGuard guard(device);
     const long long bs = n / nblocks;
-    const long long tiles = tiles_for(bs);
+    const dim3 grid((unsigned)tiles_for(bs), (unsigned)nblocks, 1);
     cudaStream_t s = (cudaStream_t)stream;
-    fused_cg_update_kernel<T, STAGE><<<dim3((unsigned)tiles, (unsigned)nblocks, 1), THREADS, 0, s>>>(
-        (const T*)x, (const T*)r, (const T*)p, (const T*)ap, (const T*)inv,
-        (const T*)alpha, (T*)xo, (T*)ro, (T*)zo, (A*)partials, bs, (T*)chunks,
-        (uint8_t*)parity, k_data, nparity, bs / k_data);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    finish_kernel<T><<<1, THREADS, 0, s>>>((const A*)partials, nblocks, tiles, (T*)rz);
+    const bool wide = wide_ok(bs, Vec<T>::N, {x, r, p, ap, inv, xo, ro, zo, chunks});
+#define LAUNCH_UPDATE(W)                                                                 \
+    fused_cg_update_kernel<T, STAGE, W><<<grid, THREADS, 0, s>>>(                        \
+        (const T*)x, (const T*)r, (const T*)p, (const T*)ap, (const T*)inv,              \
+        (const T*)alpha, (T*)xo, (T*)ro, (T*)zo, (A*)partials, (unsigned*)tickets,       \
+        (T*)rz, bs, (T*)chunks, (uint8_t*)parity, k_data, nparity, bs / k_data)
+    if (wide) LAUNCH_UPDATE(true);
+    else LAUNCH_UPDATE(false);
+#undef LAUNCH_UPDATE
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int dot(const void* a, const void* b, void* partials, void* out,
-               long long n, int nblocks, void* stream) {
+static int dot(const void* a, const void* b, void* partials, void* tickets, void* out,
+               long long n, int nblocks, int device, void* stream) {
     typedef typename Acc<T>::type A;
+    DeviceGuard guard(device);
     const long long bs = n / nblocks;
-    const long long tiles = tiles_for(bs);
+    const dim3 grid((unsigned)tiles_for(bs), (unsigned)nblocks, 1);
     cudaStream_t s = (cudaStream_t)stream;
-    dot_partials_kernel<T><<<dim3((unsigned)tiles, (unsigned)nblocks, 1), THREADS, 0, s>>>(
-        (const T*)a, (const T*)b, (A*)partials, bs);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    finish_kernel<T><<<1, THREADS, 0, s>>>((const A*)partials, nblocks, tiles, (T*)out);
+    if (wide_ok(bs, Vec<T>::N, {a, b}))
+        dot_kernel<T, true><<<grid, THREADS, 0, s>>>((const T*)a, (const T*)b, (A*)partials,
+                                                     (unsigned*)tickets, (T*)out, bs);
+    else
+        dot_kernel<T, false><<<grid, THREADS, 0, s>>>((const T*)a, (const T*)b, (A*)partials,
+                                                      (unsigned*)tickets, (T*)out, bs);
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-long long fused_cg_tiles(long long block_size) { return tiles_for(block_size); }
-
-#define UPDATE_ARGS                                                              \
-    const void *x, const void *r, const void *p, const void *ap, const void *inv, \
-        const void *alpha, void *xo, void *ro, void *zo, void *partials, void *rz, \
-        long long n, int nblocks, void *stream
-#define UPDATE_CALL x, r, p, ap, inv, alpha, xo, ro, zo, partials, rz, n, nblocks, stream
+// partials: nblocks * (tiles + 1) accumulators (tiles = ceil(bs / TILE));
+// tickets: nblocks + 1 unsigned counters, 0 on entry, 0 again on exit;
+// device: the tensors' CUDA device, stream: a stream of that device.
+#define UPDATE_ARGS                                                               \
+    const void *x, const void *r, const void *p, const void *ap, const void *inv,  \
+        const void *alpha, void *xo, void *ro, void *zo, void *partials,           \
+        void *tickets, void *rz, long long n, int nblocks, int device, void *stream
+#define UPDATE_CALL \
+    x, r, p, ap, inv, alpha, xo, ro, zo, partials, tickets, rz, n, nblocks, device, stream
 
 int fused_cg_update_f64(UPDATE_ARGS) { return update<double, false>(UPDATE_CALL); }
 int fused_cg_update_f32(UPDATE_ARGS) { return update<float, false>(UPDATE_CALL); }
@@ -234,10 +362,10 @@ int fused_cg_update_persist_bf16(PERSIST_ARGS) {
     return update<__nv_bfloat16, true>(PERSIST_CALL);
 }
 
-#define DOT_ARGS                                                                 \
-    const void *a, const void *b, void *partials, void *out, long long n, int nblocks, \
-        void *stream
-#define DOT_CALL a, b, partials, out, n, nblocks, stream
+#define DOT_ARGS                                                                     \
+    const void *a, const void *b, void *partials, void *tickets, void *out, long long n, \
+        int nblocks, int device, void *stream
+#define DOT_CALL a, b, partials, tickets, out, n, nblocks, device, stream
 
 int det_dot_f64(DOT_ARGS) { return dot<double>(DOT_CALL); }
 int det_dot_f32(DOT_ARGS) { return dot<float>(DOT_CALL); }

@@ -8,11 +8,15 @@ TPU kernel ``_fused_cg_kernel`` with its per-tile partials and
 ``jnp.sum`` epilogue).  On the H100 the update is bound by memory: 5
 reads and 3 writes of ``n`` values, a few flops each.
 ``csrc/fused_cg.cu`` does it in one pass, reads ``alpha`` from device
-memory, and reduces ``r'.z'`` without atomics in a fixed order: per-tile
-partials, per-partition-block partials, then a left-to-right chain over
-the ``nblocks`` block partials.  ``det_dot`` runs the same tiling and the
-same reduction on ``a * b``, so the solve's ``p.ap``, its ``rz'`` and
-reconstruction's recomputed ``rz`` share one rounding order.
+memory, and reduces ``r'.z'`` without atomics in its arithmetic, in a
+fixed order (per-thread sums, lane and warp trees, per-partition-block
+folds, a left-to-right chain over the ``nblocks`` block sums) in the
+same launch: the CTA that takes a block's last ticket folds it.
+``det_dot`` runs the same tiling and the same reduction on ``a * b``, so
+the solve's ``p.ap``, its ``rz'`` and reconstruction's recomputed ``rz``
+share one rounding order.  :func:`det_dot_order_plain` repeats that
+order step by step in torch (tests and ``chip_smoke.py`` hold the
+kernels to it bitwise; nothing on the main path calls it).
 
 Precision: float64 inputs accumulate in float64 (the main path's ``rz``
 is a float64 dot; the reference kernel's fp32 downcast would break it),
@@ -52,6 +56,10 @@ persist_launches = 0
 
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+#: the reduction's tiling, as ``csrc/fused_cg.cu`` defines it: THREADS
+#: threads a CTA in WARPS warps, ITEMS values a thread, TILE values a CTA
+THREADS, WARPS, ITEMS = 256, 8, 8
+TILE = THREADS * ITEMS
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -72,6 +80,63 @@ def block_dot_plain(a: torch.Tensor, b: torch.Tensor,
     return total.to(a.dtype)
 
 
+def _tree(v: torch.Tensor) -> torch.Tensor:
+    """Pairwise tree over the last dimension (a power of two): lane ``i``
+    adds lane ``i + h`` for h = half the width, then half again."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _cta_tree(v: torch.Tensor) -> torch.Tensor:
+    """Step 2 over the last dimension of THREADS per-thread values: the
+    tree over each warp's 32 lanes, then over the WARPS warp sums."""
+    return _tree(_tree(v.reshape(*v.shape[:-1], WARPS, 32)))
+
+
+def _sequential(v: torch.Tensor) -> torch.Tensor:
+    """Left-to-right sum from +0 over the last dimension."""
+    total = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for i in range(v.shape[-1]):
+        total = total + v[..., i]
+    return total
+
+
+def det_dot_order_plain(a: torch.Tensor, b: torch.Tensor,
+                        nblocks: int = 1) -> torch.Tensor:
+    """``det_dot`` in the CUDA kernel's exact order, from torch operations
+    (round-to-nearest ``*`` and ``+``), so it equals the kernel bitwise:
+
+    1. per thread of each tile, its ITEMS products from +0, group by group
+       (group ``g`` of thread ``t`` is the ``16 / itemsize`` values at tile
+       offset ``(g * THREADS + t) * 16 / itemsize``), zero past the block;
+    2. per tile, the lane tree, then the warp tree;
+    3. per partition block, thread ``t`` adds tile partials ``t, t +
+       THREADS, ...`` from +0, then the tree of step 2;
+    4. a left-to-right chain over the block sums.
+
+    Padding adds +0, which changes no sum (a sum begun at +0 is never
+    -0).  Tests and ``chip_smoke.py`` use it; the main path does not."""
+    acc = acc_dtype(a.dtype)
+    bs = a.shape[0] // nblocks
+    tiles = -(-bs // TILE)
+    vec = 16 // a.element_size()
+    prod = (a.to(acc) * b.to(acc)).reshape(nblocks, bs)
+    prod = torch.nn.functional.pad(prod, (0, tiles * TILE - bs))
+    groups = prod.reshape(nblocks, tiles, ITEMS // vec, THREADS, vec)
+    per_thread = groups.transpose(2, 3).reshape(nblocks, tiles, THREADS, ITEMS)
+    tile_sums = _cta_tree(_sequential(per_thread))
+    rounds = -(-tiles // THREADS)
+    tile_sums = torch.nn.functional.pad(tile_sums, (0, rounds * THREADS - tiles))
+    block_sums = _cta_tree(_sequential(
+        tile_sums.reshape(nblocks, rounds, THREADS).transpose(1, 2)))
+    total = block_sums[0]
+    for i in range(1, nblocks):
+        total = total + block_sums[i]
+    return total.to(a.dtype)
+
+
 def fused_cg_update_plain(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
                           ) -> Tuple[torch.Tensor, ...]:
     """``x' = x + alpha p``, ``r' = r - alpha ap``, ``z' = r' inv_diag``,
@@ -87,15 +152,17 @@ def fused_cg_update_plain(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
 
 def _check(name: str, tensors, n: int, nblocks: int) -> None:
     first = tensors[0]
-    if first.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
-    if first.dtype not in DTYPES:
-        raise TypeError(f"{name} takes {DTYPES}, got {first.dtype}")
+    device, dtype = first.device, first.dtype
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+    if dtype not in DTYPES:
+        raise TypeError(f"{name} takes {DTYPES}, got {dtype}")
+    shape = (n,)
     for t in tensors:
-        if t.device != first.device or t.dtype != first.dtype:
+        if t.device != device or t.dtype != dtype:
             raise ValueError(f"{name}: every input must share device and "
-                             f"dtype ({first.device}, {first.dtype})")
-        if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
+                             f"dtype ({device}, {dtype})")
+        if t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous 1-D "
                              f"vectors of length {n}")
     if n < 1:
@@ -104,20 +171,88 @@ def _check(name: str, tensors, n: int, nblocks: int) -> None:
         raise ValueError(f"{name}: n={n} not divisible by nblocks={nblocks}")
 
 
-def _function(symbol: str, nptr: int):
-    # nptr pointers, then (n, nblocks, stream)
-    return _build.function(
-        "fused_cg", symbol,
-        [ctypes.c_void_p] * nptr + [ctypes.c_longlong, ctypes.c_int,
-                                    ctypes.c_void_p])
+#: (symbol, dtype) -> bound C function, so a launch looks it up once
+_FUNCTIONS = {}
 
 
-def _partials(x: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """Scratch for the per-tile partial sums of every partition block."""
-    tiles = _build.function("fused_cg", "fused_cg_tiles", [ctypes.c_longlong],
-                            ctypes.c_longlong)(x.shape[0] // nblocks)
-    return torch.empty(nblocks * tiles, dtype=acc_dtype(x.dtype),
-                       device=x.device)
+def _function(symbol: str, dtype: torch.dtype, nptr: int, extra=()):
+    """``<symbol>_<f64|f32|bf16>``: nptr pointers, then (n, nblocks,
+    device, stream, *extra)."""
+    fn = _FUNCTIONS.get((symbol, dtype))
+    if fn is None:
+        fn = _FUNCTIONS[(symbol, dtype)] = _build.function(
+            "fused_cg", f"{symbol}_{_SUFFIX[dtype]}",
+            [ctypes.c_void_p] * nptr + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p, *extra])
+    return fn
+
+
+#: 0-d results handed out from one pool before a new pool is made
+SCALAR_SLOTS = 4096
+
+
+class _Workspace:
+    """The reduction's scratch on one stream of one device: tile partials
+    and block sums (float64 slots, read as the accumulation type), the
+    ticket counters (zeroed once; every launch leaves them at 0), and
+    pools of 0-d results.  Launches on one stream run in order, so they
+    share it.  Each result is a view of a pool slot, made ahead in one
+    ``unbind`` and handed out once, never reused (a spent pool lives on
+    only through its views), which costs the host less per call than
+    allocating a tensor."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.partials = self.tickets = None
+        self.slots = 0
+        self.pools = {}
+
+    def reserve(self, slots: int, counters: int) -> None:
+        if self.slots < slots or self.tickets.numel() < counters:
+            self.slots = max(self.slots, slots)
+            self.partials = torch.empty(self.slots, dtype=torch.float64,
+                                        device=self.device)
+            self.tickets = torch.zeros(max(counters, 0 if self.tickets is None
+                                           else self.tickets.numel()),
+                                       dtype=torch.int32, device=self.device)
+            self.partials_ptr = self.partials.data_ptr()
+            self.tickets_ptr = self.tickets.data_ptr()
+
+    def scalar(self, dtype: torch.dtype) -> torch.Tensor:
+        pool = self.pools.get(dtype)
+        if not pool:
+            pool = torch.empty(SCALAR_SLOTS, dtype=dtype,
+                               device=self.device).unbind()[::-1]
+            pool = self.pools[dtype] = list(pool)
+        return pool.pop()
+
+
+#: (device index, stream) -> _Workspace
+_WORKSPACE = {}
+#: (device index, stream, n, nblocks) -> (device index, stream,
+#: _Workspace reserved for that geometry)
+_LAUNCH = {}
+
+
+def _launch_args(x: torch.Tensor, nblocks: int):
+    """``(device, stream, workspace)`` for a launch on ``x``'s device and
+    current stream, the workspace holding ``nblocks * (tiles + 1)``
+    partial slots and ``nblocks + 1`` tickets; the tile count is worked
+    out once per ``(n, nblocks)``.  The stream handle is the one
+    ``torch.cuda.current_stream`` wraps, read without building a Stream
+    object per launch."""
+    device = x.device.index
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    key = (device, stream, x.shape[0], nblocks)
+    args = _LAUNCH.get(key)
+    if args is None:
+        ws = _WORKSPACE.get(key[:2])
+        if ws is None:
+            ws = _WORKSPACE[key[:2]] = _Workspace(x.device)
+        ws.reserve(nblocks * (-(-(x.shape[0] // nblocks) // TILE) + 1),
+                   nblocks + 1)
+        args = _LAUNCH[key] = (device, stream, ws)
+    return args
 
 
 def fused_cg_update_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
@@ -131,17 +266,15 @@ def fused_cg_update_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
             and alpha.device == x.device and alpha.dtype == x.dtype):
         raise ValueError("fused_cg_update_cuda: alpha must be a one-element "
                          f"{x.dtype} tensor on {x.device}")
-    fn = _function(f"fused_cg_update_{_SUFFIX[x.dtype]}", 11)
+    fn = _function("fused_cg_update", x.dtype, 12)
     alpha = alpha.contiguous()
     xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    rz = torch.empty((), dtype=x.dtype, device=x.device)
-    partials = _partials(x, nblocks)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-                inv_diag.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
-                ro.data_ptr(), zo.data_ptr(), partials.data_ptr(),
-                rz.data_ptr(), n, nblocks,
-                torch.cuda.current_stream(x.device).cuda_stream)
+    device, stream, ws = _launch_args(x, nblocks)
+    rz = ws.scalar(x.dtype)
+    rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+            inv_diag.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
+            ro.data_ptr(), zo.data_ptr(), ws.partials_ptr, ws.tickets_ptr,
+            rz.data_ptr(), n, nblocks, device, stream)
     if rc != 0:
         raise RuntimeError(f"fused_cg_update kernel launch failed: CUDA "
                            f"error {rc}")
@@ -151,17 +284,16 @@ def fused_cg_update_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
 
 def det_dot_cuda(a: torch.Tensor, b: torch.Tensor,
                  nblocks: int = 1) -> torch.Tensor:
-    """Launch the block-partial reduction of ``a * b`` (K2's tiling)."""
+    """Launch the block-partial reduction of ``a * b`` (K2's tiling and
+    order, one launch)."""
     global dot_launches
     n = a.shape[0] if a.dim() == 1 else -1
     _check("det_dot", (a, b), n, nblocks)
-    fn = _function(f"det_dot_{_SUFFIX[a.dtype]}", 4)
-    out = torch.empty((), dtype=a.dtype, device=a.device)
-    partials = _partials(a, nblocks)
-    with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), b.data_ptr(), partials.data_ptr(),
-                out.data_ptr(), n, nblocks,
-                torch.cuda.current_stream(a.device).cuda_stream)
+    fn = _function("det_dot", a.dtype, 5)
+    device, stream, ws = _launch_args(a, nblocks)
+    out = ws.scalar(a.dtype)
+    rc = fn(a.data_ptr(), b.data_ptr(), ws.partials_ptr, ws.tickets_ptr,
+            out.data_ptr(), n, nblocks, device, stream)
     if rc != 0:
         raise RuntimeError(f"det_dot kernel launch failed: CUDA error {rc}")
     dot_launches += 1
@@ -217,26 +349,22 @@ def fused_cg_update_persist_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int,
             and alpha.device == x.device and alpha.dtype == x.dtype):
         raise ValueError("fused_cg_update_persist_cuda: alpha must be a "
                          f"one-element {x.dtype} tensor on {x.device}")
-    fn = _build.function(
-        "fused_cg", f"fused_cg_update_persist_{_SUFFIX[x.dtype]}",
-        [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
+    fn = _function("fused_cg_update_persist", x.dtype, 12,
+                   (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int))
     alpha = alpha.contiguous()
     xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    rz = torch.empty((), dtype=x.dtype, device=x.device)
-    partials = _partials(x, nblocks)
     chunks = torch.empty((nblocks, k_data, chunk), dtype=x.dtype,
                          device=x.device)
     parity = torch.empty((nblocks, nparity, chunk * x.element_size()),
                          dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-                inv_diag.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
-                ro.data_ptr(), zo.data_ptr(), partials.data_ptr(),
-                rz.data_ptr(), n, nblocks,
-                torch.cuda.current_stream(x.device).cuda_stream,
-                chunks.data_ptr(), parity.data_ptr(), k_data, nparity)
+    device, stream, ws = _launch_args(x, nblocks)
+    rz = ws.scalar(x.dtype)
+    rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+            inv_diag.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
+            ro.data_ptr(), zo.data_ptr(), ws.partials_ptr, ws.tickets_ptr,
+            rz.data_ptr(), n, nblocks, device, stream, chunks.data_ptr(),
+            parity.data_ptr(), k_data, nparity)
     if rc != 0:
         raise RuntimeError(f"fused_cg_update_persist kernel launch failed: "
                            f"CUDA error {rc}")

@@ -10,11 +10,16 @@ the arithmetic of :mod:`repro_torch.nvm.gf256`, so the bytes are
 bitwise ``gf256.rs_encode``'s.
 
 On the H100 the encode is bound by memory: ``K + P`` bytes move per
-column.  ``csrc/gf256_encode.cu`` reads each data byte once and writes
-both parity rows from that read, as the TPU kernel does.  The reference
-zero-padded its input to the tile grid; the CUDA kernel masks the tail,
-so any ``L`` works without a copy.  The ``(K, L)`` data tensor is the
-stripe's K chunks side by side (``ErasureSession._shards``).
+column.  ``csrc/gf256_encode.cu`` reads each data byte once, in 16-byte
+words, and writes both parity rows from that read, as the TPU kernel
+does.  It needs no table: Q is Horner's rule over the shards with the
+multiplication by ``g = 2`` done on eight packed bytes at once (exact
+field arithmetic, so the bytes are the table route's).  The reference
+zero-padded its input to the tile grid; the CUDA kernel takes any ``L``
+and any alignment (unaligned rows are shifted into place, the ``L % 16``
+tail bytes are extra loop items), without a copy.  The ``(K, L)`` data
+tensor is the stripe's K chunks side by side
+(``ErasureSession._shards``).
 """
 from __future__ import annotations
 

@@ -52,8 +52,37 @@ def test_fused_cg_kernel_matches_plain_on_card(cuda_device, n, nblocks, dtype,
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
     rz_rel = abs(float(got[3]) - float(want[3])) / abs(float(want[3]))
     assert rz_rel < rz_tol
-    # the fused rz' and det_dot(r', z') share one rounding order
+    # the fused rz' and det_dot(r', z') share one rounding order, the one
+    # det_dot_order_plain writes down
     assert torch.equal(fused_cg.det_dot_cuda(got[1], got[2], nblocks), got[3])
+    assert torch.equal(fused_cg.det_dot_order_plain(got[1], got[2], nblocks),
+                       got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nblocks", [(4096, 8), (8229, 1), (128 * 9, 3),
+                                       (257 * 4096 + 6, 2), (257 * 4096, 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_det_dot_kernel_is_the_documented_order_on_card(cuda_device, n,
+                                                        nblocks, dtype,
+                                                        offset):
+    """det_dot bitwise det_dot_order_plain: 16-byte and one-value loads
+    (offset 1 unaligns the pointers), ragged tiles, and more tile
+    partials than threads; the same bits on every call, and every ticket
+    back at 0 afterwards."""
+    a, b = (torch.from_numpy(rng_normal(s, n + offset)).to(cuda_device, dtype)
+            [offset:] for s in (3, 4))
+    want = fused_cg.det_dot_order_plain(a, b, nblocks)
+    before = fused_cg.dot_launches
+    first = fused_cg.det_dot_cuda(a, b, nblocks)
+    again = fused_cg.det_dot_cuda(a, b, nblocks)
+    torch.cuda.synchronize()
+    assert fused_cg.dot_launches == before + 2
+    assert torch.equal(first, want) and torch.equal(again, want)
+    for workspace in fused_cg._WORKSPACE.values():
+        assert int(workspace.tickets.abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -92,6 +121,22 @@ def test_gf256_encode_kernel_matches_plain_on_card(cuda_device, k_data,
     torch.cuda.synchronize()
     assert gf256_encode.launches == before + 1
     assert torch.equal(got, gf256_encode.gf256_rs_encode_plain(data, nparity))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_data", [1, 16, 255])
+@pytest.mark.parametrize("nparity", [1, 2])
+@pytest.mark.parametrize("length", [1000, 4099])
+def test_gf256_encode_kernel_unaligned_rows_on_card(cuda_device, k_data,
+                                                    nparity, length):
+    """K3 on shards that start 1-15 bytes off a 16-byte boundary, with row
+    lengths that are not multiples of 16 (every row and the Q row start
+    at another misalignment)."""
+    buf = _shards(k_data + length, 1, k_data * length + 16)[0].to(cuda_device)
+    for offset in range(16):
+        data = buf[offset:offset + k_data * length].view(k_data, length)
+        assert torch.equal(gf256_encode.gf256_rs_encode_cuda(data, nparity),
+                           gf256_encode.gf256_rs_encode_plain(data, nparity))
 
 
 @pytest.mark.cuda

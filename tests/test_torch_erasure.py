@@ -168,6 +168,78 @@ def test_plain_encode_validation_matches_reference():
         gf256_encode.gf256_rs_encode_plain(torch.zeros(4, 8), 1)
 
 
+# ----------------------------------------------------------------------
+# K3's table-free arithmetic: SWAR xtime and Horner's rule, in numpy
+# uint64 exactly as csrc/gf256_encode.cu runs them
+# ----------------------------------------------------------------------
+_LOW7, _TOP, _POLY = (np.uint64(0x7F7F7F7F7F7F7F7F),
+                      np.uint64(0x0101010101010101), np.uint64(0x1D))
+
+
+def _xtime64(w):
+    """gf256.cuh's gf_xtime64 on uint64 words."""
+    return ((w & _LOW7) << np.uint64(1)) ^ (((w >> np.uint64(7)) & _TOP) * _POLY)
+
+
+def _swar_encode(data: np.ndarray, nparity: int) -> np.ndarray:
+    """The kernel's encode: 16-byte column words as two little-endian
+    uint64 lanes, the ``L % 16`` tail as one byte per lane; P the XOR of
+    the shards, Q Horner's rule from the last shard, q = xtime(q) ^ d."""
+    k_data, length = data.shape
+    body = length // 16 * 16
+    words = data[:, :body].copy().view("<u8").reshape(k_data, -1)
+    tail = data[:, body:].astype(np.uint64)
+    out = []
+    for part in (words, tail):
+        p = np.zeros(part.shape[1], np.uint64)
+        q = np.zeros(part.shape[1], np.uint64)
+        for j in range(k_data - 1, -1, -1):
+            p ^= part[j]
+            q = _xtime64(q) ^ part[j]
+        out.append((p, q))
+    rows = []
+    for r in range(nparity):
+        rows.append(np.concatenate([out[0][r].view(np.uint8),
+                                    out[1][r].astype(np.uint8)]))
+    return np.stack(rows)
+
+
+def test_swar_xtime_is_gf_mul_by_two_in_every_lane():
+    text = (CSRC / "gf256.cuh").read_text()
+    body = re.search(r"gf_xtime64\(uint64_t w\) \{([^}]*)\}", text).group(1)
+    assert re.findall(r"0x[0-9a-f]+", body) == [
+        "0x7f7f7f7f7f7f7f7f", "0x0101010101010101", "0x1d"]
+    byte = np.arange(256, dtype=np.uint8)
+    want = ref_gf256.gf_mul(np.full(256, 2, np.uint8), byte)
+    for lane in range(8):
+        # byte b in this lane, a different byte in every other lane
+        packed = np.zeros((256, 8), np.uint8)
+        packed[:] = (byte[:, None] + np.arange(8, dtype=np.uint8) * 37)
+        packed[:, lane] = byte
+        got = _xtime64(packed.copy().view("<u8")[:, 0]).view(np.uint8)
+        got = got.reshape(256, 8)
+        assert np.array_equal(got[:, lane], want)
+        assert np.array_equal(got, ref_gf256.gf_mul(
+            np.full((256, 8), 2, np.uint8), packed))
+
+
+@pytest.mark.parametrize("k_data", [1, 2, 4, 6, 16, 255])
+@pytest.mark.parametrize("nparity", [1, 2])
+@pytest.mark.parametrize("length", [1, 7, 8, 17, 4099])
+def test_swar_horner_encode_matches_numpy_and_pallas(k_data, nparity, length):
+    data = _shards(k_data * 7919 + nparity * 13 + length, k_data, length)
+    data[0] = 0
+    if k_data > 1:
+        data[-1] = 0xFF
+    got = _swar_encode(data, nparity)
+    want = np.stack(ref_gf256.rs_encode(list(data), nparity))
+    assert np.array_equal(got, want)
+    pallas = gf256_rs_encode_pallas(list(data), nparity, interpret=True)
+    assert np.array_equal(got, np.stack(pallas))
+    plain = gf256_encode.gf256_rs_encode_plain(torch.from_numpy(data), nparity)
+    assert np.array_equal(got, plain.numpy())
+
+
 def test_cpu_encode_launches_no_kernel():
     ops.reset_launch_counts()
     ops.rs_encode(torch.from_numpy(_shards(1, 4, 33)), 2)

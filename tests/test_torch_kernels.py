@@ -7,6 +7,9 @@ them (``mode="pallas"``, interpreted) in float32/bfloat16, and against
 the reference's float64 jnp operators.  The kernels themselves are
 held against these plain versions on the card in test_torch_cuda.py.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,3 +143,109 @@ def test_det_rowdots_matches_reference(nblocks):
     want = np.asarray(ref_rowdots(nblocks)(jnp.asarray(m), jnp.asarray(w)))
     got = make_det_rowdots(nblocks)(torch.from_numpy(m), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13)
+
+
+# ----------------------------------------------------------------------
+# det_dot's reduction order (csrc/fused_cg.cu, det_dot_order_plain)
+# ----------------------------------------------------------------------
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
+ORDER_DTYPES = {"float64": (np.float64, torch.float64, jnp.float64, 1e-12),
+                "float32": (np.float32, torch.float32, jnp.float32, 1e-4),
+                "bfloat16": (np.float32, torch.bfloat16, None, 3e-2)}
+
+
+def test_order_constants_match_the_cuda_source():
+    text = (CSRC / "fused_cg.cu").read_text()
+    defined = dict(re.findall(r"#define (\w+) (.+)", text))
+    assert int(defined["THREADS"]) == fused_cg.THREADS
+    assert int(defined["ITEMS"]) == fused_cg.ITEMS
+    assert defined["WARPS"] == "(THREADS / 32)"
+    assert fused_cg.WARPS == fused_cg.THREADS // 32
+    assert fused_cg.TILE == fused_cg.THREADS * fused_cg.ITEMS
+
+
+@pytest.mark.parametrize("dtype", list(ORDER_DTYPES))
+@pytest.mark.parametrize("nblocks", [1, 3, 8])
+@pytest.mark.parametrize("block_size", [1, 4097, 2 * 4096 + 13])
+def test_det_dot_order_plain_matches_block_dot_and_reference(dtype, nblocks,
+                                                             block_size):
+    np_dt, t_dt, j_dt, rtol = ORDER_DTYPES[dtype]
+    n = nblocks * block_size
+    a = rng_normal(nblocks * 100 + block_size, n, dtype=np_dt)
+    b = rng_normal(nblocks * 100 + block_size + 1, n, dtype=np_dt)
+    ta, tb = torch.from_numpy(a).to(t_dt), torch.from_numpy(b).to(t_dt)
+    got = fused_cg.det_dot_order_plain(ta, tb, nblocks)
+    assert got.dim() == 0 and got.dtype == t_dt
+    want = float(fused_cg.block_dot_plain(ta, tb, nblocks))
+    scale = float((ta.double() * tb.double()).abs().sum())
+    assert abs(float(got) - want) <= rtol * scale
+    if j_dt is not None:
+        ref = float(make_det_dot(nblocks)(jnp.asarray(a, j_dt),
+                                          jnp.asarray(b, j_dt)))
+        assert abs(float(got) - ref) <= rtol * scale
+
+
+def _scalar_order_dot(a, b, nblocks, one):
+    """The order in fused_cg.cu's header comment, one addition at a time,
+    with ``one(x)`` rounding to the accumulation type."""
+    threads, items = fused_cg.THREADS, fused_cg.ITEMS
+    vec = 16 // a.itemsize
+
+    def tree(values):
+        while len(values) > 1:
+            h = len(values) // 2
+            values = [one(values[i] + values[i + h]) for i in range(h)]
+        return values[0]
+
+    def cta(per_thread):
+        warps = [tree(per_thread[w * 32:(w + 1) * 32])
+                 for w in range(fused_cg.WARPS)]
+        return tree(warps)
+
+    bs = a.shape[0] // nblocks
+    tiles = -(-bs // fused_cg.TILE)
+    block_sums = []
+    for blk in range(nblocks):
+        tile_sums = []
+        for tile in range(tiles):
+            per_thread = []
+            for t in range(threads):
+                local = one(0.0)
+                for g in range(items // vec):
+                    for v in range(vec):
+                        off = tile * fused_cg.TILE + (g * threads + t) * vec + v
+                        if off < bs:
+                            i = blk * bs + off
+                            local = one(local + one(one(a[i]) * one(b[i])))
+                per_thread.append(local)
+            tile_sums.append(cta(per_thread))
+        per_thread = []
+        for t in range(threads):
+            s = one(0.0)
+            for j in range(t, tiles, threads):
+                s = one(s + tile_sums[j])
+            per_thread.append(s)
+        block_sums.append(cta(per_thread))
+    total = block_sums[0]
+    for s in block_sums[1:]:
+        total = one(total + s)
+    return total
+
+
+@pytest.mark.parametrize("dtype,n,nblocks", [
+    ("float64", 3 * (4096 + 37), 3), ("float64", 8 * 1001, 8),
+    ("float64", 2 * 4096 + 5, 1), ("float64", 257 * 4096 + 5, 1),
+    ("float32", 3 * (4096 + 37), 3), ("float32", 8 * 1001, 8)])
+def test_det_dot_order_plain_equals_the_documented_order(dtype, n, nblocks):
+    """The vectorised emulation adds in exactly the order the CUDA source
+    documents (steps 1-4), bit for bit; the last float64 case has more
+    tile partials than threads, so step 3 runs two rounds."""
+    np_dt = np.float64 if dtype == "float64" else np.float32
+    a = rng_normal(n, n, dtype=np_dt)
+    b = rng_normal(n + 1, n, dtype=np_dt)
+    one = float if dtype == "float64" else np.float32
+    want = _scalar_order_dot(a, b, nblocks, one)
+    got = fused_cg.det_dot_order_plain(torch.from_numpy(a),
+                                       torch.from_numpy(b), nblocks)
+    assert np.asarray(got.item(), np_dt).tobytes() == \
+        np.asarray(want, np_dt).tobytes()
