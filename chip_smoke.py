@@ -41,9 +41,30 @@ non-zero and prints no result line):
    and fused routes of x4+p, x4+2p and x6+2p must be bitwise equal; K3
    and K4 must have launched;
 6. convergence — a 64^3 ``nvm-homogeneous`` solve with a block kill must
-   converge to 1e-10.
+   converge to 1e-10;
+7. zoo — at 256^3 (``nblocks=8``, Jacobi preconditioning) each zoo
+   solver runs a failure-free solve and one with blocks (1, 2) failing
+   mid-way, at the same iteration cap, each on its own backend:
+   ``jacobi`` on ``replicated(nvm-prd x2)`` (one mirror's storage node
+   killed first), ``chebyshev`` on ``tiered(nvm-prd)``, ``bicgstab`` on
+   ``esr`` with three copies, ``gmres`` (m = 20, 3 cycles) on the fused
+   ``erasure(nvm-prd x4+p)`` stripe; each recovered run must equal its
+   failure-free run at rtol = atol = 1e-8 with equal iteration counts,
+   and K1, det_dot (and K3 for GMRES) must have launched;
+8. ``solve_jit`` — the PCG loop as a CUDA graph to tol 1e-10 at 256^3:
+   its ``x`` must be bitwise the driver's unprotected loop's at the same
+   ``k``; graph ms / iteration beside the driver's and the kernels'
+   device times;
+9. advisor and block Jacobi — ``api.advise`` at 256^3 for a single-block
+   and a double-PRD-loss campaign (the second must choose
+   ``erasure(nvm-prd x6+2p)``), and block-Jacobi PCG at 16^3/8 (test
+   scale: dense per-block factors) on the card against the same solve on
+   the CPU at rtol 1e-10.
 
-The line before the last is the kernel summary ``{"kernels": [...]}``;
+Kernel launches are counted from a reset just before each path (phases
+4, 5, 7, 8 and 9) to a reading just after it, graph replays included,
+and summed into the kernel summary.  The line before the last is the
+kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
 
@@ -79,6 +100,22 @@ LOCAL_CG_N = 2 * GRID ** 3 // NBLOCKS
 #: the stripes the small erasure check runs through every route
 SMALL_STRIPES = ("erasure(nvm-prd x4+p)", "erasure(nvm-prd x4+2p)",
                  "erasure(nvm-prd x6+2p)")
+#: phase 7: (solver, options, backend spec, resilience options,
+#: iteration cap, failure iteration); the first event kills one
+#: mirror's storage node where the spec is a mirror
+ZOO_ITERS, ZOO_FAIL_AT = 20, 10
+ZOO_CASES = (
+    ("jacobi", {}, "replicated(nvm-prd x2)", {}, ZOO_ITERS, ZOO_FAIL_AT),
+    ("chebyshev", {}, "tiered(nvm-prd)", {}, ZOO_ITERS, ZOO_FAIL_AT),
+    ("bicgstab", {}, "esr", {"options": {"copies": 3}}, ZOO_ITERS,
+     ZOO_FAIL_AT),
+    ("gmres", {"m": 20}, "erasure(nvm-prd x4+p)", {"fused_persist": True},
+     3, 2),
+)
+#: phase 8: the graph's chunk of PCG iterations
+JIT_CHUNK = 32
+#: phase 9: block-Jacobi PCG at test scale
+BJ_GRID, BJ_NBLOCKS = 16, 8
 
 #: HBM rate (bytes/s) by card model, from NVIDIA's data sheets; the
 #: SXM part is the default for an H100 whose name says neither.
@@ -151,6 +188,36 @@ def device_ms(torch, fn, reps: int = REPS, warmup: int = 3,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def in_graph_ms(torch, fn, prepare=None, reps: int = REPS,
+                windows: int = 3) -> float:
+    """Device time of one call of ``fn`` inside a CUDA graph of ``reps``
+    calls, so no call pays its host work (the median of ``windows``
+    replays, over ``reps``).  ``prepare`` runs on the graph's stream
+    after a warm-up call and before the capture; the graph keeps what
+    it returns alive."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    times = []
+    with torch.cuda.stream(stream):
+        fn()
+        keep = prepare() if prepare is not None else None  # noqa: F841
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        for _ in range(windows):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+    torch.cuda.current_stream().wait_stream(stream)
     return statistics.median(times)
 
 
@@ -738,6 +805,194 @@ def phase_convergence(torch):
     check(res.report.failures_recovered == 1, "64^3 failure not recovered")
 
 
+def phase_zoo(torch, problem):
+    """Each zoo solver at full width on its own backend, failure-free and
+    with blocks (1, 2) failing; returns the launch counts."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer
+
+    totals = {}
+    for solver, opts, backend, res_opts, maxiter, fail_at in ZOO_CASES:
+        spec = api.SolverSpec(solver, tol=1e-10, maxiter=maxiter,
+                              options=opts)
+        resilience = api.ResilienceSpec(backend, **res_opts)
+        events = [api.FailureEvent(blocks=(1, 2), at_iteration=fail_at)]
+        if backend.startswith("replicated"):
+            events.insert(0, api.FailureEvent(at_iteration=fail_at // 2,
+                                              prd=True))
+        runs = {}
+        ops.reset_launch_counts()
+        for label, failures, tracer in (("failure-free", (), None),
+                                        ("blocks (1, 2) fail", events,
+                                         Tracer())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = api.solve(problem, spec, resilience, failures=failures,
+                            tracer=tracer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rep = res.report
+            say("zoo", solver=solver, backend=backend, run=label,
+                iterations=rep.iterations, wall_s=wall,
+                s_per_iteration=wall / max(rep.iterations, 1),
+                relres=rep.final_relres,
+                failures_recovered=rep.failures_recovered,
+                storage_failures=rep.storage_failures,
+                persist_events=rep.persist_events,
+                wasted_iterations=rep.wasted_iterations,
+                recovery_s=None if tracer is None else _recovery_seconds(tracer))
+            runs[label] = res
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        free, hit = runs["failure-free"], runs["blocks (1, 2) fail"]
+        err = max_abs(hit.state.x, free.state.x)
+        ok = bool(torch.allclose(hit.state.x, free.state.x, rtol=1e-8,
+                                 atol=1e-8))
+        say("zoo", solver=solver, backend=backend, launches=counts,
+            x_vs_failure_free_max_abs_err=err, rtol=1e-8, atol=1e-8, ok=ok)
+        check(hit.report.failures_recovered == 1,
+              f"zoo {solver}: failures_recovered="
+              f"{hit.report.failures_recovered}")
+        check(hit.iterations == free.iterations == maxiter,
+              f"zoo {solver}: k={hit.iterations} vs {free.iterations}")
+        check(ok, f"zoo {solver}: recovered x differs from the failure-free "
+              f"run by {err}")
+        needed = ("stencil7", "det_dot") + (
+            ("gf256_rs_encode",) if "fused_persist" in res_opts else ())
+        for name in needed:
+            check(counts[name] > 0, f"zoo {solver}: kernel {name} never "
+                  f"launched")
+        for name, count in counts.items():
+            totals[name] = totals.get(name, 0) + count
+        del runs, free, hit, res
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_jit(torch, problem, records):
+    """solve_jit's CUDA graph against the driver's unprotected loop at
+    the same k; returns the launch counts."""
+    from repro_torch import api
+    from repro_torch.core import solve_jit
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, k = solve_jit(problem.op, problem.precond, problem.b, tol=1e-10,
+                     chunk=JIT_CHUNK, info=info)
+    torch.cuda.synchronize()
+    jit_wall = time.perf_counter() - t0
+    check(info["graph"], "solve_jit did not capture a CUDA graph")
+    t0 = time.perf_counter()
+    driver = api.solve(problem, api.SolverSpec("pcg", tol=0.0, maxiter=k))
+    torch.cuda.synchronize()
+    driver_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    same = bool(torch.equal(x, driver.state.x))
+    replayed = info["chunks"] * info["chunk"]
+    graph_ms = 1e3 * info["chunk_s"] / replayed
+    kernels_ms = (records["stencil7"]["device_ms"]
+                  + records["fused_cg_update"]["device_ms"]
+                  + 2 * records["det_dot"]["device_ms"])
+    relres = float(torch.linalg.vector_norm(
+        problem.b - problem.op.apply(x)) / torch.linalg.vector_norm(problem.b))
+    say("jit", k=k, chunk=info["chunk"], chunks_replayed=info["chunks"],
+        launches_per_chunk=info["launches_per_chunk"],
+        eager_iterations=info["eager_iterations"],
+        capture_s=info["capture_s"], wall_s=jit_wall,
+        graph_ms_per_iteration=graph_ms,
+        driver_iterations=driver.iterations,
+        driver_ms_per_iteration=1e3 * driver_wall / k,
+        kernels_device_ms_per_iteration=kernels_ms,
+        kernels="K1 + K2 + 2 det_dot device_ms (phase 3)", relres=relres,
+        x_bitwise_driver=same, launches=counts)
+    check(driver.iterations == k, f"driver ran {driver.iterations} != {k}")
+    check(same, "solve_jit's x is not bitwise the driver's at the same k")
+    check(relres < 1e-9, f"solve_jit relres {relres}")
+    for name in ("stencil7", "fused_cg_update", "det_dot"):
+        check(info["launches_per_chunk"][name] > 0,
+              f"the graph holds no {name} launch")
+    del x, driver
+
+    # det_dot's per-call time with the host work gone: inside a graph
+    from repro_torch.kernels import fused_cg as k2
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a, b = (torch.randn(GRID ** 3, generator=gen, device="cuda",
+                        dtype=torch.float64) for _ in range(2))
+    graph_dots = {}
+    for label, u, v, nb in (("256^3/8", a, b, NBLOCKS),
+                            ("local CG", a[:LOCAL_CG_N], b[:LOCAL_CG_N], 1)):
+        graph_dots[label] = dict(
+            det_dot_in_graph_ms=in_graph_ms(
+                torch, lambda: k2.det_dot_cuda(u, v, nb),
+                prepare=lambda: k2.workspace(u, nb).reserve_scalars(
+                    torch.float64, REPS)),
+            torch_dot_in_graph_ms=in_graph_ms(torch, lambda: torch.dot(u, v)))
+    say("jit", in_graph=graph_dots)
+    records["det_dot"].update(in_graph_ms=graph_dots["256^3/8"][
+        "det_dot_in_graph_ms"], local_cg_in_graph=graph_dots["local CG"])
+    del a, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_advise(torch, problem):
+    """The spec advisor at full width and block-Jacobi PCG at test scale
+    against the CPU; returns the launch counts."""
+    from repro_torch import api
+    from repro_torch.convert import problem_from_numpy
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    campaigns = {
+        "single block": [api.FailureEvent(blocks=(1,), at_iteration=6)],
+        "double PRD loss": api.FailureCampaign((
+            api.FailureEvent(blocks=(1,), at_iteration=6, prd=True),
+            api.FailureEvent(blocks=(2,), at_iteration=10, prd=True))),
+    }
+    chosen = {}
+    for label, campaign in campaigns.items():
+        t0 = time.perf_counter()
+        advice = api.advise(problem, campaign)
+        say("advise", grid=[GRID] * 3, campaign=label, chosen=advice.chosen,
+            seconds=time.perf_counter() - t0,
+            ranked=[[r.spec, r.storage_values, r.persist_cost_s]
+                    for r in advice.ranked],
+            rejected=[r.spec for r in advice.rejected])
+        chosen[label] = advice.chosen
+    check(chosen["double PRD loss"] == "erasure(nvm-prd x6+2p)",
+          f"double-PRD-loss advice {chosen['double PRD loss']}")
+    check(chosen["single block"] is not None, "no spec survives one block")
+
+    card = api.Problem.poisson(BJ_GRID, nblocks=BJ_NBLOCKS,
+                               preconditioner="block_jacobi", device=DEVICE)
+    # the same problem on the CPU, from the card's right-hand side
+    host = problem_from_numpy(card.op.grid, BJ_NBLOCKS, card.b.cpu().numpy(),
+                              "block_jacobi", device="cpu")
+    spec = api.SolverSpec("pcg", tol=1e-10)
+    failure = [api.FailureEvent(blocks=(1, 2), at_iteration=5)]
+    runs = [api.solve(p, spec, "nvm-prd", failures=failure)
+            for p in (card, host)]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    got, want = runs[0].state.x.cpu(), runs[1].state.x
+    ok = bool(torch.allclose(got, want, rtol=1e-10, atol=1e-10))
+    say("block_jacobi", scale="test scale: dense per-block Cholesky factors",
+        grid=[BJ_GRID] * 3, nblocks=BJ_NBLOCKS,
+        iterations=runs[0].iterations, cpu_iterations=runs[1].iterations,
+        converged=runs[0].converged,
+        failures_recovered=runs[0].report.failures_recovered,
+        vs_cpu_max_abs_err=max_abs(got, want), rtol=1e-10, atol=1e-10,
+        ok=ok, launches=counts)
+    check(ok and runs[0].iterations == runs[1].iterations
+          and runs[0].converged, "block-Jacobi PCG on the card != the CPU")
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -806,12 +1061,15 @@ def main() -> int:
             return 0
         records = phase_kernels(torch, rate)
         counts, problem, recovered = phase_main_path(torch)
-        counts.update({name: count for name, count in
-                       phase_erasure(torch, problem, recovered).items()
-                       if name in ("gf256_rs_encode",
-                                   "fused_cg_update_persist")})
-        del problem, recovered
+        paths = [counts, phase_erasure(torch, problem, recovered)]
+        del recovered
         phase_convergence(torch)
+        paths.append(phase_zoo(torch, problem))
+        paths.append(phase_jit(torch, problem, records))
+        paths.append(phase_advise(torch, problem))
+        del problem
+        counts = {name: sum(path[name] for path in paths) for name in records}
+        say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,6 @@
 """``repro_torch.api`` — the front door of the port: problem, solver,
-resilience, solve (port of the ``repro/api.py`` subset the main path
-needs).
+resilience, solve, advise (port of ``repro/api.py`` without the
+multi-tenant service).
 
 A recoverable solve is three declarations and one call; it runs on the
 CUDA device unless the problem is built with ``device="cpu"``::
@@ -9,17 +9,20 @@ CUDA device unless the problem is built with ``device="cpu"``::
 
     result = api.solve(
         api.Problem.poisson(64, nblocks=8),
-        api.SolverSpec("pcg"),
-        api.ResilienceSpec("nvm-prd", persist_mode="overlap"),
+        api.SolverSpec("chebyshev"),
+        api.ResilienceSpec("replicated(nvm-prd x2)", persist_mode="overlap"),
         failures=[api.FailureEvent(blocks=(1, 2), at_iteration=20)],
     )
     assert result.converged
 
-The solve takes its device from the problem's tensors.  Of the
-composite backends, the ``erasure(<child> xK+Pp)`` stripe is ported
-(with ``ResilienceSpec(fused_persist=True)``); the replicated and tiered
-composites, the advisor, sharding and the multi-tenant service are not
-ported yet.
+The solve takes its device from the problem's tensors.  Every solver of
+the zoo (``pcg``, ``jacobi``, ``chebyshev``, ``bicgstab``, ``gmres``)
+runs on every backend family: ``esr``, ``nvm-prd``, ``nvm-homogeneous``
+and the composites ``replicated(...)``, ``tiered(...)`` and
+``erasure(<child> xK+Pp)`` (with ``ResilienceSpec(fused_persist=True)``
+the stripe encodes on the device).  :func:`advise` ranks candidate specs
+against a failure campaign.  Sharding and the multi-tenant service are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -45,7 +48,10 @@ from repro_torch.solvers.driver import (
     FailurePlan,
     SolveConfig,
     SolveReport,
+    SpecAdvice,
+    SpecRanking,
     UnsurvivableCampaignError,
+    advise_spec,
     plan_campaign,
 )
 from repro_torch.solvers.registry import SOLVERS, make_backend, make_solver
@@ -56,6 +62,8 @@ __all__ = [
     "ResilienceSpec",
     "SolveResult",
     "solve",
+    "advise",
+    "default_candidate_specs",
     "solver_names",
     "backend_names",
     "BackendCapabilities",
@@ -64,6 +72,9 @@ __all__ = [
     "CampaignPlan",
     "UnsurvivableCampaignError",
     "plan_campaign",
+    "advise_spec",
+    "SpecAdvice",
+    "SpecRanking",
     "FailureCampaign",
     "FailureEvent",
     "FailurePlan",
@@ -72,9 +83,59 @@ __all__ = [
 ]
 
 
+#: the composite spec families — they take arguments, so the default
+#: candidate list names one canonical instantiation of each
+_COMPOSITE_FAMILIES = ("replicated", "tiered", "erasure")
+
+
 def solver_names() -> list:
     """All registered solver names."""
     return sorted(SOLVERS)
+
+
+def default_candidate_specs() -> Tuple[str, ...]:
+    """The advisor's default candidate list: every non-composite
+    registered backend by name, plus canonical instantiations of each
+    composite family across the footprint/distance trade-off."""
+    base = tuple(n for n in backend_names() if n not in _COMPOSITE_FAMILIES)
+    return base + (
+        "tiered(nvm-prd)",
+        "replicated(nvm-prd x2)",
+        "replicated(nvm-prd x3)",
+        "erasure(nvm-prd x4+p)",
+        "erasure(nvm-prd x6+2p)",
+    )
+
+
+def advise(
+    problem: "Problem",
+    campaign,
+    candidates: Optional[Sequence[str]] = None,
+    solver: Union["SolverSpec", str] = "pcg",
+    dtype: Any = np.float64,
+    tracer=None,
+) -> SpecAdvice:
+    """Rank candidate resilience specs against a campaign for this
+    problem: each spec is built (sized for the problem, persisting the
+    solver's schema), filtered through
+    :func:`~repro_torch.solvers.driver.plan_campaign`, and the survivors
+    ranked by storage footprint with the modeled persist cost of one
+    probe event of ``problem.op.n`` values as tie-breaker
+    (:func:`~repro_torch.solvers.driver.advise_spec`).  The solver is
+    built on the problem's device (a Chebyshev solver takes its
+    spectral bounds there); the probe writes run on the host.  A
+    ``tracer`` (repro_torch.obs) records per-candidate
+    ``advise.candidate`` events and the ``advise.chosen`` verdict."""
+    if isinstance(solver, str):
+        solver = SolverSpec(solver)
+    built_solver = solver.build(problem)
+    if candidates is None:
+        candidates = default_candidate_specs()
+    built = [(spec, make_backend(spec, problem.op, dtype=dtype,
+                                 solver=built_solver))
+             for spec in candidates]
+    return advise_spec(campaign, built, probe_values=problem.op.n,
+                       tracer=tracer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,8 +202,10 @@ class SolverSpec:
 class ResilienceSpec:
     """Which persistence backend, and how persistence is scheduled.
 
-    ``backend`` is a registry name or stripe spec (``"nvm-prd"``,
-    ``"nvm-homogeneous"``, ``"erasure(nvm-prd x4+2p)"``), an already-built :class:`~repro_torch.nvm.backend.PersistenceBackend`,
+    ``backend`` is a registry name or composable spec string
+    (``"nvm-prd"``, ``"esr"``, ``"replicated(nvm-prd x2)"``,
+    ``"tiered(nvm-homogeneous)"``, ``"erasure(nvm-prd x4+2p)"``), an
+    already-built :class:`~repro_torch.nvm.backend.PersistenceBackend`,
     or None for an unprotected run.  ``persist_mode`` picks the pipeline
     ("sync" or "overlap"); ``period`` the ESRP persistence period;
     ``plan_campaigns`` keeps the pre-flight campaign planner on.
@@ -165,6 +228,28 @@ class ResilienceSpec:
             return self.backend
         return make_backend(self.backend, problem.op, dtype=self.dtype,
                             solver=solver, **dict(self.options))
+
+    @classmethod
+    def advise(cls, problem: Problem, campaign,
+               candidates: Optional[Sequence[str]] = None,
+               solver: Union["SolverSpec", str] = "pcg",
+               **spec_kwargs) -> "ResilienceSpec":
+        """The cheapest-spec advisor: return a :class:`ResilienceSpec`
+        for the cheapest candidate whose declared capabilities carry
+        ``campaign`` — e.g. a double-storage-loss campaign picks
+        ``erasure(nvm-prd x6+2p)`` (1.33x storage) over
+        ``replicated(nvm-prd x3)`` (3x) on footprint grounds.
+        ``spec_kwargs`` (``persist_mode``, ``period``, ...) are forwarded
+        to the spec.  Raises :class:`UnsurvivableCampaignError` when no
+        candidate survives; use :func:`advise` for the full ranking."""
+        advice = advise(problem, campaign, candidates, solver=solver,
+                        dtype=spec_kwargs.get("dtype", np.float64))
+        if advice.chosen is None:
+            raise UnsurvivableCampaignError(
+                "no candidate spec survives the campaign: "
+                + "; ".join(f"[{r.spec}] {r.reason}"
+                            for r in advice.rejected))
+        return cls(advice.chosen, **spec_kwargs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
-"""Preconditioned Conjugate Gradient, one iteration at a time (port of
-``repro/core/pcg.py:46-77``).
+"""Preconditioned Conjugate Gradient, one iteration at a time, and the
+fused perf-path solve (port of ``repro/core/pcg.py``).
 
 One iteration (paper Algorithm 1 lines 3-8) runs
 
@@ -12,19 +12,28 @@ with ``alpha`` and ``beta`` kept as 0-d device tensors: the step never
 pulls a value to the host.  :func:`make_persist_step` is the same
 iteration with K4 (``ops.fused_cg_update_persist``) in place of K2: it
 also hands back the erasure stripe of the input ``p`` (its chunks and
-parity), and its state is bitwise the K2 step's.  The preconditioner must be diagonal (it
-exposes ``inv_diag``, which K2 reads).  We use ``alpha = r'z / p'Ap``,
-identical to the paper's ``r'z / r'Ap`` in exact arithmetic.
+parity), and its state is bitwise the K2 step's.  Both need a diagonal
+preconditioner (one that exposes ``inv_diag``, which K2 reads);
+:func:`make_generic_step` is the reference's unfused step for any other
+(block Jacobi): K1, ``det_dot`` for both dots, ``precond.apply`` for
+``z`` and plain tensor arithmetic for ``x`` and ``r``.  We use ``alpha =
+r'z / p'Ap``, identical to the paper's ``r'z / r'Ap`` in exact
+arithmetic.
+
+:func:`solve_jit` is the reference's fused perf path: PCG with no
+recovery hooks, its loop captured as a CUDA graph on the card.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.spmv import make_det_dot
 from repro_torch.core.state import PCGState
-from repro_torch.kernels import ops
+from repro_torch.kernels import fused_cg, ops
 
 
 def init_state(op, precond, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
@@ -69,6 +78,25 @@ def make_step(op_apply: Callable, inv_diag: torch.Tensor,
     return step
 
 
+def make_generic_step(op_apply: Callable, precond_apply: Callable,
+                      nblocks: int) -> Callable[[PCGState], PCGState]:
+    """One PCG iteration with any preconditioner (the reference's step,
+    ``repro/core/pcg.py:51-77``): K1 for ``A p``, the ``nblocks`` block
+    dot for both inner products, ``precond_apply`` for ``z``."""
+    dot = make_det_dot(nblocks)
+
+    def update(x, r, p, ap, alpha):
+        x = x + alpha * p                                        # line 4
+        r = r - alpha * ap                                       # line 5
+        z = precond_apply(r)                                     # line 6
+        return x, r, z, dot(r, z)
+
+    def step(state: PCGState) -> PCGState:
+        return _iteration(state, op_apply, dot, update)[0]
+
+    return step
+
+
 def make_persist_step(op_apply: Callable, inv_diag: torch.Tensor,
                       nblocks: int, k_data: int, nparity: int
                       ) -> Callable[[PCGState], Tuple[PCGState, Dict]]:
@@ -87,3 +115,186 @@ def make_persist_step(op_apply: Callable, inv_diag: torch.Tensor,
         return new, {"p": (chunks, parity)}
 
     return step
+
+
+# ----------------------------------------------------------------------
+# The fused perf path: the loop as a CUDA graph
+# ----------------------------------------------------------------------
+_FIELDS = ("x", "r", "z", "p", "rz", "beta_prev")
+#: 0-d results one captured iteration takes from the reduction's pool:
+#: det_dot(p, ap), K2's rz' and det_dot(r, r)
+_SCALARS_PER_ITERATION = 3
+
+
+class _Chunk:
+    """``size`` PCG iterations on static buffers.  :meth:`run` keeps the
+    chunk's starting state in ``backup``, writes each iteration's ``rr =
+    det_dot(r, r)`` into its slot of ``rr`` and copies the end state
+    back into ``buf``: the same calls whether they run eagerly or are
+    captured once and replayed."""
+
+    def __init__(self, step: Callable, dot: Callable, state: PCGState,
+                 size: int):
+        self.step, self.dot, self.size = step, dot, size
+        self.buf = {f: getattr(state, f).clone() for f in _FIELDS}
+        self.backup = {f: t.clone() for f, t in self.buf.items()}
+        self.rr = torch.empty(size, dtype=state.r.dtype, device=state.r.device)
+
+    def state(self, k: int) -> PCGState:
+        return PCGState(k=k, **self.buf)
+
+    def run(self) -> None:
+        for f, t in self.buf.items():
+            self.backup[f].copy_(t)
+        st = self.state(0)
+        for j in range(self.size):
+            st = self.step(st)
+            self.rr[j].copy_(self.dot(st.r, st.r))
+        for f, t in self.buf.items():
+            t.copy_(getattr(st, f))
+
+    def restore(self) -> None:
+        for f, t in self.buf.items():
+            t.copy_(self.backup[f])
+
+
+class _ChunkGraph:
+    """A :class:`_Chunk` captured as a CUDA graph on a stream of its own;
+    the solve's launches all go to that stream (enter :attr:`stream`).
+
+    Where the capture could go wrong, and what is done about it:
+
+    - *The workspace reallocates.*  ``fused_cg._Workspace.reserve``
+      replaces ``partials`` and ``tickets`` when a larger geometry comes
+      to the same stream, and a graph captured before that would write
+      into freed memory.  The capture runs on its own stream after a
+      warm-up of its one geometry there, and the graph keeps a
+      reference to the workspace tensors whose pointers it captured.
+    - *Scalar-pool views can be freed.*  The 0-d results are views of a
+      pool that lives on only through its views.  The pool is topped up
+      before the capture so the captured iterations take their results
+      from it, and the graph keeps every view of it.
+    - *Launch counters miss replays.*  A captured launch is counted once
+      and a replay runs no Python: the capture's counts are taken back
+      and each :meth:`replay` counts the launches of one chunk
+      (``ops.uncount_capture`` / ``ops.count_replay``).
+    - *No host reads and no workspace allocation in the capture.*  The
+      chunk reads nothing on the host (a read would break the capture),
+      and the workspace's allocation count must not move across it.
+    """
+
+    def __init__(self, chunk: _Chunk, step: Callable, nblocks: int):
+        device = chunk.rr.device
+        self.stream = torch.cuda.Stream(device)
+        self.stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self.stream):
+            # warm-up: the one geometry (n, nblocks) reserves its
+            # workspace on this stream, outside the capture
+            warm = step(chunk.state(0))
+            chunk.dot(warm.r, warm.r)
+            ws = fused_cg.workspace(warm.r, nblocks)
+            del warm
+            views = ws.reserve_scalars(
+                chunk.rr.dtype, _SCALARS_PER_ITERATION * chunk.size)
+            self._keep = (ws.partials, ws.tickets, views)
+            allocations = ws.allocations
+            before = ops.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                chunk.run()
+            self.per_chunk = ops.uncount_capture(before)
+        if ws.allocations != allocations:
+            raise RuntimeError(
+                "the workspace allocated during the CUDA-graph capture; "
+                "the graph would hold pointers it does not own")
+
+    def replay(self) -> None:
+        self.graph.replay()
+        ops.count_replay(self.per_chunk)
+
+
+def solve_jit(op, precond, b: torch.Tensor, tol: float = 1e-10,
+              maxiter: int = 10_000, chunk: int = 32,
+              info: Optional[dict] = None) -> Tuple[torch.Tensor, int]:
+    """Fused PCG with no recovery hooks: the perf path (the reference's
+    ``solve_jit``).
+
+    The reference's contract: PCG from ``x0 = 0``, stopping at the first
+    ``k`` where ``rr = det_dot(r, r)`` is not above ``tol^2 * (b.b)`` or at
+    ``maxiter``; returns ``(x, k)``.  The port's step fuses the
+    preconditioner into K2, which needs its ``inv_diag`` and the
+    operator's ``nblocks``, so it takes the operator and preconditioner
+    objects ``(op, precond)`` where the reference takes their apply
+    functions.  Every dot is ``det_dot``; the state is bitwise that of
+    the driver's unprotected PCG loop at the same ``k``.
+
+    The loop runs in chunks of ``chunk`` iterations.  On a CUDA tensor a
+    chunk is captured once as a CUDA graph and replayed; on a CPU tensor
+    the same chunk runs eagerly (dispatch on the device, not a
+    fallback).  After each chunk the host reads its ``chunk`` values of
+    ``rr`` at once.  When the stop falls inside a chunk, the chunk's
+    starting state is restored and its first iterations rerun eagerly
+    with the same step and kernels, so ``k`` is exact at one host sync
+    per chunk.  ``info``, when given, is filled with the chunk size,
+    the chunks run (``chunks``), the launches of one chunk
+    (``launches_per_chunk``, graph only), the host seconds of the
+    warm-up and capture (``capture_s``) and of the chunks with their
+    reads (``chunk_s``), and the iterations rerun eagerly.
+    """
+    inv_diag = getattr(precond, "inv_diag", None)
+    if inv_diag is None:
+        raise ValueError(
+            f"solve_jit fuses a diagonal preconditioner into kernel K2; "
+            f"{type(precond).__name__} exposes no inv_diag")
+    step = make_step(op.apply, inv_diag, op.nblocks)
+    dot = make_det_dot(op.nblocks)
+    state = init_state(op, precond, b, dot=dot)
+    threshold = (tol * tol) * float(dot(b, b))
+    on_card = b.device.type == "cuda"
+    stats = {} if info is None else info
+    stats.update(chunk=0, chunks=0, graph=on_card, launches_per_chunk=None,
+                 capture_s=0.0, chunk_s=0.0, eager_iterations=0)
+    if maxiter <= 0 or not float(dot(state.r, state.r)) > threshold:
+        return state.x, 0
+
+    size = min(chunk, maxiter)
+    body = _Chunk(step, dot, state, size)
+    run, context = body.run, contextlib.nullcontext()
+    if on_card:
+        t0 = time.perf_counter()
+        graph = _ChunkGraph(body, step, op.nblocks)
+        stats.update(launches_per_chunk=graph.per_chunk,
+                     capture_s=time.perf_counter() - t0)
+        run, context = graph.replay, torch.cuda.stream(graph.stream)
+    stats["chunk"] = size
+    k = 0
+    with context:
+        while True:
+            t0 = time.perf_counter()
+            run()
+            rr = body.rr.tolist()  # the chunk's one host read
+            stats["chunk_s"] += time.perf_counter() - t0
+            stats["chunks"] += 1
+            stop = next((j + 1 for j, v in enumerate(rr)
+                         if not v > threshold), None)
+            todo = min(size if stop is None else stop, maxiter - k)
+            if todo < size:
+                # the stop (or maxiter) falls inside the chunk: back to its
+                # start, then its first `todo` iterations eagerly, on the
+                # same kernels and so the same bits
+                body.restore()
+                st = body.state(k)
+                for _ in range(todo):
+                    st = step(st)
+                x, k = st.x, k + todo
+                stats["eager_iterations"] = todo
+                break
+            k += size
+            if stop is not None or k >= maxiter:
+                x = body.buf["x"]
+                break
+    if on_card:
+        current = torch.cuda.current_stream(b.device)
+        current.wait_stream(graph.stream)
+        x.record_stream(current)
+    return x, k

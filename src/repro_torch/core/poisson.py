@@ -176,8 +176,9 @@ def random_spd(n: int, seed: int = 0, cond: float = 50.0) -> np.ndarray:
 # ======================================================================
 # Preconditioners.  ``apply`` computes z = P r.  Reconstruction needs
 # ``block_solve`` (solve P[F,F] r_F = v) and ``offblock_apply``
-# (P[F,~F] r[~F]).  Both families here are diagonal and expose
-# ``inv_diag``, which the fused update (K2) reads directly.
+# (P[F,~F] r[~F]).  The diagonal families expose ``inv_diag``, which the
+# fused update (K2) reads directly; block Jacobi does not, so PCG takes
+# its unfused step with it.
 # ======================================================================
 class IdentityPreconditioner:
     def __init__(self, op):
@@ -212,9 +213,45 @@ class JacobiPreconditioner:
         return torch.zeros_like(self.op.partition.restrict(r, blocks))
 
 
+class BlockJacobiPreconditioner:
+    """P = blockdiag(A[s,s]^{-1}) aligned with the process blocks.
+
+    ``apply`` solves the per-block systems with dense Cholesky factors
+    made once on the operator's device (test scale, as in the
+    reference; production would use a local CG).  For reconstruction,
+    ``P[F,F]^{-1} = blockdiag(A[s,s])``: the *forward* local stencil
+    application, so ``block_solve`` is exact and runs K1.
+    """
+
+    def __init__(self, op):
+        self.op = op
+        bs = op.partition.block_size
+        eye = torch.eye(bs, dtype=op.dtype, device=op.device)
+        # column j of A[s,s] is A[s,s] e_j: one batched apply per block
+        self._chol = torch.stack([
+            torch.linalg.cholesky(op.inblock_apply(eye, [b]).T)
+            for b in range(op.nblocks)])
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        part = self.op.partition
+        lead = r.shape[:-1]
+        rb = r.reshape(*lead, part.nblocks, part.block_size, 1)
+        return torch.cholesky_solve(rb, self._chol).reshape(r.shape)
+
+    def block_solve(self, v: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
+        # P[F,F] r_F = v  =>  r_F = blockdiag(A[s,s]) v : per-block forward apply
+        vb = v.reshape(len(blocks), self.op.partition.block_size)
+        return torch.cat([self.op.inblock_apply(vb[i], [b])
+                          for i, b in enumerate(blocks)])
+
+    def offblock_apply(self, r: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
+        return torch.zeros_like(self.op.partition.restrict(r, blocks))
+
+
 PRECONDITIONERS = {
     "identity": IdentityPreconditioner,
     "jacobi": JacobiPreconditioner,
+    "block_jacobi": BlockJacobiPreconditioner,
 }
 
 

@@ -199,13 +199,16 @@ class _Workspace:
     share it.  Each result is a view of a pool slot, made ahead in one
     ``unbind`` and handed out once, never reused (a spent pool lives on
     only through its views), which costs the host less per call than
-    allocating a tensor."""
+    allocating a tensor.  ``allocations`` counts the tensors the
+    workspace has made, so a CUDA-graph capture can check it made
+    none."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.partials = self.tickets = None
         self.slots = 0
         self.pools = {}
+        self.allocations = 0
 
     def reserve(self, slots: int, counters: int) -> None:
         if self.slots < slots or self.tickets.numel() < counters:
@@ -217,13 +220,25 @@ class _Workspace:
                                        dtype=torch.int32, device=self.device)
             self.partials_ptr = self.partials.data_ptr()
             self.tickets_ptr = self.tickets.data_ptr()
+            self.allocations += 2
+
+    def reserve_scalars(self, dtype: torch.dtype, count: int) -> list:
+        """Make sure the next ``count`` results of ``dtype`` come from the
+        current pool (a new pool if fewer are left); returns the pool's
+        views, whose storage the caller may keep alive."""
+        pool = self.pools.get(dtype)
+        if pool is None or len(pool) < count:
+            pool = torch.empty(max(count, SCALAR_SLOTS), dtype=dtype,
+                               device=self.device).unbind()[::-1]
+            pool = self.pools[dtype] = list(pool)
+            self.allocations += 1
+        return list(pool)
 
     def scalar(self, dtype: torch.dtype) -> torch.Tensor:
         pool = self.pools.get(dtype)
         if not pool:
-            pool = torch.empty(SCALAR_SLOTS, dtype=dtype,
-                               device=self.device).unbind()[::-1]
-            pool = self.pools[dtype] = list(pool)
+            self.reserve_scalars(dtype, 1)
+            pool = self.pools[dtype]
         return pool.pop()
 
 
@@ -253,6 +268,12 @@ def _launch_args(x: torch.Tensor, nblocks: int):
                    nblocks + 1)
         args = _LAUNCH[key] = (device, stream, ws)
     return args
+
+
+def workspace(x: torch.Tensor, nblocks: int) -> _Workspace:
+    """The workspace the kernels of this module use for ``x``'s geometry
+    on ``x``'s device and the current stream (reserved for it)."""
+    return _launch_args(x, nblocks)[2]
 
 
 def fused_cg_update_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int = 1

@@ -74,8 +74,12 @@ def fused_cg_update_persist(x, r, p, ap, alpha, inv_diag, nblocks: int,
         x, r, p, ap, alpha, inv_diag, nblocks, k_data, nparity)
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+#: launches made by CUDA-graph replays since the last reset (a replay
+#: runs no Python, so the wrappers' own counters never see them)
+_replayed: Dict[str, int] = {}
+
+
+def _wrapper_counts() -> Dict[str, int]:
     return {"stencil7": _stencil7.launches,
             "fused_cg_update": _fused_cg.update_launches,
             "det_dot": _fused_cg.dot_launches,
@@ -83,9 +87,39 @@ def launch_counts() -> Dict[str, int]:
             "fused_cg_update_persist": _fused_cg.persist_launches}
 
 
+def _set_wrapper_counts(counts: Dict[str, int]) -> None:
+    _stencil7.launches = counts["stencil7"]
+    _fused_cg.update_launches = counts["fused_cg_update"]
+    _fused_cg.dot_launches = counts["det_dot"]
+    _gf256_encode.launches = counts["gf256_rs_encode"]
+    _fused_cg.persist_launches = counts["fused_cg_update_persist"]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`, graph
+    replays included."""
+    return {name: count + _replayed.get(name, 0)
+            for name, count in _wrapper_counts().items()}
+
+
 def reset_launch_counts() -> None:
-    _stencil7.launches = 0
-    _fused_cg.update_launches = 0
-    _fused_cg.dot_launches = 0
-    _gf256_encode.launches = 0
-    _fused_cg.persist_launches = 0
+    _set_wrapper_counts(dict.fromkeys(_wrapper_counts(), 0))
+    _replayed.clear()
+
+
+def uncount_capture(before: Dict[str, int]) -> Dict[str, int]:
+    """Undo the counts the wrappers recorded since ``before`` (a
+    :func:`launch_counts` reading taken just before a CUDA-graph
+    capture: a captured launch is recorded, not run) and return them:
+    the launches one replay of the graph makes."""
+    after = launch_counts()
+    per_replay = {name: after[name] - before[name] for name in after}
+    _set_wrapper_counts({name: count - per_replay[name]
+                         for name, count in _wrapper_counts().items()})
+    return per_replay
+
+
+def count_replay(per_replay: Dict[str, int]) -> None:
+    """Count the launches of one CUDA-graph replay."""
+    for name, count in per_replay.items():
+        _replayed[name] = _replayed.get(name, 0) + count

@@ -9,13 +9,15 @@ device encode).
   ``begin/commit/drain/abort`` (overlapped pipeline), ``persist``
   (synchronous write-through), ``fetch``, ``durable_run`` and the failure
   injection points ``fail`` / ``fail_storage``.
-- :class:`CoreBackendSession` over the schema-driven NVM backends, and
-  the backend registry with its spec parser, holding ``nvm-prd``,
-  ``nvm-homogeneous`` and the K+P Reed-Solomon stripe ``erasure(...)``
-  (:class:`ErasureCodedBackend`, :class:`ErasureSession`).
+- :class:`CoreBackendSession` over the schema-driven core backends, and
+  the backend registry with its composable spec parser, holding
+  ``esr``, ``nvm-prd``, ``nvm-homogeneous`` and the composites: the
+  N-way mirror ``replicated(...)`` (:class:`ReplicatedBackend`), the RAM
+  front ``tiered(...)`` (:class:`TieredBackend`) and the K+P
+  Reed-Solomon stripe ``erasure(...)`` (:class:`ErasureCodedBackend`,
+  :class:`ErasureSession`).
 
-The replicated and tiered composites, the in-memory ``esr`` backend and
-the deprecated pre-zoo entry points are not ported yet.  The slot wire
+The deprecated pre-zoo entry points are not ported yet.  The slot wire
 format is the reference's, byte for byte.
 """
 from __future__ import annotations
@@ -520,6 +522,287 @@ def open_persist_session(backend, schema: RecoverySchema,
 
 
 # ----------------------------------------------------------------------
+# Composite backends
+# ----------------------------------------------------------------------
+def _join_tiers(children) -> str:
+    tiers = []
+    for c in children:
+        t = c.capabilities.durability
+        if t not in tiers:
+            tiers.append(t)
+    return "+".join(tiers)
+
+
+class ReplicatedSession(PersistSession):
+    """Mirror every event to all live children; fetch by quorum.
+
+    Quorum rule (DESIGN.md §7): mirrors are written in lockstep, every
+    slot is content-addressed (``k``) and CRC-validated by the child,
+    so **any single mirror that serves the complete requested run is
+    authoritative**.  A mirror whose storage died, or that cannot
+    produce the full run, is skipped; only when *no* mirror can serve
+    the run does the fetch raise :class:`UnrecoverableFailure`.
+    """
+
+    def __init__(self, backend: "ReplicatedBackend", schema, partition):
+        super().__init__(schema)
+        self._backend = backend
+        self._children = [open_persist_session(c, schema, partition)
+                          for c in backend.children]
+
+    def set_tracer(self, tracer) -> None:
+        super().set_tracer(tracer)
+        for s in self._children:
+            s.set_tracer(tracer)
+
+    def set_encode_mode(self, mode: str) -> None:
+        for s in self._children:
+            s.set_encode_mode(mode)
+
+    def bind_shards(self, shard_of_block=None, slot_nbytes=None) -> None:
+        # children get the addressing map but not the meter (slot size):
+        # replicated traffic is counted once at the top of the tree
+        super().bind_shards(shard_of_block, slot_nbytes)
+        for s in self._children:
+            s.bind_shards(shard_of_block=shard_of_block)
+
+    def _live(self) -> List[PersistSession]:
+        return [s for s in self._children if not s._storage_down]
+
+    # Mirror puts leave the same origin NIC back to back, so the
+    # origin-visible cost of a replicated event is the SUM over mirrors
+    # (the mirroring overhead the benchmarks report), while staging is
+    # still a single local copy per child pipeline.
+    def begin(self, k, scalars, vectors) -> float:
+        if self._live():
+            self._note_persist_traffic()
+        return sum(s.begin(k, scalars, vectors) for s in self._live())
+
+    def commit(self) -> float:
+        if self._trace is None:
+            return sum(s.commit() for s in self._live())
+        cost = 0.0
+        for i, s in enumerate(self._children):
+            if s._storage_down:
+                continue
+            c = s.commit()
+            self._trace.event("mirror.commit", mirror=i, cost_s=c)
+            cost += c
+        return cost
+
+    def drain(self) -> float:
+        return sum(s.drain() for s in self._live())
+
+    def abort(self) -> None:
+        for s in self._children:
+            s.abort()
+
+    def persist(self, k, scalars, vectors) -> float:
+        if self._live():
+            self._note_persist_traffic()
+        return sum(s.persist(k, scalars, vectors) for s in self._live())
+
+    def fail(self, blocks: Sequence[int]) -> None:
+        for s in self._children:
+            s.fail(blocks)
+
+    def fail_storage(self) -> None:
+        """One mirror's storage node crashes (mirrors die in order:
+        the first storage-loss event takes mirror 0, the next mirror 1,
+        ...).  The composite itself stays up while any mirror lives."""
+        for s in self._children:
+            if not s._storage_down:
+                s.fail_storage()
+                break
+        if not self._live():
+            self._storage_down = True
+
+    def fetch(self, failed_blocks, ks) -> List[RecoverySet]:
+        errors = []
+        for i, s in enumerate(self._children):
+            if s._storage_down:
+                errors.append(f"mirror {i}: storage lost")
+                continue
+            try:
+                sets = s.fetch(failed_blocks, ks)
+            except (UnrecoverableFailure, RuntimeError) as e:
+                errors.append(f"mirror {i}: {e}")
+                if self._trace is not None:
+                    self._trace.event("mirror.fetch", mirror=i, served=False,
+                                      skipped=len(errors) - 1)
+                continue
+            if self._trace is not None:
+                self._trace.event("mirror.fetch", mirror=i, served=True,
+                                  skipped=len(errors))
+            # quorum semantics: ONE mirror served the whole request, so
+            # the recovery moved exactly one copy of the lost slots
+            self._note_fetch_traffic(failed_blocks, len(ks))
+            return sets
+        raise UnrecoverableFailure(
+            f"no mirror of {len(self._children)} can serve iterations "
+            f"{tuple(ks)} for blocks {tuple(failed_blocks)}: "
+            + "; ".join(errors))
+
+    def durable_run(self) -> Optional[int]:
+        runs = [s.durable_run() for s in self._live()]
+        runs = [r for r in runs if r is not None]
+        return max(runs) if runs else None
+
+
+class ReplicatedBackend(PersistenceBackend):
+    """RAID-1-style mirroring across N child backends.
+
+    In particular ``ReplicatedBackend`` over two ``nvm-prd`` children
+    realizes the ROADMAP's "RAID-style PRD redundancy": two PRD nodes,
+    each receiving every persistence epoch, so a campaign event that
+    crashes one PRD node is absorbed and recovery proceeds from the
+    surviving mirror — exactly.
+    """
+
+    name = "replicated"
+
+    def __init__(self, children: Sequence[PersistenceBackend]):
+        if len(children) < 2:
+            raise ValueError(
+                f"replication needs >= 2 children, got {len(children)} — "
+                f"a single child adds cost without redundancy")
+        schemas = {getattr(c, "schema", None) for c in children}
+        if len(schemas) != 1:
+            raise ValueError("all mirrors must persist the same schema")
+        self.children = list(children)
+        self.schema = self.children[0].schema
+
+    @property
+    def capabilities(self) -> BackendCapabilities:
+        caps = [c.capabilities for c in self.children]
+        maxes = [c.max_block_failures for c in caps]
+        return BackendCapabilities(
+            durability=_join_tiers(self.children),
+            survives_node_loss=all(c.survives_node_loss for c in caps),
+            # the defining property: one full mirror may die
+            survives_prd_loss=True,
+            overlap=(OVERLAP_NATIVE
+                     if all(c.overlap == OVERLAP_NATIVE for c in caps)
+                     else OVERLAP_DRIVER_STAGED),
+            max_block_failures=(None if all(m is None for m in maxes)
+                                else min(m for m in maxes if m is not None)),
+            # every mirror may absorb its own tolerance and then die;
+            # only the last surviving mirror must stay reachable
+            max_storage_failures=(
+                sum(c.max_storage_failures + 1 for c in caps) - 1),
+        )
+
+    def open_session(self, schema=None, partition=None) -> PersistSession:
+        return ReplicatedSession(self, _validate_schema(self, schema),
+                                 partition)
+
+    def memory_overhead_values(self) -> int:
+        return sum(c.memory_overhead_values() for c in self.children)
+
+    def nvm_values(self) -> int:
+        return sum(c.nvm_values() for c in self.children)
+
+
+class TieredSession(PersistSession):
+    """RAM-front staging into a single child session."""
+
+    def __init__(self, backend: "TieredBackend", schema, partition):
+        super().__init__(schema)
+        self._child = open_persist_session(backend.child, schema, partition)
+        self._front = RAMFront(self._child.persist, tier=backend.front_tier)
+
+    def set_tracer(self, tracer) -> None:
+        super().set_tracer(tracer)
+        self._front._stager.tracer = self._trace
+        self._child.set_tracer(tracer)
+
+    def set_encode_mode(self, mode: str) -> None:
+        self._child.set_encode_mode(mode)
+
+    def bind_shards(self, shard_of_block=None, slot_nbytes=None) -> None:
+        super().bind_shards(shard_of_block, slot_nbytes)
+        self._child.bind_shards(shard_of_block=shard_of_block)
+
+    def begin(self, k, scalars, vectors) -> float:
+        self._note_persist_traffic()
+        return self._front.begin(k, scalars, vectors)
+
+    def commit(self) -> float:
+        return self._front.commit()
+
+    def drain(self) -> float:
+        return self._front.drain() + self._child.drain()
+
+    def abort(self) -> None:
+        self._front.abort()
+        self._child.abort()
+
+    def persist(self, k, scalars, vectors) -> float:
+        self._note_persist_traffic()
+        return self._child.persist(k, scalars, vectors)
+
+    def fail(self, blocks: Sequence[int]) -> None:
+        self._front.abort()  # the staged front is volatile — it dies
+        self._child.fail(blocks)
+
+    def fail_storage(self) -> None:
+        self._front.abort()
+        self._child.fail_storage()
+        self._storage_down = self._child._storage_down
+
+    def fetch(self, failed_blocks, ks) -> List[RecoverySet]:
+        sets = self._child.fetch(failed_blocks, ks)
+        self._note_fetch_traffic(failed_blocks, len(ks))
+        return sets
+
+    def durable_run(self) -> Optional[int]:
+        return self._child.durable_run()
+
+
+class TieredBackend(PersistenceBackend):
+    """A volatile RAM front staging into any child backend.
+
+    The front gives *every* child an overlapped ``begin/commit``
+    pipeline (capability ``overlap="native"`` from the driver's point
+    of view) while durability, node-loss and PRD-loss guarantees remain
+    the child's.  This is the first-class form of the staging path the
+    driver used to improvise for non-pipelined backends.
+    """
+
+    name = "tiered"
+
+    def __init__(self, child: PersistenceBackend,
+                 front_tier: Tier = Tier.DRAM):
+        if front_tier is not Tier.DRAM:
+            # fail at composition time, not mid-solve in open_session
+            raise ValueError("only a DRAM front is calibrated; see §7")
+        self.child = child
+        self.front_tier = front_tier
+        self.schema = getattr(child, "schema", None)
+
+    @property
+    def capabilities(self) -> BackendCapabilities:
+        c = self.child.capabilities
+        return BackendCapabilities(
+            durability=c.durability,
+            survives_node_loss=c.survives_node_loss,
+            survives_prd_loss=c.survives_prd_loss,
+            overlap=OVERLAP_NATIVE,
+            max_block_failures=c.max_block_failures,
+            max_storage_failures=c.max_storage_failures,
+        )
+
+    def open_session(self, schema=None, partition=None) -> PersistSession:
+        return TieredSession(self, _validate_schema(self, schema), partition)
+
+    def memory_overhead_values(self) -> int:
+        return self.child.memory_overhead_values()
+
+    def nvm_values(self) -> int:
+        return self.child.nvm_values()
+
+
+# ----------------------------------------------------------------------
 # Erasure-coded composition (RAID-5/6-style rotating parity, DESIGN.md §8)
 # ----------------------------------------------------------------------
 #: reserved scalar every stripe child persists alongside the solver's
@@ -891,15 +1174,6 @@ class ErasureSession(PersistSession):
         return min(runs)
 
 
-def _join_tiers(children) -> str:
-    tiers = []
-    for c in children:
-        t = c.capabilities.durability
-        if t not in tiers:
-            tiers.append(t)
-    return "+".join(tiers)
-
-
 class ErasureCodedBackend(PersistenceBackend):
     """K+P erasure coding (Reed-Solomon over GF(2^8), P ∈ {1, 2}) with
     rotating parity placement over K+P children.
@@ -1022,6 +1296,7 @@ class ErasureCodedBackend(PersistenceBackend):
 # name -> factory(nblocks, block_size, dtype, schema=..., **opts)
 _REGISTRY: Dict[str, Callable] = {}
 _SPEC_RE = re.compile(r"^(?P<name>[\w.-]+)\s*(?:\((?P<args>[^()]*)\))?$")
+_CHILD_RE = re.compile(r"^(?P<child>[\w.-]+)\s*[x×]\s*(?P<n>\d+)$")
 _STRIPE_RE = re.compile(
     r"^(?P<child>[\w.-]+)\s*[x×]\s*(?P<n>\d+)\s*\+\s*(?P<p>\d+)?p$")
 
@@ -1048,9 +1323,10 @@ def register_backend_class(name: str, cls) -> None:
 
 
 def _ensure_builtin() -> None:
-    # The core backends register themselves at import; import them
+    # The three core backends register themselves at import; import them
     # lazily here to avoid a core <-> nvm module cycle.
-    if "nvm-prd" not in _REGISTRY:
+    if "esr" not in _REGISTRY:
+        import repro_torch.core.esr  # noqa: F401
         import repro_torch.core.nvm_esr  # noqa: F401
 
 
@@ -1071,18 +1347,19 @@ def unknown_name_error(kind: str, name: str, have) -> KeyError:
 
 
 def parse_backend_spec(spec: str) -> Tuple[str, dict]:
-    """Parse a backend spec string into ``(name, opts)``.
+    """Parse a composable backend spec string into ``(name, opts)``.
 
     Grammar::
 
-        "nvm-prd"                -> ("nvm-prd", {})
-        "erasure(nvm-prd x4+p)"  -> ("erasure", {"data": ("nvm-prd",)*4,
-                                                 "nparity": 1})
-        "erasure(nvm-prd x6+2p)" -> ("erasure", {"data": ("nvm-prd",)*6,
-                                                 "nparity": 2})
-
-    Argument text of any other family is kept so :func:`create_backend`
-    can refuse it by name."""
+        "nvm-prd"                      -> ("nvm-prd", {})
+        "replicated(nvm-prd x2)"       -> ("replicated", {"children": ("nvm-prd",)*2})
+        "replicated(nvm-prd,nvm-homogeneous)"
+        "tiered(nvm-homogeneous)"      -> ("tiered", {"child": "nvm-homogeneous"})
+        "erasure(nvm-prd x4+p)"        -> ("erasure", {"data": ("nvm-prd",)*4,
+                                                       "nparity": 1})
+        "erasure(nvm-prd x6+2p)"       -> ("erasure", {"data": ("nvm-prd",)*6,
+                                                       "nparity": 2})
+    """
     m = _SPEC_RE.match(spec.strip())
     if m is None:
         raise ValueError(f"malformed backend spec {spec!r}")
@@ -1100,14 +1377,25 @@ def parse_backend_spec(spec: str) -> Tuple[str, dict]:
                 f"'erasure(nvm-prd x6+2p)'")
         return name, {"data": (stripe.group("child"),) * int(stripe.group("n")),
                       "nparity": int(stripe.group("p") or 1)}
+    if name == "replicated":
+        xn = _CHILD_RE.match(args)
+        if xn is not None:
+            return name, {"children": (xn.group("child"),) * int(xn.group("n"))}
+        return name, {"children": tuple(a.strip() for a in args.split(",") if a.strip())}
+    if name == "tiered":
+        return name, {"child": args}
+    # Parsing is purely syntactic; whether the name exists (and whether
+    # it takes arguments) is judged by create_backend, so misspelled
+    # composites still get a did-you-mean hint.
     return name, {"spec_args": args}
 
 
 def create_backend(spec: str, nblocks: int, block_size: int,
                    dtype=np.float64, **opts) -> PersistenceBackend:
-    """Build a backend from a registry name or stripe spec (the single
-    constructor path: :func:`repro_torch.solvers.registry.make_backend`
-    sizes it from an operator)."""
+    """Build a backend from a registry name or composable spec string
+    (the single constructor path:
+    :func:`repro_torch.solvers.registry.make_backend` sizes it from an
+    operator)."""
     _ensure_builtin()
     name, spec_opts = parse_backend_spec(spec)
     if name not in _REGISTRY:
@@ -1117,6 +1405,24 @@ def create_backend(spec: str, nblocks: int, block_size: int,
             f"backend {name!r} takes no spec arguments, got {spec!r}")
     merged = {**spec_opts, **opts}
     return _REGISTRY[name](nblocks, block_size, dtype, **merged)
+
+
+def _replicated_factory(nblocks, block_size, dtype,
+                        children: Sequence = ("nvm-prd", "nvm-prd"),
+                        schema=None, **opts) -> ReplicatedBackend:
+    built = [c if isinstance(c, PersistenceBackend)
+             else create_backend(c, nblocks, block_size, dtype,
+                                 schema=schema, **opts)
+             for c in children]
+    return ReplicatedBackend(built)
+
+
+def _tiered_factory(nblocks, block_size, dtype, child="nvm-homogeneous",
+                    schema=None, **opts) -> TieredBackend:
+    built = (child if isinstance(child, PersistenceBackend)
+             else create_backend(child, nblocks, block_size, dtype,
+                                 schema=schema, **opts))
+    return TieredBackend(built)
 
 
 def _erasure_factory(nblocks, block_size, dtype,
@@ -1150,4 +1456,6 @@ def _erasure_factory(nblocks, block_size, dtype,
                                encode=encode)
 
 
+register_backend("replicated", _replicated_factory)
+register_backend("tiered", _tiered_factory)
 register_backend("erasure", _erasure_factory)

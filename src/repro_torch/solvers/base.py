@@ -27,6 +27,13 @@ def solver_dot(op):
     return make_det_dot(op.nblocks)
 
 
+def base_operator(op):
+    """Unwrap a delegating operator wrapper exposing ``base`` (the
+    reference's sharded operator) for code that dispatches on the
+    concrete operator type, e.g. closed-form spectral bounds."""
+    return getattr(op, "base", op)
+
+
 def device_norm(v: torch.Tensor) -> float:
     """``||v||`` computed on ``v``'s device (``sqrt(det_dot(v, v))``); only
     the scalar crosses to the host."""

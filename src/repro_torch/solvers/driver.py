@@ -1,6 +1,6 @@
 """Generic ESR solve loop for any :class:`RecoverableSolver` (port of
-``repro/solvers/driver.py``: the config, campaign, planner, report,
-persistence pipeline and solve loop; the spec advisor, the batched
+``repro/solvers/driver.py``: the config, campaign, planner, spec
+advisor, report, persistence pipeline and solve loop; the batched
 service step and sharded solves are not ported yet).
 
 The runtime machinery of the paper:
@@ -31,6 +31,7 @@ shards, encoded on the device first (kernel K3, or K4 inside the step).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -107,7 +108,7 @@ class FailureEvent:
     (the PRD node / pool service) at the trigger: staged payloads die,
     unflushed epochs are torn away, and — unless the backend's
     :class:`~repro_torch.nvm.backend.BackendCapabilities` declare
-    ``survives_prd_loss`` (the ``erasure(...)`` stripe) — any
+    ``survives_prd_loss`` (mirrors, the ``erasure(...)`` stripe) — any
     later recovery fetch raises
     :class:`~repro_torch.nvm.backend.UnrecoverableFailure`.  A ``prd`` event
     may carry no blocks (the PRD dies alone; the solve itself
@@ -300,6 +301,123 @@ def _plan_campaign_walk(campaign,
             at_iteration=ev.at_iteration, blocks=tuple(sorted(union)),
             storage_losses=losses, restarts=restarts))
     return CampaignPlan(tuple(recoveries), losses)
+
+
+# ----------------------------------------------------------------------
+# The cheapest-spec advisor (DESIGN.md §8): plan_campaign as a filter,
+# declared footprint + modeled persist cost as the ranking.
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SpecRanking:
+    """One candidate's evaluation by :func:`advise_spec`.
+
+    - ``spec`` — the candidate's spec string (registry-composable).
+    - ``survivable`` — whether :func:`plan_campaign` accepted the
+      campaign against the candidate's declared capabilities.
+    - ``reason`` — the planner's rejection message ("" when survivable).
+    - ``storage_values`` — declared redundancy footprint in values (RAM
+      overhead + persistent-tier residency), the primary ranking key.
+    - ``persist_cost_s`` — modeled cost of one full persist event
+      through the candidate (the probe write), the tie-breaker; NaN
+      when no probe size was given.
+    """
+
+    spec: str
+    survivable: bool
+    reason: str
+    storage_values: int
+    persist_cost_s: float
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecAdvice:
+    """The advisor's verdict: the cheapest survivable spec (``chosen``,
+    None when nothing survives), every survivor cheapest-first
+    (``ranked``), and the rejected candidates with the planner's reason
+    (``rejected``)."""
+
+    chosen: Optional[str]
+    ranked: Tuple[SpecRanking, ...]
+    rejected: Tuple[SpecRanking, ...]
+
+
+def _probe_persist_cost(backend, nvalues: int) -> float:
+    """Modeled per-event cost of persisting one full durable run
+    (``schema.history`` synthetic zero events) through ``backend``.
+    The probe fills slots ``k=0..history-1``, so callers hand the
+    advisor disposable, freshly built candidates — it also settles
+    residency-based footprint accounting (the in-memory backend counts
+    *resident* values, which are zero before anything is persisted)."""
+    schema = backend.schema
+    session = backend.open_session(schema)
+    scalars = {s: 0.0 for s in schema.scalars}
+    vectors = {v: np.zeros(nvalues) for v in schema.vectors}
+    costs = [session.persist(k, scalars, vectors)
+             for k in range(schema.history)]
+    return float(sum(costs) / len(costs))
+
+
+def advise_spec(campaign, candidates,
+                probe_values: Optional[int] = None,
+                tracer=None) -> SpecAdvice:
+    """Pick the cheapest candidate spec whose declared capabilities
+    carry ``campaign``.
+
+    ``candidates`` maps spec strings to *freshly built* backends (a
+    mapping or a ``(spec, backend)`` sequence — build them with
+    :func:`repro_torch.solvers.registry.make_backend`;
+    ``repro_torch.api.advise`` does this from a
+    :class:`~repro_torch.api.Problem`).  Each candidate is filtered
+    through :func:`plan_campaign` against its
+    :class:`~repro_torch.nvm.backend.BackendCapabilities`, then the
+    survivors are ranked by declared storage footprint
+    (``memory_overhead_values() + nvm_values()``, the paper's Fig. 2/8
+    quantity) with the modeled per-event persist cost as tie-breaker —
+    probed with one synthetic event of ``probe_values`` values when
+    given (candidates are disposable: the probe writes their slot 0).
+
+    Returns a :class:`SpecAdvice`; ``advice.chosen`` is None when no
+    candidate survives (callers decide whether that is an error — the
+    :meth:`repro_torch.api.ResilienceSpec.advise` surface raises
+    :class:`UnsurvivableCampaignError`).  A ``tracer`` (repro_torch.obs)
+    records one ``advise.candidate`` event per candidate and a final
+    ``advise.chosen`` verdict.
+    """
+    trace = tracer or None
+    items = (list(candidates.items()) if hasattr(candidates, "items")
+             else list(candidates))
+    ranked: List[SpecRanking] = []
+    rejected: List[SpecRanking] = []
+    for spec, backend in items:
+        try:
+            plan_campaign(campaign, backend.capabilities)
+        except UnsurvivableCampaignError as e:
+            storage = int(backend.memory_overhead_values()
+                          + backend.nvm_values())
+            rejected.append(SpecRanking(spec, False, str(e), storage,
+                                        float("nan")))
+            if trace is not None:
+                trace.event("advise.candidate", spec=spec, survivable=False,
+                            storage_values=storage)
+            continue
+        cost = (float("nan") if probe_values is None
+                else _probe_persist_cost(backend, probe_values))
+        # footprint measured after the probe, so residency-based
+        # accounting (peer-RAM ESR) reflects a persisted run too
+        storage = int(backend.memory_overhead_values() + backend.nvm_values())
+        ranked.append(SpecRanking(spec, True, "", storage, cost))
+        if trace is not None:
+            trace.event("advise.candidate", spec=spec, survivable=True,
+                        storage_values=storage, persist_cost_s=cost)
+    ranked.sort(key=lambda r: (r.storage_values,
+                               math.inf if math.isnan(r.persist_cost_s)
+                               else r.persist_cost_s))
+    chosen = ranked[0].spec if ranked else None
+    if trace is not None:
+        trace.event("advise.chosen", spec=chosen,
+                    survivors=len(ranked), rejected=len(rejected))
+    return SpecAdvice(chosen=chosen,
+                      ranked=tuple(ranked), rejected=tuple(rejected))
 
 
 @dataclasses.dataclass
@@ -522,8 +640,12 @@ class PersistencePipeline:
         self.stage_geometry = None
         if self.fused:
             self.device_vectors = isinstance(self.session, ErasureSession)
+            # K4 fuses a diagonal preconditioner (inv_diag) into the
+            # update; any other (block Jacobi) stages through K3 at the
+            # flush
             if (self.overlap and self.device_vectors
-                    and hasattr(solver, "make_persist_step")):
+                    and hasattr(solver, "make_persist_step")
+                    and getattr(precond, "inv_diag", None) is not None):
                 self.stage_geometry = self.session.fused_geometry(
                     _numpy_dtype(b.dtype))
 

@@ -26,25 +26,28 @@ class PCGSolver(RecoverableSolver):
     def init_state(self, op, precond, b, x0=None):
         return _core_pcg.init_state(op, precond, b, x0, dot=solver_dot(op))
 
-    @staticmethod
-    def _inv_diag(precond):
+    def make_step(self, op, precond):
+        """K2's fused step for a diagonal preconditioner (one exposing
+        ``inv_diag``), the unfused step for any other."""
         inv_diag = getattr(precond, "inv_diag", None)
         if inv_diag is None:
-            raise NotImplementedError(
-                f"the port's PCG step fuses a diagonal preconditioner into "
-                f"kernel K2; {type(precond).__name__} exposes no inv_diag")
-        return inv_diag
-
-    def make_step(self, op, precond):
-        return _core_pcg.make_step(op.apply, self._inv_diag(precond),
-                                   op.nblocks)
+            return _core_pcg.make_generic_step(op.apply, precond.apply,
+                                               op.nblocks)
+        return _core_pcg.make_step(op.apply, inv_diag, op.nblocks)
 
     def make_persist_step(self, op, precond, k_data: int, nparity: int):
         """The step with K4 in place of K2: returns ``(state, staged)``,
         ``staged`` mapping ``"p"`` (the input state's, the vector the
-        recovery set persists) to its stripe ``(chunks, parity)``."""
-        return _core_pcg.make_persist_step(op.apply, self._inv_diag(precond),
-                                           op.nblocks, k_data, nparity)
+        recovery set persists) to its stripe ``(chunks, parity)``.  K4
+        fuses the preconditioner, so it must be diagonal (the driver only
+        asks for this step when it is)."""
+        inv_diag = getattr(precond, "inv_diag", None)
+        if inv_diag is None:
+            raise ValueError(
+                f"kernel K4 fuses a diagonal preconditioner; "
+                f"{type(precond).__name__} exposes no inv_diag")
+        return _core_pcg.make_persist_step(op.apply, inv_diag, op.nblocks,
+                                           k_data, nparity)
 
     def recovery_set(self, state, on_device: bool = False) -> RecoverySet:
         p = state.p if on_device else self.host_shard(state.p)

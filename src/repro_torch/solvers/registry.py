@@ -1,8 +1,15 @@
-"""The solver registry and backend factory (port of
-``repro/solvers/registry.py``, PCG only for now).
+"""The solver zoo registry and backend factory (port of
+``repro/solvers/registry.py``, without the deprecated ``BACKENDS``
+table view).
 
-    solver  = make_solver("pcg", op, precond)
-    backend = make_backend("nvm-prd", op, solver=solver)
+Tests and examples iterate ``SOLVERS`` to run every ESR-recoverable
+solver against every persistence backend; the factories wire schemas
+through so each backend's slot layout matches the solver it protects.
+Backends resolve through the single registry in
+:mod:`repro_torch.nvm.backend`, composable spec strings included::
+
+    solver  = make_solver("chebyshev", op, precond)
+    backend = make_backend("replicated(nvm-prd x2)", op, solver=solver)
     state, report, _ = driver.solve(solver, op, b, precond, backend=backend)
 
 Unknown names raise with a did-you-mean hint.
@@ -20,15 +27,24 @@ from repro_torch.nvm.backend import (
     unknown_name_error,
 )
 from repro_torch.solvers.base import RecoverableSolver
+from repro_torch.solvers.bicgstab import BiCGStabSolver
+from repro_torch.solvers.chebyshev import ChebyshevSolver
+from repro_torch.solvers.gmres import RestartedGMRESSolver
+from repro_torch.solvers.jacobi import WeightedJacobiSolver
 from repro_torch.solvers.pcg import PCGSolver
 
 SOLVERS: Dict[str, Type[RecoverableSolver]] = {
     "pcg": PCGSolver,
+    "jacobi": WeightedJacobiSolver,
+    "chebyshev": ChebyshevSolver,
+    "bicgstab": BiCGStabSolver,
+    "gmres": RestartedGMRESSolver,
 }
 
 
 def make_solver(name: str, op=None, precond=None, **opts) -> RecoverableSolver:
-    """Build a registered solver for ``(op, precond)``."""
+    """Build a registered solver, deriving problem-dependent parameters
+    (Chebyshev bounds, Jacobi weight) from ``(op, precond)`` when given."""
     try:
         cls = SOLVERS[name]
     except KeyError:
@@ -45,7 +61,11 @@ def make_backend(
     **opts,
 ) -> PersistenceBackend:
     """Build a registered backend sized for ``op``'s partition, persisting
-    ``solver``'s (or ``schema``'s) recovery set; defaults to PCG's."""
+    ``solver``'s (or ``schema``'s) recovery set; defaults to PCG's.
+
+    ``name`` may be any registry name or a composable spec string —
+    ``"replicated(nvm-prd x2)"``, ``"erasure(nvm-prd x4+p)"``,
+    ``"tiered(nvm-homogeneous)"``."""
     if solver is not None:
         if schema is not None and schema != solver.schema:
             raise ValueError(

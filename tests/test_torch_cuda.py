@@ -188,3 +188,145 @@ def test_fused_persist_kernel_refuses_unstriped_blocks(cuda_device):
         fused_cg.fused_cg_update_persist_cuda(v, v, v, v, a, v, 4, 4, 1)
     with pytest.raises(ValueError, match="nparity must be in"):
         fused_cg.fused_cg_update_persist_cuda(v, v, v, v, a, v, 4, 2, 3)
+
+
+# ----------------------------------------------------------------------
+# solve_jit as a CUDA graph, and the zoo on the card
+# ----------------------------------------------------------------------
+def _poisson(device, grid=16, nblocks=4, preconditioner="jacobi", seed=11):
+    from repro_torch.convert import problem_from_numpy
+
+    b = 0.5 + rng_normal(seed, grid ** 3)
+    return problem_from_numpy((grid,) * 3, nblocks, b, preconditioner,
+                              device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,maxiter", [(32, 10_000), (7, 10_000),
+                                           (8, 20), (16, 16)])
+def test_solve_jit_graph_is_the_eager_loop_bitwise_on_card(cuda_device, chunk,
+                                                           maxiter):
+    """The graph's x is bitwise the driver's unprotected loop's at the
+    same k — a stop inside a chunk, at a chunk's end and at maxiter —
+    and the launch counts include every replay."""
+    from repro_torch import api
+    from repro_torch.core import solve_jit
+
+    problem = _poisson(cuda_device)
+    ops.reset_launch_counts()
+    info = {}
+    x, k = solve_jit(problem.op, problem.precond, problem.b, tol=1e-10,
+                     maxiter=maxiter, chunk=chunk, info=info)
+    counts = ops.launch_counts()
+    size = min(chunk, maxiter)
+    assert info["graph"] and info["chunk"] == size
+    assert info["launches_per_chunk"] == {
+        "stencil7": size, "fused_cg_update": size, "det_dot": 2 * size,
+        "gf256_rs_encode": 0, "fused_cg_update_persist": 0}
+    eager = info["eager_iterations"]
+    # init (K1, 3 dots), warm-up (one step + one dot), the replays, and
+    # the eager rerun of a chunk the stop fell inside
+    assert counts["stencil7"] == 1 + 1 + info["chunks"] * size + eager
+    assert counts["fused_cg_update"] == 1 + info["chunks"] * size + eager
+    free = api.solve(problem, api.SolverSpec("pcg", tol=1e-10))
+    assert k == min(maxiter, free.iterations)
+    driver = api.solve(problem, api.SolverSpec("pcg", tol=0.0, maxiter=k))
+    assert x.device.type == "cuda" and torch.equal(x, driver.state.x)
+    cpu_x, cpu_k = solve_jit(*(_cpu_parts(problem)), tol=1e-10,
+                             maxiter=maxiter, chunk=chunk)
+    assert cpu_k == k
+    torch.testing.assert_close(x.cpu(), cpu_x, rtol=1e-10, atol=1e-12)
+
+
+def _cpu_parts(problem):
+    cpu = _poisson("cpu")
+    assert torch.equal(cpu.b, problem.b.cpu())
+    return cpu.op, cpu.precond, cpu.b
+
+
+@pytest.mark.cuda
+def test_graph_survives_a_grown_workspace_on_card(cuda_device):
+    """After capture, a larger det_dot geometry on the graph's stream
+    replaces the workspace tensors and a spent scalar pool is replaced;
+    freed memory is then refilled with NaN.  Replays still give the
+    eager bits, and a second capture on the grown workspace gives the
+    same x as the first."""
+    from repro_torch.core import pcg, solve_jit
+
+    problem = _poisson(cuda_device)
+    op, pre, b = problem.op, problem.precond, problem.b
+    x_first, k_first = solve_jit(op, pre, b, tol=1e-10, chunk=8)
+    step = pcg.make_step(op.apply, pre.inv_diag, op.nblocks)
+    dot = pcg.make_det_dot(op.nblocks)
+    start = pcg.init_state(op, pre, b, dot=dot)
+    body = pcg._Chunk(step, dot, start, 8)
+    graph = pcg._ChunkGraph(body, step, op.nblocks)
+    with torch.cuda.stream(graph.stream):
+        ws = fused_cg.workspace(b, op.nblocks)
+        old = (ws.partials.data_ptr(), ws.tickets.data_ptr())
+        big = torch.ones(1 << 22, dtype=torch.float64, device=cuda_device)
+        fused_cg.det_dot_cuda(big, big, 1)
+        assert (ws.partials.data_ptr(), ws.tickets.data_ptr()) != old
+        for _ in range(fused_cg.SCALAR_SLOTS):
+            ws.scalar(torch.float64)
+        del big
+        junk = [torch.full((1 << 20,), float("nan"), dtype=torch.float64,
+                           device=cuda_device) for _ in range(8)]
+        for _ in range(2):
+            graph.replay()
+    torch.cuda.current_stream(cuda_device).wait_stream(graph.stream)
+    st = start
+    for _ in range(16):
+        st = step(st)
+    for f in ("x", "r", "z", "p", "rz", "beta_prev"):
+        assert torch.equal(body.buf[f], getattr(st, f)), f
+    del junk
+    x_second, k_second = solve_jit(op, pre, b, tol=1e-10, chunk=8)
+    assert k_second == k_first and torch.equal(x_second, x_first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,opts,fail_at", [
+    ("pcg", {}, 8), ("jacobi", {}, 8), ("chebyshev", {}, 8),
+    ("bicgstab", {}, 8), ("gmres", {"m": 6}, 2)])
+def test_zoo_on_card_matches_the_cpu_port(cuda_device, solver, opts, fail_at,
+                                          monkeypatch):
+    """Each zoo solver with a block failure on the card, against the CPU
+    port on the same inputs.  The CPU run takes det_dot's order on the
+    card (``det_dot_order_plain``): BiCGStab amplifies a last-bit
+    difference in a dot about tenfold per iteration, so with the plain
+    block sum's order the two runs part by 5e-5 after 40 iterations at
+    16^3 (the two orders on the CPU alone)."""
+    from repro_torch import api
+
+    monkeypatch.setattr(fused_cg, "block_dot_plain",
+                        fused_cg.det_dot_order_plain)
+    results = []
+    for device in (cuda_device, "cpu"):
+        results.append(api.solve(
+            _poisson(device), api.SolverSpec(solver, tol=1e-10, maxiter=40,
+                                             options=opts),
+            api.ResilienceSpec("replicated(nvm-prd x2)"),
+            failures=[api.FailureEvent(blocks=(1, 2), at_iteration=fail_at)]))
+    card, cpu = results
+    assert card.state.x.device.type == "cuda"
+    assert card.iterations == cpu.iterations
+    assert card.report.failures_recovered == 1
+    np.testing.assert_allclose(card.x, cpu.x, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_block_jacobi_pcg_on_card_matches_the_cpu_port(cuda_device):
+    from repro_torch import api
+
+    results = [api.solve(_poisson(device, preconditioner="block_jacobi"),
+                         api.SolverSpec("pcg", tol=1e-10),
+                         api.ResilienceSpec("erasure(nvm-prd x4+p)",
+                                            persist_mode="overlap",
+                                            fused_persist=True),
+                         failures=[api.FailureEvent(blocks=(1,),
+                                                    at_iteration=5)])
+               for device in (cuda_device, "cpu")]
+    card, cpu = results
+    assert card.iterations == cpu.iterations and card.converged
+    np.testing.assert_allclose(card.x, cpu.x, rtol=1e-10, atol=1e-10)

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch import api, convert
-from repro_torch.core import poisson
+from repro_torch.core import poisson, solve_jit
 from repro_torch.kernels import _build, fused_cg, gf256_encode, ops, stencil7
 from repro_torch.solvers.driver import SolveConfig
 
@@ -79,6 +79,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
+def _default_problem_parts():
+    problem = api.Problem.poisson(8)
+    return problem.op, problem.precond, problem.b
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -95,8 +100,11 @@ def no_cuda(monkeypatch):
     lambda: api.solve(api.Problem.poisson(8), "pcg",
                       api.ResilienceSpec("erasure(nvm-prd x4+2p)",
                                          fused_persist=True)),
+    lambda: api.advise(api.Problem.poisson(8), []),
+    lambda: solve_jit(*_default_problem_parts()),
 ], ids=["Problem.poisson", "make_poisson_problem", "StencilOperator",
-        "problem_from_numpy", "state_from_numpy", "erasure solve"])
+        "problem_from_numpy", "state_from_numpy", "erasure solve", "advise",
+        "solve_jit"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -107,6 +115,26 @@ def test_cpu_is_served_when_asked(no_cuda):
     assert problem.device.type == "cpu"
     res = api.solve(problem, api.SolverSpec("pcg", maxiter=3))
     assert res.state.x.device.type == "cpu" and res.iterations == 3
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "chebyshev", "bicgstab",
+                                    "gmres"])
+def test_zoo_is_served_on_the_cpu_when_asked(no_cuda, solver):
+    ops.reset_launch_counts()
+    problem = api.Problem.poisson(4, nblocks=2, device="cpu")
+    res = api.solve(problem, api.SolverSpec(solver, maxiter=3),
+                    "replicated(nvm-prd x2)")
+    # a GMRES(20) cycle solves the 64-unknown problem before the cap
+    assert res.state.x.device.type == "cpu" and 1 <= res.iterations <= 3
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_advise_and_solve_jit_are_served_on_the_cpu_when_asked(no_cuda):
+    problem = api.Problem.poisson(4, nblocks=2, device="cpu")
+    assert api.advise(problem, []).chosen is not None
+    info = {}
+    x, k = solve_jit(problem.op, problem.precond, problem.b, info=info)
+    assert x.device.type == "cpu" and k > 0 and info["graph"] is False
 
 
 @pytest.mark.parametrize("mode", ["sync", "overlap"])

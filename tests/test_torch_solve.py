@@ -95,8 +95,11 @@ def test_unsurvivable_and_unported_requests_raise(problems):
     fused = api.solve(port_problem, "pcg",
                       api.ResilienceSpec("nvm-prd", fused_persist=True))
     assert fused.converged
-    with pytest.raises(KeyError, match="unknown backend"):
-        api.solve(port_problem, "pcg", "replicated(nvm-prd x2)")
+    # the replicated composite is ported: it runs
+    mirrored = api.solve(port_problem, "pcg", "replicated(nvm-prd x2)")
+    assert mirrored.converged
+    # still unported: sharded solves and the multi-tenant service
     with pytest.raises(ValueError, match="sharded solve"):
         api.solve(port_problem, "pcg", "nvm-prd",
                   failures=[api.FailureEvent(shard=0, at_iteration=3)])
+    assert not hasattr(api, "serve") and not hasattr(api, "SolveService")
