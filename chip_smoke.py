@@ -26,7 +26,11 @@ non-zero and prints no result line):
    ``nblocks=1``, beside ``torch.dot``), K3 (gf256_rs_encode at P = 2
    and P = 1, bitwise its plain version on the 256^3 chunks, 24 ragged
    and 192 unaligned cases) and K4 (fused_cg_update_persist, bitwise K2
-   on its update outputs);
+   on its update outputs); then the lane modes of the service's bucket
+   step at 4 x 256^3 (fused_cg_update_lanes and det_dot_lanes, each lane
+   bitwise a solo ``nblocks=1`` launch on it, beside
+   ``torch.linalg.vecdot`` for the lane dots) and K1 on the bucket's
+   ``(4, 256, 256, 256)`` grids;
 4. main path — ``api.solve`` of the 256^3 float64 Poisson problem
    (``nblocks=8``, PCG, ``nvm-prd``): unprotected, persisted without
    failure, and with blocks (1, 2) failing at iteration 20 in sync and in
@@ -59,11 +63,23 @@ non-zero and prints no result line):
    and a double-PRD-loss campaign (the second must choose
    ``erasure(nvm-prd x6+2p)``), and block-Jacobi PCG at 16^3/8 (test
    scale: dense per-block factors) on the card against the same solve on
-   the CPU at rtol 1e-10.
+   the CPU at rtol 1e-10;
+10. the multi-tenant service — one 4-lane PCG bucket of 256^3 float64
+   (tenants of 256^3, 240x256^2, 200^3 and 192x256^2 on ``nvm-prd``,
+   ``replicated(nvm-prd x2)`` in overlap, ``erasure(nvm-prd x4+p)``
+   with 4 declared shards and ``nvm-homogeneous``), 30 iterations, run
+   (A) failure-free, (B) with a block kill, a PRD kill and a
+   ``shard=`` kill of three tenants and (C) with the fourth alone: the
+   fourth must be bitwise the same in all three, each victim within
+   rtol = atol = 1e-8 of its run (A), and each bucket step one launch of
+   K1, K2's lane mode and det_dot's; then a 2-lane BiCGStab bucket of
+   128^3 with a block kill (a lane step without K2).  Every bucket step
+   prints its device ms (CUDA events), the host ms of the loop-top
+   passes and each tenant's persist seconds.
 
 Kernel launches are counted from a reset just before each path (phases
-4, 5, 7, 8 and 9) to a reading just after it, graph replays included,
-and summed into the kernel summary.  The line before the last is the
+4, 5, 7, 8, 9 and each run of 10) to a reading just after it, graph
+replays included, and summed into the kernel summary.  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
@@ -116,6 +132,21 @@ ZOO_CASES = (
 JIT_CHUNK = 32
 #: phase 9: block-Jacobi PCG at test scale
 BJ_GRID, BJ_NBLOCKS = 16, 8
+#: phase 10: the multi-tenant service's PCG bucket (256^3, 4 lanes):
+#: (tenant, grid, spec, persist mode, period, declared nshards); each
+#: tenant has nblocks=8 and Jacobi preconditioning
+SVC_LANES, SVC_MAXITER, SVC_NBLOCKS = 4, 30, 8
+SVC_TENANTS = (
+    ("t0", (256, 256, 256), "nvm-prd", "sync", 1, 1),
+    ("t1", (240, 256, 256), "replicated(nvm-prd x2)", "overlap", 3, 1),
+    ("t2", (200, 200, 200), "erasure(nvm-prd x4+p)", "sync", 3, 4),
+    ("t3", (192, 256, 256), "nvm-homogeneous", "sync", 1, 1),
+)
+#: the cohabitant run (B) leaves alone, and the states it captures
+SVC_COHABITANT, SVC_CAPTURE = "t3", (10, 25)
+#: phase 10's BiCGStab bucket (128^3, 2 lanes): a lane step without K2
+SVC_BICG_GRIDS = ((128, 128, 128), (96, 128, 128))
+SVC_BICG_STEPS, SVC_BICG_FAIL_AT = 30, 15
 
 #: HBM rate (bytes/s) by card model, from NVIDIA's data sheets; the
 #: SXM part is the default for an H100 whose name says neither.
@@ -550,7 +581,121 @@ def phase_kernels(torch, rate: float):
     check(e <= 2e-5 and rz_rel < 1e-4, f"fused_cg_update f32 error {e} {rz_rel}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    records.update(lane_kernels(torch, rate, records))
     return records
+
+
+def lane_kernels(torch, rate: float, records: dict) -> dict:
+    """The lane modes of K2 and det_dot (the service's bucket step) at
+    SVC_LANES x 256^3 float64: each lane bitwise a solo nblocks=1 launch
+    on it, the bucket against the plain lane version, both timing
+    columns beside the bound; K1 on the bucket's (lanes, 256, 256, 256)
+    grids beside its bound (added to K1's record).  Returns the two lane
+    kernels' records."""
+    from repro_torch.kernels import fused_cg as k2
+    from repro_torch.kernels import stencil7 as k1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lanes, n = SVC_LANES, GRID ** 3
+    total = lanes * n
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.float64)
+
+    # ---- K1 on the bucket's stacked grids ------------------------------
+    u = randn(lanes, GRID, GRID, GRID)
+    got = k1.stencil7_cuda(u)
+    want = k1.stencil7_plain(u)
+    err = max_abs(got, want)
+    tol = 1e-12 * max(1.0, float(want.abs().max()))
+    check(err <= tol, f"stencil7 on {lanes} lanes: error {err} > {tol}")
+    ms, dev_ms = both_ms(torch, lambda: k1.stencil7_cuda(u))
+    b_ms, b_by = bound_ms(2 * total * 8, 7 * total, "float64", rate)
+    say("kernels", kernel="stencil7", shape=[lanes] + [GRID] * 3,
+        max_abs_err=err, tol=tol, kernel_ms=ms, kernel_device_ms=dev_ms,
+        bound_ms=b_ms, bound_by=b_by)
+    records["stencil7"]["lanes"] = dict(shape=[lanes] + [GRID] * 3, ms=ms,
+                                        device_ms=dev_ms, bound_ms=b_ms,
+                                        max_abs_err=err)
+    del u, got, want
+
+    # ---- K2 lane mode ---------------------------------------------------
+    x, r, p, ap = (randn(lanes, n) for _ in range(4))
+    inv = torch.rand(lanes, n, generator=gen, device=dev,
+                     dtype=torch.float64) + 0.5
+    alpha = torch.rand(lanes, generator=gen, device=dev,
+                       dtype=torch.float64) + 0.1
+    got = k2.fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv)
+    for i in range(lanes):
+        solo = k2.fused_cg_update_cuda(x[i], r[i], p[i], ap[i], alpha[i],
+                                       inv[i], 1)
+        check(all(bool(torch.equal(g[i], s_)) for g, s_ in zip(got, solo)),
+              f"fused_cg_update_lanes lane {i} != a solo nblocks=1 launch")
+    check(bool(torch.equal(k2.det_dot_order_plain(got[1][0], got[2][0]),
+                           got[3][0])),
+          "fused_cg_update_lanes rz'[0] != det_dot_order_plain bitwise")
+    want = k2.fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv)
+    torch.cuda.synchronize()
+    vec_err = max(max_abs(g, w_) for g, w_ in zip(got[:3], want[:3]))
+    vec_tol = 1e-12 * max(1.0, max(float(t.abs().max()) for t in want[:3]))
+    rz_err = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    check(vec_err <= vec_tol and rz_err <= 1e-12,
+          f"fused_cg_update_lanes vs plain: vec {vec_err} rz {rz_err}")
+    ms, dev_ms = both_ms(torch, lambda: k2.fused_cg_update_lanes_cuda(
+        x, r, p, ap, alpha, inv))
+    plain_ms = time_ms(torch, lambda: k2.fused_cg_update_lanes_plain(
+        x, r, p, ap, alpha, inv))
+    b_ms, b_by = bound_ms(8 * total * 8, 7 * total, "float64", rate)
+    say("kernels", kernel="fused_cg_update_lanes", lanes=lanes, n=n,
+        lanes_bitwise_solo_nblocks1=True, rz0_bitwise_order_plain=True,
+        vec_max_abs_err=vec_err, vec_tol=vec_tol, rz_max_rel_err=rz_err,
+        rz_tol=1e-12, kernel_ms=ms, kernel_device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=None,
+        library="no single PyTorch call computes it", bound_ms=b_ms,
+        bound_by=b_by)
+    out = {"fused_cg_update_lanes": dict(
+        name="fused_cg_update_lanes", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_cg.cu",
+        replaces="src/repro/kernels/fused_cg.py:61",
+        max_abs_err=max(vec_err, float((got[3] - want[3]).abs().max())),
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, library_device_ms=None)}
+    del got, want, solo, x, r, inv
+
+    # ---- det_dot lane mode ----------------------------------------------
+    dots = k2.det_dot_lanes_cuda(p, ap)
+    for i in range(lanes):
+        check(bool(torch.equal(dots[i], k2.det_dot_cuda(p[i], ap[i], 1))),
+              f"det_dot_lanes lane {i} != a solo nblocks=1 launch")
+    want = k2.det_dot_lanes_plain(p, ap)
+    torch.cuda.synchronize()
+    d_err = max_abs(dots, want)
+    d_tol = 1e-12 * float((p * ap).abs().sum(dim=1).max())
+    check(d_err <= d_tol, f"det_dot_lanes error {d_err} > {d_tol}")
+    ms, dev_ms = both_ms(torch, lambda: k2.det_dot_lanes_cuda(p, ap))
+    plain_ms = time_ms(torch, lambda: k2.det_dot_lanes_plain(p, ap))
+    vecdot = lambda: torch.linalg.vecdot(p, ap)  # noqa: E731
+    lib_err = max_abs(vecdot(), dots)
+    lib_ms, lib_dev_ms = both_ms(torch, vecdot)
+    b_ms, b_by = bound_ms(2 * total * 8, 2 * total, "float64", rate)
+    say("kernels", kernel="det_dot_lanes", lanes=lanes, n=n,
+        lanes_bitwise_solo_nblocks1=True, max_abs_err=d_err, tol=d_tol,
+        kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
+        library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        library="torch.linalg.vecdot", vecdot_vs_kernel_max_abs_err=lib_err,
+        bound_ms=b_ms, bound_by=b_by)
+    out["det_dot_lanes"] = dict(
+        name="det_dot_lanes", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_cg.cu",
+        replaces="src/repro/kernels/fused_cg.py:58", max_abs_err=d_err,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms)
+    del p, ap, dots, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _recovery_seconds(tracer) -> float:
@@ -993,6 +1138,269 @@ def phase_advise(torch, problem):
     return counts
 
 
+def _timed_service(torch, lanes: int):
+    """A ``SolveService`` that records, per bucket step, the device time
+    of the batched step between two CUDA events, the host seconds of the
+    loop-top passes before it (recoveries included) and each tenant's
+    host seconds after it (its overlap commit and persist point)."""
+    from repro_torch.serving.solve_service import ServiceConfig, SolveService
+
+    class TimedService(SolveService):
+        def __init__(self):
+            super().__init__(ServiceConfig(lanes=lanes, device=DEVICE))
+            self.steps = []
+            self._pre_s = 0.0
+
+        def _admit(self):
+            super()._admit()
+            for bucket in self._buckets.values():
+                if not hasattr(bucket, "untimed_step"):
+                    bucket.untimed_step = bucket.step
+                    bucket.step = self._timed(bucket.untimed_step)
+
+        def _timed(self, step):
+            def run(states, lane_data):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(states, lane_data)
+                end.record()
+                self.steps.append(dict(events=(start, end),
+                                       pre_s=self._pre_s, post_s={}))
+                self._pre_s = 0.0
+                return out
+            return run
+
+        def _pre_step(self, bucket, i, t):
+            t0 = time.perf_counter()
+            super()._pre_step(bucket, i, t)
+            self._pre_s += time.perf_counter() - t0
+
+        def _post_step(self, bucket, i, t, window):
+            t0 = time.perf_counter()
+            super()._post_step(bucket, i, t, window)
+            self.steps[-1]["post_s"][t.name] = time.perf_counter() - t0
+
+    return TimedService()
+
+
+def _serve_bucket(torch, label, tenants, failures, lanes, capture=None):
+    """Submit ``tenants`` ((name, problem, solver spec, resilience spec,
+    nshards) each) to a timed service, with ``failures`` and the states
+    to capture (``capture``) by tenant name, drain it, print every
+    bucket step and a summary; returns (tickets, launch counts, bucket
+    steps, wall seconds).  The counts run from a reset just before the first
+    submission (the lane inits' K1 included) to a reading after the
+    drain."""
+    from repro_torch.kernels import ops
+
+    svc = _timed_service(torch, lanes)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = {name: svc.submit(problem, spec, resilience,
+                                failures=failures.get(name, ()),
+                                tenant=name, nshards=nshards,
+                                capture_states_at=(capture or {}).get(
+                                    name, ()))
+               for name, problem, spec, resilience, nshards in tenants}
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    device_ms, pre_s, post_s = [], 0.0, {}
+    for i, rec in enumerate(svc.steps):
+        start, end = rec["events"]
+        ms = start.elapsed_time(end)
+        device_ms.append(ms)
+        pre_s += rec["pre_s"]
+        for name, sec in rec["post_s"].items():
+            post_s[name] = post_s.get(name, 0.0) + sec
+        say("service", run=label, bucket_step=i, device_ms=ms,
+            host_pre_ms=1e3 * rec["pre_s"],
+            host_post_ms=1e3 * sum(rec["post_s"].values()),
+            persist_s=rec["post_s"])
+    steps = len(svc.steps)
+    say("service", run=label, summary=True, wall_s=wall, bucket_steps=steps,
+        device_ms_total=sum(device_ms),
+        device_ms_median=statistics.median(device_ms),
+        device_busy_share_of_wall=sum(device_ms) / 1e3 / wall,
+        host_pre_s_total=pre_s, persist_s_total=post_s,
+        tenants={name: dict(iterations=t.result.iterations,
+                            relres=t.result.relres,
+                            failures_recovered=t.result.report
+                            .failures_recovered,
+                            storage_failures=t.result.report.storage_failures,
+                            wasted_iterations=t.result.report
+                            .wasted_iterations,
+                            persist_events=t.result.report.persist_events,
+                            persist_bytes_by_shard=t.result.report
+                            .persist_bytes_by_shard,
+                            recovery_fetch_bytes_by_shard=t.result.report
+                            .recovery_fetch_bytes_by_shard,
+                            lane_steps=t.result.report.service_lane_steps,
+                            occupancy=t.result.report.service_batch_occupancy)
+                 for name, t in tickets.items()},
+        launches=counts)
+    for name, t in tickets.items():
+        check(t.accepted and t.result is not None,
+              f"{label}: tenant {name} was not served")
+        check(bool(torch.isfinite(t.result.state.x).all()),
+              f"{label}: tenant {name} has non-finite x")
+    check(steps > 0 and counts["fused_cg_update_lanes"] in (0, steps)
+          and counts["stencil7"] >= steps,
+          f"{label}: launches {counts} against {steps} bucket steps")
+    return tickets, counts, steps, wall
+
+
+def phase_service(torch):
+    """The multi-tenant service on the card at full width: one 4-lane
+    PCG bucket of 256^3 (runs A: no failures, B: block, PRD and shard
+    kills of three tenants, C: the untouched cohabitant alone) and a
+    2-lane BiCGStab bucket of 128^3 with a block kill; returns the
+    launch counts of all five runs."""
+    from repro_torch import api
+
+    t_phase = time.perf_counter()
+    spec = api.SolverSpec("pcg", tol=1e-10, maxiter=SVC_MAXITER)
+    tenants = []
+    for name, grid, backend, mode, period, nshards in SVC_TENANTS:
+        problem = api.Problem.poisson(*grid, nblocks=SVC_NBLOCKS,
+                                      device=DEVICE)
+        tenants.append((name, problem, spec,
+                        api.ResilienceSpec(backend, persist_mode=mode,
+                                           period=period), nshards))
+    kills = {
+        "t0": (api.FailureEvent(blocks=(1, 2), at_iteration=20),),
+        "t1": (api.FailureEvent(blocks=(5,), at_iteration=10, prd=True),),
+        "t2": (api.FailureEvent(shard=2, at_iteration=15),),
+    }
+    runs, totals = {}, {}
+    for label, members, failures in (
+            ("A: four tenants, no failure", tenants, {}),
+            ("B: t0 blocks (1, 2) at 20, t1 PRD + block 5 at 10, "
+             "t2 shard 2 of 4 at 15", tenants, kills),
+            ("C: t3 alone", [t for t in tenants
+                             if t[0] == SVC_COHABITANT], {})):
+        tickets, counts, steps, _ = _serve_bucket(
+            torch, label, members, failures, SVC_LANES,
+            {SVC_COHABITANT: SVC_CAPTURE})
+        check(counts["fused_cg_update_lanes"] == counts["det_dot_lanes"]
+              == steps, f"{label}: K2 lanes {counts['fused_cg_update_lanes']}"
+              f", det_dot lanes {counts['det_dot_lanes']}, bucket steps "
+              f"{steps}: not one launch each a bucket step")
+        runs[label[0]] = (tickets, counts, steps)
+        for name, count in counts.items():
+            totals[name] = totals.get(name, 0) + count
+    (a, a_counts, a_steps), (b, b_counts, b_steps), (c, _, _) = (
+        runs["A"], runs["B"], runs["C"])
+    check(a_counts["stencil7"] == a_steps + len(SVC_TENANTS),
+          f"run A: {a_counts['stencil7']} K1 launches, {a_steps} bucket "
+          f"steps + {len(SVC_TENANTS)} lane inits")
+
+    # the cohabitant: bitwise its failure-free run and its run alone
+    cohab = {k: v[SVC_COHABITANT].result for k, v in
+             (("A", a), ("B", b), ("C", c))}
+    for other in ("B", "C"):
+        got, want = cohab[other], cohab["A"]
+        same_x = bool(torch.equal(got.state.x, want.state.x))
+        same_captured = all(
+            all(bool(torch.equal(g, w)) if isinstance(g, torch.Tensor)
+                else g == w for g, w in zip(got.captured[k],
+                                            want.captured[k]))
+            for k in SVC_CAPTURE)
+        same_history = (got.report.residual_history
+                        == want.report.residual_history)
+        say("service", check=f"{SVC_COHABITANT} in run {other} vs run A",
+            x_bitwise=same_x, captured_bitwise=same_captured,
+            captured_at=list(SVC_CAPTURE), residual_history_equal=same_history,
+            iterations=[got.iterations, want.iterations])
+        check(same_x and same_captured and same_history,
+              f"cohabitant {SVC_COHABITANT} in run {other} differs from run A")
+    # the victims: onto their failure-free runs
+    for name, kill in kills.items():
+        got, want = b[name].result, a[name].result
+        err = max_abs(got.state.x, want.state.x)
+        ok = bool(torch.allclose(got.state.x, want.state.x, rtol=1e-8,
+                                 atol=1e-8))
+        say("service", check=f"victim {name} in run B vs run A",
+            kill=str(kill[0]), failures_recovered=got.report
+            .failures_recovered, storage_failures=got.report.storage_failures,
+            iterations=[got.iterations, want.iterations], max_abs_err=err,
+            rtol=1e-8, atol=1e-8, ok=ok)
+        check(ok and got.iterations == want.iterations == SVC_MAXITER,
+              f"victim {name}: k {got.iterations} vs {want.iterations}, "
+              f"x off by {err}")
+        check(got.report.failures_recovered == 1,
+              f"victim {name}: failures_recovered "
+              f"{got.report.failures_recovered}")
+    check(b["t1"].result.report.storage_failures == 1,
+          "t1: the PRD kill was not counted")
+    t2 = b["t2"].result.report
+    check(t2.nshards == 4 and set(t2.persist_bytes_by_shard) == {0, 1, 2, 3}
+          and set(t2.recovery_fetch_bytes_by_shard) == {2},
+          f"t2: shards {t2.persist_bytes_by_shard} / "
+          f"{t2.recovery_fetch_bytes_by_shard}")
+    # the service's answer against the port's own solo engine
+    solo_problem = next(t[1] for t in tenants if t[0] == SVC_COHABITANT)
+    solo = api.solve(solo_problem, spec)
+    err = max_abs(cohab["A"].state.x, solo.state.x)
+    ok = bool(torch.allclose(cohab["A"].state.x, solo.state.x, rtol=1e-8,
+                             atol=1e-12))
+    say("service", check=f"{SVC_COHABITANT} in run A vs solo api.solve",
+        iterations=[cohab["A"].iterations, solo.iterations],
+        max_abs_err=err, rtol=1e-8, atol=1e-12, ok=ok)
+    check(ok and solo.iterations == cohab["A"].iterations,
+          f"{SVC_COHABITANT}: service != solo solve ({err})")
+    del runs, a, b, c, cohab, solo, tenants
+    torch.cuda.empty_cache()
+
+    # ---- BiCGStab bucket: a lane step without K2 ------------------------
+    bspec = api.SolverSpec("bicgstab", tol=1e-10, maxiter=SVC_BICG_STEPS)
+    members = [("u0", api.Problem.poisson(*SVC_BICG_GRIDS[0], nblocks=8,
+                                          device=DEVICE), bspec,
+                api.ResilienceSpec("nvm-prd"), 1),
+               ("u1", api.Problem.poisson(*SVC_BICG_GRIDS[1], nblocks=8,
+                                          device=DEVICE), bspec,
+                api.ResilienceSpec("esr"), 1)]
+    bicg = {}
+    for label, failures in (("bicgstab: no failure", {}),
+                            (f"bicgstab: u0 blocks (1, 2) at "
+                             f"{SVC_BICG_FAIL_AT}",
+                             {"u0": (api.FailureEvent(
+                                 blocks=(1, 2),
+                                 at_iteration=SVC_BICG_FAIL_AT),)})):
+        tickets, counts, steps, _ = _serve_bucket(torch, label, members,
+                                                  failures, 2)
+        check(counts["fused_cg_update_lanes"] == 0
+              and counts["det_dot_lanes"] == 4 * steps
+              and counts["stencil7"] >= 2 * steps,
+              f"{label}: launches {counts} against {steps} bucket steps")
+        bicg[label] = tickets
+        for name, count in counts.items():
+            totals[name] = totals.get(name, 0) + count
+    free, hit = bicg.values()
+    err = max_abs(hit["u0"].result.state.x, free["u0"].result.state.x)
+    ok = bool(torch.allclose(hit["u0"].result.state.x,
+                             free["u0"].result.state.x, rtol=1e-8, atol=1e-8))
+    same = bool(torch.equal(hit["u1"].result.state.x,
+                            free["u1"].result.state.x))
+    say("service", check="bicgstab victim u0 vs its failure-free run",
+        failures_recovered=hit["u0"].result.report.failures_recovered,
+        iterations=[hit["u0"].result.iterations,
+                    free["u0"].result.iterations],
+        max_abs_err=err, rtol=1e-8, atol=1e-8, ok=ok,
+        cohabitant_u1_x_bitwise=same)
+    check(ok and same and hit["u0"].result.report.failures_recovered == 1
+          and hit["u0"].result.iterations == SVC_BICG_STEPS,
+          f"bicgstab bucket: victim off by {err}, cohabitant bitwise {same}")
+    del bicg, free, hit, members
+    torch.cuda.empty_cache()
+    say("service", phase_seconds=time.perf_counter() - t_phase,
+        launches=totals)
+    return totals
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -1068,6 +1476,7 @@ def main() -> int:
         paths.append(phase_jit(torch, problem, records))
         paths.append(phase_advise(torch, problem))
         del problem
+        paths.append(phase_service(torch))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:
@@ -1075,7 +1484,8 @@ def main() -> int:
         return 1
     kernels = []
     for key in ("stencil7", "fused_cg_update", "det_dot", "gf256_rs_encode",
-                "fused_cg_update_persist"):
+                "fused_cg_update_persist", "fused_cg_update_lanes",
+                "det_dot_lanes"):
         rec = records[key]
         kernels.append({**rec, "launches": counts[key]})
     say("done", seconds=time.perf_counter() - t0)

@@ -1,6 +1,6 @@
 """``repro_torch.api`` — the front door of the port: problem, solver,
-resilience, solve, advise (port of ``repro/api.py`` without the
-multi-tenant service).
+resilience, solve, advise, and the multi-tenant solve service (port of
+``repro/api.py``).
 
 A recoverable solve is three declarations and one call; it runs on the
 CUDA device unless the problem is built with ``device="cpu"``::
@@ -21,8 +21,11 @@ runs on every backend family: ``esr``, ``nvm-prd``, ``nvm-homogeneous``
 and the composites ``replicated(...)``, ``tiered(...)`` and
 ``erasure(<child> xK+Pp)`` (with ``ResilienceSpec(fused_persist=True)``
 the stripe encodes on the device).  :func:`advise` ranks candidate specs
-against a failure campaign.  Sharding and the multi-tenant service are
-not ported yet.
+against a failure campaign.  :class:`SolveService` (and :func:`serve`,
+which replays a request trace through a fresh one) hosts many tenants at
+once, one lane of a batched bucket each; a tenant declares its logical
+shard layout with ``nshards=``.  Solves sharded across cards are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -55,6 +58,13 @@ from repro_torch.solvers.driver import (
     plan_campaign,
 )
 from repro_torch.solvers.registry import SOLVERS, make_backend, make_solver
+from repro_torch.serving.solve_service import (
+    ServiceConfig,
+    ServiceError,
+    ServiceTicket,
+    SolveService,
+)
+from repro_torch.serving.trace import ServiceRequest, generate_request_trace
 
 __all__ = [
     "Problem",
@@ -80,6 +90,13 @@ __all__ = [
     "FailurePlan",
     "SolveConfig",
     "SolveReport",
+    "SolveService",
+    "ServiceConfig",
+    "ServiceError",
+    "ServiceTicket",
+    "ServiceRequest",
+    "generate_request_trace",
+    "serve",
 ]
 
 
@@ -327,3 +344,25 @@ def solve(
     )
     return SolveResult(state=state, report=report, captured=captured,
                        backend=backend)
+
+
+def serve(
+    requests: Sequence[ServiceRequest],
+    lanes: int = 4,
+    max_queue: int = 8,
+    tracer=None,
+    device: str = "cuda",
+) -> Dict[str, ServiceTicket]:
+    """Replay a multi-tenant request trace through a fresh
+    :class:`SolveService` whose problems are built on ``device`` (the
+    card unless the caller asks for the CPU), and return tenant ->
+    ticket; each accepted ticket carries its :class:`SolveResult`.  For
+    incremental submission use the service object directly::
+
+        svc = api.SolveService(api.ServiceConfig(lanes=8))
+        ticket = svc.submit(problem, "pcg", failures=campaign)
+        svc.drain()
+    """
+    svc = SolveService(ServiceConfig(lanes=lanes, max_queue=max_queue,
+                                     tracer=tracer, device=device))
+    return svc.replay(requests)

@@ -1,6 +1,5 @@
 """In-memory ESR (the paper's baseline; Chen '11 / Pachajoa et al.);
-port of ``repro/core/esr.py`` (numpy only, without the deprecated
-pre-zoo ``persist``/``recover`` entry points).
+port of ``repro/core/esr.py`` (numpy only).
 
 Redundancy of the recovery set is piggybacked on the SpMV transition
 (ASpMV, Algorithm 2) and replicated into the **volatile RAM of peer
@@ -28,11 +27,14 @@ import numpy as np
 
 from repro_torch.core.state import (
     PCG_SCHEMA,
+    RecoveryPayload,
     RecoverySchema,
     RecoverySet,
     concat_sets,
+    legacy_pair,
     newest_complete_run,
     peek_k,
+    require_pcg_schema,
     shard_vectors,
     typed_vectors,
 )
@@ -42,6 +44,7 @@ from repro_torch.nvm.backend import (  # noqa: F401  (UnrecoverableFailure re-ex
     SchemaDrivenBackend,
     UnrecoverableFailure,
     register_backend_class,
+    warn_legacy_call,
 )
 from repro_torch.nvm.store import (
     NETWORK_SPECS,
@@ -139,6 +142,12 @@ class InMemoryESR(SchemaDrivenBackend):
         self.cost.add("persist", cost)
         return cost
 
+    def persist(self, k: int, beta: float, p_full: np.ndarray) -> float:
+        """Legacy PCG-shaped persist (pre-zoo API; deprecated)."""
+        warn_legacy_call(self, "persist")
+        require_pcg_schema(self.schema, "persist")
+        return self.persist_set(k, {"beta": beta}, {"p": p_full})
+
     # ------------------------------------------------------------------
     def fail(self, failed_blocks: Sequence[int]) -> None:
         """Process crash: the peer-RAM copies hosted on failed ranks die
@@ -178,6 +187,14 @@ class InMemoryESR(SchemaDrivenBackend):
                          for b in failed_blocks]
             out.append(concat_sets(self.schema, per_block))
         return out
+
+    def recover(self, failed_blocks: Sequence[int],
+                k: int) -> Tuple[RecoveryPayload, RecoveryPayload]:
+        """Legacy PCG-shaped recover (pre-zoo API; deprecated): the
+        (k-1, k) pair."""
+        warn_legacy_call(self, "recover")
+        require_pcg_schema(self.schema, "recover")
+        return legacy_pair(self.recover_set(failed_blocks, (k - 1, k)))
 
     def durable_run(self) -> Optional[int]:
         """Newest iteration ending a complete ``history``-run still held

@@ -31,26 +31,32 @@ RAM overhead: **zero** — this is the paper's headline claim; NVM holds
 from __future__ import annotations
 
 import os
-from typing import List, Mapping, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.esr import InMemoryESR
 from repro_torch.core.state import (
     PCG_SCHEMA,
+    RecoveryPayload,
     RecoverySchema,
     RecoverySet,
     concat_sets,
+    legacy_pair,
     newest_complete_run,
     peek_k,
+    require_pcg_schema,
     shard_vectors,
     typed_vectors,
 )
 from repro_torch.nvm.backend import (
     OVERLAP_NATIVE,
     BackendCapabilities,
+    DeprecatedBackendTable,
     SchemaDrivenBackend,
     UnrecoverableFailure,
     register_backend_class,
+    warn_legacy_call,
 )
 from repro_torch.nvm.pmdk import PmemPool
 from repro_torch.nvm.prd import PRDNode
@@ -158,6 +164,12 @@ class NVMESRHomogeneous(SchemaDrivenBackend):
         self.cost.add("persist_wall", cost)
         return cost
 
+    def persist(self, k: int, beta: float, p_full: np.ndarray) -> float:
+        """Legacy PCG-shaped persist (pre-zoo API; deprecated)."""
+        warn_legacy_call(self, "persist")
+        require_pcg_schema(self.schema, "persist")
+        return self.persist_set(k, {"beta": beta}, {"p": p_full})
+
     def fail(self, failed_blocks: Sequence[int]) -> None:
         """Node crash: local pools survive but are unreachable until the
         node recovers; in-flight (unflushed) writes are torn away — both
@@ -195,6 +207,14 @@ class NVMESRHomogeneous(SchemaDrivenBackend):
                         f"(have {sorted(found)})")
                 per_k[kk].append(self.schema.decode(found[kk], self.dtype))
         return [concat_sets(self.schema, per_k[kk]) for kk in ks]
+
+    def recover(self, failed_blocks: Sequence[int],
+                k: int) -> Tuple[RecoveryPayload, RecoveryPayload]:
+        """Legacy PCG-shaped recover (pre-zoo API; deprecated): the
+        (k-1, k) pair."""
+        warn_legacy_call(self, "recover")
+        require_pcg_schema(self.schema, "recover")
+        return legacy_pair(self.recover_set(failed_blocks, (k - 1, k)))
 
     def latest_run(self, block: int = 0) -> Optional[int]:
         """Newest k ending a valid consecutive ``history``-run on ``block``."""
@@ -318,6 +338,12 @@ class NVMESRPRD(SchemaDrivenBackend):
         self.cost.add("persist_origin", origin)
         return origin
 
+    def persist(self, k: int, beta: float, p_full: np.ndarray) -> float:
+        """Legacy PCG-shaped persist (pre-zoo API; deprecated)."""
+        warn_legacy_call(self, "persist")
+        require_pcg_schema(self.schema, "persist")
+        return self.persist_set(k, {"beta": beta}, {"p": p_full})
+
     def drain(self) -> float:
         """Join the PRD exposure epoch (target-side persist)."""
         return self.prd.join()
@@ -350,6 +376,14 @@ class NVMESRPRD(SchemaDrivenBackend):
                 per_k[kk].append(rset)
         return [concat_sets(self.schema, per_k[kk]) for kk in ks]
 
+    def recover(self, failed_blocks: Sequence[int],
+                k: int) -> Tuple[RecoveryPayload, RecoveryPayload]:
+        """Legacy PCG-shaped recover (pre-zoo API; deprecated): the
+        (k-1, k) pair."""
+        warn_legacy_call(self, "recover")
+        require_pcg_schema(self.schema, "recover")
+        return legacy_pair(self.recover_set(failed_blocks, (k - 1, k)))
+
     def durable_run(self) -> Optional[int]:
         """Newest iteration ending a complete ``history``-run durable on
         the PRD node (block 0's virtual ranks; this is a drain barrier —
@@ -374,3 +408,12 @@ class NVMESRPRD(SchemaDrivenBackend):
 # make_backend`` and ``repro_torch.api`` size them from an operator.
 register_backend_class("nvm-homogeneous", NVMESRHomogeneous)
 register_backend_class("nvm-prd", NVMESRPRD)
+
+# Deprecated table view of the pre-redesign registry: iteration and
+# membership stay silent (benchmarks sweep the names), construction via
+# ``BACKENDS[name](...)`` warns and routes through the class.
+BACKENDS = DeprecatedBackendTable({
+    "esr": InMemoryESR,
+    "nvm-homogeneous": NVMESRHomogeneous,
+    "nvm-prd": NVMESRPRD,
+})

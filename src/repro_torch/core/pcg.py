@@ -78,6 +78,25 @@ def make_step(op_apply: Callable, inv_diag: torch.Tensor,
     return step
 
 
+def make_lane_step(op_apply: Callable, inv_diag: torch.Tensor,
+                   dot: Callable) -> Callable[[PCGState], PCGState]:
+    """:func:`make_step` over a bucket of tenant lanes: ``(lanes, n)``
+    vectors, ``(lanes, 1)`` scalar columns, ``inv_diag`` the lanes'
+    diagonal preconditioners and ``dot`` the per-lane inner product.  K2
+    runs in lane mode (``ops.fused_cg_update_lanes``: ``alpha`` and
+    ``rz'`` one a lane), so an iteration is one K1, one lane dot and one
+    K2 launch for the whole bucket."""
+
+    def update(x, r, p, ap, alpha):
+        x, r, z, rz = ops.fused_cg_update_lanes(x, r, p, ap, alpha, inv_diag)
+        return x, r, z, rz.unsqueeze(-1)
+
+    def step(state: PCGState) -> PCGState:
+        return _iteration(state, op_apply, dot, update)[0]
+
+    return step
+
+
 def make_generic_step(op_apply: Callable, precond_apply: Callable,
                       nblocks: int) -> Callable[[PCGState], PCGState]:
     """One PCG iteration with any preconditioner (the reference's step,

@@ -140,6 +140,35 @@ class PCGState(NamedTuple):
 PCG_SCHEMA = RecoverySchema("pcg", vectors=("p",), scalars=("beta",), history=2)
 
 
+class RecoveryPayload(NamedTuple):
+    """The pre-zoo PCG-shaped recovery slot, as the deprecated
+    ``persist``/``recover`` backend methods speak it."""
+
+    k: int
+    beta: float  # beta^(k-1): the scalar linking p^(k-1) -> p^(k)
+    p: np.ndarray  # p^(k), the block shard (or full vector)
+
+
+def legacy_pair(sets) -> Tuple[RecoveryPayload, RecoveryPayload]:
+    """Map a PCG-schema (prev, cur) recovery to the legacy payload pair."""
+    prev, cur = sets[-2], sets[-1]
+    return (
+        RecoveryPayload(prev.k, 0.0, prev.vectors["p"]),
+        RecoveryPayload(cur.k, cur.scalars["beta"], cur.vectors["p"]),
+    )
+
+
+def require_pcg_schema(schema: RecoverySchema, api: str) -> None:
+    """Guard for the legacy ``persist``/``recover`` backend shims, which
+    speak PCG payloads only: fail with a pointer instead of a KeyError
+    deep in the codec."""
+    if (schema.vectors, schema.scalars, schema.history) != (("p",), ("beta",), 2):
+        raise TypeError(
+            f"the legacy {api}() API carries PCG payloads only, but this "
+            f"backend persists schema {schema.solver!r}; use "
+            f"persist_set()/recover_set()")
+
+
 def typed_vectors(schema: RecoverySchema, vectors: Mapping[str, np.ndarray],
                   dtype) -> Dict[str, np.ndarray]:
     """Convert every schema vector to the backend dtype once per event."""

@@ -66,6 +66,16 @@
 // parity threads' K reads of p mostly hit L2 next to their tiles' own.
 // The reference's 128 | block_size rule was (8, 128) TPU tiling and is
 // dropped, as K2 dropped it.
+//
+// Lane mode (LANES = true; the multi-tenant service's bucket step, where
+// the reference vmaps one lane's step over a bucket): a (lanes, n)
+// bucket is the (nblocks = lanes) geometry, so each lane is one
+// partition block, alpha is read per block (alpha_ptr[blockIdx.y]), and
+// step 4 is dropped: the CTA that folds a lane (step 3) writes its sum
+// to out[lane] instead of chaining it.  Tiles depend on the lane's length
+// alone and never straddle two lanes, so lane i's outputs are bitwise a
+// solo launch with nblocks = 1 on lane i (whose chain over one block
+// sum is that sum), whatever the lane count or the lane's place.
 #include <stdint.h>
 
 #include <initializer_list>
@@ -143,10 +153,11 @@ __device__ __forceinline__ A cta_tree(A v, A* sh) {
     return total;
 }
 
-// Steps 2-4 from each thread's step-1 sum.  partials holds nblocks *
-// tiles tile partials, then nblocks block sums; tickets holds nblocks + 1
-// counters, all 0 on entry and again on exit.
-template <typename T>
+// Steps 2-4 from each thread's step-1 sum (LANES: steps 2-3, block blk's
+// sum to out[blk]).  partials holds nblocks * tiles tile partials, then
+// nblocks block sums; tickets holds nblocks + 1 counters, all 0 on entry
+// and again on exit.
+template <typename T, bool LANES>
 __device__ __forceinline__ void reduce_tiles(typename Acc<T>::type local,
                                              typename Acc<T>::type* __restrict__ partials,
                                              unsigned* __restrict__ tickets, T* __restrict__ out) {
@@ -168,8 +179,12 @@ __device__ __forceinline__ void reduce_tiles(typename Acc<T>::type local,
     for (unsigned j = threadIdx.x; j < tiles; j += THREADS) s = add_rn(s, __ldcg(pb + j));
     const A block_sum = cta_tree(s, sh);
     if (threadIdx.x == 0) {
-        A* sums = partials + (long long)nblocks * tiles;
         tickets[blk] = 0;
+        if constexpr (LANES) {
+            out[blk] = from_acc<T>(block_sum);
+            return;
+        }
+        A* sums = partials + (long long)nblocks * tiles;
         sums[blk] = block_sum;
         __threadfence();
         if (atomicAdd(&tickets[nblocks], 1u) == nblocks - 1) {
@@ -189,8 +204,9 @@ template <> struct Word<float> { typedef uint32_t type; };
 template <> struct Word<__nv_bfloat16> { typedef uint16_t type; };
 
 // STAGE = false is K2; STAGE = true is K4 (chunks, parity, k_data,
-// nparity and chunk are read only then).
-template <typename T, bool STAGE, bool WIDE>
+// nparity and chunk are read only then); LANES = true is K2's lane mode
+// (alpha and rz per partition block, with STAGE = false only).
+template <typename T, bool STAGE, bool LANES, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 fused_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ r,
                        const T* __restrict__ p, const T* __restrict__ ap,
@@ -209,7 +225,7 @@ fused_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ r,
     if constexpr (STAGE) {
         if (nparity == 2) gf_load_tables(sexp, slog);
     }
-    const A alpha = to_acc(alpha_ptr[0]);
+    const A alpha = to_acc(alpha_ptr[LANES ? blockIdx.y : 0]);
     const long long base = (long long)blockIdx.y * bs;
     A local = A(0);
 #pragma unroll
@@ -253,10 +269,10 @@ fused_cg_update_kernel(const T* __restrict__ x, const T* __restrict__ r,
         store_group<T, WIDE>(zo + i0, valid, zn);
         if constexpr (STAGE) store_group<T, WIDE>(chunks + i0, valid, pv);
     }
-    reduce_tiles<T>(local, partials, tickets, rz);
+    reduce_tiles<T, LANES>(local, partials, tickets, rz);
 }
 
-template <typename T, bool WIDE>
+template <typename T, bool LANES, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 dot_kernel(const T* __restrict__ a, const T* __restrict__ b,
            typename Acc<T>::type* __restrict__ partials, unsigned* __restrict__ tickets,
@@ -280,7 +296,7 @@ dot_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
         for (int e = 0; e < N; ++e)
             if (e < valid[g]) local = add_rn(local, mul_rn(to_acc(av[g].e[e]), to_acc(bv[g].e[e])));
-    reduce_tiles<T>(local, partials, tickets, out);
+    reduce_tiles<T, LANES>(local, partials, tickets, out);
 }
 
 static long long tiles_for(long long bs) { return (bs + TILE - 1) / TILE; }
@@ -294,7 +310,7 @@ static bool wide_ok(long long bs, int n, std::initializer_list<const void*> ptrs
     return true;
 }
 
-template <typename T, bool STAGE>
+template <typename T, bool STAGE, bool LANES = false>
 static int update(const void* x, const void* r, const void* p, const void* ap,
                   const void* inv, const void* alpha, void* xo, void* ro, void* zo,
                   void* partials, void* tickets, void* rz, long long n, int nblocks,
@@ -307,7 +323,7 @@ static int update(const void* x, const void* r, const void* p, const void* ap,
     cudaStream_t s = (cudaStream_t)stream;
     const bool wide = wide_ok(bs, Vec<T>::N, {x, r, p, ap, inv, xo, ro, zo, chunks});
 #define LAUNCH_UPDATE(W)                                                                 \
-    fused_cg_update_kernel<T, STAGE, W><<<grid, THREADS, 0, s>>>(                        \
+    fused_cg_update_kernel<T, STAGE, LANES, W><<<grid, THREADS, 0, s>>>(                 \
         (const T*)x, (const T*)r, (const T*)p, (const T*)ap, (const T*)inv,              \
         (const T*)alpha, (T*)xo, (T*)ro, (T*)zo, (A*)partials, (unsigned*)tickets,       \
         (T*)rz, bs, (T*)chunks, (uint8_t*)parity, k_data, nparity, bs / k_data)
@@ -317,7 +333,7 @@ static int update(const void* x, const void* r, const void* p, const void* ap,
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool LANES = false>
 static int dot(const void* a, const void* b, void* partials, void* tickets, void* out,
                long long n, int nblocks, int device, void* stream) {
     typedef typename Acc<T>::type A;
@@ -326,10 +342,10 @@ static int dot(const void* a, const void* b, void* partials, void* tickets, void
     const dim3 grid((unsigned)tiles_for(bs), (unsigned)nblocks, 1);
     cudaStream_t s = (cudaStream_t)stream;
     if (wide_ok(bs, Vec<T>::N, {a, b}))
-        dot_kernel<T, true><<<grid, THREADS, 0, s>>>((const T*)a, (const T*)b, (A*)partials,
+        dot_kernel<T, LANES, true><<<grid, THREADS, 0, s>>>((const T*)a, (const T*)b, (A*)partials,
                                                      (unsigned*)tickets, (T*)out, bs);
     else
-        dot_kernel<T, false><<<grid, THREADS, 0, s>>>((const T*)a, (const T*)b, (A*)partials,
+        dot_kernel<T, LANES, false><<<grid, THREADS, 0, s>>>((const T*)a, (const T*)b, (A*)partials,
                                                       (unsigned*)tickets, (T*)out, bs);
     return (int)cudaGetLastError();
 }
@@ -370,5 +386,16 @@ int fused_cg_update_persist_bf16(PERSIST_ARGS) {
 int det_dot_f64(DOT_ARGS) { return dot<double>(DOT_CALL); }
 int det_dot_f32(DOT_ARGS) { return dot<float>(DOT_CALL); }
 int det_dot_bf16(DOT_ARGS) { return dot<__nv_bfloat16>(DOT_CALL); }
+
+// Lane mode: nblocks is the lane count, n = lanes * lane length; alpha
+// holds one value a lane, and rz / out one result a lane.
+int fused_cg_update_lanes_f64(UPDATE_ARGS) { return update<double, false, true>(UPDATE_CALL); }
+int fused_cg_update_lanes_f32(UPDATE_ARGS) { return update<float, false, true>(UPDATE_CALL); }
+int fused_cg_update_lanes_bf16(UPDATE_ARGS) {
+    return update<__nv_bfloat16, false, true>(UPDATE_CALL);
+}
+int det_dot_lanes_f64(DOT_ARGS) { return dot<double, true>(DOT_CALL); }
+int det_dot_lanes_f32(DOT_ARGS) { return dot<float, true>(DOT_CALL); }
+int det_dot_lanes_bf16(DOT_ARGS) { return dot<__nv_bfloat16, true>(DOT_CALL); }
 
 }  // extern "C"

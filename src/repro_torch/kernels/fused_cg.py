@@ -35,10 +35,21 @@ in its own order) and their GF(2^8) P/Q parity bytes
 ``x', r', z', rz'`` are bitwise K2's.  It needs ``K | block_size``; the
 reference's ``128 | block_size`` rule was (8, 128) TPU tiling and is
 dropped, as K2 dropped it.
+
+The lane mode of K2 and ``det_dot`` (:func:`fused_cg_update_lanes_cuda`,
+:func:`det_dot_lanes_cuda`) serves the multi-tenant service's bucket
+step, where the reference vmaps one lane's step over a ``(lanes, n)``
+bucket: the same kernels with ``nblocks = lanes``, ``alpha`` read per
+lane and the lane sums returned unfolded (no chain), so each lane's
+outputs are bitwise a solo ``nblocks=1`` launch on that lane.  Their
+plain versions (:func:`fused_cg_update_lanes_plain`,
+:func:`det_dot_lanes_plain`) call the solo plain reduction lane by lane,
+so on the CPU too a lane's bits do not depend on the lane count.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -53,6 +64,10 @@ update_launches = 0
 dot_launches = 0
 #: fused update+staging (K4) launches since the last reset
 persist_launches = 0
+#: K2 lane-mode launches since the last reset
+update_lanes_launches = 0
+#: det_dot lane-mode launches since the last reset
+dot_lanes_launches = 0
 
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -137,38 +152,67 @@ def det_dot_order_plain(a: torch.Tensor, b: torch.Tensor,
     return total.to(a.dtype)
 
 
+def _update_vectors_plain(x, r, p, ap, alpha: torch.Tensor, inv_diag):
+    """``x' = x + alpha p``, ``r' = r - alpha ap``, ``z' = r' inv_diag``
+    with ``alpha`` (of ``x.dtype``) broadcast against the vectors
+    (bfloat16 computed in float32, rounded once)."""
+    dtype = x.dtype
+    acc = acc_dtype(dtype)
+    a = alpha.to(acc)
+    xn = (x.to(acc) + a * p.to(acc)).to(dtype)
+    rn = (r.to(acc) - a * ap.to(acc)).to(dtype)
+    zn = (rn.to(acc) * inv_diag.to(acc)).to(dtype)
+    return xn, rn, zn
+
+
 def fused_cg_update_plain(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
                           ) -> Tuple[torch.Tensor, ...]:
     """``x' = x + alpha p``, ``r' = r - alpha ap``, ``z' = r' inv_diag``,
     ``rz' = <r', z'>`` (bfloat16 computed in float32, rounded once)."""
-    dtype = x.dtype
-    acc = acc_dtype(dtype)
-    a = torch.as_tensor(alpha, dtype=dtype, device=x.device).to(acc)
-    xn = (x.to(acc) + a * p.to(acc)).to(dtype)
-    rn = (r.to(acc) - a * ap.to(acc)).to(dtype)
-    zn = (rn.to(acc) * inv_diag.to(acc)).to(dtype)
+    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+    xn, rn, zn = _update_vectors_plain(x, r, p, ap, alpha, inv_diag)
     return xn, rn, zn, block_dot_plain(rn, zn, nblocks)
 
 
-def _check(name: str, tensors, n: int, nblocks: int) -> None:
+def _check(name: str, tensors, shape: Tuple[int, ...], nblocks: int) -> int:
+    """Validate the inputs of a launch over ``shape`` (``(n,)``, or
+    ``(lanes, n)`` in lane mode); returns the value count."""
     first = tensors[0]
     device, dtype = first.device, first.dtype
     if device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {device}")
     if dtype not in DTYPES:
         raise TypeError(f"{name} takes {DTYPES}, got {dtype}")
-    shape = (n,)
+    shape = tuple(shape)
     for t in tensors:
         if t.device != device or t.dtype != dtype:
             raise ValueError(f"{name}: every input must share device and "
                              f"dtype ({device}, {dtype})")
-        if t.shape != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous 1-D "
-                             f"vectors of length {n}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous tensors "
+                             f"of shape {shape}")
+    n = math.prod(shape)
     if n < 1:
         raise ValueError(f"{name}: empty input")
     if nblocks < 1 or n % nblocks != 0:
         raise ValueError(f"{name}: n={n} not divisible by nblocks={nblocks}")
+    return n
+
+
+def _check_alpha(name: str, alpha, x: torch.Tensor, count: int) -> None:
+    """``alpha`` must be a ``count``-element tensor of ``x``'s dtype on
+    its device (the kernel reads it through its pointer)."""
+    if not (isinstance(alpha, torch.Tensor) and alpha.numel() == count
+            and alpha.device == x.device and alpha.dtype == x.dtype):
+        raise ValueError(f"{name}: alpha must be a {count}-element "
+                         f"{x.dtype} tensor on {x.device}")
+
+
+def _lane_shape(name: str, x: torch.Tensor) -> Tuple[int, int]:
+    if x.dim() != 2:
+        raise ValueError(f"{name}: lane mode takes (lanes, n) tensors, got "
+                         f"shape {tuple(x.shape)}")
+    return tuple(x.shape)
 
 
 #: (symbol, dtype) -> bound C function, so a launch looks it up once
@@ -253,18 +297,18 @@ def _launch_args(x: torch.Tensor, nblocks: int):
     """``(device, stream, workspace)`` for a launch on ``x``'s device and
     current stream, the workspace holding ``nblocks * (tiles + 1)``
     partial slots and ``nblocks + 1`` tickets; the tile count is worked
-    out once per ``(n, nblocks)``.  The stream handle is the one
-    ``torch.cuda.current_stream`` wraps, read without building a Stream
-    object per launch."""
+    out once per ``(n, nblocks)``, ``n = x.numel()``.  The stream handle
+    is the one ``torch.cuda.current_stream`` wraps, read without building
+    a Stream object per launch."""
     device = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(device)
-    key = (device, stream, x.shape[0], nblocks)
+    key = (device, stream, x.numel(), nblocks)
     args = _LAUNCH.get(key)
     if args is None:
         ws = _WORKSPACE.get(key[:2])
         if ws is None:
             ws = _WORKSPACE[key[:2]] = _Workspace(x.device)
-        ws.reserve(nblocks * (-(-(x.shape[0] // nblocks) // TILE) + 1),
+        ws.reserve(nblocks * (-(-(x.numel() // nblocks) // TILE) + 1),
                    nblocks + 1)
         args = _LAUNCH[key] = (device, stream, ws)
     return args
@@ -281,12 +325,9 @@ def fused_cg_update_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
     """Launch K2; ``alpha`` is a one-element tensor of ``x.dtype`` on the
     same device (read by the kernel through its pointer)."""
     global update_launches
-    n = x.shape[0] if x.dim() == 1 else -1
-    _check("fused_cg_update", (x, r, p, ap, inv_diag), n, nblocks)
-    if not (isinstance(alpha, torch.Tensor) and alpha.numel() == 1
-            and alpha.device == x.device and alpha.dtype == x.dtype):
-        raise ValueError("fused_cg_update_cuda: alpha must be a one-element "
-                         f"{x.dtype} tensor on {x.device}")
+    n = _check("fused_cg_update", (x, r, p, ap, inv_diag), (x.numel(),),
+               nblocks)
+    _check_alpha("fused_cg_update_cuda", alpha, x, 1)
     fn = _function("fused_cg_update", x.dtype, 12)
     alpha = alpha.contiguous()
     xo, ro, zo = (torch.empty_like(x) for _ in range(3))
@@ -308,8 +349,7 @@ def det_dot_cuda(a: torch.Tensor, b: torch.Tensor,
     """Launch the block-partial reduction of ``a * b`` (K2's tiling and
     order, one launch)."""
     global dot_launches
-    n = a.shape[0] if a.dim() == 1 else -1
-    _check("det_dot", (a, b), n, nblocks)
+    n = _check("det_dot", (a, b), (a.numel(),), nblocks)
     fn = _function("det_dot", a.dtype, 5)
     device, stream, ws = _launch_args(a, nblocks)
     out = ws.scalar(a.dtype)
@@ -318,6 +358,72 @@ def det_dot_cuda(a: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"det_dot kernel launch failed: CUDA error {rc}")
     dot_launches += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# Lane mode: one launch over a (lanes, n) bucket, one result a lane
+# ----------------------------------------------------------------------
+def det_dot_lanes_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner products of two ``(lanes, n)`` tensors: lane ``i``
+    is :func:`block_dot_plain` of ``a[i]`` and ``b[i]`` over one block,
+    computed lane by lane.  Returns ``(lanes,)``."""
+    return torch.stack([block_dot_plain(a[i], b[i], 1)
+                        for i in range(a.shape[0])])
+
+
+def fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv_diag
+                                ) -> Tuple[torch.Tensor, ...]:
+    """:func:`fused_cg_update_plain` on every lane of ``(lanes, n)``
+    tensors with ``alpha`` one value a lane: ``(x', r', z', rz')``,
+    ``rz'`` of shape ``(lanes,)``."""
+    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+    xn, rn, zn = _update_vectors_plain(x, r, p, ap, alpha.reshape(-1, 1),
+                                       inv_diag)
+    return xn, rn, zn, det_dot_lanes_plain(rn, zn)
+
+
+def fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv_diag
+                               ) -> Tuple[torch.Tensor, ...]:
+    """Launch K2 in lane mode on ``(lanes, n)`` tensors; ``alpha`` holds
+    one value a lane (read by the kernel through its pointer)."""
+    global update_lanes_launches
+    shape = _lane_shape("fused_cg_update_lanes", x)
+    lanes = shape[0]
+    n = _check("fused_cg_update_lanes", (x, r, p, ap, inv_diag), shape, lanes)
+    _check_alpha("fused_cg_update_lanes_cuda", alpha, x, lanes)
+    fn = _function("fused_cg_update_lanes", x.dtype, 12)
+    alpha = alpha.contiguous()
+    xo, ro, zo = (torch.empty_like(x) for _ in range(3))
+    rz = torch.empty(lanes, dtype=x.dtype, device=x.device)
+    device, stream, ws = _launch_args(x, lanes)
+    rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+            inv_diag.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
+            ro.data_ptr(), zo.data_ptr(), ws.partials_ptr, ws.tickets_ptr,
+            rz.data_ptr(), n, lanes, device, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_cg_update_lanes kernel launch failed: "
+                           f"CUDA error {rc}")
+    update_lanes_launches += 1
+    return xo, ro, zo, rz
+
+
+def det_dot_lanes_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch det_dot in lane mode on ``(lanes, n)`` tensors; returns
+    ``(lanes,)``."""
+    global dot_lanes_launches
+    shape = _lane_shape("det_dot_lanes", a)
+    lanes = shape[0]
+    n = _check("det_dot_lanes", (a, b), shape, lanes)
+    fn = _function("det_dot_lanes", a.dtype, 5)
+    out = torch.empty(lanes, dtype=a.dtype, device=a.device)
+    device, stream, ws = _launch_args(a, lanes)
+    rc = fn(a.data_ptr(), b.data_ptr(), ws.partials_ptr, ws.tickets_ptr,
+            out.data_ptr(), n, lanes, device, stream)
+    if rc != 0:
+        raise RuntimeError(f"det_dot_lanes kernel launch failed: CUDA error "
+                           f"{rc}")
+    dot_lanes_launches += 1
     return out
 
 
@@ -363,13 +469,10 @@ def fused_cg_update_persist_cuda(x, r, p, ap, alpha, inv_diag, nblocks: int,
                                  k_data: int, nparity: int):
     """Launch K4; ``alpha`` as for :func:`fused_cg_update_cuda`."""
     global persist_launches
-    n = x.shape[0] if x.dim() == 1 else -1
-    _check("fused_cg_update_persist", (x, r, p, ap, inv_diag), n, nblocks)
+    n = _check("fused_cg_update_persist", (x, r, p, ap, inv_diag),
+               (x.numel(),), nblocks)
     chunk = check_stripe(n, nblocks, k_data, nparity)
-    if not (isinstance(alpha, torch.Tensor) and alpha.numel() == 1
-            and alpha.device == x.device and alpha.dtype == x.dtype):
-        raise ValueError("fused_cg_update_persist_cuda: alpha must be a "
-                         f"one-element {x.dtype} tensor on {x.device}")
+    _check_alpha("fused_cg_update_persist_cuda", alpha, x, 1)
     fn = _function("fused_cg_update_persist", x.dtype, 12,
                    (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int))

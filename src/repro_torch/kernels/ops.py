@@ -1,5 +1,7 @@
 """The kernel seam: ``stencil7``, ``fused_cg_update``, ``det_dot``,
-``rs_encode`` and ``fused_cg_update_persist``.
+``rs_encode`` and ``fused_cg_update_persist``, and the lane modes
+``fused_cg_update_lanes`` and ``det_dot_lanes`` (the service's bucket
+step).
 
 Each call dispatches on its tensor's device and nothing else: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
@@ -53,6 +55,27 @@ def det_dot(a: torch.Tensor, b: torch.Tensor, nblocks: int = 1) -> torch.Tensor:
     return _fused_cg.block_dot_plain(a, b, nblocks)
 
 
+def fused_cg_update_lanes(x, r, p, ap, alpha, inv_diag
+                          ) -> Tuple[torch.Tensor, ...]:
+    """:func:`fused_cg_update` on every lane of ``(lanes, n)`` tensors in
+    one pass, ``alpha`` one value a lane: ``(x', r', z', rz')`` with
+    ``rz'`` of shape ``(lanes,)`` (K2's lane mode on CUDA).  Lane ``i``
+    is bitwise ``fused_cg_update`` of lane ``i`` with ``nblocks=1``."""
+    if _route(x) == "cuda":
+        return _fused_cg.fused_cg_update_lanes_cuda(x, r, p, ap, alpha,
+                                                    inv_diag)
+    return _fused_cg.fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv_diag)
+
+
+def det_dot_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner products of two ``(lanes, n)`` tensors, ``(lanes,)``
+    (det_dot's lane mode on CUDA); lane ``i`` is bitwise ``det_dot(a[i],
+    b[i], 1)``."""
+    if _route(a) == "cuda":
+        return _fused_cg.det_dot_lanes_cuda(a, b)
+    return _fused_cg.det_dot_lanes_plain(a, b)
+
+
 def rs_encode(data: torch.Tensor, nparity: int) -> torch.Tensor:
     """GF(2^8) P/Q parity ``(P, L)`` of the ``(K, L)`` uint8 data shards
     (K3 on CUDA); bitwise ``nvm.gf256.rs_encode``."""
@@ -84,7 +107,9 @@ def _wrapper_counts() -> Dict[str, int]:
             "fused_cg_update": _fused_cg.update_launches,
             "det_dot": _fused_cg.dot_launches,
             "gf256_rs_encode": _gf256_encode.launches,
-            "fused_cg_update_persist": _fused_cg.persist_launches}
+            "fused_cg_update_persist": _fused_cg.persist_launches,
+            "fused_cg_update_lanes": _fused_cg.update_lanes_launches,
+            "det_dot_lanes": _fused_cg.dot_lanes_launches}
 
 
 def _set_wrapper_counts(counts: Dict[str, int]) -> None:
@@ -93,6 +118,8 @@ def _set_wrapper_counts(counts: Dict[str, int]) -> None:
     _fused_cg.dot_launches = counts["det_dot"]
     _gf256_encode.launches = counts["gf256_rs_encode"]
     _fused_cg.persist_launches = counts["fused_cg_update_persist"]
+    _fused_cg.update_lanes_launches = counts["fused_cg_update_lanes"]
+    _fused_cg.dot_lanes_launches = counts["det_dot_lanes"]
 
 
 def launch_counts() -> Dict[str, int]:

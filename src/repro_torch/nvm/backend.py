@@ -17,15 +17,21 @@ device encode).
   Reed-Solomon stripe ``erasure(...)`` (:class:`ErasureCodedBackend`,
   :class:`ErasureSession`).
 
-The deprecated pre-zoo entry points are not ported yet.  The slot wire
-format is the reference's, byte for byte.
+The deprecated pre-zoo entry points survive as warning shims:
+:func:`warn_legacy_call` for the PCG-only ``persist``/``recover``
+methods of the core backends, :class:`LegacyBackendSession` for an
+external pre-zoo object, and :class:`DeprecatedBackendTable` behind the
+``BACKENDS`` table.  The slot wire format is the reference's, byte for
+byte.
 """
 from __future__ import annotations
 
 import abc
+import collections.abc
 import dataclasses
 import difflib
 import re
+import warnings
 from dataclasses import dataclass
 from typing import (
     TYPE_CHECKING,
@@ -183,8 +189,8 @@ class PersistSession(abc.ABC):
         """Bind the block -> owning-device-shard map (and the per-block
         slot payload size) so the session can address and meter traffic
         per shard.  The driver calls this once per solve with the
-        block -> shard map (all blocks -> shard 0: the port runs
-        unsharded solves only); composite
+        block -> shard map (every block on shard 0 for a solo solve, a
+        service tenant's declared logical layout otherwise); composite
         sessions propagate the *map* to their children like
         :meth:`set_tracer`, but only the driver-bound top session gets
         ``slot_nbytes`` — metering happens once, at the driver boundary."""
@@ -368,6 +374,15 @@ class SchemaDrivenBackend(PersistenceBackend):
         self._stager.abort()
 
 
+def warn_legacy_call(obj, api: str) -> None:
+    """DeprecationWarning for the pre-zoo PCG-only entry points."""
+    warnings.warn(
+        f"{type(obj).__name__}.{api}() is the deprecated PCG-only API; "
+        f"use persist_set/recover_set or a PersistSession "
+        f"(repro_torch.nvm.backend)",
+        DeprecationWarning, stacklevel=3)
+
+
 # ----------------------------------------------------------------------
 # The RAM staging front: a volatile tier that buys overlap for any
 # backend whose own pipeline is synchronous (a duck-typed object that
@@ -504,21 +519,110 @@ class CoreBackendSession(PersistSession):
         return None if runner is None else runner()
 
 
+class LegacyBackendSession(PersistSession):
+    """Session over a pre-zoo duck-typed backend (``persist(k, beta,
+    p_full)`` / ``recover(blocks, k)``, PCG payloads only).
+
+    Overlap comes from the :class:`RAMFront` tier, and the untrusted
+    external ``recover`` contract is refused loudly on a stale pair.
+    """
+
+    def __init__(self, backend, schema: RecoverySchema):
+        from repro_torch.core.state import require_pcg_schema
+
+        try:
+            require_pcg_schema(schema, "persist/recover")
+        except TypeError as e:
+            raise ValueError(
+                f"backend {type(backend).__name__} implements only the "
+                f"legacy API: {e}") from None
+        super().__init__(schema)
+        self._backend = backend
+        self._front = RAMFront(self._flush)
+
+    def set_tracer(self, tracer) -> None:
+        super().set_tracer(tracer)
+        self._front._stager.tracer = self._trace
+
+    def _flush(self, k, scalars, vectors) -> float:
+        return self._backend.persist(k, scalars["beta"], vectors["p"])
+
+    def begin(self, k, scalars, vectors) -> float:
+        if self._storage_down:
+            return 0.0  # the flush target is gone; the event is lost
+        self._note_persist_traffic()
+        return self._front.begin(k, scalars, vectors)
+
+    def commit(self) -> float:
+        if self._storage_down:
+            self.abort()
+            return 0.0
+        return self._front.commit()
+
+    def drain(self) -> float:
+        if self._storage_down:
+            self.abort()
+            return 0.0
+        return self._front.drain()
+
+    def abort(self) -> None:
+        self._front.abort()
+
+    def persist(self, k, scalars, vectors) -> float:
+        if self._storage_down:
+            return 0.0
+        self._note_persist_traffic()
+        return self._flush(k, scalars, vectors)
+
+    def fail(self, blocks: Sequence[int]) -> None:
+        self._front.abort()
+        self._backend.fail(tuple(blocks))
+
+    def fetch(self, failed_blocks, ks) -> List[RecoverySet]:
+        from repro_torch.core.state import RecoverySet
+
+        self._check_storage()
+        prev, cur = self._backend.recover(tuple(failed_blocks), ks[-1])
+        if (prev.k, cur.k) != (ks[0], ks[-1]):
+            # external, untrusted contract: refuse loudly rather than
+            # reconstruct from a stale pair
+            raise RuntimeError(
+                f"legacy backend {type(self._backend).__name__}.recover "
+                f"returned iterations {(prev.k, cur.k)}, wanted {tuple(ks)}")
+        self._note_fetch_traffic(failed_blocks, len(ks))
+        return [RecoverySet(prev.k, {"beta": prev.beta}, {"p": prev.p}),
+                RecoverySet(cur.k, {"beta": cur.beta}, {"p": cur.p})]
+
+    def durable_run(self) -> Optional[int]:
+        return None
+
+
 def open_persist_session(backend, schema: RecoverySchema,
                          partition=None) -> PersistSession:
     """Normalize a backend object into a :class:`PersistSession`.
 
     - a :class:`PersistenceBackend` opens its own session;
     - a schema-duck-typed object (``persist_set``/``recover_set``) is
-      wrapped in a :class:`CoreBackendSession`.
+      wrapped in a :class:`CoreBackendSession`;
+    - a pre-zoo duck-typed object (``persist``/``recover``) routes
+      through :class:`LegacyBackendSession` with a
+      :class:`DeprecationWarning`.
     """
     if isinstance(backend, PersistenceBackend) or hasattr(backend, "open_session"):
         return backend.open_session(schema, partition)
     if hasattr(backend, "persist_set"):
         return CoreBackendSession(backend, _validate_schema(backend, schema))
+    if hasattr(backend, "persist"):
+        warnings.warn(
+            f"duck-typed legacy backend {type(backend).__name__} "
+            f"(persist/recover, PCG payloads only) is deprecated; "
+            f"implement repro_torch.nvm.backend.PersistenceBackend",
+            DeprecationWarning, stacklevel=3)
+        return LegacyBackendSession(backend, schema)
     raise TypeError(
         f"{type(backend).__name__} is not a persistence backend: expected "
-        f"a PersistenceBackend or a persist_set/recover_set object")
+        f"a PersistenceBackend, a persist_set/recover_set object, or a "
+        f"legacy persist/recover object")
 
 
 # ----------------------------------------------------------------------
@@ -1459,3 +1563,39 @@ def _erasure_factory(nblocks, block_size, dtype,
 register_backend("replicated", _replicated_factory)
 register_backend("tiered", _tiered_factory)
 register_backend("erasure", _erasure_factory)
+
+
+# ----------------------------------------------------------------------
+# Deprecated table view: ``BACKENDS[name](...)`` construction.
+# ----------------------------------------------------------------------
+class DeprecatedBackendTable(collections.abc.Mapping):
+    """Mapping facade over the legacy ``core.nvm_esr.BACKENDS`` dict.
+
+    Iteration and membership are silent (benchmarks sweep the names);
+    *constructing* through ``BACKENDS[name](...)`` warns and routes the
+    construction through the class, so the resulting object is the same
+    first-class :class:`PersistenceBackend` the registry would build."""
+
+    def __init__(self, names_to_ctor: Dict[str, Callable]):
+        self._table = dict(names_to_ctor)
+
+    def __iter__(self):
+        return iter(self._table)
+
+    def __len__(self):
+        return len(self._table)
+
+    def __getitem__(self, name: str) -> Callable:
+        ctor = self._table[name]
+
+        def construct(*args, **kwargs):
+            warnings.warn(
+                f"constructing backends through BACKENDS[{name!r}](...) is "
+                f"deprecated; use repro_torch.solvers.registry.make_backend "
+                f"or repro_torch.nvm.backend.create_backend",
+                DeprecationWarning, stacklevel=2)
+            return ctor(*args, **kwargs)
+
+        construct.__name__ = getattr(ctor, "__name__", name)
+        construct.__wrapped__ = ctor
+        return construct

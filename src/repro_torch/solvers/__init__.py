@@ -41,6 +41,7 @@ from repro_torch.solvers.gmres import GMRES_SCHEMA, RestartedGMRESSolver  # noqa
 from repro_torch.solvers.jacobi import JACOBI_SCHEMA, WeightedJacobiSolver  # noqa: F401
 from repro_torch.solvers.pcg import PCGSolver  # noqa: F401
 from repro_torch.solvers.registry import (  # noqa: F401
+    BACKENDS,
     SOLVERS,
     make_backend,
     make_solver,

@@ -53,6 +53,11 @@ class RecoverableSolver(abc.ABC):
     #: failure; restored by reconstruction)
     state_nan_scalars: Sequence[str] = ()
 
+    #: whether the solver offers a :meth:`lane_step` for the batched
+    #: multi-tenant service path; GMRES's restart-cycle step is
+    #: host-orchestrated and stays solo-only
+    batchable = False
+
     @abc.abstractmethod
     def init_state(self, op, precond, b, x0=None):
         """State after 0 completed iterations (with ``k`` and ``r``)."""
@@ -72,6 +77,35 @@ class RecoverableSolver(abc.ABC):
                     sets: Sequence[RecoverySet], local_method: str = "auto"):
         """Exactly rebuild the failed shards at ``snapshot.k``; ``sets``
         holds the recovered payload unions, oldest -> newest."""
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def lane_step(cls, op_apply, precond, dot, params):
+        """One-iteration transition of a *bucket* of tenant lanes — the
+        multi-tenant service path, where the reference vmaps one lane's
+        step (:func:`repro_torch.solvers.driver.make_batched_step`).
+
+        The state it takes holds ``(lanes, n)`` vector fields and
+        ``(lanes, 1)`` per-lane scalar columns, so the solo step body
+        broadcasts over the lanes unchanged; ``op_apply`` is the masked
+        lane operator (one K1 launch for the bucket), ``precond`` the
+        diagonal lane preconditioner (``apply`` and ``inv_diag``, both
+        ``(lanes, n)``), ``dot`` the per-lane inner product (one
+        ``det_dot_lanes`` launch, a ``(lanes, 1)`` column), and every
+        per-tenant quantity (Chebyshev's ``c``/``sigma``, the Jacobi
+        weight, BiCGStab's shadow residual) arrives stacked in ``params``
+        as tensors.  Solvers share the step body with :meth:`make_step`.
+        """
+        raise NotImplementedError(
+            f"solver {cls.name!r} has no batched lane step "
+            f"(batchable={cls.batchable})")
+
+    def lane_params(self):
+        """The per-lane ``params`` :meth:`lane_step` consumes (name ->
+        float or ``(n,)`` tensor), read off a solver built for this
+        tenant (after :meth:`init_state` for solvers whose params are
+        derived there).  Default: none."""
+        return {}
 
     # ------------------------------------------------------------------
     def residual_norm(self, state) -> float:

@@ -48,7 +48,9 @@ class BiCGStabState(NamedTuple):
 
 
 def make_step(op_apply, precond_apply, dot, rhat0):
-    """One BiCGStab iteration."""
+    """One BiCGStab iteration.  ``rhat0`` is the solve's shadow residual
+    (solo path) or the lanes' ``(lanes, n)`` stack (the service's lane
+    step): the body is shared."""
 
     def step(state: BiCGStabState) -> BiCGStabState:
         rho_new = dot(rhat0, state.r)
@@ -74,6 +76,7 @@ class BiCGStabSolver(RecoverableSolver):
     schema = BICGSTAB_SCHEMA
     state_vector_fields = ("x", "r", "p", "v")
     state_nan_scalars = ()
+    batchable = True
 
     def __init__(self):
         self._rhat0 = None
@@ -91,6 +94,17 @@ class BiCGStabSolver(RecoverableSolver):
         if self._rhat0 is None:
             raise RuntimeError("init_state must run before make_step")
         return make_step(op.apply, precond.apply, solver_dot(op), self._rhat0)
+
+    @classmethod
+    def lane_step(cls, op_apply, precond, dot, params):
+        # No barrier, as in the reference's lane step (and the port's
+        # solo step: eager PyTorch materializes phat/shat once).
+        return make_step(op_apply, precond.apply, dot, params["rhat0"])
+
+    def lane_params(self):
+        if self._rhat0 is None:
+            raise RuntimeError("init_state must run before lane_params")
+        return {"rhat0": self._rhat0}
 
     def recovery_set(self, state, on_device: bool = False) -> RecoverySet:
         def vector(v):

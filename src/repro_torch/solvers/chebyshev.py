@@ -109,8 +109,10 @@ def spectral_bounds(op, precond, power_iters: int = 100,
     return 0.9 * max(lo, 1e-12 * hi), 1.05 * hi
 
 
-def make_step(op_apply, precond_apply, c: float, sigma: float):
-    """One Chebyshev iteration: one stencil apply, no reductions."""
+def make_step(op_apply, precond_apply, c, sigma):
+    """One Chebyshev iteration: one stencil apply, no reductions.
+    ``c``/``sigma`` are Python floats (solo path) or ``(lanes, 1)``
+    columns (the service's lane step): the recurrence body is shared."""
 
     def step(state: ChebyshevState) -> ChebyshevState:
         ap = op_apply(state.p)                    # the only SpMV
@@ -132,6 +134,7 @@ class ChebyshevSolver(RecoverableSolver):
     schema = CHEBYSHEV_SCHEMA
     state_vector_fields = ("x", "r", "z", "p")
     state_nan_scalars = ()
+    batchable = True
 
     def __init__(self, lam_min: float, lam_max: float):
         if not (0.0 < lam_min < lam_max):
@@ -157,6 +160,17 @@ class ChebyshevSolver(RecoverableSolver):
 
     def make_step(self, op, precond):
         return make_step(op.apply, precond.apply, self.c, self.d / self.c)
+
+    @classmethod
+    def lane_step(cls, op_apply, precond, dot, params):
+        return make_step(op_apply, precond.apply, params["c"],
+                         params["sigma"])
+
+    def lane_params(self):
+        # Bounds are computed from the tenant's *real* operator
+        # (spectral_bounds in from_problem); only the recurrence
+        # coefficients travel into the lane.
+        return {"c": self.c, "sigma": self.d / self.c}
 
     def recovery_set(self, state, on_device: bool = False) -> RecoverySet:
         p = state.p if on_device else self.host_shard(state.p)

@@ -1,7 +1,8 @@
 """Generic ESR solve loop for any :class:`RecoverableSolver` (port of
 ``repro/solvers/driver.py``: the config, campaign, planner, spec
-advisor, report, persistence pipeline and solve loop; the batched
-service step and sharded solves are not ported yet).
+advisor, report, persistence pipeline, solve loop and the batched lane
+step of the multi-tenant service; solves sharded across cards are not
+ported yet).
 
 The runtime machinery of the paper:
 
@@ -114,9 +115,13 @@ class FailureEvent:
     may carry no blocks (the PRD dies alone; the solve itself
     continues, unprotected).
 
-    ``shard`` names a *device shard* of a sharded solve; the port runs
-    unsharded solves only, so a ``shard`` event is refused before
-    iteration 0 (there is no device to kill)."""
+    ``shard`` names a *shard* instead of (or in addition to) explicit
+    blocks: the event kills every block the shard owns (the paper's
+    per-node failure unit).  The driver resolves ``shard`` against the
+    solve's :class:`~repro_torch.distributed.sharding.ShardLayout` (a
+    service tenant's declared logical one) before planning, so the
+    planner and the recovery engine only ever see blocks; a ``shard``
+    event without a layout is an error (there is no node to kill)."""
 
     blocks: Tuple[int, ...] = ()
     at_iteration: Optional[int] = None
@@ -190,19 +195,37 @@ class CampaignPlan:
     storage_losses: int
 
 
-def resolve_shard_events(campaign) -> "FailureCampaign":
-    """Normalize ``campaign``; ``FailureEvent(shard=...)`` needs a sharded
-    solve, which the port does not run yet, so it is refused."""
+def resolve_shard_events(campaign, layout=None) -> "FailureCampaign":
+    """Resolve ``FailureEvent(shard=...)`` triggers into block sets.
+
+    ``layout`` is the solve's
+    :class:`~repro_torch.distributed.sharding.ShardLayout` (None for an
+    unsharded solve).  Each shard event's block set becomes the union of
+    its explicit blocks and the blocks the shard owns, so everything
+    downstream — the planner's budget walk, ``solver.wipe``,
+    ``session.fail``, the recovery fetch — speaks blocks only.  A shard
+    event without a layout is refused (there is no node to kill), and an
+    out-of-range shard index fails here, before iteration 0."""
     campaign = _as_campaign(campaign)
-    if any(e.shard is not None for e in campaign.events):
+    if not any(e.shard is not None for e in campaign.events):
+        return campaign
+    if layout is None:
         raise ValueError(
             "FailureEvent(shard=...) needs a sharded solve: the operator "
-            "carries no ShardLayout (address blocks directly)")
-    return campaign
+            "carries no ShardLayout (declare the tenant's nshards= on "
+            "the solve service, or address blocks directly)")
+    events = []
+    for ev in campaign.events:
+        if ev.shard is None:
+            events.append(ev)
+            continue
+        blocks = tuple(sorted(set(ev.blocks) | set(layout.blocks_of(ev.shard))))
+        events.append(dataclasses.replace(ev, blocks=blocks, shard=None))
+    return FailureCampaign(tuple(events))
 
 
 def plan_campaign(campaign, capabilities: BackendCapabilities,
-                  tracer=None) -> CampaignPlan:
+                  tracer=None, layout=None) -> CampaignPlan:
     """Check a campaign against a backend's declared capabilities.
 
     Walks the campaign exactly as the solve loop will execute it —
@@ -222,11 +245,13 @@ def plan_campaign(campaign, capabilities: BackendCapabilities,
     :class:`UnsurvivableCampaignError` naming the violating
     :class:`FailureEvent` otherwise.  ``campaign`` may be a
     :class:`FailureCampaign` or any sequence :func:`solve` accepts.
+    ``layout`` (a :class:`~repro_torch.distributed.sharding.ShardLayout`)
+    resolves ``shard=`` events to their block sets first.
     A ``tracer`` (repro_torch.obs) records the verdict as a ``plan.accept``
     or ``plan.reject`` event.
     """
     trace = tracer or None
-    campaign = resolve_shard_events(campaign)
+    campaign = resolve_shard_events(campaign, layout)
     try:
         plan = _plan_campaign_walk(campaign, capabilities)
     except UnsurvivableCampaignError as e:
@@ -476,9 +501,10 @@ class SolveReport:
     driver/session boundary, metered by the session's
     :class:`~repro_torch.nvm.backend.SessionTraffic` and surfaced through
     the registry as ``persist.bytes`` / ``recovery.fetch_bytes`` counters
-    labeled ``shard=N`` (always shard 0 in the port):
+    labeled ``shard=N`` (shard 0 on a solo solve; a service tenant's
+    declared logical layout labels its own):
 
-    - ``nshards`` — device shards of the solve (1 when unsharded).
+    - ``nshards`` — shards of the solve (1 when unsharded).
     - ``persist_bytes`` / ``persist_bytes_by_shard`` — slot bytes each
       shard's blocks shipped to the persistence service.
     - ``recovery_fetch_bytes`` / ``recovery_fetch_bytes_by_shard`` —
@@ -492,6 +518,19 @@ class SolveReport:
     - ``metrics`` — the :class:`~repro_torch.obs.MetricsRegistry` the
       solve loop incremented; every numeric counter above is a *derived
       view* of it (read back out at exit).
+
+    Service residency — set only when the solve ran as a tenant of
+    :class:`repro_torch.serving.SolveService`; all three stay 0 on solo
+    driver runs.  Measured in deterministic service steps, never
+    wall-clock; the counters are derived views too
+    (``SERVICE_REPORT_PAIRS``):
+
+    - ``service_queue_wait_steps`` — steps spent queued before a lane
+      seated the tenant.
+    - ``service_lane_steps`` — steps resident in a lane (batched bucket
+      steps the tenant rode).
+    - ``service_batch_occupancy`` — mean live-lane fraction of the
+      tenant's bucket over its residency.
     """
 
     iterations: int = 0
@@ -519,6 +558,9 @@ class SolveReport:
     residual_history: List[float] = dataclasses.field(default_factory=list)
     solver: str = ""
     metrics: Optional[MetricsRegistry] = None
+    service_queue_wait_steps: int = 0
+    service_lane_steps: int = 0
+    service_batch_occupancy: float = 0.0
 
     @property
     def persist_hidden_fraction(self) -> float:
@@ -590,11 +632,18 @@ class PersistencePipeline:
     :meth:`persist_abort`), failure injection (:meth:`pop_event` /
     :meth:`inject`), the recovery engine (:meth:`run_recovery`), and
     the derived-view report readback (:meth:`finalize`).  The caller
-    owns the state, the step function, and the loop.
+    owns the state, the step function, and the loop: :func:`solve` runs
+    one pipeline for its solo loop, the multi-tenant service
+    (:mod:`repro_torch.serving.solve_service`) one per admitted tenant.
+
+    ``layout`` overrides the operator's
+    :class:`~repro_torch.distributed.sharding.ShardLayout` — the service
+    passes a tenant's *declared logical* layout so ``shard=`` failure
+    events resolve to block sets and per-shard bytes carry its labels.
     """
 
     def __init__(self, solver, op, precond, b, config: SolveConfig,
-                 backend, failures=(), *, metrics=None):
+                 backend, failures=(), *, layout=None, metrics=None):
         if config.persist_mode not in PERSIST_MODES:
             raise ValueError(
                 f"persist_mode must be one of {PERSIST_MODES}, "
@@ -611,6 +660,7 @@ class PersistencePipeline:
         # executes zero tracer callables per iteration (the obs guard
         # test).
         self.trace = config.tracer or None
+        self.layout = getattr(op, "layout", None) if layout is None else layout
         self.history = solver.schema.history
         self.metrics = (MetricsRegistry(solver=solver.name,
                                         mode=config.persist_mode)
@@ -623,9 +673,12 @@ class PersistencePipeline:
                 self.session.set_tracer(self.trace)
             binder = getattr(self.session, "bind_shards", None)
             if part is not None and binder is not None:
-                # The session meters persist/fetch bytes per device shard;
-                # an unsharded solve puts every block on shard 0.
-                shard_map = {blk: 0 for blk in range(part.nblocks)}
+                # The session meters persist/fetch bytes per shard, each
+                # block's bytes against its owning shard; an unsharded
+                # solve puts every block on shard 0.
+                shard_map = (self.layout.shard_of_block_map()
+                             if self.layout is not None
+                             else {blk: 0 for blk in range(part.nblocks)})
                 binder(shard_of_block=shard_map,
                        slot_nbytes=solver.schema.slot_nbytes(
                            part.block_size, _numpy_dtype(b.dtype)))
@@ -649,7 +702,9 @@ class PersistencePipeline:
                 self.stage_geometry = self.session.fused_geometry(
                     _numpy_dtype(b.dtype))
 
-        campaign = resolve_shard_events(failures)
+        # shard=... events become block events before anything else sees
+        # them
+        campaign = resolve_shard_events(failures, self.layout)
         if config.plan_campaign and campaign.events and backend is not None:
             caps = getattr(backend, "capabilities", None)
             if isinstance(caps, BackendCapabilities):
@@ -967,7 +1022,7 @@ class PersistencePipeline:
         # Traffic: fold the session's byte meter into the registry as
         # shard-labeled counters, then read the report fields back OUT of
         # the registry like every other counter above.
-        report.nshards = 1
+        report.nshards = 1 if self.layout is None else self.layout.nshards
         traffic = getattr(self.session, "traffic", None)
         if traffic is not None:
             for shard, nbytes in sorted(traffic.persist_bytes.items()):
@@ -992,6 +1047,44 @@ class PersistencePipeline:
             trace.event("solve.end", iterations=report.iterations,
                         converged=report.converged,
                         final_relres=report.final_relres)
+
+
+def make_batched_step(solver_cls, make_lane_ops):
+    """One driver step over a bucket of tenant lanes — the batched entry
+    of the multi-tenant service, where the reference vmaps one lane's
+    step (``jax.jit(jax.vmap(...))``).  The hand-written kernels have no
+    batching rule, so the lane axis is explicit: the returned function
+    maps ``(stacked_states, lanes) -> stacked_states`` over a stacked
+    state of the solver's state class — vector fields ``(lanes, n)``,
+    per-lane scalars ``(lanes,)``, ``k`` a ``(lanes,)`` host tensor — with
+    one launch per kernel for the whole bucket.
+
+    ``make_lane_ops(lanes)`` receives the bucket's stacked lane data and
+    returns ``(op_apply, precond, dot, params)``; the solver class's
+    :meth:`~repro_torch.solvers.base.RecoverableSolver.lane_step` consumes
+    them.  The scalars travel into the step as ``(lanes, 1)`` columns, so
+    the solo step body broadcasts over the lanes unchanged.  Every lane is
+    independent — lane ``i``'s output depends only on lane ``i``'s
+    inputs (the lane kernels reduce within a lane, never across), which
+    is what makes cohabitant trajectories bitwise their solo runs
+    through the same bucket shape.
+    """
+    if not getattr(solver_cls, "batchable", False):
+        raise NotImplementedError(
+            f"solver {solver_cls.name!r} is not batchable "
+            f"(no lane_step)")
+
+    def step(states, lanes):
+        op_apply, precond, dot, params = make_lane_ops(lanes)
+        scalars = [f for f, v in zip(states._fields, states)
+                   if f != "k" and v.dim() == 1]
+        columns = states._replace(**{f: getattr(states, f).unsqueeze(-1)
+                                     for f in scalars})
+        out = solver_cls.lane_step(op_apply, precond, dot, params)(columns)
+        return out._replace(**{f: getattr(out, f).squeeze(-1)
+                               for f in scalars})
+
+    return step
 
 
 def solve(

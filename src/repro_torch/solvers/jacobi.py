@@ -32,8 +32,10 @@ class JacobiState(NamedTuple):
     k: int
 
 
-def make_step(op_apply, precond_apply, omega: float):
-    """One weighted-Jacobi iteration."""
+def make_step(op_apply, precond_apply, omega):
+    """One weighted-Jacobi iteration.  ``omega`` is a Python float (solo
+    path) or a ``(lanes, 1)`` column (the service's lane step): the body
+    is shared."""
 
     def step(state: JacobiState) -> JacobiState:
         z = precond_apply(state.r)
@@ -48,12 +50,20 @@ class WeightedJacobiSolver(IterateOnlyRecovery, RecoverableSolver):
     name = "jacobi"
     schema = JACOBI_SCHEMA
     state_cls = JacobiState
+    batchable = True
 
     def __init__(self, omega: float = 2.0 / 3.0):
         self.omega = float(omega)
 
     def make_step(self, op, precond):
         return make_step(op.apply, precond.apply, self.omega)
+
+    @classmethod
+    def lane_step(cls, op_apply, precond, dot, params):
+        return make_step(op_apply, precond.apply, params["omega"])
+
+    def lane_params(self):
+        return {"omega": self.omega}
 
     # ------------------------------------------------------------------
     @classmethod

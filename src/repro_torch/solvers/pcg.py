@@ -22,6 +22,7 @@ class PCGSolver(RecoverableSolver):
     schema = PCG_SCHEMA
     state_vector_fields = ("x", "r", "z", "p")
     state_nan_scalars = ("rz",)
+    batchable = True
 
     def init_state(self, op, precond, b, x0=None):
         return _core_pcg.init_state(op, precond, b, x0, dot=solver_dot(op))
@@ -34,6 +35,12 @@ class PCGSolver(RecoverableSolver):
             return _core_pcg.make_generic_step(op.apply, precond.apply,
                                                op.nblocks)
         return _core_pcg.make_step(op.apply, inv_diag, op.nblocks)
+
+    @classmethod
+    def lane_step(cls, op_apply, precond, dot, params):
+        # PCG's scalars (rz, beta) live in the state; no per-lane params.
+        # K2's lane mode fuses the lanes' diagonal preconditioners.
+        return _core_pcg.make_lane_step(op_apply, precond.inv_diag, dot)
 
     def make_persist_step(self, op, precond, k_data: int, nparity: int):
         """The step with K4 in place of K2: returns ``(state, staged)``,

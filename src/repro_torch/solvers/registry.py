@@ -1,6 +1,5 @@
 """The solver zoo registry and backend factory (port of
-``repro/solvers/registry.py``, without the deprecated ``BACKENDS``
-table view).
+``repro/solvers/registry.py``).
 
 Tests and examples iterate ``SOLVERS`` to run every ESR-recoverable
 solver against every persistence backend; the factories wire schemas
@@ -20,6 +19,9 @@ from typing import Dict, Optional, Type
 
 import numpy as np
 
+# Deprecated table view (``BACKENDS[name](...)`` warns); the live
+# registry is repro_torch.nvm.backend.
+from repro_torch.core.nvm_esr import BACKENDS  # noqa: F401
 from repro_torch.core.state import RecoverySchema
 from repro_torch.nvm.backend import (
     PersistenceBackend,

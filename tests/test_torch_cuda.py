@@ -96,10 +96,16 @@ def test_ops_dispatch_launches_kernels_on_card(cuda_device):
     ops.fused_cg_update(v, v, v, v, one, v, 4)
     ops.rs_encode(torch.ones(4, 64, dtype=torch.uint8, device=cuda_device), 2)
     ops.fused_cg_update_persist(v, v, v, v, one, v, 4, 4, 2)
+    lanes = v.reshape(4, -1)
+    ops.det_dot_lanes(lanes, lanes)
+    ops.fused_cg_update_lanes(lanes, lanes, lanes, lanes, one.repeat(4),
+                              lanes)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"stencil7": 1, "fused_cg_update": 1,
                                    "det_dot": 1, "gf256_rs_encode": 1,
-                                   "fused_cg_update_persist": 1}
+                                   "fused_cg_update_persist": 1,
+                                   "fused_cg_update_lanes": 1,
+                                   "det_dot_lanes": 1}
 
 
 def _shards(seed, k_data, length):
@@ -222,7 +228,8 @@ def test_solve_jit_graph_is_the_eager_loop_bitwise_on_card(cuda_device, chunk,
     assert info["graph"] and info["chunk"] == size
     assert info["launches_per_chunk"] == {
         "stencil7": size, "fused_cg_update": size, "det_dot": 2 * size,
-        "gf256_rs_encode": 0, "fused_cg_update_persist": 0}
+        "gf256_rs_encode": 0, "fused_cg_update_persist": 0,
+        "fused_cg_update_lanes": 0, "det_dot_lanes": 0}
     eager = info["eager_iterations"]
     # init (K1, 3 dots), warm-up (one step + one dot), the replays, and
     # the eager rerun of a chunk the stop fell inside
@@ -330,3 +337,116 @@ def test_block_jacobi_pcg_on_card_matches_the_cpu_port(cuda_device):
     card, cpu = results
     assert card.iterations == cpu.iterations and card.converged
     np.testing.assert_allclose(card.x, cpu.x, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n", [(4, 4096), (3, 8229), (1, 1000),
+                                     (2, 128 * 9)])
+@pytest.mark.parametrize("dtype,tol,rz_tol", [(torch.float64, 1e-12, 1e-12),
+                                              (torch.float32, 2e-5, 1e-4),
+                                              (torch.bfloat16, 2e-1, 3e-2)])
+def test_lane_kernels_are_solo_launches_on_card(cuda_device, lanes, n, dtype,
+                                                tol, rz_tol):
+    """K2's and det_dot's lane modes: each lane bitwise a solo nblocks=1
+    launch on that lane (and det_dot_order_plain's order), and the whole
+    bucket within tolerance of the plain lane versions."""
+    x, r, p, ap = (torch.from_numpy(rng_normal(s, lanes, n)).to(cuda_device,
+                                                                 dtype)
+                   for s in range(4))
+    inv = (0.5 + torch.from_numpy(np.abs(rng_normal(9, lanes, n)))).to(
+        cuda_device, dtype)
+    alpha = (0.1 + torch.from_numpy(np.abs(rng_normal(8, lanes)))).to(
+        cuda_device, dtype)
+    before = (fused_cg.update_lanes_launches, fused_cg.dot_lanes_launches)
+    got = fused_cg.fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv)
+    dots = fused_cg.det_dot_lanes_cuda(p, ap)
+    torch.cuda.synchronize()
+    assert (fused_cg.update_lanes_launches, fused_cg.dot_lanes_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got[3].shape == dots.shape == (lanes,)
+    for i in range(lanes):
+        solo = fused_cg.fused_cg_update_cuda(x[i], r[i], p[i], ap[i],
+                                             alpha[i], inv[i], 1)
+        for g, s in zip(got, solo):
+            assert torch.equal(g[i], s), f"lane {i}"
+        assert torch.equal(dots[i], fused_cg.det_dot_cuda(p[i], ap[i], 1))
+        assert torch.equal(dots[i], fused_cg.det_dot_order_plain(p[i], ap[i]))
+    want = fused_cg.fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv)
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    rz_rel = ((got[3].double() - want[3].double()).abs()
+              / want[3].double().abs())
+    assert float(rz_rel.max()) < rz_tol
+    plain_dots = fused_cg.det_dot_lanes_plain(p, ap).double()
+    assert float(((dots.double() - plain_dots).abs()
+                  / plain_dots.abs()).max()) < rz_tol
+
+
+@pytest.mark.cuda
+def test_lane_kernels_keep_a_free_lane_nan_in_its_lane(cuda_device):
+    lanes, n = 4, 3000
+    x, r, p, ap, inv = (torch.from_numpy(rng_normal(s, lanes, n)).to(
+        cuda_device) for s in range(5))
+    alpha = torch.full((lanes,), 0.3, dtype=torch.float64, device=cuda_device)
+    clean = fused_cg.fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv)
+    clean_dot = fused_cg.det_dot_lanes_cuda(p, ap)
+    for t in (x, r, p, ap):
+        t[1] = float("nan")
+    alpha[1] = float("nan")
+    dirty = fused_cg.fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv)
+    dirty_dot = fused_cg.det_dot_lanes_cuda(p, ap)
+    for lane in (0, 2, 3):
+        for c, d in zip(clean, dirty):
+            assert torch.equal(c[lane], d[lane])
+        assert torch.equal(clean_dot[lane], dirty_dot[lane])
+    assert bool(torch.isnan(dirty[3][1])) and bool(torch.isnan(dirty_dot[1]))
+
+
+@pytest.mark.cuda
+def test_service_on_card_matches_the_cpu_port(cuda_device, monkeypatch):
+    """A small mixed bucket with block, PRD and shard kills on the card,
+    against the CPU port on the same requests (the CPU run in the card's
+    dot order, as for the zoo above); one K1, one K2-lanes and one
+    lane-dot launch per PCG bucket step."""
+    from repro_torch import api
+    from repro_torch.serving import ServiceRequest
+    from repro_torch.solvers import FailureEvent
+
+    monkeypatch.setattr(fused_cg, "block_dot_plain",
+                        fused_cg.det_dot_order_plain)
+    requests = (
+        ServiceRequest("a", 0, (16, 16, 16), 8, tol=1e-10, maxiter=60,
+                       backend="nvm-prd",
+                       failures=(FailureEvent(blocks=(1, 2),
+                                              at_iteration=10),)),
+        ServiceRequest("b", 0, (12, 16, 16), 4, tol=1e-10, maxiter=60,
+                       backend="replicated(nvm-prd x2)",
+                       persist_mode="overlap", period=3,
+                       failures=(FailureEvent(blocks=(3,), at_iteration=8,
+                                              prd=True),)),
+        ServiceRequest("c", 0, (10, 10, 10), 5, tol=1e-10, maxiter=60,
+                       backend="erasure(nvm-prd x4+p)", nshards=5,
+                       failures=(FailureEvent(shard=2, at_iteration=7),)),
+        ServiceRequest("d", 0, (16, 16, 12), 4, tol=1e-10, maxiter=60,
+                       backend="nvm-homogeneous"),
+    )
+    card, cpu = (api.serve(requests, device=device)
+                 for device in (cuda_device, "cpu"))
+    for name in "abcd":
+        got, want = card[name].result, cpu[name].result
+        assert got.state.x.device.type == "cuda"
+        assert got.iterations == want.iterations
+        assert (got.report.failures_recovered
+                == want.report.failures_recovered == int(name != "d"))
+        np.testing.assert_allclose(got.x, want.x, rtol=1e-10, atol=1e-10)
+    assert card["c"].result.report.nshards == 5
+    assert set(card["c"].result.report.persist_bytes_by_shard) == set(range(5))
+    # the failure-free tenant alone: every bucket step is one launch of
+    # each lane kernel, and one K1 (plus the lane init's apply)
+    ops.reset_launch_counts()
+    alone = api.serve(requests[3:], device=cuda_device)["d"].result.report
+    counts = ops.launch_counts()
+    steps = alone.service_lane_steps
+    assert steps > 0
+    assert counts["fused_cg_update_lanes"] == counts["det_dot_lanes"] == steps
+    assert counts["stencil7"] == steps + 1

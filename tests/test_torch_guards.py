@@ -102,9 +102,12 @@ def no_cuda(monkeypatch):
                                          fused_persist=True)),
     lambda: api.advise(api.Problem.poisson(8), []),
     lambda: solve_jit(*_default_problem_parts()),
+    lambda: api.serve(api.generate_request_trace(0, nrequests=1)),
+    lambda: api.SolveService().submit_request(
+        api.generate_request_trace(0, nrequests=1)[0]),
 ], ids=["Problem.poisson", "make_poisson_problem", "StencilOperator",
         "problem_from_numpy", "state_from_numpy", "erasure solve", "advise",
-        "solve_jit"])
+        "solve_jit", "serve", "SolveService.submit_request"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -187,6 +190,8 @@ def broken_build(monkeypatch):
     monkeypatch.setattr(fused_cg, "block_dot_plain", plain_called)
     monkeypatch.setattr(fused_cg, "fused_cg_update_persist_plain",
                         plain_called)
+    monkeypatch.setattr(fused_cg, "fused_cg_update_lanes_plain", plain_called)
+    monkeypatch.setattr(fused_cg, "det_dot_lanes_plain", plain_called)
     monkeypatch.setattr(gf256_encode, "gf256_rs_encode_plain", plain_called)
 
 
@@ -196,8 +201,13 @@ def broken_build(monkeypatch):
     lambda v, g, b: ops.fused_cg_update(v, v, v, v, v, v, 4),
     lambda v, g, b: ops.rs_encode(b, 2),
     lambda v, g, b: ops.fused_cg_update_persist(v, v, v, v, v, v, 4, 4, 2),
+    lambda v, g, b: ops.fused_cg_update_lanes(*[_FakeCudaTensor((4, 16))] * 4,
+                                              _FakeCudaTensor((4,)),
+                                              _FakeCudaTensor((4, 16))),
+    lambda v, g, b: ops.det_dot_lanes(_FakeCudaTensor((4, 16)),
+                                      _FakeCudaTensor((4, 16))),
 ], ids=["stencil7", "det_dot", "fused_cg_update", "rs_encode",
-        "fused_cg_update_persist"])
+        "fused_cg_update_persist", "fused_cg_update_lanes", "det_dot_lanes"])
 def test_ops_never_fall_back_for_cuda_tensors(broken_build, call):
     # the fake reaches the failing build (or the wrapper's own checks);
     # a fallback would hit the patched plain versions' AssertionError
@@ -215,6 +225,8 @@ def test_cuda_path_surfaces_the_build_failure(broken_build):
         ops.det_dot(_FakeCudaTensor((64,)), _FakeCudaTensor((64,)), 4)
     with pytest.raises(RuntimeError, match="build of gf256_encode failed"):
         ops.rs_encode(_FakeCudaTensor((4, 64), torch.uint8), 1)
+    with pytest.raises(RuntimeError, match="build of fused_cg failed"):
+        ops.det_dot_lanes(_FakeCudaTensor((4, 16)), _FakeCudaTensor((4, 16)))
 
 
 def test_stripe_hands_tensors_to_the_kernel_seam(monkeypatch):

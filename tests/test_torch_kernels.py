@@ -129,9 +129,15 @@ def test_cpu_calls_launch_no_kernel():
     u = torch.zeros(4, 4, 4, dtype=torch.float64)
     ops.stencil7(u)
     ops.det_dot(u.reshape(-1), u.reshape(-1), 4)
+    lanes = u.reshape(4, -1)
+    ops.det_dot_lanes(lanes, lanes)
+    ops.fused_cg_update_lanes(lanes, lanes, lanes, lanes,
+                              torch.ones(4, dtype=torch.float64), lanes)
     assert ops.launch_counts() == {"stencil7": 0, "fused_cg_update": 0,
                                    "det_dot": 0, "gf256_rs_encode": 0,
-                                   "fused_cg_update_persist": 0}
+                                   "fused_cg_update_persist": 0,
+                                   "fused_cg_update_lanes": 0,
+                                   "det_dot_lanes": 0}
 
 
 @pytest.mark.parametrize("nblocks", [1, 4])

@@ -98,8 +98,10 @@ def test_unsurvivable_and_unported_requests_raise(problems):
     # the replicated composite is ported: it runs
     mirrored = api.solve(port_problem, "pcg", "replicated(nvm-prd x2)")
     assert mirrored.converged
-    # still unported: sharded solves and the multi-tenant service
+    # still unported: solves sharded across cards, so a solo solve has
+    # no layout for a shard= event (service tenants declare one)
     with pytest.raises(ValueError, match="sharded solve"):
         api.solve(port_problem, "pcg", "nvm-prd",
                   failures=[api.FailureEvent(shard=0, at_iteration=3)])
-    assert not hasattr(api, "serve") and not hasattr(api, "SolveService")
+    # the multi-tenant service is ported
+    assert callable(api.serve) and callable(api.SolveService)
