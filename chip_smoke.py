@@ -10,7 +10,7 @@ Phases (each prints its results on lines of its own; any failure exits
 non-zero and prints no result line):
 
 1. device — ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build — the CUDA kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel);
 3. kernels — each kernel against its plain version on the card, at the
    main path's shapes (256^3 float64) plus small float32/bfloat16,
@@ -30,7 +30,7 @@ non-zero and prints no result line):
    step at 4 x 256^3 (fused_cg_update_lanes and det_dot_lanes, each lane
    bitwise a solo ``nblocks=1`` launch on it, beside
    ``torch.linalg.vecdot`` for the lane dots) and K1 on the bucket's
-   ``(4, 256, 256, 256)`` grids;
+   ``(4, 256, 256, 256)`` grids, beside a batched conv3d;
 4. main path — ``api.solve`` of the 256^3 float64 Poisson problem
    (``nblocks=8``, PCG, ``nvm-prd``): unprotected, persisted without
    failure, and with blocks (1, 2) failing at iteration 20 in sync and in
@@ -75,11 +75,25 @@ non-zero and prints no result line):
    K1, K2's lane mode and det_dot's; then a 2-lane BiCGStab bucket of
    128^3 with a block kill (a lane step without K2).  Every bucket step
    prints its device ms (CUDA events), the host ms of the loop-top
-   passes and each tenant's persist seconds.
+   passes and each tenant's persist seconds;
+11. mesh — the sharded main path at 256^3 float64 (``nblocks=8``):
+   K1's halo mode at 2, 4 and 8 shards bitwise one full K1 launch (one
+   sharded apply's device ms, every slab launch and halo copy, beside
+   the full launch's) and one slab against its plain version and a
+   conv3d; ``det_dot``, ``det_rowdots`` and the PCG step on a 4-shard
+   mesh bitwise unsharded (per-shard lane launches of det_dot and K2);
+   ``api.solve`` of ``Problem.poisson(256, nblocks=8, nshards=4)`` on
+   ``nvm-prd`` with ``FailureEvent(shard=1)`` at 10, 20 iterations,
+   bitwise the unsharded solve with blocks (2, 3) killed and fetching
+   one shard's slot bytes; fetch bytes halving from 2 to 4 to 8 shards
+   (6-iteration runs on ``nvm-homogeneous``); the 4-shard float32
+   ``make_shardmap_pcg_step`` for 10 steps within rtol 1e-4 of the
+   unsharded fused step.
 
 Kernel launches are counted from a reset just before each path (phases
-4, 5, 7, 8, 9 and each run of 10) to a reading just after it, graph
-replays included, and summed into the kernel summary.  The line before the last is the
+4, 5, 7, 8, 9, each run of 10 and the sharded solve of 11) to a reading
+just after it, graph replays included, and summed into the kernel
+summary.  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
@@ -592,6 +606,8 @@ def lane_kernels(torch, rate: float, records: dict) -> dict:
     columns beside the bound; K1 on the bucket's (lanes, 256, 256, 256)
     grids beside its bound (added to K1's record).  Returns the two lane
     kernels' records."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import fused_cg as k2
     from repro_torch.kernels import stencil7 as k1
 
@@ -613,13 +629,25 @@ def lane_kernels(torch, rate: float, records: dict) -> dict:
     check(err <= tol, f"stencil7 on {lanes} lanes: error {err} > {tol}")
     ms, dev_ms = both_ms(torch, lambda: k1.stencil7_cuda(u))
     b_ms, b_by = bound_ms(2 * total * 8, 7 * total, "float64", rate)
+    # the yardstick: one cuDNN convolution over the lanes as a batch
+    w = torch.zeros(1, 1, 3, 3, 3, device=dev, dtype=torch.float64)
+    w[0, 0, 1, 1, 1] = 6.0
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w[(0, 0) + idx] = -1.0
+    conv = lambda: F.conv3d(u[:, None], w, padding=1)  # noqa: E731
+    conv_err = max_abs(conv()[:, 0], got)
+    lib_ms, lib_dev_ms = both_ms(torch, conv)
     say("kernels", kernel="stencil7", shape=[lanes] + [GRID] * 3,
         max_abs_err=err, tol=tol, kernel_ms=ms, kernel_device_ms=dev_ms,
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms, library="conv3d float64, batch of "
+        "lanes", conv_vs_kernel_max_abs_err=conv_err)
     records["stencil7"]["lanes"] = dict(shape=[lanes] + [GRID] * 3, ms=ms,
                                         device_ms=dev_ms, bound_ms=b_ms,
-                                        max_abs_err=err)
-    del u, got, want
+                                        max_abs_err=err, library_ms=lib_ms,
+                                        library_device_ms=lib_dev_ms)
+    del u, got, want, w
 
     # ---- K2 lane mode ---------------------------------------------------
     x, r, p, ap = (randn(lanes, n) for _ in range(4))
@@ -1401,6 +1429,285 @@ def phase_service(torch):
     return totals
 
 
+#: phase 11: the sharded main path (256^3 float64, nblocks=8): the
+#: solve's shard count, its iteration cap and failure, the shard counts
+#: of K1's halo check and of the fetch-scaling runs, whose cap and kill
+#: keep them short, and the float32 grid steps of the shardmap check
+MESH_NSHARDS, MESH_MAXITER, MESH_FAIL_AT = 4, 20, 10
+MESH_HALO_SHARDS = (2, 4, 8)
+MESH_SCALING_MAXITER, MESH_SCALING_FAIL_AT = 6, 4
+MESH_GRID_STEPS = 10
+
+
+def mesh_kernels(torch, rate: float, records: dict) -> None:
+    """K1's halo mode at 2, 4 and 8 shards of the 256^3 float64 grid
+    (the slabs side by side bitwise one full K1 launch; one sharded
+    apply's device ms beside the full launch's), one slab launch against
+    its plain version with its timings and bound (the record of
+    ``stencil7_halo``), and the per-shard lane launches of det_dot and K2
+    at the 4-shard solve's shape, their chained sums bitwise the
+    unsharded launches'."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import pcg, spmv
+    from repro_torch.core.state import PCGState
+    from repro_torch.distributed import make_data_mesh
+    from repro_torch.kernels import fused_cg as k2
+    from repro_torch.kernels import stencil7 as k1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, plane = GRID ** 3, GRID * GRID
+    u = torch.randn(GRID, GRID, GRID, generator=gen, device=dev,
+                    dtype=torch.float64)
+    full = k1.stencil7_cuda(u)
+    full_ms = device_ms(torch, lambda: k1.stencil7_cuda(u))
+    b_full, by_full = bound_ms(2 * n * 8, 7 * n, "float64", rate)
+    sharded_ms = {}
+    for nshards in MESH_HALO_SHARDS:
+        got = spmv.sharded_stencil7(u, nshards)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, full)),
+              f"stencil7_halo at {nshards} shards != one full K1 launch")
+        ms = sharded_ms[nshards] = device_ms(
+            torch, lambda: spmv.sharded_stencil7(u, nshards))
+        say("mesh", kernel="stencil7_halo", nshards=nshards,
+            bitwise_full_launch=True, sharded_apply_device_ms=ms,
+            full_launch_device_ms=full_ms, bound_ms=b_full, bound_by=by_full,
+            halo_bytes=2 * (nshards - 1) * plane * 8)
+
+    # one slab of the 4-shard solve: its launch, plain version, conv3d
+    slab = GRID // MESH_NSHARDS
+    z = slice(slab, 2 * slab)
+    us, lo, hi = u[z].contiguous(), u[slab - 1].clone(), u[2 * slab].clone()
+    got = k1.stencil7_halo_cuda(us, lo, hi)
+    want = k1.stencil7_halo_plain(us, lo, hi)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    tol = 1e-12 * max(1.0, float(want.abs().max()))
+    check(err <= tol, f"stencil7_halo slab error {err} > {tol}")
+    check(bool(torch.equal(got, full[z])), "stencil7_halo slab != full[z]")
+    ms, dev_ms = both_ms(torch, lambda: k1.stencil7_halo_cuda(us, lo, hi))
+    plain_ms = time_ms(torch, lambda: k1.stencil7_halo_plain(us, lo, hi))
+    ext = torch.cat([lo[None], us, hi[None]])[None, None]
+    w = torch.zeros(1, 1, 3, 3, 3, device=dev, dtype=torch.float64)
+    w[0, 0, 1, 1, 1] = 6.0
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w[(0, 0) + idx] = -1.0
+    conv = lambda: F.conv3d(ext, w, padding=(0, 1, 1))  # noqa: E731
+    conv_err = max_abs(conv()[0, 0], got)
+    lib_ms, lib_dev_ms = both_ms(torch, conv)
+    m = us.numel()
+    b_ms, b_by = bound_ms((2 * m + 2 * plane) * 8, 7 * m, "float64", rate)
+    say("mesh", kernel="stencil7_halo", slab=list(us.shape), max_abs_err=err,
+        tol=tol, bitwise_full_launch_slab=True, kernel_ms=ms,
+        kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms,
+        library="conv3d float64 on the slab with its halo planes",
+        conv_vs_kernel_max_abs_err=conv_err, bound_ms=b_ms, bound_by=b_by)
+    records["stencil7_halo"] = dict(
+        name="stencil7_halo", route="cuda",
+        source="src/repro_torch/kernels/csrc/stencil7.cu",
+        replaces="src/repro/kernels/stencil7.py:53", max_abs_err=err,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        sharded_apply_device_ms=sharded_ms, full_launch_device_ms=full_ms)
+    del u, full, got, want, ext
+
+    # per-shard block sums: det_dot's and K2's lane modes, 2 blocks a shard
+    x, r, p, ap = (torch.randn(n, generator=gen, device=dev,
+                               dtype=torch.float64) for _ in range(4))
+    inv = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) + 0.5
+    alpha = torch.tensor(0.37, dtype=torch.float64, device=dev)
+    mesh = make_data_mesh(MESH_NSHARDS, dev)
+    bps = NBLOCKS // MESH_NSHARDS
+    mesh_dot = spmv.make_det_dot(NBLOCKS, mesh)
+    want_dot = k2.det_dot_cuda(p, ap, NBLOCKS)
+    check(bool(torch.equal(mesh_dot(p, ap), want_dot)),
+          "det_dot under a 4-shard mesh != the unsharded det_dot")
+    rows = torch.randn(3, n, generator=gen, device=dev, dtype=torch.float64)
+    got_rows = spmv.make_det_rowdots(NBLOCKS, mesh)(rows, ap)
+    want_rows = spmv.make_det_rowdots(NBLOCKS)(rows, ap)
+    check(bool(torch.equal(got_rows, want_rows)),
+          "det_rowdots under a 4-shard mesh != unsharded")
+    check(all(bool(torch.equal(got_rows[i], k2.det_dot_cuda(rows[i], ap,
+                                                           NBLOCKS)))
+              for i in range(3)), "det_rowdots row != det_dot of the row")
+    del rows, got_rows, want_rows
+    shard = slice(bps * (n // NBLOCKS), 2 * bps * (n // NBLOCKS))
+    ps, aps = p[shard].view(bps, -1), ap[shard].view(bps, -1)
+    lane_ms, lane_dev_ms = both_ms(torch, lambda: k2.det_dot_lanes_cuda(
+        ps, aps))
+    lane_b, lane_by = bound_ms(2 * ps.numel() * 8, 2 * ps.numel(), "float64",
+                               rate)
+    mesh_dot_ms = device_ms(torch, lambda: mesh_dot(p, ap))
+    dot_ms = device_ms(torch, lambda: k2.det_dot_cuda(p, ap, NBLOCKS))
+    b_dot, _ = bound_ms(2 * n * 8, 2 * n, "float64", rate)
+    say("mesh", kernel="det_dot_lanes", shard_blocks=bps,
+        n=ps.numel(), kernel_ms=lane_ms, kernel_device_ms=lane_dev_ms,
+        bound_ms=lane_b, bound_by=lane_by, mesh_dot_device_ms=mesh_dot_ms,
+        det_dot_device_ms=dot_ms, dot_bound_ms=b_dot,
+        mesh_dot_bitwise_det_dot=True, rowdots_bitwise=True)
+
+    # the PCG step's dots and update shard by shard (one full K1 for
+    # both, so the two steps differ in those alone)
+    def apply(v):
+        return k1.stencil7_cuda(v.view(GRID, GRID, GRID)).view(-1)
+
+    state = PCGState(x=x, r=r, z=r * inv, p=p, rz=k2.det_dot_cuda(r, r * inv,
+                                                                  NBLOCKS),
+                     beta_prev=alpha * 0, k=0)
+    mesh_step = pcg.make_step(apply, inv, NBLOCKS, mesh)
+    plain_step = pcg.make_step(apply, inv, NBLOCKS)
+    got, want = mesh_step(state), plain_step(state)
+    check(all(bool(torch.equal(getattr(got, f), getattr(want, f)))
+              for f in ("x", "r", "z", "p", "rz", "beta_prev")),
+          "the PCG step on a 4-shard mesh != the unsharded step bitwise")
+    alphas = alpha.reshape(1).repeat(bps)
+    xs, rs, invs = (t[shard].view(bps, -1) for t in (x, r, inv))
+    k2_ms, k2_dev_ms = both_ms(torch, lambda: k2.fused_cg_update_lanes_cuda(
+        xs, rs, ps, aps, alphas, invs))
+    k2_b, k2_by = bound_ms(8 * xs.numel() * 8, 7 * xs.numel(), "float64",
+                           rate)
+    mesh_step_ms = device_ms(torch, lambda: mesh_step(state))
+    plain_step_ms = device_ms(torch, lambda: plain_step(state))
+    say("mesh", kernel="fused_cg_update_lanes", shard_blocks=bps,
+        n=xs.numel(), kernel_ms=k2_ms, kernel_device_ms=k2_dev_ms,
+        bound_ms=k2_b, bound_by=k2_by, sharded_step_device_ms=mesh_step_ms,
+        unsharded_step_device_ms=plain_step_ms, step_bitwise=True)
+    del x, r, p, ap, inv, got, want, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(torch, rate: float, records: dict) -> dict:
+    """The sharded main path at full width: the mesh kernels, then
+    ``api.solve`` of the 4-shard 256^3 problem with a ``shard=1`` kill,
+    bitwise the unsharded solve with blocks (2, 3) killed and fetching
+    one shard's slot bytes; fetch bytes halving from 2 to 4 to 8 shards
+    (short runs); the 4-shard float32 shardmap grid step against the
+    unsharded fused step.  Returns the sharded solve's launch counts."""
+    from repro_torch import api
+    from repro_torch.core import pcg, spmv
+    from repro_torch.core.state import PCG_SCHEMA, PCGState
+    from repro_torch.distributed import make_data_mesh
+    from repro_torch.kernels import fused_cg as k2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil7 as k1
+
+    t_phase = time.perf_counter()
+    mesh_kernels(torch, rate, records)
+    spec = api.SolverSpec("pcg", tol=1e-10, maxiter=MESH_MAXITER)
+
+    def run(label, nshards, event, spec_=spec, backend="nvm-prd"):
+        problem = api.Problem.poisson(GRID, nblocks=NBLOCKS, device=DEVICE,
+                                      nshards=nshards)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = api.solve(problem, spec_,
+                        api.ResilienceSpec(backend, nshards=nshards),
+                        failures=[api.FailureEvent(**event)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = res.report
+        say("mesh", run=label, nshards=rep.nshards,
+            iterations=rep.iterations, wall_s=wall,
+            s_per_iteration=wall / max(rep.iterations, 1),
+            relres=rep.final_relres, failures_recovered=rep.failures_recovered,
+            recovery_fetch_bytes=rep.recovery_fetch_bytes,
+            recovery_fetch_bytes_by_shard=rep.recovery_fetch_bytes_by_shard,
+            persist_bytes_by_shard=rep.persist_bytes_by_shard,
+            halo_bytes=getattr(problem.op, "halo_bytes", 0))
+        check(rep.failures_recovered == 1, f"{label}: no recovery")
+        check(bool(torch.isfinite(res.state.x).all()), f"{label}: x not finite")
+        return res, problem
+
+    ops.reset_launch_counts()
+    sharded, problem = run(f"{MESH_NSHARDS} shards, shard 1 killed",
+                           MESH_NSHARDS,
+                           dict(shard=1, at_iteration=MESH_FAIL_AT))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    say("mesh", launches=counts)
+    for name in ("stencil7_halo", "fused_cg_update_lanes", "det_dot_lanes"):
+        check(counts[name] > 0, f"kernel {name} never launched on the "
+              f"sharded path")
+    check(counts["stencil7_halo"] >= MESH_NSHARDS * MESH_MAXITER,
+          f"stencil7_halo launched {counts['stencil7_halo']} times")
+    blocks = problem.op.layout.blocks_of(1)
+    plain, _ = run(f"unsharded, blocks {blocks} killed", 1,
+                   dict(blocks=blocks, at_iteration=MESH_FAIL_AT))
+    rep = sharded.report
+    slot = PCG_SCHEMA.history * len(blocks) * PCG_SCHEMA.slot_nbytes(
+        problem.op.partition.block_size, "float64")
+    check(sharded.iterations == plain.iterations == MESH_MAXITER,
+          f"iterations {sharded.iterations} vs {plain.iterations}")
+    check(bool(torch.equal(sharded.state.x, plain.state.x))
+          and bool(torch.equal(sharded.state.r, plain.state.r)),
+          "the sharded solve's x, r != the unsharded solve's bitwise")
+    check(rep.recovery_fetch_bytes == slot
+          and rep.recovery_fetch_bytes_by_shard == {1: slot},
+          f"fetch bytes {rep.recovery_fetch_bytes_by_shard} != one shard's "
+          f"{slot}")
+    say("mesh", check="sharded == unsharded", x_bitwise=True, r_bitwise=True,
+        fetch_bytes=slot, relres=rep.final_relres)
+    del sharded, plain, problem
+
+    # fetch bytes halve as the shard count doubles (short runs)
+    short = api.SolverSpec("pcg", tol=1e-10, maxiter=MESH_SCALING_MAXITER)
+    fetch = {}
+    for nshards in MESH_HALO_SHARDS:
+        res, _ = run(f"scaling, {nshards} shards", nshards,
+                     dict(shard=0, at_iteration=MESH_SCALING_FAIL_AT), short,
+                     "nvm-homogeneous")
+        fetch[nshards] = res.report.recovery_fetch_bytes
+        del res
+    check(fetch[2] == 2 * fetch[4] == 4 * fetch[8],
+          f"fetch bytes do not halve with the shard count: {fetch}")
+    say("mesh", fetch_bytes_by_nshards=fetch, halves=True)
+
+    # the shardmap grid step on 4 float32 shards against the unsharded
+    # fused step (K1 + det_dot + K2 on the whole grid)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    b = torch.randn(GRID, GRID, GRID, generator=gen, device=DEVICE,
+                    dtype=torch.float32)
+    z = b * (1.0 / 6.0)
+    rz = k2.det_dot_cuda(b.view(-1), z.view(-1), 1)
+    step, _ = spmv.make_shardmap_pcg_step(make_data_mesh(MESH_NSHARDS,
+                                                         DEVICE))
+    st = dict(x=torch.zeros_like(b), r=b, z=z, p=z, rz=rz)
+    inv = torch.full((b.numel(),), 1.0 / 6.0, device=DEVICE,
+                     dtype=torch.float32)
+    ref_step = pcg.make_step(lambda v: k1.stencil7_cuda(
+        v.view(GRID, GRID, GRID)).view(-1), inv, 1)
+    ref = PCGState(x=st["x"].reshape(-1), r=b.reshape(-1), z=z.reshape(-1),
+                   p=z.reshape(-1), rz=rz, beta_prev=rz * 0, k=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_GRID_STEPS):
+        st = {f: v for f, v in step(st).items() if f in ("x", "r", "z", "p",
+                                                         "rz")}
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    for _ in range(MESH_GRID_STEPS):
+        ref = ref_step(ref)
+    torch.cuda.synchronize()
+    errs = {}
+    for f in ("x", "r", "p"):
+        got, want = st[f].reshape(-1).double(), getattr(ref, f).double()
+        errs[f] = float((got - want).abs().max() / want.abs().max())
+        check(errs[f] <= 1e-4, f"shardmap step {f}: relative error {errs[f]}")
+    say("mesh", check="shardmap float32 grid step vs unsharded fused step",
+        steps=MESH_GRID_STEPS, nshards=MESH_NSHARDS, max_rel_err=errs,
+        rtol=1e-4, ms_per_step=1e3 * grid_s / MESH_GRID_STEPS)
+    del b, z, st, ref, inv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("mesh", phase_seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -1477,6 +1784,7 @@ def main() -> int:
         paths.append(phase_advise(torch, problem))
         del problem
         paths.append(phase_service(torch))
+        paths.append(phase_mesh(torch, rate, records))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:
@@ -1485,7 +1793,7 @@ def main() -> int:
     kernels = []
     for key in ("stencil7", "fused_cg_update", "det_dot", "gf256_rs_encode",
                 "fused_cg_update_persist", "fused_cg_update_lanes",
-                "det_dot_lanes"):
+                "det_dot_lanes", "stencil7_halo"):
         rec = records[key]
         kernels.append({**rec, "launches": counts[key]})
     say("done", seconds=time.perf_counter() - t0)

@@ -24,8 +24,10 @@ the stripe encodes on the device).  :func:`advise` ranks candidate specs
 against a failure campaign.  :class:`SolveService` (and :func:`serve`,
 which replays a request trace through a fresh one) hosts many tenants at
 once, one lane of a batched bucket each; a tenant declares its logical
-shard layout with ``nshards=``.  Solves sharded across cards are not
-ported yet.
+shard layout with ``nshards=``.  ``Problem.poisson(..., nshards=4)`` (or
+:meth:`Problem.with_shards`) lays a solo problem out over a data mesh of
+four shards on its device: the solve runs shard by shard, bitwise the
+unsharded one, and ``FailureEvent(shard=...)`` kills one shard's blocks.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.poisson import PRECONDITIONERS, make_poisson_problem
+from repro_torch.distributed.sharding import shard_problem
 from repro_torch.nvm.backend import (
     BackendCapabilities,
     PersistenceBackend,
@@ -168,21 +171,50 @@ class Problem:
     def device(self) -> torch.device:
         return self.b.device
 
+    @property
+    def nshards(self) -> int:
+        """Shards the operator is laid out over (1 = unsharded; >1 when
+        the operator is a
+        :class:`~repro_torch.distributed.sharding.ShardedOperator`)."""
+        layout = getattr(self.op, "layout", None)
+        return 1 if layout is None else layout.nshards
+
+    def with_shards(self, nshards: int, mesh=None) -> "Problem":
+        """Lay this problem out over ``nshards`` shards of a 1-D ``data``
+        mesh on its device
+        (:func:`repro_torch.distributed.sharding.shard_problem`):
+        block-rows map contiguously onto shards, the solve runs shard by
+        shard, bitwise the unsharded one, and the driver's
+        fail/persist/recover path becomes per-shard addressable
+        (``FailureEvent(shard=...)``).  Raises if the problem is already
+        sharded."""
+        if getattr(self.op, "layout", None) is not None:
+            raise ValueError(
+                "problem is already sharded; shard the unsharded "
+                "problem instead of re-sharding")
+        sop, sb = shard_problem(self.op, self.b, nshards, mesh=mesh)
+        return dataclasses.replace(self, op=sop, b=sb)
+
     @classmethod
     def poisson(cls, nz: int, ny: Optional[int] = None,
                 nx: Optional[int] = None, nblocks: int = 4,
                 preconditioner: str = "jacobi",
                 dtype: torch.dtype = torch.float64,
-                device: Union[str, torch.device] = "cuda") -> "Problem":
+                device: Union[str, torch.device] = "cuda",
+                nshards: int = 1) -> "Problem":
         """The paper's benchmark: a 7-point 3-D Poisson stencil with a
         smooth right-hand side, split into ``nblocks`` z-slabs, built on
         ``device`` (CUDA unless the caller asks for the CPU; raises when
-        no CUDA device is visible)."""
+        no CUDA device is visible).  ``nshards > 1`` shards the problem
+        (see :meth:`with_shards`)."""
         op, b = make_poisson_problem(nz, ny if ny is not None else nz,
                                      nx if nx is not None else nz,
                                      nblocks=nblocks, dtype=dtype,
                                      device=device)
-        return cls(op=op, b=b, precond=_preconditioner(preconditioner, op))
+        problem = cls(op=op, b=b, precond=_preconditioner(preconditioner, op))
+        if nshards != 1:
+            problem = problem.with_shards(nshards)
+        return problem
 
     @classmethod
     def from_parts(cls, op, b, precond=None) -> "Problem":
@@ -226,16 +258,20 @@ class ResilienceSpec:
     or None for an unprotected run.  ``persist_mode`` picks the pipeline
     ("sync" or "overlap"); ``period`` the ESRP persistence period;
     ``plan_campaigns`` keeps the pre-flight campaign planner on.
-    ``fused_persist`` takes the fused persist path: an ``erasure(...)``
-    stripe encodes its parity on the device (kernel K3) and, in overlap
-    mode, stages from the update pass (kernel K4); the solve is bitwise
-    the same as without it.  ``dtype`` is the slot payload type;
-    ``options`` go to the backend factory."""
+    ``nshards`` pins the expected shard count of the problem: ``None``
+    accepts any layout, an integer makes :func:`solve` refuse a problem
+    whose shard axis disagrees.  ``fused_persist`` takes the fused
+    persist path: an ``erasure(...)`` stripe encodes its parity on the
+    device (kernel K3) and, in overlap mode on an unsharded problem,
+    stages from the update pass (kernel K4); the solve is bitwise the
+    same as without it.  ``dtype`` is the slot payload type; ``options``
+    go to the backend factory."""
 
     backend: Union[str, PersistenceBackend, None] = "nvm-prd"
     persist_mode: str = "sync"
     period: int = 1
     plan_campaigns: bool = True
+    nshards: Optional[int] = None
     fused_persist: bool = False
     dtype: Any = np.float64
     options: Mapping[str, Any] = dataclasses.field(default_factory=dict)
@@ -325,6 +361,13 @@ def solve(
         resilience = ResilienceSpec(resilience)
     if resilience is None:
         resilience = ResilienceSpec(backend=None)
+    if (resilience.nshards is not None
+            and resilience.nshards != problem.nshards):
+        raise ValueError(
+            f"ResilienceSpec.nshards={resilience.nshards} but the "
+            f"problem is laid out over nshards={problem.nshards}; "
+            f"re-shard with Problem.with_shards({resilience.nshards}) "
+            f"or drop the spec's shard pin")
 
     built_solver = solver.build(problem)
     backend = resilience.build(problem, built_solver)

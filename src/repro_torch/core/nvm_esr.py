@@ -226,6 +226,9 @@ class NVMESRHomogeneous(SchemaDrivenBackend):
                 ks.add(peek_k(raw))
         return newest_complete_run(ks, self.schema.history)
 
+    # legacy alias (PCG pair semantics)
+    latest_pair = latest_run
+
     # the protocol name (PersistSession.durable_run delegates here)
     durable_run = latest_run
 

@@ -22,6 +22,13 @@ arithmetic.
 
 :func:`solve_jit` is the reference's fused perf path: PCG with no
 recovery hooks, its loop captured as a CUDA graph on the card.
+
+:func:`solve` is the reference's legacy entry (PCG predates the zoo):
+the generic driver with the PCG solver, configured by ``PCGConfig``,
+the historical name of ``SolveConfig``.  The driver's config, event and
+report names are importable from here as in the reference; they are
+looked up in :mod:`repro_torch.solvers.driver` on first use, because
+the driver imports this package's modules.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.spmv import make_det_dot
+from repro_torch.core.spmv import make_det_dot, sharded_fused_update
 from repro_torch.core.state import PCGState
 from repro_torch.kernels import fused_cg, ops
 
@@ -63,14 +70,23 @@ def _iteration(state: PCGState, op_apply: Callable, dot: Callable,
 
 
 def make_step(op_apply: Callable, inv_diag: torch.Tensor,
-              nblocks: int) -> Callable[[PCGState], PCGState]:
+              nblocks: int, mesh=None) -> Callable[[PCGState], PCGState]:
     """One PCG iteration with the Jacobi-type preconditioner
     ``z = r * inv_diag``; every inner product is the order-pinned
-    ``nblocks`` block dot."""
-    dot = make_det_dot(nblocks)
+    ``nblocks`` block dot.  With ``mesh`` (a sharded operator's data
+    mesh) the dots and K2 run shard by shard, bitwise the unsharded
+    step."""
+    dot = make_det_dot(nblocks, mesh)
+    if mesh is not None:
+        nshards = int(mesh.shape["data"])
 
-    def update(x, r, p, ap, alpha):
-        return ops.fused_cg_update(x, r, p, ap, alpha, inv_diag, nblocks)
+        def update(x, r, p, ap, alpha):
+            *vectors, sums = sharded_fused_update(x, r, p, ap, alpha,
+                                                  inv_diag, nblocks, nshards)
+            return (*vectors, fused_cg.chain_plain(sums))
+    else:
+        def update(x, r, p, ap, alpha):
+            return ops.fused_cg_update(x, r, p, ap, alpha, inv_diag, nblocks)
 
     def step(state: PCGState) -> PCGState:
         return _iteration(state, op_apply, dot, update)[0]
@@ -98,11 +114,12 @@ def make_lane_step(op_apply: Callable, inv_diag: torch.Tensor,
 
 
 def make_generic_step(op_apply: Callable, precond_apply: Callable,
-                      nblocks: int) -> Callable[[PCGState], PCGState]:
+                      nblocks: int, mesh=None) -> Callable[[PCGState], PCGState]:
     """One PCG iteration with any preconditioner (the reference's step,
     ``repro/core/pcg.py:51-77``): K1 for ``A p``, the ``nblocks`` block
-    dot for both inner products, ``precond_apply`` for ``z``."""
-    dot = make_det_dot(nblocks)
+    dot (over ``mesh``'s shards when given) for both inner products,
+    ``precond_apply`` for ``z``."""
+    dot = make_det_dot(nblocks, mesh)
 
     def update(x, r, p, ap, alpha):
         x = x + alpha * p                                        # line 4
@@ -317,3 +334,50 @@ def solve_jit(op, precond, b: torch.Tensor, tol: float = 1e-10,
         current.wait_stream(graph.stream)
         x.record_stream(current)
     return x, k
+
+
+# ----------------------------------------------------------------------
+# The legacy entry: PCG through the generic driver
+# ----------------------------------------------------------------------
+#: the driver's names this module re-exports (``PCGConfig`` is the
+#: historical name of ``SolveConfig``)
+_DRIVER_NAMES = {"PCGConfig": "SolveConfig", "SolveConfig": "SolveConfig",
+                 "FailureCampaign": "FailureCampaign",
+                 "FailureEvent": "FailureEvent", "FailurePlan": "FailurePlan",
+                 "SolveReport": "SolveReport"}
+
+
+def __getattr__(name: str):
+    target = _DRIVER_NAMES.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from repro_torch.solvers import driver
+
+    return getattr(driver, target)
+
+
+def should_persist(k: int, period: int) -> bool:
+    """PCG persistence schedule (pair bursts); see the generic
+    :func:`repro_torch.solvers.driver.should_persist`."""
+    from repro_torch.solvers import driver
+
+    return driver.should_persist(k, period, history=2)
+
+
+def solve(op, b: torch.Tensor, precond, config=None, backend=None,
+          failures=(), x0: Optional[torch.Tensor] = None,
+          capture_states_at=()):
+    """PCG with optional ESR/NVM-ESR fault tolerance, on ``b``'s device.
+
+    ``config`` is a ``PCGConfig`` (default: ``PCGConfig()``),
+    ``backend`` an in-memory-ESR or NVM-ESR recovery backend (or None for
+    plain PCG), ``failures`` the injected block crashes.  Returns the
+    final state, a report, and any states captured for verification."""
+    from repro_torch.solvers import driver
+    from repro_torch.solvers.pcg import PCGSolver
+
+    return driver.solve(
+        PCGSolver(), op, b, precond,
+        config=driver.SolveConfig() if config is None else config,
+        backend=backend, failures=failures, x0=x0,
+        capture_states_at=capture_states_at)

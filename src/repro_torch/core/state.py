@@ -149,6 +149,28 @@ class RecoveryPayload(NamedTuple):
     p: np.ndarray  # p^(k), the block shard (or full vector)
 
 
+def encode_payload(k: int, beta: float, p_block: np.ndarray) -> bytes:
+    """Serialize one PCG slot (wire-compatible with the generic codec and
+    with the reference package's bytes)."""
+    return PCG_SCHEMA.encode(k, {"beta": beta}, {"p": p_block})
+
+
+def decode_payload(raw: bytes, dtype) -> RecoveryPayload:
+    rset = PCG_SCHEMA.decode(raw, dtype)
+    return RecoveryPayload(k=rset.k, beta=rset.scalars["beta"],
+                           p=rset.vectors["p"])
+
+
+def payload_nbytes(block_size: int, dtype) -> int:
+    return PCG_SCHEMA.slot_nbytes(block_size, dtype)
+
+
+def minimal_recovery_state(state: PCGState) -> Tuple[int, float, torch.Tensor]:
+    """The paper's minimal persistent set at this iteration: ``(k, beta,
+    p)``, ``p`` the state's own tensor."""
+    return int(state.k), float(state.beta_prev), state.p
+
+
 def legacy_pair(sets) -> Tuple[RecoveryPayload, RecoveryPayload]:
     """Map a PCG-schema (prev, cur) recovery to the legacy payload pair."""
     prev, cur = sets[-2], sets[-1]
@@ -210,3 +232,9 @@ def wipe_vectors(state, partition, blocks, vector_fields, nan_scalars=()):
         old = getattr(state, f)
         repl[f] = torch.full((), nan, dtype=old.dtype, device=old.device)
     return state._replace(**repl)
+
+
+def wipe_blocks(state: PCGState, partition, blocks) -> PCGState:
+    """PCG-shaped :func:`wipe_vectors` (the legacy entry point)."""
+    return wipe_vectors(state, partition, blocks, ("x", "r", "z", "p"),
+                        nan_scalars=("rz",))

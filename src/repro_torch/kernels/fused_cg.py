@@ -82,17 +82,35 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def block_sums_plain(a: torch.Tensor, b: torch.Tensor,
+                     nblocks: int) -> torch.Tensor:
+    """The ``nblocks`` partition-block sums of ``a * b`` in the
+    accumulation type, each summed on its own: a block's sum depends on
+    its values and length alone, never on how many blocks the call
+    covers (a CPU sum over the rows of a matrix splits its work by the
+    row count), so a shard's block sums are bitwise the unsharded
+    call's."""
+    acc = acc_dtype(a.dtype)
+    prod = (a.to(acc) * b.to(acc)).reshape(nblocks, -1)
+    return torch.stack([block.sum() for block in prod])
+
+
+def chain_plain(sums: torch.Tensor) -> torch.Tensor:
+    """Left-to-right chain over the last dimension: ``((s0 + s1) + s2) +
+    ...``, the kernels' step 4 (an elementwise add a step, rounded as the
+    kernel's ``add_rn``)."""
+    total = sums[..., 0]
+    for i in range(1, sums.shape[-1]):
+        total = total + sums[..., i]
+    return total
+
+
 def block_dot_plain(a: torch.Tensor, b: torch.Tensor,
                     nblocks: int) -> torch.Tensor:
     """Order-pinned inner product: per-partition-block partial sums, then
     a left-to-right chain (the reference's ``make_det_dot``).  Returns a
     0-d tensor of ``a.dtype``."""
-    acc = acc_dtype(a.dtype)
-    partials = (a.to(acc) * b.to(acc)).reshape(nblocks, -1).sum(dim=1)
-    total = partials[0]
-    for i in range(1, nblocks):
-        total = total + partials[i]
-    return total.to(a.dtype)
+    return chain_plain(block_sums_plain(a, b, nblocks)).to(a.dtype)
 
 
 def _tree(v: torch.Tensor) -> torch.Tensor:
@@ -364,29 +382,51 @@ def det_dot_cuda(a: torch.Tensor, b: torch.Tensor,
 # ----------------------------------------------------------------------
 # Lane mode: one launch over a (lanes, n) bucket, one result a lane
 # ----------------------------------------------------------------------
-def det_dot_lanes_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def det_dot_lanes_plain(a: torch.Tensor, b: torch.Tensor,
+                        out=None) -> torch.Tensor:
     """Per-lane inner products of two ``(lanes, n)`` tensors: lane ``i``
-    is :func:`block_dot_plain` of ``a[i]`` and ``b[i]`` over one block,
-    computed lane by lane.  Returns ``(lanes,)``."""
-    return torch.stack([block_dot_plain(a[i], b[i], 1)
+    is :func:`block_dot_plain` of ``a[i]`` and ``b[i]`` over one block
+    (each lane summed on its own).  Returns ``(lanes,)``, written into
+    ``out`` when given."""
+    sums = torch.stack([block_dot_plain(a[i], b[i], 1)
                         for i in range(a.shape[0])])
+    return sums if out is None else out.copy_(sums)
 
 
-def fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv_diag
+def fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv_diag, out=None
                                 ) -> Tuple[torch.Tensor, ...]:
     """:func:`fused_cg_update_plain` on every lane of ``(lanes, n)``
     tensors with ``alpha`` one value a lane: ``(x', r', z', rz')``,
-    ``rz'`` of shape ``(lanes,)``."""
+    ``rz'`` of shape ``(lanes,)``; ``x', r', z'`` written into ``out``
+    (three tensors) when given."""
     alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
     xn, rn, zn = _update_vectors_plain(x, r, p, ap, alpha.reshape(-1, 1),
                                        inv_diag)
+    if out is not None:
+        xn, rn, zn = (o.copy_(v) for o, v in zip(out, (xn, rn, zn)))
     return xn, rn, zn, det_dot_lanes_plain(rn, zn)
 
 
-def fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv_diag
+def _lane_outputs(name: str, x: torch.Tensor, out) -> Tuple[torch.Tensor, ...]:
+    """New ``x', r', z'`` tensors, or the caller's ``out`` (three
+    contiguous tensors of ``x``'s shape, dtype and device, such as one
+    shard's views of full-length outputs)."""
+    if out is None:
+        return tuple(torch.empty_like(x) for _ in range(3))
+    out = tuple(out)
+    if len(out) != 3 or any(
+            o.shape != x.shape or o.dtype != x.dtype or o.device != x.device
+            or not o.is_contiguous() for o in out):
+        raise ValueError(f"{name}: out must be three contiguous tensors like "
+                         f"x ({tuple(x.shape)}, {x.dtype}, {x.device})")
+    return out
+
+
+def fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv_diag, out=None
                                ) -> Tuple[torch.Tensor, ...]:
     """Launch K2 in lane mode on ``(lanes, n)`` tensors; ``alpha`` holds
-    one value a lane (read by the kernel through its pointer)."""
+    one value a lane (read by the kernel through its pointer); ``x', r',
+    z'`` go to ``out`` when given."""
     global update_lanes_launches
     shape = _lane_shape("fused_cg_update_lanes", x)
     lanes = shape[0]
@@ -394,7 +434,7 @@ def fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv_diag
     _check_alpha("fused_cg_update_lanes_cuda", alpha, x, lanes)
     fn = _function("fused_cg_update_lanes", x.dtype, 12)
     alpha = alpha.contiguous()
-    xo, ro, zo = (torch.empty_like(x) for _ in range(3))
+    xo, ro, zo = _lane_outputs("fused_cg_update_lanes", x, out)
     rz = torch.empty(lanes, dtype=x.dtype, device=x.device)
     device, stream, ws = _launch_args(x, lanes)
     rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
@@ -408,15 +448,22 @@ def fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv_diag
     return xo, ro, zo, rz
 
 
-def det_dot_lanes_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def det_dot_lanes_cuda(a: torch.Tensor, b: torch.Tensor,
+                       out=None) -> torch.Tensor:
     """Launch det_dot in lane mode on ``(lanes, n)`` tensors; returns
-    ``(lanes,)``."""
+    ``(lanes,)``, written into ``out`` (a contiguous ``(lanes,)`` tensor
+    of ``a``'s dtype on its device) when given."""
     global dot_lanes_launches
     shape = _lane_shape("det_dot_lanes", a)
     lanes = shape[0]
     n = _check("det_dot_lanes", (a, b), shape, lanes)
     fn = _function("det_dot_lanes", a.dtype, 5)
-    out = torch.empty(lanes, dtype=a.dtype, device=a.device)
+    if out is None:
+        out = torch.empty(lanes, dtype=a.dtype, device=a.device)
+    elif (out.shape != (lanes,) or out.dtype != a.dtype
+          or out.device != a.device or not out.is_contiguous()):
+        raise ValueError(f"det_dot_lanes: out must be a contiguous "
+                         f"({lanes},) {a.dtype} tensor on {a.device}")
     device, stream, ws = _launch_args(a, lanes)
     rc = fn(a.data_ptr(), b.data_ptr(), ws.partials_ptr, ws.tickets_ptr,
             out.data_ptr(), n, lanes, device, stream)

@@ -1,7 +1,8 @@
 """The kernel seam: ``stencil7``, ``fused_cg_update``, ``det_dot``,
-``rs_encode`` and ``fused_cg_update_persist``, and the lane modes
+``rs_encode`` and ``fused_cg_update_persist``, the lane modes
 ``fused_cg_update_lanes`` and ``det_dot_lanes`` (the service's bucket
-step).
+step, and one shard's blocks of a sharded solve), and ``stencil7_halo``
+(one z-slab shard of a sharded apply).
 
 Each call dispatches on its tensor's device and nothing else: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
@@ -36,6 +37,17 @@ def stencil7(u: torch.Tensor) -> torch.Tensor:
     return _stencil7.stencil7_plain(u)
 
 
+def stencil7_halo(u: torch.Tensor, lo, hi, out=None) -> torch.Tensor:
+    """K1 on one z-slab shard ``(nz_s, ny, nx)`` with its halo planes
+    ``lo`` (below) and ``hi`` (above), ``(ny, nx)`` each or ``None`` for
+    the domain's zero boundary (K1's halo mode on CUDA); into ``out``
+    when given.  The shards' outputs side by side are bitwise
+    :func:`stencil7` of the whole grid."""
+    if _route(u) == "cuda":
+        return _stencil7.stencil7_halo_cuda(u, lo, hi, out)
+    return _stencil7.stencil7_halo_plain(u, lo, hi, out)
+
+
 def fused_cg_update(x, r, p, ap, alpha, inv_diag, nblocks: int = 1
                     ) -> Tuple[torch.Tensor, ...]:
     """PCG lines 4-7a in one pass; returns ``(x', r', z', rz')`` (K2 on
@@ -55,25 +67,29 @@ def det_dot(a: torch.Tensor, b: torch.Tensor, nblocks: int = 1) -> torch.Tensor:
     return _fused_cg.block_dot_plain(a, b, nblocks)
 
 
-def fused_cg_update_lanes(x, r, p, ap, alpha, inv_diag
+def fused_cg_update_lanes(x, r, p, ap, alpha, inv_diag, out=None
                           ) -> Tuple[torch.Tensor, ...]:
     """:func:`fused_cg_update` on every lane of ``(lanes, n)`` tensors in
     one pass, ``alpha`` one value a lane: ``(x', r', z', rz')`` with
-    ``rz'`` of shape ``(lanes,)`` (K2's lane mode on CUDA).  Lane ``i``
-    is bitwise ``fused_cg_update`` of lane ``i`` with ``nblocks=1``."""
+    ``rz'`` of shape ``(lanes,)`` (K2's lane mode on CUDA); ``x', r',
+    z'`` into ``out`` (three tensors) when given.  Lane ``i`` is bitwise
+    ``fused_cg_update`` of lane ``i`` with ``nblocks=1``, and ``rz'[i]``
+    is the block sum the ``nblocks`` launch chains."""
     if _route(x) == "cuda":
         return _fused_cg.fused_cg_update_lanes_cuda(x, r, p, ap, alpha,
-                                                    inv_diag)
-    return _fused_cg.fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv_diag)
+                                                    inv_diag, out)
+    return _fused_cg.fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv_diag,
+                                                 out)
 
 
-def det_dot_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def det_dot_lanes(a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
     """Per-lane inner products of two ``(lanes, n)`` tensors, ``(lanes,)``
-    (det_dot's lane mode on CUDA); lane ``i`` is bitwise ``det_dot(a[i],
-    b[i], 1)``."""
+    (det_dot's lane mode on CUDA), into ``out`` when given; lane ``i`` is
+    bitwise ``det_dot(a[i], b[i], 1)``, the block sum a ``det_dot`` over
+    those blocks chains."""
     if _route(a) == "cuda":
-        return _fused_cg.det_dot_lanes_cuda(a, b)
-    return _fused_cg.det_dot_lanes_plain(a, b)
+        return _fused_cg.det_dot_lanes_cuda(a, b, out)
+    return _fused_cg.det_dot_lanes_plain(a, b, out)
 
 
 def rs_encode(data: torch.Tensor, nparity: int) -> torch.Tensor:
@@ -109,7 +125,8 @@ def _wrapper_counts() -> Dict[str, int]:
             "gf256_rs_encode": _gf256_encode.launches,
             "fused_cg_update_persist": _fused_cg.persist_launches,
             "fused_cg_update_lanes": _fused_cg.update_lanes_launches,
-            "det_dot_lanes": _fused_cg.dot_lanes_launches}
+            "det_dot_lanes": _fused_cg.dot_lanes_launches,
+            "stencil7_halo": _stencil7.halo_launches}
 
 
 def _set_wrapper_counts(counts: Dict[str, int]) -> None:
@@ -120,6 +137,7 @@ def _set_wrapper_counts(counts: Dict[str, int]) -> None:
     _fused_cg.persist_launches = counts["fused_cg_update_persist"]
     _fused_cg.update_lanes_launches = counts["fused_cg_update_lanes"]
     _fused_cg.dot_lanes_launches = counts["det_dot_lanes"]
+    _stencil7.halo_launches = counts["stencil7_halo"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,6 +15,9 @@ from repro_torch.obs.metrics import (  # noqa: F401
     Gauge,
     Histogram,
     MetricsRegistry,
+    SERVICE_REPORT_PAIRS,
+    SHARD_BYTE_PAIRS,
+    TRACE_REPORT_PAIRS,
     check_report_consistency,
     check_trace_report,
 )

@@ -445,6 +445,12 @@ class SolveService:
             resilience = api.ResilienceSpec(resilience)
 
         op = problem.op
+        if getattr(op, "layout", None) is not None or getattr(
+                op, "mesh", None) is not None:
+            raise ServiceError(
+                "service tenants declare shard layouts logically "
+                "(nshards=...); pass an unsharded problem — device "
+                "placement is the solo api.solve path")
         if not isinstance(base_operator(op), StencilOperator):
             raise ServiceError(
                 f"service buckets embed 7-point stencil operators only, "

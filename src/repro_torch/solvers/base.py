@@ -23,14 +23,18 @@ from repro_torch.kernels import ops
 
 def solver_dot(op):
     """The inner product a solver must use: block-hierarchical with a
-    pinned combine order over the operator's partition blocks."""
-    return make_det_dot(op.nblocks)
+    pinned combine order over the operator's partition blocks, so the
+    trajectory is bitwise the same whether ``op`` is a plain operator or
+    a :class:`~repro_torch.distributed.sharding.ShardedOperator` on any
+    shard count."""
+    return make_det_dot(op.nblocks, getattr(op, "mesh", None))
 
 
 def base_operator(op):
-    """Unwrap a delegating operator wrapper exposing ``base`` (the
-    reference's sharded operator) for code that dispatches on the
-    concrete operator type, e.g. closed-form spectral bounds."""
+    """Unwrap a :class:`~repro_torch.distributed.sharding.ShardedOperator`
+    (or any delegating wrapper exposing ``base``) for code that
+    dispatches on the concrete operator type, e.g. closed-form spectral
+    bounds."""
     return getattr(op, "base", op)
 
 

@@ -70,6 +70,10 @@ def spectral_bounds(op, precond, power_iters: int = 100,
         StencilOperator,
     )
 
+    # Bounds are placement-independent: unwrap a ShardedOperator so the
+    # closed-form stencil route still fires; the power iteration's dots
+    # keep the mesh's order, bitwise the unsharded one.
+    mesh = getattr(op, "mesh", None)
     op = base_operator(op)
 
     if isinstance(op, StencilOperator) and isinstance(
@@ -93,7 +97,7 @@ def spectral_bounds(op, precond, power_iters: int = 100,
     rng = np.random.default_rng(seed)
     v0 = torch.as_tensor(rng.standard_normal(op.n), dtype=op.dtype,
                          device=op.device)
-    det_dot = make_det_dot(getattr(op, "nblocks", 1))
+    det_dot = make_det_dot(getattr(op, "nblocks", 1), mesh)
 
     def power(apply_fn, v):
         # the Rayleigh quotient stays on the device; only the last one

@@ -1,8 +1,10 @@
 """Generic ESR solve loop for any :class:`RecoverableSolver` (port of
 ``repro/solvers/driver.py``: the config, campaign, planner, spec
 advisor, report, persistence pipeline, solve loop and the batched lane
-step of the multi-tenant service; solves sharded across cards are not
-ported yet).
+step of the multi-tenant service).  A problem sharded on a data mesh
+(:class:`~repro_torch.distributed.sharding.ShardedOperator`) solves
+shard by shard, bitwise its unsharded solve, and ``FailureEvent(shard=
+...)`` kills one shard's blocks.
 
 The runtime machinery of the paper:
 
@@ -46,6 +48,7 @@ from repro_torch.nvm.backend import (
     UnrecoverableFailure,
     open_persist_session,
 )
+from repro_torch.distributed.sharding import place_state
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.solvers.base import device_norm
 
@@ -212,8 +215,9 @@ def resolve_shard_events(campaign, layout=None) -> "FailureCampaign":
     if layout is None:
         raise ValueError(
             "FailureEvent(shard=...) needs a sharded solve: the operator "
-            "carries no ShardLayout (declare the tenant's nshards= on "
-            "the solve service, or address blocks directly)")
+            "carries no ShardLayout (shard the problem with "
+            "Problem.with_shards, declare the tenant's nshards= on the "
+            "solve service, or address blocks directly)")
     events = []
     for ev in campaign.events:
         if ev.shard is None:
@@ -660,7 +664,11 @@ class PersistencePipeline:
         # executes zero tracer callables per iteration (the obs guard
         # test).
         self.trace = config.tracer or None
+        # A sharded solve? The operator carries the block -> shard layout
+        # and the data mesh; the service passes a tenant's declared
+        # logical layout instead.
         self.layout = getattr(op, "layout", None) if layout is None else layout
+        self.mesh = getattr(op, "mesh", None)
         self.history = solver.schema.history
         self.metrics = (MetricsRegistry(solver=solver.name,
                                         mode=config.persist_mode)
@@ -695,8 +703,10 @@ class PersistencePipeline:
             self.device_vectors = isinstance(self.session, ErasureSession)
             # K4 fuses a diagonal preconditioner (inv_diag) into the
             # update; any other (block Jacobi) stages through K3 at the
-            # flush
-            if (self.overlap and self.device_vectors
+            # flush, and so does a sharded solve, whose step reduces
+            # shard by shard (the reference encodes with its kernel at
+            # the persist point there too)
+            if (self.overlap and self.device_vectors and self.mesh is None
                     and hasattr(solver, "make_persist_step")
                     and getattr(precond, "inv_diag", None) is not None):
                 self.stage_geometry = self.session.fused_geometry(
@@ -985,6 +995,10 @@ class PersistencePipeline:
             if trace is not None:
                 trace.event("recovery.rollback", from_k=k, to_k=k_rec,
                             wasted=k - k_rec)
+            if self.mesh is not None:
+                # the replacement shard rejoins the mesh's placement
+                st_new = place_state(st_new, self.mesh,
+                                     solver.state_vector_fields)
             return st_new
 
     # ------------------------------------------------------------------
@@ -1125,6 +1139,8 @@ def solve(
     session = pipe.session
 
     state = solver.init_state(op, precond, b, x0)
+    if pipe.mesh is not None:
+        state = place_state(state, pipe.mesh, solver.state_vector_fields)
     step = solver.make_step(op, precond)
     persist_step = (None if pipe.stage_geometry is None else
                     solver.make_persist_step(op, precond,

@@ -55,8 +55,9 @@ class RestartedGMRESSolver(IterateOnlyRecovery, RecoverableSolver):
         # Order-pinned reductions: the projections are block-hierarchical
         # row-dots; the combines ``basis.T @ h`` are row-weighted sums
         # over the small basis axis (never over the vector axis).
-        dot = make_det_dot(op.nblocks)
-        rowdots = make_det_rowdots(op.nblocks)
+        mesh = getattr(op, "mesh", None)
+        dot = make_det_dot(op.nblocks, mesh)
+        rowdots = make_det_rowdots(op.nblocks, mesh)
 
         def combine(rows, coeffs):
             # sum_i coeffs[i] * rows[i] — elementwise along the vector

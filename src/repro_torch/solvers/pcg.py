@@ -29,12 +29,14 @@ class PCGSolver(RecoverableSolver):
 
     def make_step(self, op, precond):
         """K2's fused step for a diagonal preconditioner (one exposing
-        ``inv_diag``), the unfused step for any other."""
+        ``inv_diag``), the unfused step for any other; on a sharded
+        operator both reduce shard by shard (K2 once a shard)."""
         inv_diag = getattr(precond, "inv_diag", None)
+        mesh = getattr(op, "mesh", None)
         if inv_diag is None:
             return _core_pcg.make_generic_step(op.apply, precond.apply,
-                                               op.nblocks)
-        return _core_pcg.make_step(op.apply, inv_diag, op.nblocks)
+                                               op.nblocks, mesh)
+        return _core_pcg.make_step(op.apply, inv_diag, op.nblocks, mesh)
 
     @classmethod
     def lane_step(cls, op_apply, precond, dot, params):

@@ -100,12 +100,13 @@ def test_ops_dispatch_launches_kernels_on_card(cuda_device):
     ops.det_dot_lanes(lanes, lanes)
     ops.fused_cg_update_lanes(lanes, lanes, lanes, lanes, one.repeat(4),
                               lanes)
+    ops.stencil7_halo(u[:2], None, u[2])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"stencil7": 1, "fused_cg_update": 1,
                                    "det_dot": 1, "gf256_rs_encode": 1,
                                    "fused_cg_update_persist": 1,
                                    "fused_cg_update_lanes": 1,
-                                   "det_dot_lanes": 1}
+                                   "det_dot_lanes": 1, "stencil7_halo": 1}
 
 
 def _shards(seed, k_data, length):
@@ -229,7 +230,7 @@ def test_solve_jit_graph_is_the_eager_loop_bitwise_on_card(cuda_device, chunk,
     assert info["launches_per_chunk"] == {
         "stencil7": size, "fused_cg_update": size, "det_dot": 2 * size,
         "gf256_rs_encode": 0, "fused_cg_update_persist": 0,
-        "fused_cg_update_lanes": 0, "det_dot_lanes": 0}
+        "fused_cg_update_lanes": 0, "det_dot_lanes": 0, "stencil7_halo": 0}
     eager = info["eager_iterations"]
     # init (K1, 3 dots), warm-up (one step + one dot), the replays, and
     # the eager rerun of a chunk the stop fell inside
@@ -450,3 +451,121 @@ def test_service_on_card_matches_the_cpu_port(cuda_device, monkeypatch):
     assert steps > 0
     assert counts["fused_cg_update_lanes"] == counts["det_dot_lanes"] == steps
     assert counts["stencil7"] == steps + 1
+
+
+# ----------------------------------------------------------------------
+# Sharded solves on a one-card data mesh
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,nshards", [((16, 16, 16), 2),
+                                          ((16, 16, 16), 16),
+                                          ((12, 10, 130), 3)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-1)])
+def test_stencil7_halo_kernel_on_card(cuda_device, grid, nshards, dtype, tol):
+    """K1's halo mode: each slab against its plain version, and the slabs
+    side by side bitwise one full K1 launch (``nz_s = 1`` at 16 shards)."""
+    from repro_torch.core import spmv
+
+    u = torch.from_numpy(rng_normal(11, *grid, dtype=np.float32)).to(
+        cuda_device, dtype)
+    before = stencil7.halo_launches
+    got = spmv.sharded_stencil7(u, nshards)
+    torch.cuda.synchronize()
+    assert stencil7.halo_launches == before + nshards
+    assert torch.equal(got, stencil7.stencil7_cuda(u))
+    slab = grid[0] // nshards
+    for s in range(nshards):
+        z = slice(s * slab, (s + 1) * slab)
+        lo = u[s * slab - 1] if s > 0 else None
+        hi = u[(s + 1) * slab] if s < nshards - 1 else None
+        want = stencil7.stencil7_halo_plain(u[z], lo, hi)
+        one = stencil7.stencil7_halo_cuda(u[z].contiguous(),
+                                          None if lo is None else lo.clone(),
+                                          None if hi is None else hi.clone())
+        torch.testing.assert_close(one.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(one, got[z])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nshards", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mesh_reductions_bitwise_unsharded_on_card(cuda_device, nshards,
+                                                   dtype):
+    """Per-shard block sums (det_dot's lane mode) are the unsharded
+    launch's: their chain is bitwise det_dot over all blocks, and the
+    row dots bitwise one det_dot a row."""
+    from repro_torch.core import spmv
+    from repro_torch.distributed import make_data_mesh
+
+    nblocks, n = 8, 8 * 12_345
+    a, b = (torch.from_numpy(rng_normal(s, n)).to(cuda_device, dtype)
+            for s in (1, 2))
+    mesh = make_data_mesh(nshards, cuda_device)
+    want = fused_cg.det_dot_cuda(a, b, nblocks)
+    assert torch.equal(spmv.make_det_dot(nblocks, mesh)(a, b), want)
+    sums = fused_cg.det_dot_lanes_cuda(a.view(nblocks, -1), b.view(nblocks, -1))
+    assert torch.equal(fused_cg.chain_plain(sums), want)
+    rows = torch.from_numpy(rng_normal(3, 5, n)).to(cuda_device, dtype)
+    got_rows = spmv.make_det_rowdots(nblocks, mesh)(rows, b)
+    for i in range(5):
+        assert torch.equal(got_rows[i],
+                           fused_cg.det_dot_cuda(rows[i], b, nblocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,mode", [("nvm-prd", "sync"),
+                                       ("erasure(nvm-prd x4+2p)", "overlap")])
+def test_sharded_pcg_solve_bitwise_unsharded_on_card(cuda_device, spec, mode):
+    """A 4-shard PCG solve with a ``shard=1`` kill is bitwise the unsharded
+    solve with that shard's blocks killed, through K1's halo mode and
+    the lane modes of K2 and det_dot."""
+    from repro_torch import api
+
+    res, counts = [], []
+    for nshards, event in ((4, dict(shard=1)), (1, dict(blocks=(2, 3)))):
+        ops.reset_launch_counts()
+        res.append(api.solve(
+            api.Problem.poisson(24, nblocks=8, device=cuda_device,
+                                nshards=nshards),
+            api.SolverSpec("pcg", tol=1e-10, maxiter=40),
+            api.ResilienceSpec(spec, persist_mode=mode, fused_persist=True),
+            failures=[api.FailureEvent(at_iteration=10, **event)]))
+        counts.append(ops.launch_counts())
+    sharded, plain = res
+    assert torch.equal(sharded.state.x, plain.state.x)
+    assert sharded.iterations == plain.iterations
+    assert sharded.report.nshards == 4
+    assert sharded.report.recovery_fetch_bytes_by_shard == {
+        1: plain.report.recovery_fetch_bytes}
+    assert counts[0]["stencil7_halo"] > 0
+    assert counts[0]["fused_cg_update_lanes"] > 0
+    assert counts[0]["det_dot_lanes"] > 0
+    assert counts[0]["fused_cg_update_persist"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["auto", "shardmap"])
+def test_grid_steps_on_card_match_the_cpu_port(cuda_device, variant):
+    from repro_torch.core import spmv
+    from repro_torch.distributed import make_data_mesh
+
+    make = {"auto": spmv.make_sharded_pcg_step,
+            "shardmap": spmv.make_shardmap_pcg_step}[variant]
+    b = rng_normal(8, 16, 12, 10, dtype=np.float32)
+    z = b / np.float32(6.0)
+    init = dict(x=np.zeros_like(b), r=b, z=z, p=z,
+                rz=np.asarray(np.sum(b * z), np.float32))
+    states = []
+    for device in (cuda_device, "cpu"):
+        step, _ = make(make_data_mesh(4, device))
+        st = {f: torch.from_numpy(v.copy()).to(device) for f, v in init.items()}
+        for _ in range(5):
+            st = {f: v for f, v in step(st).items() if f in init}
+        states.append(st)
+    card, cpu = states
+    for f in init:
+        torch.testing.assert_close(card[f].cpu(), cpu[f], rtol=1e-4,
+                                   atol=1e-4 * float(cpu[f].abs().max()))

@@ -186,6 +186,7 @@ def broken_build(monkeypatch):
 
     monkeypatch.setattr(_build, "load", fail)
     monkeypatch.setattr(stencil7, "stencil7_plain", plain_called)
+    monkeypatch.setattr(stencil7, "stencil7_halo_plain", plain_called)
     monkeypatch.setattr(fused_cg, "fused_cg_update_plain", plain_called)
     monkeypatch.setattr(fused_cg, "block_dot_plain", plain_called)
     monkeypatch.setattr(fused_cg, "fused_cg_update_persist_plain",
@@ -206,8 +207,10 @@ def broken_build(monkeypatch):
                                               _FakeCudaTensor((4, 16))),
     lambda v, g, b: ops.det_dot_lanes(_FakeCudaTensor((4, 16)),
                                       _FakeCudaTensor((4, 16))),
+    lambda v, g, b: ops.stencil7_halo(g, None, None),
 ], ids=["stencil7", "det_dot", "fused_cg_update", "rs_encode",
-        "fused_cg_update_persist", "fused_cg_update_lanes", "det_dot_lanes"])
+        "fused_cg_update_persist", "fused_cg_update_lanes", "det_dot_lanes",
+        "stencil7_halo"])
 def test_ops_never_fall_back_for_cuda_tensors(broken_build, call):
     # the fake reaches the failing build (or the wrapper's own checks);
     # a fallback would hit the patched plain versions' AssertionError

@@ -133,11 +133,12 @@ def test_cpu_calls_launch_no_kernel():
     ops.det_dot_lanes(lanes, lanes)
     ops.fused_cg_update_lanes(lanes, lanes, lanes, lanes,
                               torch.ones(4, dtype=torch.float64), lanes)
+    ops.stencil7_halo(u[:2], None, u[2])
     assert ops.launch_counts() == {"stencil7": 0, "fused_cg_update": 0,
                                    "det_dot": 0, "gf256_rs_encode": 0,
                                    "fused_cg_update_persist": 0,
                                    "fused_cg_update_lanes": 0,
-                                   "det_dot_lanes": 0}
+                                   "det_dot_lanes": 0, "stencil7_halo": 0}
 
 
 @pytest.mark.parametrize("nblocks", [1, 4])
