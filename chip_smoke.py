@@ -88,12 +88,33 @@ non-zero and prints no result line):
    one shard's slot bytes; fetch bytes halving from 2 to 4 to 8 shards
    (6-iteration runs on ``nvm-homogeneous``); the 4-shard float32
    ``make_shardmap_pcg_step`` for 10 steps within rtol 1e-4 of the
-   unsharded fused step.
+   unsharded fused step;
+12. launch — the roofline share (``repro_torch.launch.roofline``) of
+   the 256^3 float64 steps phases 4, 8, 10 and 11 timed; the report
+   tables of phases 4, 5 and 9 and the capability matrix; the serve CLI
+   (``python -m repro_torch.launch.serve``, seed 0, 6 requests, 4
+   lanes, ``--failures``) in its own process, its tenants' solver,
+   convergence, iterations and recoveries equal to an in-process CPU
+   replay of the same trace; the dry run's kernels at its shapes
+   against their plain versions in float32 (K1's halo mode on the
+   1-, 2- and 4-plane slabs of 512^2 and 1024^2 planes, interior and
+   boundary shards; det_dot's and K2's lane modes at a shard's length)
+   and the first step of ``pcg_128m`` on 512 shards, both variants,
+   within rtol 1e-5 of the unsharded fused step on the same state; the
+   solver dry run (``python -m repro_torch.launch.dryrun --solver``) in
+   its own process at the paper's pod-scale grids (1024^3 and 512^3
+   float32) on the 16x16 layout's 256 shards and, when the script's
+   elapsed time allows (under 700 s with it), the 2x16x16 layout's 512:
+   every cell's ``x`` and ``r`` finite after its steps and its peak
+   device memory within the card's.
 
-Kernel launches are counted from a reset just before each path (phases
-4, 5, 7, 8, 9, each run of 10 and the sharded solve of 11) to a reading
-just after it, graph replays included, and summed into the kernel
-summary.  The line before the last is the
+Every bound comes from ``repro_torch.launch.roofline`` (each function's
+compulsory bytes and operations) over the card's rates in
+``repro_torch.launch.mesh``.  Kernel launches are counted from a reset
+just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
+sharded solve of 11, and in their own processes the two CLIs of 12) to
+a reading just after it, graph replays included, and summed into the
+kernel summary.  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
@@ -105,8 +126,11 @@ timed in one call compare on one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -162,13 +186,6 @@ SVC_COHABITANT, SVC_CAPTURE = "t3", (10, 25)
 SVC_BICG_GRIDS = ((128, 128, 128), (96, 128, 128))
 SVC_BICG_STEPS, SVC_BICG_FAIL_AT = 30, 15
 
-#: HBM rate (bytes/s) by card model, from NVIDIA's data sheets; the
-#: SXM part is the default for an H100 whose name says neither.
-HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-            ("H100", 3.35e12))
-#: peak non-tensor-core rates (op/s) by dtype, H100 SXM data sheet
-PEAK_OPS = {"float64": 34e12, "float32": 67e12}
-
 
 class SmokeFailure(Exception):
     pass
@@ -181,19 +198,6 @@ def check(cond: bool, what: str) -> None:
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
-
-
-def hbm_rate(name: str) -> float:
-    for key, rate in HBM_RATE:
-        if key in name:
-            return rate
-    raise SmokeFailure(f"no memory rate known for card {name!r}")
-
-
-def bound_ms(nbytes: float, ops: float, dtype: str, rate: float):
-    t_bytes = nbytes / rate
-    t_ops = ops / PEAK_OPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -310,6 +314,7 @@ def phase_kernels(torch, rate: float):
 
     from repro_torch.kernels import fused_cg as k2
     from repro_torch.kernels import stencil7 as k1
+    from repro_torch.launch import roofline as RL
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -346,8 +351,8 @@ def phase_kernels(torch, rate: float):
     conv_err = max_abs(conv()[0, 0], k32)
     lib32_ms, lib32_dev_ms = both_ms(torch, conv)
     k32_ms, k32_dev_ms = both_ms(torch, lambda: k1.stencil7_cuda(u32))
-    b_ms, b_by = bound_ms(2 * n * 8, 7 * n, "float64", rate)
-    b32_ms, _ = bound_ms(2 * n * 4, 7 * n, "float32", rate)
+    b_ms, b_by = RL.bound_ms(RL.stencil7_work(n, "float64"), "float64", rate)
+    b32_ms, _ = RL.bound_ms(RL.stencil7_work(n, "float32"), "float32", rate)
     say("kernels", kernel="stencil7", kernel_ms=ms, kernel_device_ms=dev_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         library_device_ms=library_dev_ms, library="conv3d float64",
@@ -408,7 +413,8 @@ def phase_kernels(torch, rate: float):
     ms, dev_ms = both_ms(torch, lambda: k2.fused_cg_update_cuda(
         x, r, p, ap, alpha, inv, NBLOCKS))
     plain_ms = time_ms(torch, lambda: k2.fused_cg_update_plain(x, r, p, ap, alpha, inv, NBLOCKS))
-    b_ms, b_by = bound_ms(8 * n * 8, 7 * n, "float64", rate)
+    b_ms, b_by = RL.bound_ms(RL.fused_cg_update_work(n, "float64"), "float64",
+                             rate)
     say("kernels", kernel="fused_cg_update", kernel_ms=ms,
         kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
         library="no single PyTorch call computes it", bound_ms=b_ms,
@@ -439,7 +445,8 @@ def phase_kernels(torch, rate: float):
         plain_ms = time_ms(torch, lambda: k2.block_dot_plain(a, b, nb))
         lib_ms, lib_dev_ms = both_ms(torch, lambda: torch.dot(a, b))
         m = a.numel()
-        b_ms, b_by = bound_ms(2 * m * 8, 2 * m, "float64", rate)
+        b_ms, b_by = RL.bound_ms(RL.det_dot_work(m, "float64"), "float64",
+                                 rate)
         dots.append(dict(shape=label, n=m, nblocks=nb, max_abs_err=d_err,
                          ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library_device_ms=lib_dev_ms,
@@ -472,13 +479,13 @@ def phase_kernels(torch, rate: float):
         check(bool(torch.equal(got, want)),
               f"gf256_rs_encode P={nparity} != plain at 256^3")
         ms, dev_ms = both_ms(torch, lambda: k3.gf256_rs_encode_cuda(data, nparity))
-        k3_bytes = (K_DATA + nparity) * data.shape[1]
-        b_ms, b_by = bound_ms(k3_bytes, 0, "float64", rate)
+        k3_work = RL.gf256_rs_encode_work(K_DATA, data.shape[1], nparity)
+        b_ms, b_by = RL.bound_ms(k3_work, "float64", rate)
         k3_times[nparity] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms,
                                  bound_by=b_by)
         say("kernels", kernel="gf256_rs_encode", shards=list(data.shape),
             nparity=nparity, bitwise_equal=True, kernel_ms=ms,
-            kernel_device_ms=dev_ms, bytes=k3_bytes, bound_ms=b_ms,
+            kernel_device_ms=dev_ms, bytes=k3_work.nbytes, bound_ms=b_ms,
             bound_by=b_by)
     plain_ms = time_ms(torch, lambda: k3.gf256_rs_encode_plain(data, NPARITY))
     say("kernels", kernel="gf256_rs_encode", nparity=NPARITY,
@@ -550,13 +557,13 @@ def phase_kernels(torch, rate: float):
     plain_ms = time_ms(torch, lambda: k2.fused_cg_update_persist_plain(*args))
     k2_ms, k2_dev_ms = both_ms(torch, lambda: k2.fused_cg_update_cuda(
         x, r, pvec, ap, alpha, inv, NBLOCKS))
-    traffic = k2.fused_pass_traffic(n, 8, K_DATA, NPARITY)
-    b_ms, b_by = bound_ms(traffic["total_bytes"], 7 * n, "float64", rate)
+    k4_work = RL.fused_cg_update_persist_work(n, "float64", K_DATA, NPARITY)
+    b_ms, b_by = RL.bound_ms(k4_work, "float64", rate)
     say("kernels", kernel="fused_cg_update_persist", kernel_ms=ms,
         kernel_device_ms=dev_ms, plain_ms=plain_ms,
         k2_kernel_ms_same_call=k2_ms, k2_kernel_device_ms_same_call=k2_dev_ms,
         library_ms=None, library="no single PyTorch call computes it",
-        bytes=traffic["total_bytes"], bound_ms=b_ms, bound_by=b_by)
+        bytes=k4_work.nbytes, bound_ms=b_ms, bound_by=b_by)
     records["fused_cg_update_persist"] = dict(
         name="fused_cg_update_persist", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_cg.cu",
@@ -610,6 +617,7 @@ def lane_kernels(torch, rate: float, records: dict) -> dict:
 
     from repro_torch.kernels import fused_cg as k2
     from repro_torch.kernels import stencil7 as k1
+    from repro_torch.launch import roofline as RL
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -628,7 +636,8 @@ def lane_kernels(torch, rate: float, records: dict) -> dict:
     tol = 1e-12 * max(1.0, float(want.abs().max()))
     check(err <= tol, f"stencil7 on {lanes} lanes: error {err} > {tol}")
     ms, dev_ms = both_ms(torch, lambda: k1.stencil7_cuda(u))
-    b_ms, b_by = bound_ms(2 * total * 8, 7 * total, "float64", rate)
+    b_ms, b_by = RL.bound_ms(RL.stencil7_work(total, "float64"), "float64",
+                             rate)
     # the yardstick: one cuDNN convolution over the lanes as a batch
     w = torch.zeros(1, 1, 3, 3, 3, device=dev, dtype=torch.float64)
     w[0, 0, 1, 1, 1] = 6.0
@@ -675,7 +684,8 @@ def lane_kernels(torch, rate: float, records: dict) -> dict:
         x, r, p, ap, alpha, inv))
     plain_ms = time_ms(torch, lambda: k2.fused_cg_update_lanes_plain(
         x, r, p, ap, alpha, inv))
-    b_ms, b_by = bound_ms(8 * total * 8, 7 * total, "float64", rate)
+    b_ms, b_by = RL.bound_ms(RL.fused_cg_update_work(total, "float64"),
+                             "float64", rate)
     say("kernels", kernel="fused_cg_update_lanes", lanes=lanes, n=n,
         lanes_bitwise_solo_nblocks1=True, rz0_bitwise_order_plain=True,
         vec_max_abs_err=vec_err, vec_tol=vec_tol, rz_max_rel_err=rz_err,
@@ -707,7 +717,8 @@ def lane_kernels(torch, rate: float, records: dict) -> dict:
     vecdot = lambda: torch.linalg.vecdot(p, ap)  # noqa: E731
     lib_err = max_abs(vecdot(), dots)
     lib_ms, lib_dev_ms = both_ms(torch, vecdot)
-    b_ms, b_by = bound_ms(2 * total * 8, 2 * total, "float64", rate)
+    b_ms, b_by = RL.bound_ms(RL.det_dot_work(total, "float64"), "float64",
+                             rate)
     say("kernels", kernel="det_dot_lanes", lanes=lanes, n=n,
         lanes_bitwise_solo_nblocks1=True, max_abs_err=d_err, tol=d_tol,
         kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
@@ -741,13 +752,10 @@ def iteration_breakdown(torch, problem, p, first_run_s: float,
     backend's persist event (slot encode, CRC, simulated store writes,
     drain).  ``first_run_s`` is the unprotected solve's wall seconds per
     iteration, allocator warm-up included."""
-    from repro_torch.solvers.pcg import PCGSolver
     from repro_torch.solvers.registry import make_backend
 
-    solver = PCGSolver()
-    state = solver.init_state(problem.op, problem.precond, problem.b)
-    step = solver.make_step(problem.op, problem.precond)
-    step_ms = time_ms(torch, lambda: step(state))
+    solver, state, step = pcg_step(problem)
+    step_ms, step_dev_ms = both_ms(torch, lambda: step(state))
     t0 = time.perf_counter()
     for _ in range(REPS):
         solver.residual_norm(state)
@@ -764,12 +772,26 @@ def iteration_breakdown(torch, problem, p, first_run_s: float,
     persist_s = (time.perf_counter() - t0) / reps
     say("main", breakdown="seconds per iteration",
         unprotected_run_s=first_run_s, device_step_s=step_ms / 1e3,
+        device_step_back_to_back_s=step_dev_ms / 1e3,
         residual_norm_pull_s=norm_s, d2h_copy_s=d2h_s,
         d2h_bytes_per_s=host.nbytes / d2h_s, backend_persist_s=persist_s)
+    return step_dev_ms
 
 
-def phase_main_path(torch):
-    """The port's main path at full width; returns the launch counts."""
+def pcg_step(problem):
+    """(solver, initial state, step) of PCG on ``problem`` (a sharded
+    problem's step runs shard by shard)."""
+    from repro_torch.solvers.pcg import PCGSolver
+
+    solver = PCGSolver()
+    state = solver.init_state(problem.op, problem.precond, problem.b)
+    return solver, state, solver.make_step(problem.op, problem.precond)
+
+
+def phase_main_path(torch, found):
+    """The port's main path at full width; returns the launch counts.
+    Its reports and its step's device time go into ``found`` (phase
+    12)."""
     from repro_torch import api
     from repro_torch.kernels import ops
     from repro_torch.obs import Tracer
@@ -794,6 +816,7 @@ def phase_main_path(torch):
             recovery_fetch_bytes=rep.recovery_fetch_bytes,
             wasted_iterations=rep.wasted_iterations,
             recovery_s=None if tracer is None else _recovery_seconds(tracer))
+        found["reports"].append(rep)
         return res, wall
 
     ops.reset_launch_counts()
@@ -830,7 +853,12 @@ def phase_main_path(torch):
     say("main", launches=counts)
     for name in ("stencil7", "fused_cg_update", "det_dot"):
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
-    iteration_breakdown(torch, problem, base.state.p, plain_wall / MAXITER)
+    found["steps"]["phase 4: PCG step (main path)"] = dict(
+        device_ms=iteration_breakdown(torch, problem, base.state.p,
+                                      plain_wall / MAXITER),
+        grid=(GRID,) * 3,
+        timed_as="CUDA events around 25 back-to-back steps, median of 3 "
+                 "windows")
     del plain, base
     return counts, problem, recovered
 
@@ -867,7 +895,7 @@ def erasure_breakdown(torch, problem, p):
         children_persist_s=event_s - encode_d2h_s)
 
 
-def phase_erasure(torch, problem, recovered):
+def phase_erasure(torch, problem, recovered, found):
     """The erasure-coded stripe with the fused persist path at full width,
     and its routes against each other at 64^3; returns the launch counts
     of the two 256^3 solves."""
@@ -890,6 +918,7 @@ def phase_erasure(torch, problem, recovered):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rep = res.report
+        found["reports"].append(rep)
         check_trace_report(tracer, rep)
         routes = rep.metrics.counter_by_label("persist.route", "route")
         d2h = rep.metrics.counter_total("persist.d2h_bytes")
@@ -1043,7 +1072,7 @@ def phase_zoo(torch, problem):
     return totals
 
 
-def phase_jit(torch, problem, records):
+def phase_jit(torch, problem, records, found):
     """solve_jit's CUDA graph against the driver's unprotected loop at
     the same k; returns the launch counts."""
     from repro_torch import api
@@ -1082,6 +1111,9 @@ def phase_jit(torch, problem, records):
         kernels_device_ms_per_iteration=kernels_ms,
         kernels="K1 + K2 + 2 det_dot device_ms (phase 3)", relres=relres,
         x_bitwise_driver=same, launches=counts)
+    found["steps"]["phase 8: solve_jit graph iteration"] = dict(
+        device_ms=graph_ms, grid=(GRID,) * 3,
+        timed_as="host clock over the graph's chunk replays, an iteration")
     check(driver.iterations == k, f"driver ran {driver.iterations} != {k}")
     check(same, "solve_jit's x is not bitwise the driver's at the same k")
     check(relres < 1e-9, f"solve_jit relres {relres}")
@@ -1113,7 +1145,7 @@ def phase_jit(torch, problem, records):
     return counts
 
 
-def phase_advise(torch, problem):
+def phase_advise(torch, problem, found):
     """The spec advisor at full width and block-Jacobi PCG at test scale
     against the CPU; returns the launch counts."""
     from repro_torch import api
@@ -1137,6 +1169,7 @@ def phase_advise(torch, problem):
                     for r in advice.ranked],
             rejected=[r.spec for r in advice.rejected])
         chosen[label] = advice.chosen
+        found["advice"].append((label, advice))
     check(chosen["double PRD loss"] == "erasure(nvm-prd x6+2p)",
           f"double-PRD-loss advice {chosen['double PRD loss']}")
     check(chosen["single block"] is not None, "no spec survives one block")
@@ -1217,9 +1250,9 @@ def _serve_bucket(torch, label, tenants, failures, lanes, capture=None):
     nshards) each) to a timed service, with ``failures`` and the states
     to capture (``capture``) by tenant name, drain it, print every
     bucket step and a summary; returns (tickets, launch counts, bucket
-    steps, wall seconds).  The counts run from a reset just before the first
-    submission (the lane inits' K1 included) to a reading after the
-    drain."""
+    steps, median device ms of a bucket step).  The counts run from a
+    reset just before the first submission (the lane inits' K1
+    included) to a reading after the drain."""
     from repro_torch.kernels import ops
 
     svc = _timed_service(torch, lanes)
@@ -1278,10 +1311,10 @@ def _serve_bucket(torch, label, tenants, failures, lanes, capture=None):
     check(steps > 0 and counts["fused_cg_update_lanes"] in (0, steps)
           and counts["stencil7"] >= steps,
           f"{label}: launches {counts} against {steps} bucket steps")
-    return tickets, counts, steps, wall
+    return tickets, counts, steps, statistics.median(device_ms)
 
 
-def phase_service(torch):
+def phase_service(torch, found):
     """The multi-tenant service on the card at full width: one 4-lane
     PCG bucket of 256^3 (runs A: no failures, B: block, PRD and shard
     kills of three tenants, C: the untouched cohabitant alone) and a
@@ -1310,9 +1343,13 @@ def phase_service(torch):
              "t2 shard 2 of 4 at 15", tenants, kills),
             ("C: t3 alone", [t for t in tenants
                              if t[0] == SVC_COHABITANT], {})):
-        tickets, counts, steps, _ = _serve_bucket(
+        tickets, counts, steps, step_ms = _serve_bucket(
             torch, label, members, failures, SVC_LANES,
             {SVC_COHABITANT: SVC_CAPTURE})
+        if label.startswith("A"):
+            found["steps"]["phase 10: service bucket step (run A)"] = dict(
+                device_ms=step_ms, grid=(SVC_LANES, GRID, GRID, GRID),
+                timed_as="CUDA events around each batched step, median")
         check(counts["fused_cg_update_lanes"] == counts["det_dot_lanes"]
               == steps, f"{label}: K2 lanes {counts['fused_cg_update_lanes']}"
               f", det_dot lanes {counts['det_dot_lanes']}, bucket steps "
@@ -1454,6 +1491,7 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
     from repro_torch.distributed import make_data_mesh
     from repro_torch.kernels import fused_cg as k2
     from repro_torch.kernels import stencil7 as k1
+    from repro_torch.launch import roofline as RL
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1462,7 +1500,8 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
                     dtype=torch.float64)
     full = k1.stencil7_cuda(u)
     full_ms = device_ms(torch, lambda: k1.stencil7_cuda(u))
-    b_full, by_full = bound_ms(2 * n * 8, 7 * n, "float64", rate)
+    b_full, by_full = RL.bound_ms(RL.stencil7_work(n, "float64"), "float64",
+                                  rate)
     sharded_ms = {}
     for nshards in MESH_HALO_SHARDS:
         got = spmv.sharded_stencil7(u, nshards)
@@ -1499,7 +1538,8 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
     conv_err = max_abs(conv()[0, 0], got)
     lib_ms, lib_dev_ms = both_ms(torch, conv)
     m = us.numel()
-    b_ms, b_by = bound_ms((2 * m + 2 * plane) * 8, 7 * m, "float64", rate)
+    b_ms, b_by = RL.bound_ms(RL.stencil7_halo_work(m, plane, 2, "float64"),
+                             "float64", rate)
     say("mesh", kernel="stencil7_halo", slab=list(us.shape), max_abs_err=err,
         tol=tol, bitwise_full_launch_slab=True, kernel_ms=ms,
         kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1539,13 +1579,19 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
     ps, aps = p[shard].view(bps, -1), ap[shard].view(bps, -1)
     lane_ms, lane_dev_ms = both_ms(torch, lambda: k2.det_dot_lanes_cuda(
         ps, aps))
-    lane_b, lane_by = bound_ms(2 * ps.numel() * 8, 2 * ps.numel(), "float64",
-                               rate)
+    lane_b, lane_by = RL.bound_ms(RL.det_dot_work(ps.numel(), "float64"),
+                                  "float64", rate)
+    # the yardstick: one PyTorch call for the shard's block sums
+    vecdot = lambda: torch.linalg.vecdot(ps, aps)  # noqa: E731
+    vecdot_err = max_abs(vecdot(), k2.det_dot_lanes_cuda(ps, aps))
+    lib_ms, lib_dev_ms = both_ms(torch, vecdot)
     mesh_dot_ms = device_ms(torch, lambda: mesh_dot(p, ap))
     dot_ms = device_ms(torch, lambda: k2.det_dot_cuda(p, ap, NBLOCKS))
-    b_dot, _ = bound_ms(2 * n * 8, 2 * n, "float64", rate)
+    b_dot, _ = RL.bound_ms(RL.det_dot_work(n, "float64"), "float64", rate)
     say("mesh", kernel="det_dot_lanes", shard_blocks=bps,
         n=ps.numel(), kernel_ms=lane_ms, kernel_device_ms=lane_dev_ms,
+        library_ms=lib_ms, library_device_ms=lib_dev_ms,
+        library="torch.linalg.vecdot", vecdot_vs_kernel_max_abs_err=vecdot_err,
         bound_ms=lane_b, bound_by=lane_by, mesh_dot_device_ms=mesh_dot_ms,
         det_dot_device_ms=dot_ms, dot_bound_ms=b_dot,
         mesh_dot_bitwise_det_dot=True, rowdots_bitwise=True)
@@ -1568,8 +1614,8 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
     xs, rs, invs = (t[shard].view(bps, -1) for t in (x, r, inv))
     k2_ms, k2_dev_ms = both_ms(torch, lambda: k2.fused_cg_update_lanes_cuda(
         xs, rs, ps, aps, alphas, invs))
-    k2_b, k2_by = bound_ms(8 * xs.numel() * 8, 7 * xs.numel(), "float64",
-                           rate)
+    k2_b, k2_by = RL.bound_ms(RL.fused_cg_update_work(xs.numel(), "float64"),
+                              "float64", rate)
     mesh_step_ms = device_ms(torch, lambda: mesh_step(state))
     plain_step_ms = device_ms(torch, lambda: plain_step(state))
     say("mesh", kernel="fused_cg_update_lanes", shard_blocks=bps,
@@ -1581,7 +1627,7 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_mesh(torch, rate: float, records: dict) -> dict:
+def phase_mesh(torch, rate: float, records: dict, found) -> dict:
     """The sharded main path at full width: the mesh kernels, then
     ``api.solve`` of the 4-shard 256^3 problem with a ``shard=1`` kill,
     bitwise the unsharded solve with blocks (2, 3) killed and fetching
@@ -1635,6 +1681,14 @@ def phase_mesh(torch, rate: float, records: dict) -> dict:
               f"sharded path")
     check(counts["stencil7_halo"] >= MESH_NSHARDS * MESH_MAXITER,
           f"stencil7_halo launched {counts['stencil7_halo']} times")
+    _, state, step = pcg_step(problem)
+    found["steps"][f"phase 11: {MESH_NSHARDS}-shard PCG step"] = dict(
+        device_ms=device_ms(torch, lambda: step(state)), grid=(GRID,) * 3,
+        nshards=MESH_NSHARDS, nblocks=NBLOCKS,
+        timed_as="CUDA events around 25 back-to-back steps, median of 3 "
+                 "windows: the host's launch gaps included, as the sharded "
+                 "step's host work outlasts its kernels")
+    del state, step
     blocks = problem.op.layout.blocks_of(1)
     plain, _ = run(f"unsharded, blocks {blocks} killed", 1,
                    dict(blocks=blocks, at_iteration=MESH_FAIL_AT))
@@ -1708,6 +1762,274 @@ def phase_mesh(torch, rate: float, records: dict) -> dict:
     return counts
 
 
+#: phase 12: the serve CLI's trace (seed, requests, lanes, failures, and
+#: the CLI's defaults the in-process replay repeats), and the elapsed
+#: seconds under which the dry run also takes the 2x16x16 layout
+LAUNCH_SERVE_ARGS = ("--seed", "0", "--requests", "6", "--lanes", "4",
+                     "--failures")
+LAUNCH_TRACE = dict(seed=0, nrequests=6, failure_rate=0.6,
+                    survivable_only=True)
+LAUNCH_LANES, LAUNCH_MAX_QUEUE = 4, 8
+LAUNCH_BOTH_LAYOUTS_S = 700
+#: the dry run's kernels at its shapes against their plain versions
+#: (float32): an output's error over its largest value, and a sum's over
+#: the sum of its terms' magnitudes; one dry-run cell's first step
+#: against the unsharded fused step on the same state (the error over
+#: each field's largest value), on the 2x16x16 layout's one-plane slabs
+LAUNCH_F32_TOL, LAUNCH_SUM_TOL, LAUNCH_STEP_RTOL = 1e-6, 1e-5, 1e-5
+LAUNCH_STEP_CELL, LAUNCH_STEP_LAYOUT = "pcg_128m", "2x16x16"
+#: a tenant line of the serve CLI: name, solver, conv, iters, recovered
+_TENANT_LINE = re.compile(
+    r"^  (\S+): (\S+)\s+conv=(\S+)\s+iters=\s*(\d+) recovered=(\d+) ")
+
+
+def run_cli(torch, module: str, args, timeout: float):
+    """``python -m module *args`` in a fresh process on the card, with
+    the kernels' launch counts reset to 0 there before the module runs
+    and read after it; returns (its stdout lines, the counts, seconds).
+    The process is killed if it outlives ``timeout``."""
+    code = ("import json, runpy, sys\n"
+            "from repro_torch.kernels import ops\n"
+            f"sys.argv = {[module, *args]!r}\n"
+            "ops.reset_launch_counts()\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__', "
+            "alter_sys=True)\n"
+            "finally:\n"
+            "    print('LAUNCHES ' + json.dumps(ops.launch_counts()), "
+            "flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, env=env, cwd=ROOT, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"{module} ran past {timeout} s") from e
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    counts = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
+              if ln.startswith("LAUNCHES ")]
+    lines = [ln for ln in lines if not ln.startswith("LAUNCHES ")]
+    say("launch", cli=module, args=list(args), exit_code=res.returncode,
+        seconds=seconds, launches=counts[0] if counts else None)
+    check(res.returncode == 0 and len(counts) == 1,
+          f"{module} {' '.join(args)} exited {res.returncode}:\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return lines, counts[0], seconds
+
+
+def _tenant_fields(line: str):
+    m = _TENANT_LINE.match(line)
+    return m.groups() if m else line
+
+
+def dryrun_kernels(torch) -> None:
+    """The dry run's kernels at the shapes its cells give them, against
+    their plain versions in float32: K1's halo mode on the slab of every
+    (grid, layout), an interior shard's (both halo planes from the
+    buffers) and each boundary shard's; one lane of det_dot's and K2's
+    lane modes at a shard's length; then the first step of one cell,
+    both grid-step variants, against the unsharded fused step (K1, K2 and
+    det_dot on the whole grid) on the same state.  These launches are
+    checks: they count toward no path."""
+    from repro_torch.configs.poisson_pcg import GRIDS
+    from repro_torch.core import pcg
+    from repro_torch.core.state import PCGState
+    from repro_torch.kernels import fused_cg as k2
+    from repro_torch.kernels import stencil7 as k1
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / max(1.0, float(want.double().abs().max())))
+
+    shapes = sorted({(sc.grid, shards) for sc in GRIDS.values()
+                     for shards in M.LAYOUTS.values()})
+    for grid, nshards in shapes:
+        nz, ny, nx = grid
+        slab = nz // nshards
+        u = torch.randn(slab + 2, ny, nx, generator=gen, device=dev,
+                        dtype=f32)
+        us, lo, hi = u[1:-1], u[0], u[-1]
+        halo = {}
+        for label, planes in (("interior", (lo, hi)), ("first", (None, hi)),
+                              ("last", (lo, None))):
+            got = k1.stencil7_halo_cuda(us, *planes)
+            want = k1.stencil7_halo_plain(us, *planes)
+            torch.cuda.synchronize()
+            halo[label] = err = rel(got, want)
+            check(err <= LAUNCH_F32_TOL, f"stencil7_halo on a {list(us.shape)}"
+                  f" float32 slab ({label} shard): error {err}")
+        m = nz * ny * nx // nshards
+        x, r, p, ap = (torch.randn(1, m, generator=gen, device=dev, dtype=f32)
+                       for _ in range(4))
+        inv = torch.rand(1, m, generator=gen, device=dev, dtype=f32) + 0.5
+        alpha = torch.full((1,), 0.37, device=dev, dtype=f32)
+        scale = float((p.double() * ap.double()).abs().sum())
+        dot_err = float((k2.det_dot_lanes_cuda(p, ap).double()
+                         - k2.det_dot_lanes_plain(p, ap).double()).abs().max()
+                        ) / scale
+        check(dot_err <= LAUNCH_SUM_TOL, f"det_dot_lanes on (1, {m}) float32: "
+              f"error {dot_err} of the terms' magnitude")
+        got = k2.fused_cg_update_lanes_cuda(x, r, p, ap, alpha, inv)
+        want = k2.fused_cg_update_lanes_plain(x, r, p, ap, alpha, inv)
+        upd_err = max(rel(g, w) for g, w in zip(got[:3], want[:3]))
+        rz_scale = float((want[1].double() * want[2].double()).abs().sum())
+        rz_err = float((got[3].double() - want[3].double()).abs().max()
+                       ) / rz_scale
+        check(upd_err <= LAUNCH_F32_TOL and rz_err <= LAUNCH_SUM_TOL,
+              f"fused_cg_update_lanes on (1, {m}) float32: x', r', z' error "
+              f"{upd_err}, rz' error {rz_err}")
+        say("launch", check="dry-run kernels vs plain, float32",
+            grid=list(grid), shards=nshards, slab=list(us.shape),
+            stencil7_halo_err=halo, lane_length=m, det_dot_lanes_err=dot_err,
+            fused_cg_update_lanes_err=upd_err, rz_err=rz_err,
+            tol=LAUNCH_F32_TOL, sum_tol=LAUNCH_SUM_TOL)
+        del u, us, lo, hi, x, r, p, ap, inv, got, want
+
+    # one cell's first step, both variants, against the unsharded step
+    base = GRIDS[LAUNCH_STEP_CELL]
+    nshards = M.LAYOUTS[LAUNCH_STEP_LAYOUT]
+    mesh = M.make_data_mesh(nshards, dev)
+    inv = torch.full((math.prod(base.grid),), 1.0 / 6.0, device=dev,
+                     dtype=f32)
+    ref_step = pcg.make_step(lambda v: k1.stencil7_cuda(
+        v.view(base.grid)).view(-1), inv, 1)
+    for variant in ("auto", "shardmap"):
+        sc = dataclasses.replace(base, variant=variant)
+        step, spec = dryrun.cell_step(sc, mesh)
+        _, structs = spec(*sc.grid)
+        state = dryrun.cell_state(structs, mesh, dev)
+        out = step(state)
+        ref = ref_step(PCGState(
+            x=state["x"].reshape(-1), r=state["r"].reshape(-1),
+            z=state["z"].reshape(-1), p=state["p"].reshape(-1),
+            rz=state["rz"], beta_prev=state["rz"] * 0, k=0))
+        torch.cuda.synchronize()
+        errs = {f: rel(out[f].reshape(-1), getattr(ref, f))
+                for f in ("x", "r", "z", "p")}
+        say("launch", check="dry-run first step vs unsharded fused step",
+            cell=sc.name, variant=variant, layout=LAUNCH_STEP_LAYOUT,
+            shards=nshards, grid=list(sc.grid), max_rel_err=errs,
+            rtol=LAUNCH_STEP_RTOL)
+        check(max(errs.values()) <= LAUNCH_STEP_RTOL,
+              f"{sc.name} ({variant}) on {nshards} shards: first step off "
+              f"the unsharded step by {errs}")
+        del state, out, ref, step, spec, structs
+    del inv, ref_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_launch(torch, rate: float, found, t_start: float) -> dict:
+    """The launch layer on the card: the roofline shares of the 256^3
+    float64 steps the earlier phases timed, the report tables of their
+    runs, the serve CLI (tenants against an in-process CPU replay of the
+    same trace), the dry run's kernels and one cell's first step against
+    their plain versions, and the solver dry run at the pod-scale grids,
+    each CLI in its own process.  Returns the two CLIs' launch counts."""
+    from repro_torch import api
+    from repro_torch.configs.poisson_pcg import GRIDS
+    from repro_torch.launch import mesh, report, serve
+    from repro_torch.launch import roofline as RL
+    from repro_torch.nvm.backend import backend_names
+    from repro_torch.solvers.registry import make_backend
+
+    t_phase = time.perf_counter()
+    # ---- the roofline share of each step path ---------------------------
+    check(len(found["steps"]) == 4, f"steps timed: {sorted(found['steps'])}")
+    for label, st in found["steps"].items():
+        roof = RL.pcg_step_roofline(st["grid"], "float64",
+                                    nshards=st.get("nshards", 1),
+                                    nblocks=st.get("nblocks", 1),
+                                    hbm_rate=rate)
+        bound = 1e3 * roof.step_time_lb
+        say("launch", step=label, ms=st["device_ms"], timed_as=st["timed_as"],
+            bound_ms=bound, share_of_bound=bound / st["device_ms"],
+            bottleneck=roof.bottleneck, hbm_bytes=roof.hbm_bytes,
+            ops=roof.flops, coll_by_kind=roof.coll_by_kind)
+
+    # ---- the report tables of phases 4, 5 and 9 -------------------------
+    print("[launch] solve_report_table, phases 4 and 5:\n"
+          + report.solve_report_table(found["reports"]), flush=True)
+    op = api.Problem.poisson(64, nblocks=NBLOCKS, device=DEVICE).op
+    print("[launch] capability_matrix_table (storage against nvm-prd):\n"
+          + report.capability_matrix_table(
+              ((name, make_backend(name, op)) for name in backend_names()),
+              baseline_values=report.storage_values(
+                  make_backend("nvm-prd", op))), flush=True)
+    for label, advice in found["advice"]:
+        print(f"[launch] spec_advice_table, phase 9, {label}:\n"
+              + report.spec_advice_table(advice), flush=True)
+    del op
+
+    # ---- the serve CLI against the same trace replayed on the CPU ------
+    lines, serve_counts, _ = run_cli(torch, "repro_torch.launch.serve",
+                                     LAUNCH_SERVE_ARGS, 600)
+    for line in lines:
+        print(f"[launch] serve: {line}", flush=True)
+    cpu = api.serve(api.generate_request_trace(**LAUNCH_TRACE),
+                    lanes=LAUNCH_LANES, max_queue=LAUNCH_MAX_QUEUE,
+                    device="cpu")
+    want = [_tenant_fields(ln) for ln in serve.tenant_lines(cpu)]
+    got = [_tenant_fields(ln) for ln in lines if ln.startswith("  ")]
+    say("launch", check="serve CLI on the card vs the CPU replay",
+        fields="tenant, solver, conv, iters, recovered", card=got, cpu=want,
+        equal=got == want)
+    check(got == want and len(got) == LAUNCH_TRACE["nrequests"],
+          "the serve CLI's tenants differ from the CPU replay")
+    for name in ("stencil7", "det_dot_lanes", "fused_cg_update_lanes"):
+        check(serve_counts[name] > 0, f"the serve CLI never launched {name}")
+
+    # ---- the solver dry run ---------------------------------------------
+    dryrun_kernels(torch)
+    out = os.path.join(ROOT, "results", "chip_smoke_dryrun.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    args = ["--solver", "--out", out, "--mesh"]
+    _, dry_counts, single_s = run_cli(torch, "repro_torch.launch.dryrun",
+                                      args + ["single"], 900)
+    layouts = ["16x16"]
+    elapsed = time.perf_counter() - t_start
+    if elapsed + single_s < LAUNCH_BOTH_LAYOUTS_S:
+        _, multi_counts, _ = run_cli(torch, "repro_torch.launch.dryrun",
+                                     args + ["multi"], 900)
+        dry_counts = {k: v + multi_counts[k] for k, v in dry_counts.items()}
+        layouts.append("2x16x16")
+    say("launch", dryrun_layouts=layouts, elapsed_before_multi_s=elapsed,
+        single_layout_s=single_s, limit_s=LAUNCH_BOTH_LAYOUTS_S,
+        note="both layouts when the script's elapsed seconds plus one "
+             "layout's stay under the limit, else 16x16 only")
+    rows = report.load(out)
+    memory = mesh.device_memory_bytes(DEVICE)
+    for layout in layouts:
+        for cell in GRIDS:
+            row = rows.get(("poisson_pcg", cell, layout))
+            check(row is not None, f"no dry-run row for {cell} on {layout}")
+            say("launch", dryrun_row=row)
+            peak = row["memory"]["peak_bytes"]
+            check(row["x_r_finite"], f"{cell} on {layout}: x or r not finite")
+            check(peak is not None and peak <= memory,
+                  f"{cell} on {layout}: peak {peak} bytes > {memory}")
+            check(row["chips"] == mesh.LAYOUTS[layout],
+                  f"{cell} on {layout}: {row['chips']} shards")
+        print(f"[launch] dry-run table, {layout}:\n"
+              + report.table(rows, mesh=layout), flush=True)
+    if "2x16x16" in layouts:
+        print("[launch] dry-run multipod table:\n"
+              + report.multipod_table(rows), flush=True)
+    for name in ("stencil7_halo", "det_dot_lanes", "fused_cg_update_lanes"):
+        check(dry_counts[name] > 0, f"the dry run never launched {name}")
+    counts = {k: v + dry_counts[k] for k, v in serve_counts.items()}
+    say("launch", launches=counts, phase_seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -1768,23 +2090,30 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         name, _ = phase_device(torch)
-        rate = hbm_rate(name)
+        from repro_torch.launch import mesh
+
+        try:
+            rate = mesh.hbm_rate(name)
+        except ValueError as e:
+            raise SmokeFailure(str(e)) from e
         say("device", hbm_bytes_per_s=rate)
         phase_build()
         if times_only:
             kernel_times(torch, rate)
             return 0
         records = phase_kernels(torch, rate)
-        counts, problem, recovered = phase_main_path(torch)
-        paths = [counts, phase_erasure(torch, problem, recovered)]
+        found = {"steps": {}, "reports": [], "advice": []}
+        counts, problem, recovered = phase_main_path(torch, found)
+        paths = [counts, phase_erasure(torch, problem, recovered, found)]
         del recovered
         phase_convergence(torch)
         paths.append(phase_zoo(torch, problem))
-        paths.append(phase_jit(torch, problem, records))
-        paths.append(phase_advise(torch, problem))
+        paths.append(phase_jit(torch, problem, records, found))
+        paths.append(phase_advise(torch, problem, found))
         del problem
-        paths.append(phase_service(torch))
-        paths.append(phase_mesh(torch, rate, records))
+        paths.append(phase_service(torch, found))
+        paths.append(phase_mesh(torch, rate, records, found))
+        paths.append(phase_launch(torch, rate, found, t0))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:

@@ -1,0 +1,250 @@
+"""Roofline terms of the port's kernels and solver steps, counted from the
+functions (port of ``repro/launch/roofline.py``).
+
+The reference reads FLOPs and bytes from a compiled XLA program
+(``cost_analysis``) and collective bytes from its HLO text.  PyTorch has
+no such compile, so the port counts each function's **compulsory** work
+from its shapes: every input read once, every output written once, and
+the operations the function does on them (one per rounded multiply, add
+or subtract).  A count depends on the function and its arguments alone,
+never on the launches that ran, so a faster implementation of the same
+function is held against the same bound.  The kernels' counts are the
+ones ``chip_smoke.py`` prints beside each kernel's times; a step's count
+is the sum of its functions in the reference's decomposition (SpMV,
+``p.Ap``, the fused update, ``p = z + beta p``, the ESR copy).
+
+``chips`` counts the data mesh's shards (the reference's devices), all
+on the one card.  A :class:`Roofline` holds the card's totals (every
+shard's work) and its time terms are the card's; :meth:`Roofline.as_row`
+writes the ``*_per_chip`` counts per shard, the card's total over its
+shards, as the reference's rows count one device's program.  A halo
+plane or a shard sum moves between shards as a device-to-device copy
+through the card's HBM; ``coll_by_kind`` names the halo planes
+``collective-permute``, the gathered shard sums ``all-reduce`` and the
+in-memory ESR replica of ``p`` ``all-gather`` (the reference's kind
+names).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.kernels.fused_cg import fused_pass_traffic
+from repro_torch.launch.mesh import peak_ops
+
+DType = Union[str, torch.dtype]
+
+
+def _dtype_name(dtype: DType) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _itemsize(dtype: DType) -> int:
+    return torch.empty((), dtype=getattr(torch, _dtype_name(dtype))
+                       ).element_size()
+
+
+def _acc_itemsize(dtype: DType) -> int:
+    """Bytes of one reduction result for inputs of ``dtype`` (float64
+    accumulates in float64, float32 and bfloat16 in float32)."""
+    return 8 if _dtype_name(dtype) == "float64" else 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """The compulsory bytes and operations of one function call."""
+
+    nbytes: float
+    ops: float
+
+    def __add__(self, other: "Work") -> "Work":
+        return Work(self.nbytes + other.nbytes, self.ops + other.ops)
+
+
+def bound_ms(work: Work, dtype: DType, rate: float) -> Tuple[float, str]:
+    """The least time (ms) the card could take for ``work`` and what
+    bounds it: the larger of its bytes over the HBM ``rate`` and its
+    operations over the peak rate of ``dtype``."""
+    t_bytes = work.nbytes / rate
+    t_ops = work.ops / peak_ops(dtype) if work.ops else 0.0
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ----------------------------------------------------------------------
+# One count per kernel function; ``n`` counts every value of the call
+# (every lane's, in a lane mode)
+# ----------------------------------------------------------------------
+def stencil7_work(n: int, dtype: DType) -> Work:
+    """K1, ``A u`` on ``n`` grid points: ``u`` read, ``A u`` written; one
+    multiply and six subtracts a point."""
+    return Work(2 * n * _itemsize(dtype), 7 * n)
+
+
+def stencil7_halo_work(m: int, plane: int, halos: int, dtype: DType) -> Work:
+    """K1's halo mode on one slab of ``m`` points: the slab and its
+    ``halos`` (0-2) neighbour planes of ``plane`` points read, the slab
+    written."""
+    return Work((2 * m + halos * plane) * _itemsize(dtype), 7 * m)
+
+
+def fused_cg_update_work(n: int, dtype: DType) -> Work:
+    """K2 (and its lane mode), ``x', r', z'`` and ``r'.z'``: ``x, r, p,
+    ap, inv_diag`` read, ``x', r', z'`` written; seven operations a
+    value."""
+    return Work(8 * n * _itemsize(dtype), 7 * n)
+
+
+def det_dot_work(n: int, dtype: DType) -> Work:
+    """det_dot (and its lane mode), ``sum a b``: ``a, b`` read; a
+    multiply and an add a value."""
+    return Work(2 * n * _itemsize(dtype), 2 * n)
+
+
+def gf256_rs_encode_work(k_data: int, length: int, nparity: int) -> Work:
+    """K3, the P/Q parity of a ``(K, L)`` byte stripe: the data bytes
+    read, the parity bytes written (byte operations, counted as none)."""
+    return Work((k_data + nparity) * length, 0)
+
+
+def fused_cg_update_persist_work(n: int, dtype: DType, k_data: int,
+                                 nparity: int) -> Work:
+    """K4, K2 plus the staged chunks and parity of ``p``
+    (``kernels/fused_cg.py::fused_pass_traffic``)."""
+    traffic = fused_pass_traffic(n, _itemsize(dtype), k_data, nparity)
+    return Work(traffic["total_bytes"], 7 * n)
+
+
+def p_update_work(n: int, dtype: DType) -> Work:
+    """``p = z + beta p``: ``z, p`` read, ``p`` written; a multiply and
+    an add a value."""
+    return Work(3 * n * _itemsize(dtype), 2 * n)
+
+
+# ----------------------------------------------------------------------
+# The roofline of a step
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class Roofline:
+    """A step's compulsory work on the card and its three time terms.
+
+    ``flops`` and ``hbm_bytes`` are the kernels' and the vector update's
+    counts on the whole card; ``coll_bytes`` the bytes moved between
+    shards (``coll_by_kind``), each a device-to-device copy through HBM;
+    ``chips`` the mesh's shard count; ``hbm_rate`` the card's HBM rate
+    (:func:`repro_torch.launch.mesh.device_hbm_rate`: read from the card,
+    given on the CPU, never assumed) and ``dtype`` the grid's dtype."""
+
+    flops: float
+    hbm_bytes: float
+    coll_bytes: float
+    coll_by_kind: Dict[str, int]
+    chips: int
+    hbm_rate: float
+    dtype: str = "float32"
+
+    @property
+    def t_compute(self) -> float:
+        """Operations over the card's peak rate for the dtype."""
+        return self.flops / peak_ops(self.dtype)
+
+    @property
+    def t_memory(self) -> float:
+        """Compulsory bytes over the card's HBM rate."""
+        return self.hbm_bytes / self.hbm_rate
+
+    @property
+    def t_collective(self) -> float:
+        """The shard-to-shard bytes as copies on the card: each byte is
+        read and written once through HBM, so twice the bytes over the
+        HBM rate."""
+        return 2 * self.coll_bytes / self.hbm_rate
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_lb(self) -> float:
+        """Lower bound on the step's time on the card.  The copies share
+        HBM with the kernels, so the memory and collective terms add;
+        compute overlaps them."""
+        return max(self.t_compute, self.t_memory + self.t_collective)
+
+    def as_row(self) -> Dict[str, float]:
+        """The reference's row: the card's time terms, and the counts
+        per shard (the card's totals over ``chips``)."""
+        return {
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "flops_per_chip": self.flops / self.chips,
+            "hbm_bytes_per_chip": self.hbm_bytes / self.chips,
+            "coll_bytes_per_chip": self.coll_bytes / self.chips,
+        }
+
+
+def pcg_step_roofline(grid: Sequence[int], dtype: DType, nshards: int = 1,
+                      nblocks: int = 1, sum_dtype: Optional[DType] = None,
+                      esr_mode: str = "nvm", *, hbm_rate: float) -> Roofline:
+    """One Jacobi-preconditioned PCG iteration on ``grid`` (``(nz, ny,
+    nx)``, or ``(lanes, nz, ny, nx)`` for a service bucket's stacked
+    lanes): K1 for ``A p`` (its halo mode a z-slab when ``nshards > 1``,
+    with each interior boundary's two planes copied), det_dot for
+    ``p.Ap``, K2 for the update and ``r'.z'``, then ``p = z + beta p``.
+    With ``nshards > 1`` both reductions gather their ``nblocks`` block
+    sums (of ``sum_dtype``, the reduction's own type by default) before
+    the chain; with ``esr_mode="inmemory"`` the step copies the new
+    ``p`` into the replicated ESR buffer.  ``hbm_rate`` is the card's
+    (bytes/s)."""
+    n = math.prod(grid)
+    work = (det_dot_work(n, dtype) + fused_cg_update_work(n, dtype)
+            + p_update_work(n, dtype))
+    coll: Dict[str, int] = {}
+    if nshards == 1:
+        work = work + stencil7_work(n, dtype)
+    else:
+        if len(grid) != 3 or grid[0] % nshards:
+            raise ValueError(f"a sharded step takes an (nz, ny, nx) grid "
+                             f"whose nz divides into {nshards} slabs, got "
+                             f"{tuple(grid)}")
+        plane = grid[1] * grid[2]
+        slab = n // nshards
+        for s in range(nshards):
+            halos = (s > 0) + (s < nshards - 1)
+            work = work + stencil7_halo_work(slab, plane, halos, dtype)
+        coll["collective-permute"] = (2 * (nshards - 1) * plane
+                                      * _itemsize(dtype))
+        sums = (_itemsize(sum_dtype) if sum_dtype is not None
+                else _acc_itemsize(dtype))
+        coll["all-reduce"] = 2 * nblocks * sums
+    if esr_mode == "inmemory":
+        coll["all-gather"] = n * _itemsize(dtype)
+    elif esr_mode not in ("nvm", "none"):
+        raise ValueError(f"unknown esr_mode {esr_mode!r}")
+    return Roofline(flops=float(work.ops), hbm_bytes=float(work.nbytes),
+                    coll_bytes=float(sum(coll.values())), coll_by_kind=coll,
+                    chips=nshards, hbm_rate=hbm_rate,
+                    dtype=_dtype_name(dtype))
+
+
+def grid_step_roofline(variant: str, grid: Sequence[int], dtype: DType,
+                       nshards: int, esr_mode: str = "nvm", *,
+                       hbm_rate: float) -> Roofline:
+    """The sharded grid steps of :mod:`repro_torch.core.spmv`:
+    ``"auto"`` (:func:`~repro_torch.core.spmv.make_sharded_pcg_step`,
+    shard sums of the grid's reduction type) and ``"shardmap"``
+    (:func:`~repro_torch.core.spmv.make_shardmap_pcg_step`, float32
+    shard sums), one lane a shard."""
+    if variant not in ("auto", "shardmap"):
+        raise ValueError(f"unknown variant {variant!r}")
+    return pcg_step_roofline(
+        grid, dtype, nshards=nshards, nblocks=nshards,
+        sum_dtype="float32" if variant == "shardmap" else None,
+        esr_mode=esr_mode, hbm_rate=hbm_rate)

@@ -569,3 +569,60 @@ def test_grid_steps_on_card_match_the_cpu_port(cuda_device, variant):
     for f in init:
         torch.testing.assert_close(card[f].cpu(), cpu[f], rtol=1e-4,
                                    atol=1e-4 * float(cpu[f].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("esr_mode", ["nvm", "inmemory"])
+@pytest.mark.parametrize("variant", ["auto", "shardmap"])
+def test_dry_run_cell_on_card(cuda_device, tmp_path, variant, esr_mode):
+    """A small dry-run cell on the card: its peak is the card's measured
+    allocation within the card's memory, its share of the bound is
+    taken, and its rows render."""
+    from repro_torch.configs.poisson_pcg import SolverConfig
+    from repro_torch.launch import dryrun, report
+
+    sc = SolverConfig("pcg_64", (64, 64, 64), 16, esr_mode=esr_mode,
+                      variant=variant)
+    out = tmp_path / "rows.jsonl"
+    row = dryrun.run_solver_cell(sc, results_path=str(out), verbose=False,
+                                 nshards=16)
+    grids = 5 if esr_mode == "inmemory" else 4
+    assert row["x_r_finite"] and row["device"]["type"] == "cuda"
+    assert grids * 64 ** 3 * 4 <= row["memory"]["peak_bytes"]
+    assert row["memory"]["peak_bytes"] <= row["device"]["memory_bytes"]
+    assert row["roofline_share"] > 0 and row["device"]["power_limit"]
+    assert "| poisson_pcg | pcg_64 |" in report.table(report.load(str(out)),
+                                                     mesh="16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["auto", "shardmap"])
+@pytest.mark.parametrize("nshards", [32, 64])
+def test_dry_run_first_step_matches_the_unsharded_step_on_card(
+        cuda_device, variant, nshards):
+    """A dry-run cell's first step on slabs of one and two planes (both
+    halos from the buffers) against the unsharded fused step on the same
+    float32 state."""
+    from repro_torch.configs.poisson_pcg import SolverConfig
+    from repro_torch.core import pcg
+    from repro_torch.core.state import PCGState
+    from repro_torch.distributed.sharding import make_data_mesh
+    from repro_torch.launch import dryrun
+
+    sc = SolverConfig("pcg_64", (64, 64, 64), nshards, variant=variant)
+    mesh = make_data_mesh(nshards, cuda_device)
+    step, spec = dryrun.cell_step(sc, mesh)
+    _, structs = spec(*sc.grid)
+    state = dryrun.cell_state(structs, mesh, torch.device(cuda_device))
+    out = step(state)
+    inv = torch.full((64 ** 3,), 1.0 / 6.0, device=cuda_device,
+                     dtype=torch.float32)
+    ref = pcg.make_step(lambda v: stencil7.stencil7_cuda(
+        v.view(sc.grid)).view(-1), inv, 1)(PCGState(
+            x=state["x"].reshape(-1), r=state["r"].reshape(-1),
+            z=state["z"].reshape(-1), p=state["p"].reshape(-1),
+            rz=state["rz"], beta_prev=state["rz"] * 0, k=0))
+    for f in ("x", "r", "z", "p"):
+        want = getattr(ref, f)
+        torch.testing.assert_close(out[f].reshape(-1), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

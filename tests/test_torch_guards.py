@@ -25,6 +25,7 @@ import torch
 from repro_torch import api, convert
 from repro_torch.core import poisson, solve_jit
 from repro_torch.kernels import _build, fused_cg, gf256_encode, ops, stencil7
+from repro_torch.launch import dryrun, mesh as launch_mesh, serve
 from repro_torch.solvers.driver import SolveConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -105,9 +106,16 @@ def no_cuda(monkeypatch):
     lambda: api.serve(api.generate_request_trace(0, nrequests=1)),
     lambda: api.SolveService().submit_request(
         api.generate_request_trace(0, nrequests=1)[0]),
+    lambda: serve.main(["--requests", "1"]),
+    lambda: dryrun.main(["--solver", "--smoke"]),
+    lambda: dryrun.run_solver_cell("pcg_128m", results_path=None),
+    lambda: launch_mesh.make_data_mesh(256),
+    lambda: launch_mesh.device_memory_bytes(),
 ], ids=["Problem.poisson", "make_poisson_problem", "StencilOperator",
         "problem_from_numpy", "state_from_numpy", "erasure solve", "advise",
-        "solve_jit", "serve", "SolveService.submit_request"])
+        "solve_jit", "serve", "SolveService.submit_request", "serve CLI",
+        "dryrun CLI", "run_solver_cell", "launch make_data_mesh",
+        "device_memory_bytes"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
