@@ -106,13 +106,32 @@ non-zero and prints no result line):
    float32) on the 16x16 layout's 256 shards and, when the script's
    elapsed time allows (under 700 s with it), the 2x16x16 layout's 512:
    every cell's ``x`` and ``r`` finite after its steps and its peak
-   device memory within the card's.
+   device memory within the card's;
+13. lm — LM serving (``repro_torch.models``, ``repro_torch.serving.
+   ServeEngine``): ``llama3_8b`` at its full ``CONFIG`` (32 layers,
+   d_model 4096, 8.03 B parameters in float32, bf16 compute),
+   initialised on the card from a seeded ``torch.Generator``, answers 4
+   requests of a 512-token prompt and 32 greedy tokens through
+   ``ServeEngine.generate``: logits finite, the first token the argmax
+   of a teacher-forced ``decoder_forward`` over the prompt; the prefill
+   seconds, decode ms a token (median of the steps after the first),
+   tokens/s, peak memory, and the prefill's ``model_flops`` as a share
+   of the bf16 peak and the decode step's compulsory bytes
+   (``roofline.decode_step_bytes``) as a share of the HBM rate.  Then
+   the nine other configs at full width in f32 (MoE capacity factor
+   16), cut in depth only to one pattern period (gemma3 6 layers,
+   recurrentgemma 4 so its tail layer runs, the rest 1; whisper, mamba2
+   and starcoder2 whole): prefill 2 x 64 and 4 decode steps, each
+   position's logits within ``LM_REL_TOL`` of the largest |logit| of
+   the teacher-forced forward; qwen2-vl runs on patch embeddings with
+   three M-RoPE streams (no decode: the CLI refuses vision).  The path
+   has no hand-written kernel: its launch counts must read 0.
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
 ``repro_torch.launch.mesh``.  Kernel launches are counted from a reset
 just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
-sharded solve of 11, and in their own processes the two CLIs of 12) to
+sharded solve of 11, in their own processes the two CLIs of 12, and 13) to
 a reading just after it, graph replays included, and summed into the
 kernel summary.  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
@@ -2030,6 +2049,269 @@ def phase_launch(torch, rate: float, found, t_start: float) -> dict:
     return counts
 
 
+#: phase 13: LM serving.  llama3_8b at its full CONFIG (32 layers, bf16
+#: compute) answers four requests: a 512-token prompt and 32 generated
+#: tokens each, through ``ServeEngine.generate``
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3_8b", 4, 512, 32
+#: the other nine configs at full width and f32 compute (MoE capacity
+#: factor 16, as tests/test_decode_consistency.py runs them), cut in depth
+#: only, to one pattern period (whisper, mamba2 and starcoder2 whole):
+#: prefill 2 x 64, then 4 decode steps
+LM_CUT_DEPTH = {"moonshot_v1_16b_a3b": 1, "dbrx_132b": 1, "granite_20b": 1,
+                "starcoder2_3b": None, "gemma3_12b": 6, "whisper_small": None,
+                "mamba2_370m": None, "recurrentgemma_9b": 4,
+                "qwen2_vl_72b": 1}
+LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_STEPS = 2, 64, 4
+#: prefill and decode logits against the teacher-forced forward (f32 on
+#: the card, TF32 off): the largest difference over the largest |logit|.
+#: Decode and prefill sum in other orders (and SSD's recurrence against
+#: its chunked scan): f32 round-off (6e-8) times sqrt(d_model) times the
+#: depth is 1.3e-4 for mamba2's 48 layers of d_inner 2048 and 1e-4 for
+#: starcoder2's 30 of 3072
+LM_REL_TOL = 5e-4
+
+
+def _lm_timed(torch, kind: str, fn, marks: list):
+    """``fn`` with CUDA events recorded around each call (no
+    synchronisation), whether its logits were finite (a device tensor)
+    and the host ms until the call returned (every launch enqueued),
+    appended to ``marks``."""
+    def call(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        logits, caches = fn(*args)
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        marks.append((kind, start, end, torch.isfinite(logits).all(), host_ms))
+        return logits, caches
+    return call
+
+
+def _aten_ops(fn) -> int:
+    """The ATen operations ``fn`` dispatches (a count, not a time: the
+    dispatch mode slows every op it sees)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def lm_serve(torch, cfg, batch: int, prompt_len: int, gen: int,
+             rate: float, device=DEVICE) -> dict:
+    """``cfg`` initialised on the card from a seeded ``torch.Generator``
+    serves ``batch`` requests through ``ServeEngine.generate`` (a warm-up
+    of 2 tokens, then the timed run of ``gen``): the prefill seconds, the
+    decode ms a token (median of the steps after the first), the host ms
+    until a step's launches are enqueued, tokens/s, peak memory, and the
+    shares of the bf16 peak (prefill) and of the HBM rate (decode), with
+    the first token checked against the argmax of a teacher-forced
+    forward over the prompt; then the ATen ops one decode step
+    dispatches, counted apart from the timed run."""
+    from repro_torch.launch import mesh
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    marks: list = []
+    eng = ServeEngine(_lm_timed(torch, "prefill", R.make_prefill(cfg), marks),
+                      _lm_timed(torch, "decode", R.make_decode(cfg), marks),
+                      lambda b, s: R.init_caches(cfg, b, s, device=dev))
+    t0 = time.perf_counter()
+    eng.generate(model, prompt, 2)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    marks.clear()
+    t0 = time.perf_counter()
+    out = eng.generate(model, prompt, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = [(kind, start.elapsed_time(end), bool(fin), host)
+             for kind, start, end, fin, host in marks]
+    check(all(t[2] for t in times), f"{cfg.name}: non-finite logits")
+    check(tuple(out.shape) == (batch, gen), f"{cfg.name}: out {out.shape}")
+    prefill_ms = times[0][1]
+    decode_ms = [t[1] for t in times if t[0] == "decode"]
+    decode_host_ms = [t[3] for t in times if t[0] == "decode"]
+    check(len(decode_ms) == gen - 1, f"{len(decode_ms)} decode steps")
+    step_ms = statistics.median(decode_ms[1:])
+    with torch.inference_mode():
+        forced = T.decoder_forward(model, prompt, cfg)[0][:, -1]
+        caches = R.init_caches(cfg, batch, prompt_len + 1, device=dev)
+        _, caches = R.make_prefill(cfg)(model, prompt, caches)
+        decode_ops = _aten_ops(lambda: R.make_decode(cfg)(
+            model, out[:, :1], caches, prompt_len))
+    first_ok = torch.equal(forced.argmax(-1), out[:, 0])
+    check(first_ok, f"{cfg.name}: the first token is not the argmax of the "
+          f"teacher-forced forward over the prompt")
+    peak = torch.cuda.max_memory_allocated()
+    flops = RL.model_flops(cfg, R.Shape("prefill", "prefill", prompt_len,
+                                        batch), "prefill")
+    position = prompt_len + (gen - 1) // 2   # the median step's cache index
+    step_bytes = RL.decode_step_bytes(cfg, batch, position)
+    rec = dict(arch=cfg.name, params=nparams, layers=cfg.n_layers,
+               d_model=cfg.d_model, compute=cfg.compute_dtype, batch=batch,
+               prompt=prompt_len, gen=gen, init_s=init_s,
+               first_generate_s=first_s, prefill_s=prefill_ms / 1e3,
+               decode_ms_per_token=step_ms, decode_ms_min=min(decode_ms[1:]),
+               decode_ms_max=max(decode_ms[1:]), first_decode_ms=decode_ms[0],
+               decode_enqueue_ms=statistics.median(decode_host_ms[1:]),
+               decode_aten_ops=decode_ops,
+               prefill_enqueue_ms=times[0][3],
+               generate_s=wall, tokens_per_s=batch * gen / wall,
+               peak_gib=peak / 2 ** 30, prefill_tflop=flops / 1e12,
+               prefill_share_of_bf16_peak=flops / (prefill_ms / 1e3)
+               / mesh.PEAK_OPS["bfloat16"],
+               decode_step_gb=step_bytes / 1e9,
+               decode_bound_ms=1e3 * step_bytes / rate,
+               decode_share_of_hbm=1e3 * step_bytes / rate / step_ms,
+               first_token_is_forced_argmax=first_ok,
+               tokens_row0=out[0, :8].tolist())
+    say("lm", **rec)
+    del model, forced, eng, out, caches
+    return rec
+
+
+def _lm_inputs(torch, cfg, batch: int, length: int, dev):
+    """Seeded inputs of ``length`` positions: token ids, plus frames for
+    the encoder-decoder, or patch embeddings and three M-RoPE position
+    streams for the vision frontend."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if cfg.frontend == "vision":
+        emb = torch.randn((batch, length, cfg.d_model), generator=gen,
+                          device=dev)
+        pos = torch.randint(0, 4 * length, (3, batch, length), generator=gen,
+                            device=dev)
+        return {"tokens": emb, "positions": pos}
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, length),
+                                   generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                    generator=gen, device=dev)
+    return out
+
+
+def lm_consistency(torch, cfg, batch: int, prompt: int, steps: int,
+                   device=DEVICE) -> dict:
+    """``cfg`` (full width, f32 compute) on the card: prefill ``batch`` x
+    ``prompt`` tokens, then ``steps`` decode steps fed the true tokens,
+    each position's logits against the teacher-forced forward over all
+    of them (relative to its largest |logit|).  The vision config runs
+    its forward on patch embeddings with three M-RoPE streams against
+    its prefill-with-cache, and M-RoPE with identical streams against
+    RoPE."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+
+    dev = torch.device(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    nparams = sum(p.numel() for p in model.parameters())
+    total = prompt + (0 if cfg.frontend == "vision" else steps)
+    inputs = _lm_inputs(torch, cfg, batch, total, dev)
+    errs = []
+    with torch.inference_mode():
+        if cfg.family == "encdec":
+            enc = E.encode(model, inputs["frames"], cfg)
+            forced = E.decode(model, inputs["tokens"], enc, cfg)[0]
+        else:
+            forced = T.decoder_forward(model, inputs["tokens"], cfg,
+                                       positions=inputs.get("positions"))[0]
+        scale = float(forced[..., :cfg.vocab].abs().max())
+        caches = R.init_caches(cfg, batch, total, device=dev)
+        if cfg.frontend == "vision":
+            logits, _ = R.make_prefill(cfg)(model, inputs, caches)
+            errs.append(max_abs(logits, forced))
+            # three identical streams: M-RoPE is RoPE over the positions
+            same = torch.arange(total, device=dev).expand(3, batch, total)
+            errs.append(max_abs(
+                T.decoder_forward(model, inputs["tokens"], cfg,
+                                  positions=same)[0],
+                T.decoder_forward(model, inputs["tokens"], cfg)[0]))
+        else:
+            pre = {k: (v[:, :prompt] if k == "tokens" else v)
+                   for k, v in inputs.items()}
+            logits, caches = R.make_prefill(cfg)(model, pre, caches)
+            errs.append(max_abs(logits[:, -1], forced[:, prompt - 1]))
+            decode = R.make_decode(cfg)
+            for t in range(steps - 1):
+                tok = inputs["tokens"][:, prompt + t:prompt + t + 1]
+                logits, caches = decode(model, tok, caches, prompt + t)
+                errs.append(max_abs(logits[:, 0], forced[:, prompt + t]))
+    torch.cuda.synchronize()
+    rel = max(errs) / scale
+    rec = dict(arch=cfg.name, params=nparams, layers=cfg.n_layers,
+               d_model=cfg.d_model, compute=cfg.compute_dtype, batch=batch,
+               prompt=prompt, steps=0 if cfg.frontend == "vision" else steps,
+               seconds=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               max_abs_err=max(errs), max_abs_logit=scale, rel_err=rel,
+               rel_tol=LM_REL_TOL, finite=bool(torch.isfinite(forced).all()))
+    say("lm", **rec)
+    check(rec["finite"], f"{cfg.name}: non-finite logits")
+    check(rel <= LM_REL_TOL, f"{cfg.name}: prefill/decode logits off the "
+          f"teacher-forced forward by {rel:.3g} of the largest logit")
+    del model, forced, caches, logits
+    return rec
+
+
+def phase_lm(torch, rate: float) -> dict:
+    """LM serving on the card: llama3_8b at full width and depth through
+    ``ServeEngine.generate``, then the nine other configs at full width
+    (f32, cut in depth) held against their own teacher-forced forward.
+    The path has no hand-written kernel: its launch counts are read and
+    shown, and must be 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry as R
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    say("lm", allocated_gib_before=torch.cuda.memory_allocated() / 2 ** 30)
+    ops.reset_launch_counts()
+    lm_serve(torch, R.get_config(LM_ARCH), LM_BATCH, LM_PROMPT, LM_GEN, rate)
+    torch.cuda.empty_cache()
+    for arch, depth in LM_CUT_DEPTH.items():
+        cfg = R.get_config(arch)
+        kw = {"compute_dtype": "float32"}
+        if depth is not None:
+            kw["n_layers"] = depth
+        if cfg.n_experts > 0:
+            kw["capacity_factor"] = 16.0
+        lm_consistency(torch, dataclasses.replace(cfg, **kw), LM_CUT_BATCH,
+                       LM_CUT_PROMPT, LM_CUT_STEPS)
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    say("lm", launches=counts, phase_seconds=time.perf_counter() - t_phase,
+        note="the LM path runs no hand-written kernel")
+    check(not any(counts.values()), f"the LM path launched {counts}")
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -2114,6 +2396,7 @@ def main() -> int:
         paths.append(phase_service(torch, found))
         paths.append(phase_mesh(torch, rate, records, found))
         paths.append(phase_launch(torch, rate, found, t0))
+        paths.append(phase_lm(torch, rate))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:

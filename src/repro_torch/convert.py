@@ -5,10 +5,20 @@ problem data, the solver state and the persisted slots.  Problems and
 states cross as numpy arrays through the functions below; slots cross
 through the wire format itself (bytes encoded by either package's
 ``RecoverySchema.encode`` decode in the other).
+
+An LM's parameters and decode caches cross as the reference's pytrees
+of numpy arrays (:func:`lm_params_from_numpy`, :func:`lm_caches_from_
+numpy` and their inverses).  The reference stacks a pattern group's
+layers along a leading axis (``groups/{j}/...`` of shape ``(n_groups,
+...)``, the encoder-decoder's ``enc``/``dec`` and its caches' ``self``/
+``cross`` of shape ``(n_layers, ...)``); the port keeps one module, and
+one cache, a layer, so layer ``g * period + j`` is row ``g`` of slot
+``j``.  numpy has no bfloat16: a bfloat16 array crosses as its float32
+values (exact both ways).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,6 +27,9 @@ from repro_torch._device import resolve_device
 from repro_torch.api import Problem, _preconditioner
 from repro_torch.core.poisson import StencilOperator
 from repro_torch.core.state import PCGState
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Init
+from repro_torch.models.registry import build_model
 from repro_torch.solvers.bicgstab import BiCGStabState
 from repro_torch.solvers.chebyshev import ChebyshevState
 from repro_torch.solvers.gmres import GMRESState
@@ -89,4 +102,157 @@ def state_to_numpy(state) -> Dict[str, np.ndarray]:
     out: Dict[str, object] = {f: getattr(state, f).detach().cpu().numpy()
                               for f in state._fields if f != "k"}
     out["k"] = int(state.k)
+    return out
+
+
+# ----------------------------------------------------------------------
+# LM parameters and caches
+# ----------------------------------------------------------------------
+def _tensor(arr, device: torch.device,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A numpy (or ml_dtypes bfloat16) array as a tensor on ``device``."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.as_tensor(np.array(a))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _ref_path(cfg: ModelConfig, name: str) -> Tuple[Tuple[str, ...],
+                                                     Optional[int]]:
+    """Where the port's parameter ``name`` lives in the reference's tree:
+    its path and, for a stacked leaf, its row."""
+    parts = tuple(name.split("."))
+    if parts[0] == "layers":
+        layer, rest = int(parts[1]), parts[2:]
+        period = cfg.group_size
+        if layer < cfg.n_groups * period:
+            g, j = divmod(layer, period)
+            return ("groups", str(j)) + rest, g
+        return ("tail", str(layer - cfg.n_groups * period)) + rest, None
+    if parts[0] in ("enc", "dec"):
+        return (parts[0],) + parts[2:], int(parts[1])
+    return parts, None
+
+
+def _get(tree: Mapping[str, Any], path: Sequence[str]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> torch.nn.Module:
+    """The port's model of ``cfg`` holding the reference's parameters
+    ``tree`` (the pytree of ``repro.models.registry.init_params``, as
+    numpy arrays), placed on ``device``."""
+    dev = resolve_device(device)
+    model = build_model(cfg, Init(torch.device("meta"))).to_empty(device=dev)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            path, row = _ref_path(cfg, name)
+            arr = _get(tree, path)
+            val = _tensor(arr if row is None else np.asarray(arr)[row], dev,
+                          param.dtype)
+            if val.shape != param.shape:
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(val.shape)}, "
+                                 f"the port's {name} is {tuple(param.shape)}")
+            param.copy_(val)
+    return model
+
+
+def _nest(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, val in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val
+    return out
+
+
+def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's
+    pytree of the model's parameters, as numpy arrays."""
+    cfg = model.cfg
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for name, param in model.named_parameters():
+        path, row = _ref_path(cfg, name)
+        if row is None:
+            flat[path] = _numpy(param)
+        else:
+            flat.setdefault(path, {})[row] = _numpy(param)
+    for path, val in flat.items():
+        if isinstance(val, dict):
+            flat[path] = np.stack([val[r] for r in range(len(val))])
+    return _nest(flat)
+
+
+def _cache_paths(cfg: ModelConfig, layer: int) -> Tuple[Tuple[str, ...],
+                                                        Optional[int]]:
+    """The reference cache entry of layer ``layer`` and its row."""
+    period = cfg.group_size
+    if layer < cfg.n_groups * period:
+        g, j = divmod(layer, period)
+        return ("groups", str(j)), g
+    return ("tail", str(layer - cfg.n_groups * period)), None
+
+
+def lm_caches_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> List[Dict[str, Any]]:
+    """The port's per-layer caches from the reference's cache pytree
+    (``repro.models.registry.init_caches``' first half, or a step's
+    returned caches), as numpy arrays, placed on ``device`` in the
+    compute dtype (ring positions stay int32)."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        a = np.asarray(a)
+        return _tensor(a, dev, None if a.dtype.kind in "iu" else cfg.cdt)
+
+    if cfg.family == "encdec":
+        return [{part: {n: conv(np.asarray(a)[i])
+                        for n, a in tree[part].items()}
+                 for part in ("self", "cross")}
+                for i in range(cfg.n_layers)]
+    caches = []
+    for layer in range(cfg.n_layers):
+        path, row = _cache_paths(cfg, layer)
+        entry = _get(tree, path)
+        caches.append({n: conv(a if row is None else np.asarray(a)[row])
+                       for n, a in entry.items()})
+    return caches
+
+
+def lm_caches_to_numpy(cfg: ModelConfig, caches: Sequence[Mapping[str, Any]]
+                       ) -> Dict[str, Any]:
+    """The inverse of :func:`lm_caches_from_numpy`: the reference's cache
+    pytree, as numpy arrays (bfloat16 values as float32)."""
+    if cfg.family == "encdec":
+        return {part: {n: np.stack([_numpy(c[part][n]) for c in caches])
+                       for n in caches[0][part]}
+                for part in ("self", "cross")}
+    rows: Dict[Tuple[str, ...], Dict[int, Mapping[str, Any]]] = {}
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for layer, cache in enumerate(caches):
+        path, row = _cache_paths(cfg, layer)
+        if row is None:
+            flat[path] = {n: _numpy(t) for n, t in cache.items()}
+        else:
+            rows.setdefault(path, {})[row] = cache
+    for path, by_row in rows.items():
+        flat[path] = {n: np.stack([_numpy(by_row[r][n])
+                                   for r in range(len(by_row))])
+                      for n in by_row[0]}
+    out = _nest(flat)
+    out.setdefault("groups", {})
+    out.setdefault("tail", {})
     return out

@@ -1,5 +1,6 @@
-"""Sharded solves: block-rows of a solver problem mapped onto a 1-D
-``data`` mesh (port of ``repro/distributed/sharding.py:145-281``).
+"""The NN stack's logical-axis rules, and sharded solves: block-rows of
+a solver problem mapped onto a 1-D ``data`` mesh (port of
+``repro/distributed/sharding.py``).
 
 The paper's failure unit is a *node*: one shard owning a contiguous run
 of partition blocks.  A :class:`ShardLayout` is that mapping, and it is
@@ -19,13 +20,25 @@ and the solvers' reductions (:mod:`repro_torch.core.spmv`) gather
 per-shard block sums and chain them in block order, so a sharded solve
 is bitwise the unsharded one by construction.  A mesh over distinct
 cards (with a stream a shard) waits for a machine with more than one
-card (ROADMAP, Queue 1).  The reference's logical-axis rules
-(``AxisRules``, ``shard``) belong to the NN stack and are not ported.
+card (ROADMAP, Queue 1).
+
+The first half of the module is the NN stack's logical-axis rules (port
+of ``repro/distributed/sharding.py:33-143``): model code names *logical*
+dimensions and an :class:`AxisRules` table maps them onto the axes of a
+mesh.  Torch has no ``PartitionSpec``: a spec is a plain tuple of
+physical axis names (or ``None``, or a tuple of names), and the mesh is
+any object with ``axis_names`` and a ``shape`` mapping (a
+:class:`LogicalMesh`, or the reference's ``jax.sharding.Mesh``).  On the
+one card every tensor is whole, so :func:`shard` is the identity, as the
+reference's is with no mesh; a mesh over distinct cards waits for a
+machine with more than one card (ROADMAP, Queue 1 item 4).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple, Union
+import contextlib
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,7 +46,139 @@ from repro_torch._device import resolve_device
 from repro_torch.core.poisson import StencilOperator
 from repro_torch.core.spmv import halo_nbytes, sharded_stencil7
 
+Axis = Union[str, Tuple[str, ...], None]
+#: a physical spec: one entry a tensor dimension (the reference's
+#: ``PartitionSpec`` as a plain tuple)
+Spec = Tuple[Axis, ...]
 
+
+@dataclass(frozen=True)
+class LogicalMesh:
+    """A mesh's axis names and extents, and nothing placed on it: what
+    the axis rules read of a mesh."""
+
+    axis_names: Tuple[str, ...]
+    shape: Mapping[str, int] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class AxisRules:
+    """Mapping of logical axis names to physical mesh axes."""
+
+    mesh: Optional[Any]
+    rules: Dict[str, Axis]
+
+    def physical(self, logical: Optional[str]) -> Axis:
+        if logical is None:
+            return None
+        axis = self.rules.get(logical)
+        if axis is None or self.mesh is None:
+            return None
+        # keep only axes present in this mesh (e.g. no "pod" single-pod)
+        if isinstance(axis, tuple):
+            kept = tuple(a for a in axis if a in self.mesh.axis_names)
+            return kept if kept else None
+        return axis if axis in self.mesh.axis_names else None
+
+    def spec(self, *logical: Optional[str]) -> Spec:
+        """The physical spec of ``logical`` dims, a one-axis tuple written
+        as its axis (``PartitionSpec``'s canonical form)."""
+        out = []
+        for l in logical:
+            ax = self.physical(l)
+            out.append(ax[0] if isinstance(ax, tuple) and len(ax) == 1 else ax)
+        return tuple(out)
+
+
+DEFAULT_RULES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+    "fsdp": "data",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "seq": "model",      # sequence parallelism of the residual stream
+    "kv_seq": "model",   # sequence-sharded decode caches
+    "embed": None,
+    "layers": None,
+    "state": None,       # SSM state dim
+}
+
+_ctx = threading.local()
+
+
+def set_rules(mesh: Optional[Any],
+              rules: Optional[Dict[str, Axis]] = None) -> AxisRules:
+    r = AxisRules(mesh, dict(DEFAULT_RULES if rules is None else rules))
+    _ctx.rules = r
+    return r
+
+
+def current_rules() -> AxisRules:
+    r = getattr(_ctx, "rules", None)
+    if r is None:
+        r = AxisRules(None, dict(DEFAULT_RULES))
+        _ctx.rules = r
+    return r
+
+
+@contextlib.contextmanager
+def use_rules(mesh: Optional[Any], rules: Optional[Dict[str, Axis]] = None):
+    prev = getattr(_ctx, "rules", None)
+    set_rules(mesh, rules)
+    try:
+        yield current_rules()
+    finally:
+        _ctx.rules = prev
+
+
+def logical_spec(*logical: Optional[str]) -> Spec:
+    return current_rules().spec(*logical)
+
+
+def spec_for_shape(rules: AxisRules, shape: Sequence[int],
+                   logical: Sequence[Optional[str]]) -> Spec:
+    """Physical spec with per-dimension divisibility degradation.
+
+    A logical axis whose mapped mesh extent does not divide the tensor
+    dimension is dropped (for tuple mappings, the longest divisible prefix
+    is kept) — e.g. kv_heads=8 on a model=16 axis falls back to
+    replication while q-heads=32 shard fully.
+    """
+    phys = []
+    mesh = rules.mesh
+    for dim, l in zip(shape, logical):
+        ax = rules.physical(l)
+        if ax is None or mesh is None:
+            phys.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        kept = []
+        prod = 1
+        for a in axes:
+            ext = mesh.shape[a]
+            if dim % (prod * ext) == 0:
+                kept.append(a)
+                prod *= ext
+        if not kept:
+            phys.append(None)
+        elif len(kept) == 1:
+            phys.append(kept[0])
+        else:
+            phys.append(tuple(kept))
+    return tuple(phys)
+
+
+def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Constrain ``x``'s layout by logical axis names: the identity on
+    the one card, where every tensor is whole."""
+    return x
+
+
+# ======================================================================
+# Sharded solves: block-rows of a solver problem on a 1-D data mesh
+# ======================================================================
 @dataclass(frozen=True)
 class ShardLayout:
     """Block-rows -> shards, contiguously: shard ``s`` owns blocks

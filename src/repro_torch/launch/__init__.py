@@ -1,7 +1,8 @@
 """Launchers (port of ``repro/launch``): the card's constants and the
 production layouts on one card (``mesh``), the analytic roofline
-(``roofline``), the report tables (``report``), the solve service's
-trace-replay CLI (``serve``) and the solver dry run (``dryrun``)."""
+(``roofline``), the report tables (``report``), the serving CLI
+(``serve``: the solve service's trace replay, and LM prefill and decode
+with ``--arch``) and the solver dry run (``dryrun``)."""
 
 #: where the dry run writes its rows, and the report reads them, unless
 #: told otherwise

@@ -12,12 +12,15 @@ The reference's production meshes (16x16 = 256 devices, 2x16x16 = 512)
 become one-card :class:`~repro_torch.distributed.sharding.DataMesh` es
 of 256 or 512 shards (:func:`make_data_mesh`): every shard's z-slab
 lives on the card.  The reference's elastic ``make_mesh_for`` (the
-``(data, model)`` mesh of the LM axis rules) comes with the NN stack.
+``(data, model)`` mesh of the LM axis rules) keeps its arithmetic
+(:func:`mesh_shape_for`); on the one card it is the ``(1, 1)``
+:class:`~repro_torch.distributed.sharding.LogicalMesh`, and a mesh over
+distinct cards raises (ROADMAP, Queue 1 item 4).
 """
 from __future__ import annotations
 
 import subprocess
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -29,9 +32,10 @@ from repro_torch.distributed import sharding
 #: H100 whose name says neither PCIe nor NVL.
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
-#: peak rates (op/s) outside the tensor cores by dtype, H100 SXM data
-#: sheet
-PEAK_OPS = {"float64": 34e12, "float32": 67e12}
+#: peak rates (op/s) by dtype, NVIDIA's H100 SXM data sheet: float64
+#: and float32 outside the tensor cores, bfloat16 the tensor cores'
+#: dense rate (without sparsity)
+PEAK_OPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 #: the reference's production layouts and their device (here: shard)
 #: counts
 LAYOUTS = {"16x16": 256, "2x16x16": 512}
@@ -107,3 +111,30 @@ def make_data_mesh(shards: int, device: Union[str, torch.device] = "cuda"
         raise ValueError(f"a production layout has {sorted(LAYOUTS.values())} "
                          f"shards, got {shards}")
     return sharding.make_data_mesh(shards, device)
+
+
+def mesh_shape_for(devices: int, model_parallel: Optional[int] = None
+                   ) -> Tuple[int, int]:
+    """The ``(data, model)`` layout of the LM axis rules for ``devices``
+    devices, the reference's arithmetic: the model axis is
+    ``model_parallel`` (default ``min(devices, 16)``) shrunk to a
+    divisor of ``devices``."""
+    model = model_parallel or min(devices, 16)
+    while devices % model:
+        model -= 1
+    return devices // model, model
+
+
+def make_mesh_for(devices: int, model_parallel: Optional[int] = None
+                  ) -> sharding.LogicalMesh:
+    """The ``(data, model)`` mesh for ``devices`` devices: on one card
+    the ``(1, 1)`` mesh, under which the axis rules map every tensor
+    whole.  More devices raise: a mesh over distinct cards waits for a
+    machine with more than one card (ROADMAP, Queue 1 item 4)."""
+    data, model = mesh_shape_for(devices, model_parallel)
+    if devices > 1:
+        raise NotImplementedError(
+            f"a ({data}, {model}) mesh over {devices} cards waits for a "
+            f"machine with more than one card (ROADMAP, Queue 1 item 4)")
+    return sharding.LogicalMesh(("data", "model"),
+                                {"data": data, "model": model})

@@ -23,6 +23,11 @@ through the card's HBM; ``coll_by_kind`` names the halo planes
 ``collective-permute``, the gathered shard sums ``all-reduce`` and the
 in-memory ESR replica of ``p`` ``all-gather`` (the reference's kind
 names).
+
+For LM serving, :func:`model_flops` is the reference's MODEL_FLOPS
+formula and :func:`decode_step_bytes` counts a greedy decode step's
+compulsory bytes from the model's and the caches' shapes (built on the
+meta device: nothing is allocated).
 """
 from __future__ import annotations
 
@@ -34,6 +39,10 @@ import torch
 
 from repro_torch.kernels.fused_cg import fused_pass_traffic
 from repro_torch.launch.mesh import peak_ops
+from repro_torch.models import encdec as E
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import Init
+from repro_torch.models.registry import build_model
 
 DType = Union[str, torch.dtype]
 
@@ -248,3 +257,90 @@ def grid_step_roofline(variant: str, grid: Sequence[int], dtype: DType,
         grid, dtype, nshards=nshards, nblocks=nshards,
         sum_dtype="float32" if variant == "shardmap" else None,
         esr_mode=esr_mode, hbm_rate=hbm_rate)
+
+
+# ----------------------------------------------------------------------
+# LM serving: the reference's MODEL_FLOPS and a decode step's bytes
+# ----------------------------------------------------------------------
+def model_flops(cfg, shape, kind: str) -> float:
+    """MODEL_FLOPS: 6*N*D for training (N = params, dense; N_active MoE),
+    2*N*D for prefill, 2*N per token for decode (the reference's
+    formula; ``shape`` has ``batch`` and ``seq``)."""
+    n_total = cfg.param_count()
+    if cfg.n_experts > 0:
+        # active params: replace expert MLPs with top_k experts
+        gates = 3 if "gated" in cfg.mlp_act else 2
+        expert_p = cfg.n_experts * gates * cfg.d_model * cfg.d_ff
+        active_p = n_total - cfg.n_layers * expert_p \
+            + cfg.n_layers * cfg.top_k * gates * cfg.d_model * cfg.d_ff
+    else:
+        active_p = n_total
+    tokens = shape.batch * (shape.seq if kind != "decode" else 1)
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * active_p * tokens
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _rows_nbytes(t: torch.Tensor, rows: int) -> int:
+    """Bytes of ``rows`` rows of ``t`` along its dimension 1."""
+    return _nbytes(t) // t.shape[1] * rows
+
+
+def decode_step_bytes(cfg, batch: int, position: int) -> int:
+    """The compulsory HBM bytes of one greedy decode step of ``batch``
+    rows at ``position`` (the cache index), from the model's and the
+    caches' shapes:
+
+    - every parameter the step uses, read once in its stored dtype: the
+      embedding tables give only the rows gathered (``batch`` token rows,
+      one position row), unless tied, when the whole table is read as
+      the unembedding; an MoE layer reads ``min(n_experts, batch *
+      top_k)`` experts (each token's ``top_k`` distinct from the
+      others'); an encoder-decoder's decode step reads no encoder weight
+      and no cross ``wk``/``wv`` (its cross K/V are cached);
+    - the caches: a global layer's K/V up to ``position``, a ring's
+      occupied slots and its positions, the cross K/V, and the recurrent
+      and SSM states read and written; one new K/V row written a layer;
+    - the logits written in ``logit_dtype``.
+    """
+    meta = torch.device("meta")
+    model = build_model(cfg, Init(meta))
+    total = 0
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("enc", "enc_pos", "enc_norm") or (
+                parts[0] == "dec" and parts[2] == "xattn"
+                and parts[3] in ("wk", "wv")):
+            continue
+        if parts[0] in ("pos_embed", "dec_pos"):
+            total += _nbytes(param[0])
+        elif parts[0] == "embed":
+            total += _nbytes(param) if cfg.tie_embeddings else \
+                batch * _nbytes(param[0])
+        elif len(parts) > 3 and parts[2] == "moe" and parts[3] != "router":
+            total += min(cfg.n_experts, batch * cfg.top_k) * _nbytes(param[0])
+        else:
+            total += _nbytes(param)
+
+    if cfg.family == "encdec":
+        caches = E.init_encdec_cache(cfg, batch, position + 1, cfg.cdt, meta)
+        for c in caches:
+            total += sum(_nbytes(t) for t in c["cross"].values())
+            total += sum(_rows_nbytes(t, position + 1) + _rows_nbytes(t, 1)
+                         for t in c["self"].values())
+    else:
+        caches = T.init_decoder_cache(cfg, batch, position + 1, cfg.cdt, meta)
+        for kind, c in zip(T.layer_kinds(cfg), caches):
+            if kind in ("global", "local"):
+                kv_len = c["k"].shape[1]      # min(window, position + 1)
+                total += sum(_rows_nbytes(c[n], kv_len) + _rows_nbytes(c[n], 1)
+                             for n in ("k", "v"))
+                if "pos" in c:
+                    total += _nbytes(c["pos"])
+            else:
+                total += 2 * sum(_nbytes(t) for t in c.values())
+    logit = torch.empty((), dtype=getattr(torch, cfg.logit_dtype))
+    return total + batch * cfg.padded_vocab * logit.element_size()

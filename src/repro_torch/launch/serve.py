@@ -1,30 +1,34 @@
-"""The solve service's trace-replay driver (port of
-``repro/launch/serve.py``).
+"""Serving driver (port of ``repro/launch/serve.py``).
 
-Replays a seeded request trace (:func:`repro_torch.api.
-generate_request_trace`, the trace the reference replays for the same
-seed) through :class:`repro_torch.api.SolveService` on the card and
-prints per-tenant outcomes plus the service's admission and queue
-statistics, in the reference's format::
+Default path — the multi-tenant batched **solve service**: replay a
+seeded request trace (:func:`repro_torch.api.generate_request_trace`,
+the trace the reference replays for the same seed) through
+:class:`repro_torch.api.SolveService` on the card and print per-tenant
+outcomes plus the service's admission and queue statistics, in the
+reference's format::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --seed 0 \
         --requests 6 --lanes 4 --failures
 
-``--device cpu`` replays on the CPU (the plain PyTorch versions of the
-kernels); the default is the card, and with no card visible the replay
-raises.  The reference's LM path (``--arch``: batched prefill and
-decode) needs the NN stack, ROADMAP Queue 1 item 3, and exits non-zero
-here.
+LM path — batched greedy prefill + decode of any registered arch with
+random parameters (:class:`repro_torch.serving.ServeEngine`), one line
+in the reference's format (its "incl. compile" covers the eager first
+call's setup here)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+        --batch 4 --prompt-len 512 --gen 32
+
+``--device cpu`` runs either path on the CPU (the plain PyTorch
+versions of the kernels); the default is the card, and with no card
+visible the run raises.  A vision arch (``qwen2_vl_72b``) takes patch
+embeddings, not token prompts, and is refused, as the reference refuses
+it.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from typing import Dict, List, Optional, Sequence
-
-#: what ``--arch`` answers until the NN stack is ported
-LM_PATH_MISSING = ("the LM serving path (--arch) needs the NN stack, which "
-                   "the port does not have yet: ROADMAP Queue 1 item 3")
 
 
 def tenant_lines(tickets: Dict) -> List[str]:
@@ -43,6 +47,41 @@ def tenant_lines(tickets: Dict) -> List[str]:
                      f"wait={rep.service_queue_wait_steps} "
                      f"occupancy={rep.service_batch_occupancy:.2f}")
     return lines
+
+
+def _serve_lm(args) -> None:
+    import torch
+
+    from repro_torch._device import resolve_device
+    from repro_torch.models import registry as R
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = R.get_config(args.arch, smoke=args.smoke)
+    if cfg.frontend == "vision":
+        raise SystemExit(f"--arch {args.arch}: vision serving takes patch "
+                         f"embeddings, not token prompts")
+    dev = resolve_device(args.device)
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    prefill_fn = R.make_prefill(cfg)
+
+    def prefill(p, t, c):
+        inputs = {"tokens": t}
+        if cfg.family == "encdec":
+            inputs["frames"] = torch.zeros((t.shape[0], cfg.enc_seq, cfg.d_model),
+                                           dtype=cfg.cdt, device=dev)
+        return prefill_fn(p, inputs, c)
+
+    eng = ServeEngine(prefill_fn=prefill, decode_fn=R.make_decode(cfg),
+                      cache_init=lambda b, s: R.init_caches(cfg, b, s, device=dev))
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    t0 = time.perf_counter()
+    out = eng.generate(model, prompt, steps=args.gen).cpu()
+    wall = time.perf_counter() - t0
+    print(f"{cfg.name}: {tuple(out.shape)} tokens in {wall:.2f}s "
+          f"({args.batch*args.gen/wall:.1f} tok/s incl. compile)")
 
 
 def _serve_solves(args) -> None:
@@ -71,8 +110,14 @@ def _serve_solves(args) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default=None,
-                    help="LM arch id (the prefill/decode engine): not "
-                         "ported yet, exits non-zero")
+                    help="LM arch id: switches to the prefill/decode "
+                         "engine (default: the solve service)")
+    # LM path
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    # solve-service path
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--lanes", type=int, default=4)
@@ -81,13 +126,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="inject the trace's per-tenant failure campaigns")
     ap.add_argument("--failure-rate", type=float, default=0.6)
     ap.add_argument("--device", default="cuda",
-                    help="where the tenants' problems live: the card "
-                         "(default) or cpu")
+                    help="where the model or the tenants' problems "
+                         "live: the card (default) or cpu")
     args = ap.parse_args(argv)
 
     if args.arch is not None:
-        raise SystemExit(f"--arch {args.arch}: {LM_PATH_MISSING}")
-    _serve_solves(args)
+        from repro_torch.models import registry as R
+
+        if args.arch not in R.ARCH_IDS:
+            raise SystemExit(f"unknown arch {args.arch!r}; "
+                             f"one of {sorted(R.ARCH_IDS)}")
+        _serve_lm(args)
+    else:
+        _serve_solves(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,405 @@
+"""Neural building blocks of the LM families (port of
+``repro/models/layers.py``).
+
+Conventions
+-----------
+- Parameters keep the reference's shapes (``wq (d, h, hd)``, ``wo (h,
+  hd, d)``, ``w_in (d, f)``, ...) and names, so carrying the reference's
+  parameters across is a copy (:func:`repro_torch.convert.
+  lm_params_from_numpy`).
+- Parameters are stored in ``cfg.pdt`` (float32) and cast to ``cfg.cdt``
+  (bfloat16) at each use (:func:`use_param`), as the reference does.
+- Compute runs in ``cfg.cdt`` with fp32 where the reference keeps it:
+  attention scores and softmax, norms, rotary angles, logits.  A score
+  einsum the reference asks for with ``preferred_element_type=float32``
+  runs here on fp32 copies of its bf16 operands (their products are
+  exact in fp32, so it is the same contraction).
+- Attention is plain tensor ops (``einsum``, ``softmax``) with the
+  reference's ``-1e30`` masks, never a library attention: those mask and
+  scale differently and would hide the reference's numerics.
+- Every module is built on the device its caller names
+  (:func:`repro_torch.models.registry.init_params`) and filled from an
+  explicit ``torch.Generator`` on that device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+Cache = Dict[str, torch.Tensor]
+
+
+# ----------------------------------------------------------------------
+# init helpers
+# ----------------------------------------------------------------------
+class Init:
+    """Where a model's parameters are made: the device, and the generator
+    every random draw comes from, in construction order (on the meta
+    device nothing is drawn: shapes only)."""
+
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.device = device
+        self.generator = generator
+
+    def dense(self, shape: Sequence[int], dtype: torch.dtype,
+              fan_in: Optional[int] = None) -> nn.Parameter:
+        """``normal(shape) / sqrt(fan_in)`` (``fan_in`` defaults to
+        ``shape[0]``), the reference's ``_dense_init``."""
+        fan = fan_in if fan_in is not None else shape[0]
+        t = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+        if self.device.type != "meta":
+            t.normal_(generator=self.generator)
+            t.mul_(1.0 / math.sqrt(max(fan, 1)))
+        return nn.Parameter(t)
+
+    def const(self, values: torch.Tensor) -> nn.Parameter:
+        """A parameter initialised to ``values`` (made on the CPU)."""
+        return nn.Parameter(values.to(self.device))
+
+    def full(self, shape: Sequence[int], value: float,
+             dtype: torch.dtype) -> nn.Parameter:
+        return nn.Parameter(torch.full(tuple(shape), value, dtype=dtype,
+                                       device=self.device))
+
+
+def use_param(param: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bring a parameter to the compute dtype at its point of use (no
+    copy when the two dtypes agree)."""
+    return param.to(cfg.cdt)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype, init: Init):
+        super().__init__()
+        self.scale = init.full((d,), 1.0, dtype)
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return rmsnorm(self.scale, x, eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: the tanh approximation is its default."""
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``log(1 + exp(x))`` with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """fp32 softmax of ``scores`` with ``-1e30`` where ``mask`` is false,
+    cast to ``dtype``."""
+    scores = torch.where(mask, scores, torch.full((), -1e30,
+                                                  dtype=scores.dtype,
+                                                  device=scores.device))
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# rotary embeddings (RoPE + M-RoPE)
+# ----------------------------------------------------------------------
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate split halves (not interleaved pairs) of ``x``'s last axis by
+    ``ang`` (..., S, hd/2), broadcast over the head axis."""
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs  # (..., S, hd/2)
+    return _rotate(x, ang)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): 3 position streams (t, h, w) rotate
+    disjoint sections of the frequency spectrum.
+
+    x: (B, S, H, hd); positions3: (3, B, S).  For text-only inputs the
+    three streams are identical and M-RoPE reduces to RoPE.
+    """
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)  # (hd/2,)
+    sec = torch.cumsum(torch.tensor((0,) + tuple(sections), device=x.device),
+                       dim=0)
+    idx = torch.arange(hd // 2, device=x.device)
+    which = torch.clamp(torch.searchsorted(sec[1:], idx, right=True), 0, 2)
+    ang_all = positions3[..., None].float() * freqs  # (3, B, S, hd/2)
+    ang = torch.gather(ang_all.movedim(0, -1), -1,
+                       which[:, None].expand(ang_all.shape[1:] + (1,)))[..., 0]
+    return _rotate(x, ang)
+
+
+# ----------------------------------------------------------------------
+# attention (GQA, chunked-causal / banded-local / decode)
+# ----------------------------------------------------------------------
+def _divisor_chunk(chunk: int, s: int) -> int:
+    """``min(chunk, s)`` shrunk to a divisor of ``s`` (odd lengths)."""
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def _f32_scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """``einsum("bqhd,bshd->bhqs")`` accumulated in fp32."""
+    return torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+
+
+def _sdpa_chunked(q, k, v, *, causal: bool, window: int, chunk_q: int,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Attention over q chunks against full K/V.
+
+    Flat-head layout: q (B, S, H, hd); k/v (B, Skv, H, hd) — K/V already
+    repeated to full heads.  O(S * chunk) live memory instead of
+    O(S^2).  fp32 softmax.
+    """
+    b, s, h, hd = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    cq = _divisor_chunk(chunk_q, s)
+    kv_pos = torch.arange(skv, device=q.device)
+    outs = []
+    for i in range(s // cq):
+        qc = q[:, i * cq:(i + 1) * cq]
+        scores = _f32_scores(qc, k, scale)
+        q_pos = q_offset + i * cq + torch.arange(cq, device=q.device)
+        m = torch.ones((cq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= kv_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            m &= kv_pos[None, :] > q_pos[:, None] - window
+        p = masked_softmax(scores, m, v.dtype)
+        outs.append(torch.einsum("bhqs,bshd->bqhd", p, v))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _sdpa_banded(q, k, v, *, window: int, chunk: int) -> torch.Tensor:
+    """Sliding-window attention with *static banded* kv access: each q
+    chunk gathers only the ``band`` kv chunks that intersect its window
+    (clamped chunk ids, masked where the id was negative)."""
+    b, s, h, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    c = _divisor_chunk(chunk, s)
+    n = s // c
+    band = min(n, window // c + 2)
+    ks_ = k.reshape(b, n, c, h, hd)
+    vs = v.reshape(b, n, c, h, hd)
+    ar_c = torch.arange(c, device=q.device)
+    outs = []
+    for i in range(n):
+        qc = q[:, i * c:(i + 1) * c]
+        # gather kv chunks [i-band+1 .. i] (clamped; masked below)
+        offs = i - torch.arange(band - 1, -1, -1, device=q.device)
+        offs_c = torch.clamp(offs, 0, n - 1)
+        kg = ks_[:, offs_c].reshape(b, band * c, h, hd)
+        vg = vs[:, offs_c].reshape(b, band * c, h, hd)
+        scores = _f32_scores(qc, kg, scale)
+        q_pos = i * c + ar_c
+        kv_pos = (offs_c[:, None] * c + ar_c[None, :]).reshape(-1)
+        valid_chunk = torch.repeat_interleave(offs >= 0, c)
+        m = ((kv_pos[None, :] <= q_pos[:, None])
+             & (kv_pos[None, :] > q_pos[:, None] - window)
+             & valid_chunk[None, :])
+        p = masked_softmax(scores, m, vg.dtype)
+        outs.append(torch.einsum("bhqs,bshd->bqhd", p, vg))
+    return outs[0] if n == 1 else torch.cat(outs, dim=1)
+
+
+def _update_slice(buf: torch.Tensor, update: torch.Tensor, start: int,
+                  dim: int) -> None:
+    """``lax.dynamic_update_slice_in_dim`` in place: the start index is
+    *clamped* so that the update fits, as XLA clamps it."""
+    size = update.shape[dim]
+    start = min(max(int(start), 0), buf.shape[dim] - size)
+    buf.narrow(dim, start, size).copy_(update)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(x.shape[:-1] + (h, k))
+
+
+def merge_heads(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", out, w)``."""
+    h, k, d = w.shape
+    return out.reshape(out.shape[:-2] + (h * k,)) @ w.reshape(h * k, d)
+
+
+class Attention(nn.Module):
+    """GQA attention: ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``, ``wo
+    (h, hd, d)``."""
+
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        self.cfg = cfg
+        self.wq = init.dense((d, h, hd), cfg.pdt)
+        self.wk = init.dense((d, k, hd), cfg.pdt)
+        self.wv = init.dense((d, k, hd), cfg.pdt)
+        self.wo = init.dense((h, hd, d), cfg.pdt, fan_in=h * hd)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        kind: str = "global",          # "global" | "local"
+        positions: Optional[torch.Tensor] = None,
+        cache: Optional[Cache] = None,
+        cache_index: Optional[int] = None,
+        kv_source: Optional[torch.Tensor] = None,   # cross-attention
+        causal: bool = True,
+    ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """Returns (output, updated_cache).
+
+        Modes:
+          - train/prefill: ``cache is None`` -> chunked causal / banded
+            local.  (prefill-with-cache: pass a zeroed cache to also
+            fill it with K/V.)
+          - decode: ``cache`` + ``cache_index`` -> attend over the cache.
+            A cache with a ``pos`` entry is a *ring buffer*
+            (sliding-window layers keep only ``window`` slots).
+          - cross: ``kv_source`` given -> no causal mask, no cache update.
+
+        The cache's tensors are updated in place and returned in a new
+        dict (the reference returns new arrays).
+        """
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        g = h // kh
+        cdt = cfg.cdt
+        dev = x.device
+
+        q = project_heads(x, use_param(self.wq, cfg))
+        kv_in = x if kv_source is None else kv_source
+        k = project_heads(kv_in, use_param(self.wk, cfg))
+        v = project_heads(kv_in, use_param(self.wv, cfg))
+
+        if kv_source is None and cfg.use_rope:
+            if positions is None:
+                pos = torch.arange(s, device=dev)[None]
+                if cache_index is not None:
+                    pos = pos + cache_index
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+            elif cfg.mrope:
+                q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+                k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+            else:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+
+        new_cache = None
+        if cache is not None:
+            ck, cv = cache["k"], cache["v"]
+            cdtc = ck.dtype
+            if "pos" in cache:           # ring buffer
+                cpos = cache["pos"]
+                w = ck.shape[1]
+                if s == 1:
+                    slot = cache_index % w
+                    _update_slice(ck, k.to(cdtc), slot, 1)
+                    _update_slice(cv, v.to(cdtc), slot, 1)
+                    cpos[slot] = cache_index
+                elif s >= w:
+                    # prefill into the ring: keep the last `w` positions
+                    shift = (s - w) % w
+                    ck.copy_(torch.roll(k[:, -w:].to(cdtc), shift, dims=1))
+                    cv.copy_(torch.roll(v[:, -w:].to(cdtc), shift, dims=1))
+                    cpos.copy_(torch.roll(torch.arange(s - w, s, dtype=cpos.dtype,
+                                                       device=dev), shift))
+                else:
+                    _update_slice(ck, k.to(cdtc), 0, 1)
+                    _update_slice(cv, v.to(cdtc), 0, 1)
+                    cpos[:s] = torch.arange(s, dtype=cpos.dtype, device=dev)
+                new_cache = {"k": ck, "v": cv, "pos": cpos}
+                kv_pos = cpos[None, :]
+            else:
+                _update_slice(ck, k.to(cdtc), cache_index, 1)
+                _update_slice(cv, v.to(cdtc), cache_index, 1)
+                new_cache = {"k": ck, "v": cv}
+                kv_pos = torch.arange(ck.shape[1], device=dev)[None, :]
+
+            if s == 1:
+                # decode: GROUPED einsums over (kv_heads, g) against the
+                # cache, the reference's layout
+                valid = (kv_pos <= cache_index) & (kv_pos >= 0)
+                if kind == "local" and cfg.window > 0:
+                    valid &= kv_pos > cache_index - cfg.window
+                qg = q.reshape(b, 1, kh, g, hd)
+                scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                                      ck.to(cdt).float())
+                scores = scores / math.sqrt(hd)
+                pr = masked_softmax(scores, valid[:, None, None, None], cdt)
+                out = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.to(cdt))
+                out = out.reshape(b, 1, h, hd)
+                return merge_heads(out, use_param(self.wo, cfg)), new_cache
+
+        # train / prefill path (flat heads: K/V repeated to all H)
+        kf = torch.repeat_interleave(k, g, dim=2)
+        vf = torch.repeat_interleave(v, g, dim=2)
+        if kv_source is not None or not causal:
+            out = _sdpa_chunked(q, kf, vf, causal=False, window=0,
+                                chunk_q=cfg.attn_chunk)
+        elif kind == "local" and cfg.window > 0:
+            out = _sdpa_banded(q, kf, vf, window=cfg.window, chunk=cfg.attn_chunk)
+        else:
+            out = _sdpa_chunked(q, kf, vf, causal=True, window=0,
+                                chunk_q=cfg.attn_chunk)
+        return merge_heads(out, use_param(self.wo, cfg)), new_cache
+
+
+# ----------------------------------------------------------------------
+# dense MLP
+# ----------------------------------------------------------------------
+def _act(name: str, h: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
+    if name == "silu_gated":
+        return F.silu(g) * h
+    if name == "gelu_gated":
+        return gelu(g) * h
+    return gelu(h)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.cfg = cfg
+        self.w_in = init.dense((d, f), cfg.pdt)
+        self.w_gate = (init.dense((d, f), cfg.pdt) if "gated" in cfg.mlp_act
+                       else None)
+        self.w_out = init.dense((f, d), cfg.pdt, fan_in=f)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = x @ use_param(self.w_in, cfg)
+        g = None if self.w_gate is None else x @ use_param(self.w_gate, cfg)
+        return _act(cfg.mlp_act, h, g) @ use_param(self.w_out, cfg)

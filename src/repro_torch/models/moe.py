@@ -1,0 +1,151 @@
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``, the
+mesh-less path).
+
+Dispatch is sort-based, as in the reference's ``_moe_local`` with no
+tensor- or data-parallel axis: tokens are ordered by expert id
+(a stable sort), positioned within their expert's segment, and gathered
+into ``(E, capacity, d)`` blocks; tokens over capacity go to the
+overflow row and are dropped (Switch/GShard semantics,
+``capacity_factor`` controls head-room).  The routing tables
+(``tok_table``, ``w_table``) are the reference's, drops included.
+
+The combine is a gather, not a scatter-add: each token sums its
+experts' outputs in ascending expert-slot order starting from a zero row
+in the compute dtype, the order the reference's ``.at[tok_table].add``
+takes, with no atomics (``index_add_`` on the card is not
+deterministic).
+
+The reference's expert-parallel ``shard_map`` path needs distinct cards
+(ROADMAP, Queue 1 item 4): under axis rules whose mesh has an axis
+longer than 1, :func:`moe` raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.distributed.sharding import current_rules
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Init, gelu, use_param
+
+
+class MoE(nn.Module):
+    """``router (d, e)`` (fp32), ``w_in``/``w_gate (e, d, f)``, ``w_out
+    (e, f, d)``."""
+
+    def __init__(self, cfg: ModelConfig, init: Init):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.cfg = cfg
+        self.router = init.dense((d, e), torch.float32)  # fp32 router
+        self.w_in = init.dense((e, d, f), cfg.pdt)
+        self.w_gate = (init.dense((e, d, f), cfg.pdt) if "gated" in cfg.mlp_act
+                       else None)
+        self.w_out = init.dense((e, f, d), cfg.pdt, fan_in=f)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return moe(self, x, self.cfg)
+
+
+def top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the ``k`` largest along the last axis, ties
+    toward the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router and sort-based dispatch of ``t`` tokens ``xt (t, d)``.
+
+    Returns ``(tok_table, w_table, aux)``: ``tok_table (e, cap)`` the token
+    in each expert slot (``t`` for an empty slot), ``w_table (e, cap)``
+    its routing weight (0 when empty), and the Switch aux loss.
+    """
+    t = xt.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = int(math.ceil(t * k / e * cfg.capacity_factor))
+    dev = xt.device
+
+    logits = (xt.float() @ router).float()                # (t, e)
+    top_w, top_e = top_k(logits, k)
+    top_w = torch.softmax(top_w, dim=-1)
+
+    # Switch aux loss: e * sum_e( frac_tokens_e * mean_router_prob_e )
+    probs = torch.softmax(logits, dim=-1)
+    counts = torch.bincount(top_e.reshape(-1), minlength=e).float()
+    frac = counts / (t * k)
+    aux = e * torch.sum(frac * torch.mean(probs, dim=0))
+
+    flat_e = top_e.reshape(-1)                            # (t*k,)
+    flat_t = torch.repeat_interleave(torch.arange(t, device=dev), k)
+    flat_w = top_w.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
+    pos = torch.arange(t * k, device=dev) - torch.searchsorted(se, se)
+
+    valid = pos < cap
+    dest = torch.where(valid, se * cap + pos,
+                       torch.full_like(se, e * cap))      # overflow bucket
+    # only the overflow row takes more than one write, and it is dropped
+    tok_table = torch.full((e * cap + 1,), t, dtype=torch.int64, device=dev)
+    tok_table[dest] = st
+    w_table = torch.zeros((e * cap + 1,), dtype=torch.float32, device=dev)
+    w_table[dest] = sw
+    return (tok_table[:-1].reshape(e, cap), w_table[:-1].reshape(e, cap), aux)
+
+
+def combine(y: torch.Tensor, tok_table: torch.Tensor, t: int, k: int
+            ) -> torch.Tensor:
+    """``zeros((t + 1, d)).at[tok_table].add(y)[:t]`` as a gather: token
+    ``i``'s rows of ``y (e*cap, d)`` (at most ``k``) summed in ascending
+    slot order from a zero row of ``y``'s dtype."""
+    flat_tok = tok_table.reshape(-1)
+    nslots, d = y.shape
+    # slots grouped by token, ascending within a token
+    order = torch.argsort(flat_tok, stable=True)
+    counts = torch.bincount(flat_tok, minlength=t + 1)[:t]
+    starts = torch.cumsum(counts, 0) - counts
+    j = torch.arange(k, device=y.device)
+    take = starts[:, None] + j[None, :]                   # (t, k)
+    slot = torch.where(j[None, :] < counts[:, None],
+                       order[take.clamp(max=nslots - 1)],
+                       torch.full_like(take, nslots))     # -> the zero row
+    ypad = torch.cat([y, y.new_zeros((1, d))], dim=0)
+    out = y.new_zeros((t, d))
+    for jj in range(k):
+        out = out + ypad[slot[:, jj]]
+    return out
+
+
+def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE block. x: (B, S, d). Returns (y, aux_loss)."""
+    mesh = current_rules().mesh
+    if mesh is not None and any(int(n) > 1 for n in dict(mesh.shape).values()):
+        raise NotImplementedError(
+            "the expert-parallel MoE over a mesh waits for a machine with "
+            "more than one card (ROADMAP, Queue 1 item 4); the one card "
+            "runs the mesh-less path")
+    b, s, d = x.shape
+    t = b * s
+    cdt = cfg.cdt
+    xt = x.reshape(t, d)
+    tok_table, w_table, aux = route(xt, p.router, cfg)
+
+    xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
+    xg = xpad[tok_table].to(cdt)                          # (e, cap, d)
+    h = torch.bmm(xg, use_param(p.w_in, cfg))
+    if p.w_gate is not None:
+        g = torch.bmm(xg, use_param(p.w_gate, cfg))
+        h = F.silu(g) * h if cfg.mlp_act == "silu_gated" else gelu(g) * h
+    else:
+        h = gelu(h)
+    y = torch.bmm(h, use_param(p.w_out, cfg))
+    y = y * w_table[..., None].to(cdt)
+    out = combine(y.reshape(-1, d), tok_table, t, cfg.top_k)
+    return out.reshape(b, s, d).to(x.dtype), aux

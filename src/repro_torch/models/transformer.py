@@ -1,0 +1,190 @@
+"""Decoder-stack assembly for the "lm", "ssm" and "hybrid" families (port
+of ``repro/models/transformer.py``).
+
+The reference scans *pattern groups* of stacked parameters (gemma3's 5
+local + 1 global, recurrentgemma's rec/rec/local) and runs the remainder
+layers unrolled (recurrentgemma: 38 = 12*3 + 2).  Here every layer is
+its own module in one ``nn.ModuleList``, in layer order: group ``g``,
+pattern slot ``j`` is layer ``g * period + j``, and the tail layers
+follow — the order of the reference's ``jnp.stack(ls, axis=1).reshape(
+n_layers, ...)`` flattening.  Each layer runs its own kind, so the
+reference's ``uniform_attn`` flattening with a traced ``lax.cond`` needs
+no counterpart.
+
+Caches are per-layer: a list with one dict a layer, in layer order.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import recurrent as R
+from repro_torch.models import ssm as S
+from repro_torch.models.config import ModelConfig
+
+Cache = Dict[str, torch.Tensor]
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Every layer's kind, in layer order: the pattern repeated over the
+    groups, then the tail."""
+    pattern = list(cfg.attn_pattern)
+    return pattern * cfg.n_groups + pattern[: cfg.n_tail]
+
+
+class Layer(nn.Module):
+    """One block: ``ln1``, the mixer (``attn``, ``rec`` or ``ssm``), and
+    with ``d_ff > 0`` ``ln2`` and the ``mlp`` or ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, init: L.Init):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg.pdt, init)
+        if kind in ("global", "local"):
+            self.attn = L.Attention(cfg, init)
+        elif kind == "rec":
+            self.rec = R.RGLRUBlock(cfg, init)
+        elif kind == "ssm":
+            self.ssm = S.SSMBlock(cfg, init)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        if cfg.d_ff > 0:
+            self.ln2 = L.RMSNorm(cfg.d_model, cfg.pdt, init)
+            if cfg.n_experts > 0:
+                self.moe = M.MoE(cfg, init)
+            else:
+                self.mlp = L.MLP(cfg, init)
+
+    def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
+                cache_index: Optional[int] = None,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
+        """Returns (x, new_cache, aux): ``aux`` is the MoE's aux loss, None
+        for a layer without experts."""
+        cfg, kind = self.cfg, self.kind
+        h = self.ln1(x, cfg.norm_eps)
+        if kind in ("global", "local"):
+            mix, new_cache = self.attn(h, kind=kind, positions=positions,
+                                       cache=cache, cache_index=cache_index)
+        elif kind == "rec":
+            mix, new_cache = self.rec(h, cache, cache_index)
+        else:
+            mix, new_cache = self.ssm(h, cache, cache_index)
+        x = x + mix
+        aux = None
+        if cfg.d_ff > 0:
+            h2 = self.ln2(x, cfg.norm_eps)
+            if cfg.n_experts > 0:
+                y, aux = self.moe(h2)
+            else:
+                y = self.mlp(h2)
+            x = x + y
+        return x, new_cache, aux
+
+
+class Decoder(nn.Module):
+    """``embed (padded_vocab, d)``, ``pos_embed (max_pos, d)`` with
+    learned positions, ``layers``, ``final_norm`` and, untied,
+    ``unembed (d, padded_vocab)``; run by :func:`decoder_forward`."""
+
+    def __init__(self, cfg: ModelConfig, init: L.Init):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = init.dense((cfg.padded_vocab, cfg.d_model), cfg.pdt)
+        self.pos_embed = (init.dense((cfg.max_pos, cfg.d_model), cfg.pdt)
+                          if not cfg.use_rope and cfg.max_pos > 0 else None)
+        self.layers = nn.ModuleList(Layer(cfg, kind, init)
+                                    for kind in layer_kinds(cfg))
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.pdt, init)
+        self.unembed = (None if cfg.tie_embeddings else
+                        init.dense((cfg.d_model, cfg.padded_vocab), cfg.pdt))
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     dtype: torch.dtype, device: torch.device) -> Cache:
+    """The decode cache of one layer: full-length K/V for "global", a
+    ``window``-slot ring buffer with its positions for "local", the
+    recurrent state for "rec" and "ssm"."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if kind == "global":
+        return {"k": z(batch, max_seq, cfg.n_kv_heads, cfg.hd),
+                "v": z(batch, max_seq, cfg.n_kv_heads, cfg.hd)}
+    if kind == "local":
+        w = min(cfg.window, max_seq)
+        return {"k": z(batch, w, cfg.n_kv_heads, cfg.hd),
+                "v": z(batch, w, cfg.n_kv_heads, cfg.hd),
+                "pos": torch.full((w,), -1, dtype=torch.int32, device=device)}
+    if kind == "rec":
+        return R.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "ssm":
+        return S.init_ssm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def init_decoder_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                       dtype: torch.dtype, device: torch.device) -> List[Cache]:
+    return [init_layer_cache(cfg, kind, batch, max_seq, dtype, device)
+            for kind in layer_kinds(cfg)]
+
+
+def _slice_clamped(table: torch.Tensor, start: int, size: int) -> torch.Tensor:
+    """``lax.dynamic_slice_in_dim(table, start, size, 0)``: the start is
+    clamped so that the slice fits, as XLA clamps it."""
+    start = min(max(int(start), 0), table.shape[0] - size)
+    return table[start:start + size]
+
+
+def unembed_logits(x: torch.Tensor, unembed: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """``x @ unembed`` in the compute dtype, cast to ``logit_dtype``, with
+    the padded vocabulary's columns masked to ``-1e30``."""
+    logits = (x @ unembed.to(cfg.cdt)).to(getattr(torch, cfg.logit_dtype))
+    if cfg.padded_vocab != cfg.vocab:
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def decoder_forward(
+    model: Decoder,
+    tokens: torch.Tensor,                 # (B, S) int, or (B, S, d) embeds
+    cfg: ModelConfig,
+    caches: Optional[List[Cache]] = None,
+    cache_index: Optional[int] = None,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[List[Cache]], torch.Tensor]:
+    """Returns (logits, new_caches, aux_loss).
+
+    Teacher-forced with ``caches=None``; prefill-with-cache with zeroed
+    caches and ``cache_index=0``; decode with one token a row and the
+    caches at ``cache_index``.  Attention caches are written in place
+    (the returned list holds the same tensors); recurrent and SSM states
+    are returned anew."""
+    cdt = cfg.cdt
+    if tokens.dim() == 3:
+        x = tokens.to(cdt)                  # stubbed modality embeddings
+    else:
+        x = model.embed[tokens].to(cdt)
+    if not cfg.use_rope and model.pos_embed is not None:
+        start = 0 if cache_index is None else cache_index
+        x = x + _slice_clamped(model.pos_embed, start, x.shape[1]).to(cdt)[None]
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = None if caches is None else []
+    for i, layer in enumerate(model.layers):
+        c = None if caches is None else caches[i]
+        x, nc, aux = layer(x, cache=c, cache_index=cache_index,
+                           positions=positions)
+        if aux is not None:
+            aux_total = aux_total + aux
+        if new_caches is not None:
+            new_caches.append(nc)
+
+    x = model.final_norm(x, cfg.norm_eps)
+    unembed = model.embed.T if cfg.tie_embeddings else model.unembed
+    return unembed_logits(x, unembed, cfg), new_caches, aux_total

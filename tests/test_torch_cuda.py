@@ -626,3 +626,51 @@ def test_dry_run_first_step_matches_the_unsharded_step_on_card(
         want = getattr(ref, f)
         torch.testing.assert_close(out[f].reshape(-1), want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# LM serving: each family's SMOKE model on the card against the CPU
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "gemma3_12b", "moonshot_v1_16b_a3b",
+                                  "mamba2_370m", "recurrentgemma_9b",
+                                  "whisper_small", "qwen2_vl_72b"])
+def test_lm_family_logits_on_card_match_the_cpu(cuda_device, arch):
+    """f32 teacher-forced, prefill and decode logits of one SMOKE model,
+    its parameters copied to the card, within the reference's decode
+    tolerance (5e-4) of the same model on the CPU."""
+    import copy
+
+    from _torch_port import LM_TOL, lm_cfg, lm_inputs, to_torch
+    from repro_torch.models import encdec, registry, transformer
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    cpu = registry.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    b, s = 2, 20
+    inputs = to_torch(lm_inputs(cfg, 7, b, s + 2))
+    prefill = {k: (v[:, :s] if k == "tokens" and cfg.frontend != "vision"
+                   else v) for k, v in inputs.items()}
+
+    def run(model, dev):
+        moved = {k: v.to(dev) for k, v in prefill.items()}
+        with torch.inference_mode():
+            if cfg.family == "encdec":
+                enc = encdec.encode(model, moved["frames"], cfg)
+                forced = encdec.decode(model, moved["tokens"], enc, cfg)[0]
+            else:
+                forced = transformer.decoder_forward(
+                    model, moved["tokens"], cfg,
+                    positions=moved.get("positions"))[0]
+            caches = registry.init_caches(cfg, b, s + 2, device=dev)
+            logits, caches = registry.make_prefill(cfg)(model, moved, caches)
+            outs = [forced, logits]
+            if cfg.frontend != "vision":
+                tok = inputs["tokens"][:, s:s + 1].to(dev)
+                outs.append(registry.make_decode(cfg)(model, tok, caches, s)[0])
+        return [o.cpu() for o in outs]
+
+    for got, want in zip(run(card, cuda_device), run(cpu, "cpu")):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) < LM_TOL

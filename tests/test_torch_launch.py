@@ -456,10 +456,16 @@ def test_serve_cli_prints_what_the_reference_prints(monkeypatch, capsys,
 
 
 def test_serve_cli_refuses_the_lm_path(monkeypatch, capsys):
-    with pytest.raises(SystemExit) as exc:
-        _run_main(monkeypatch, capsys, serve.main, ["--arch", "llama3_8b"])
-    assert exc.value.code not in (0, None)
-    assert "ROADMAP Queue 1 item 3" in str(exc.value.code)
+    """The LM path refuses a vision arch (it takes patch embeddings, not
+    token prompts) and an unknown arch, exiting non-zero as the
+    reference does."""
+    for arch, why in (("qwen2_vl_72b", "patch embeddings"),
+                      ("no_such_arch", "unknown arch")):
+        with pytest.raises(SystemExit) as exc:
+            _run_main(monkeypatch, capsys, serve.main,
+                      ["--arch", arch, "--smoke", "--device", "cpu"])
+        assert exc.value.code not in (0, None)
+        assert why in str(exc.value.code)
 
 
 # ----------------------------------------------------------------------
