@@ -125,13 +125,36 @@ non-zero and prints no result line):
    position's logits within ``LM_REL_TOL`` of the largest |logit| of
    the teacher-forced forward; qwen2-vl runs on patch embeddings with
    three M-RoPE streams (no decode: the CLI refuses vision).  The path
-   has no hand-written kernel: its launch counts must read 0.
+   has no hand-written kernel: its launch counts must read 0;
+14. train — LM training (``repro_torch.training``, ``repro_torch.ft``):
+   ``starcoder2_3b`` at its full ``CONFIG`` (30 layers, d_model 3072,
+   3.18 B f32 parameters, bf16 compute) takes four AdamW steps of batch
+   4 x seq 2048 from the seeded synthetic corpus through
+   ``make_train_step(make_train_forward(cfg))`` (every layer
+   checkpointed): each step's seconds (CUDA events), host enqueue ms,
+   loss, grad norm and lr, then tokens/s, ``train_mfu`` (``model_flops``
+   over the median step after the first, as a share of the bf16 peak)
+   and peak memory; losses and grad norms finite, the parameters moved,
+   the first loss bitwise a plain ``remat=False`` forward's.  At the full
+   width cut to 2 layers: the gradients with remat off, full and
+   ``"dots"`` bitwise equal (and whether two runs are); the reference
+   test's fault-tolerance cycle (8 steps, ``save_async`` every 4 into a
+   fresh temporary directory, a host failure at 5, ``TrainingRecovery``,
+   the resume within rtol = atol = 1e-6 of the uninterrupted run, with
+   the snapshot, drain and modeled seconds, the slot's bytes, the step
+   time while a drain runs and the Young/Daly period).  Then every
+   SMOKE config's two f32 train steps on the card against the CPU, and
+   the train CLI (``python -m repro_torch.launch.train --arch
+   starcoder2_3b --smoke``) for 12 steps and again for 16 in the same
+   checkpoint directory, which must resume.  No hand-written kernel
+   runs: the launch counts must read 0.
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
 ``repro_torch.launch.mesh``.  Kernel launches are counted from a reset
 just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
-sharded solve of 11, in their own processes the two CLIs of 12, and 13) to
+sharded solve of 11, in their own processes the two CLIs of 12, 13 and
+14) to
 a reading just after it, graph replays included, and summed into the
 kernel summary.  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
@@ -2312,6 +2335,509 @@ def phase_lm(torch, rate: float) -> dict:
     return counts
 
 
+#: phase 14: LM training.  starcoder2_3b at its full CONFIG (30 layers,
+#: d_model 3072, 3.18 B f32 parameters, bf16 compute) takes four steps
+#: of batch 4 x seq 2048 through ``make_train_step`` (every layer
+#: checkpointed)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "starcoder2_3b", 4, 2048, 4
+#: the remat, determinism and fault-tolerance parts run the full width
+#: cut to 2 layers; the cycle is the reference test's
+#: (tests/test_training_ft.py): 8 steps, a slot every 4, a host failure
+#: at step 5, the final parameters within rtol = atol = 1e-6 of the
+#: uninterrupted run
+TRAIN_CUT_LAYERS = 2
+TRAIN_FT_STEPS, TRAIN_FT_PERIOD, TRAIN_FT_FAIL_AT = 8, 4, 5
+TRAIN_FT_TOL = 1e-6
+#: the Young/Daly period printed for the cycle's measured snapshot and
+#: step seconds takes the train CLI's default MTBF
+TRAIN_MTBF_S = 3600.0
+#: every SMOKE config's two f32 train steps on the card against the CPU
+#: (MoE capacity factor 16): loss and grad norm within 1e-4 relative,
+#: every parameter element within 1e-4 relative plus twice the summed lr
+#: of the two steps (3e-6 + 6e-6 in the warmup): the gradients sum in
+#: other orders on the card, and where an element's gradient is near
+#: zero, Adam's normalised update ``m / sqrt(v)`` can take either sign,
+#: moving the element by up to ``lr`` a step either way
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_REL = 2, 16, 1e-4
+TRAIN_SMOKE_ATOL = 2 * (3e-6 + 6e-6)
+TRAIN_CLI = ("--arch", "starcoder2_3b", "--smoke", "--batch", "4",
+             "--seq", "64")
+
+
+def _kernel_class(name: str) -> str:
+    """A kernel's class by its name: the f32 products (cuBLAS SIMT and
+    f32 xmma kernels: the attention einsums with TF32 off), the other
+    products (the bf16 weight GEMMs), softmax, copies and casts,
+    reductions, indexing, and the other elementwise kernels."""
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low or "cutlass" in low:
+        f32 = "sgemm" in low or "f32f32_f32f32" in low
+        return "f32 matmul" if f32 else "bf16 matmul"
+    for word, cls in (("softmax", "softmax"), ("copy", "copy / cast"),
+                      ("reduce", "reduction"), ("index", "index / scatter"),
+                      ("scatter", "index / scatter"),
+                      ("gather", "index / scatter"), ("sort", "index / scatter"),
+                      ("elementwise", "elementwise")):
+        if word in low:
+            return cls
+    return "other"
+
+
+def profile_step(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activities): its wall seconds, the card's busy seconds (the union of
+    its kernels' intervals) and idle share, the ATen ops the host
+    dispatched (those not inside another ATen op) and the kernels the
+    card ran, the kernels that took the most device time, and the CUDA
+    runtime calls that can hold the host (synchronisations, allocations,
+    frees, copies).  The profiler's own overhead is in the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name, runtime = {}, {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("cuda") \
+                and any(w in e.name for w in ("Synchronize", "Malloc",
+                                              "Free", "Memcpy")):
+            ms, n = runtime.get(e.name, (0.0, 0))
+            runtime[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+    aten = sum(1 for e in events if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    classes = {}
+    for name, (ms, n) in by_name.items():
+        cls = _kernel_class(name)
+        total, count = classes.get(cls, (0.0, 0))
+        classes[cls] = (total + ms, count + n)
+    return dict(wall_s=wall, device_busy_s=busy / 1e6,
+                idle_share=1.0 - busy / 1e6 / wall, kernels=len(kernels),
+                aten_ops=aten,
+                device_ms_by_class={c: {"ms": ms, "count": n} for c, (ms, n)
+                                    in sorted(classes.items(),
+                                              key=lambda kv: -kv[1][0])},
+                top_kernels=[{"name": name[:100], "ms": ms, "count": n}
+                             for name, (ms, n) in top],
+                runtime={name: {"ms": ms, "count": n}
+                         for name, (ms, n) in sorted(runtime.items())})
+
+
+def train_full_width(torch, cfg) -> dict:
+    """``cfg`` initialised on the card takes ``TRAIN_STEPS`` steps of the
+    seeded synthetic corpus: each step's device seconds (CUDA events)
+    and host enqueue ms, its loss, grad norm and lr; tokens/s and
+    ``train_mfu`` over the median step after the first, peak memory.
+    The first step's loss must be bitwise the loss of a plain forward
+    (``remat=False``, under ``no_grad``) over the same batch."""
+    from repro_torch.launch import mesh
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import (TrainConfig, make_train_step,
+                                                 token_xent)
+
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(p.numel() for p in model.parameters())
+    data = SyntheticCorpus(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           seed=0)
+    tcfg = TrainConfig()
+    first = to_tensors(data.batch_at(0), dev)
+    with torch.no_grad():
+        logits, _, _ = T.decoder_forward(model, first["tokens"], cfg)
+        plain_ce = token_xent(logits, first["targets"], tcfg.z_weight)[1]
+        del logits
+    probe = {n: p.detach()[:2].clone() for n, p in model.named_parameters()}
+    opt = adamw_init(model)
+    step = make_train_step(R.make_train_forward(cfg), AdamWConfig(), tcfg)
+    marks = []
+    for s in range(TRAIN_STEPS):
+        batch = to_tensors(data.batch_at(s), dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(model, opt, batch)
+        end.record()
+        marks.append((start, end, 1e3 * (time.perf_counter() - t0), metrics))
+    torch.cuda.synchronize()
+    profiled = profile_step(torch, lambda: step(
+        model, opt, to_tensors(data.batch_at(TRAIN_STEPS), dev)))
+    say("train", arch=cfg.name, profiled_step=profiled)
+    steps = [dict(step=i, seconds=st.elapsed_time(en) / 1e3, enqueue_ms=host,
+                  **{k: float(v) for k, v in m.items()})
+             for i, (st, en, host, m) in enumerate(marks)]
+    for rec in steps:
+        say("train", arch=cfg.name, **rec)
+    moved = all(not torch.equal(p.detach()[:2], probe[n])
+                for n, p in model.named_parameters())
+    remat_bitwise = bool(torch.equal(marks[0][3]["loss"], plain_ce))
+    step_s = statistics.median(r["seconds"] for r in steps[1:])
+    flops = RL.model_flops(cfg, R.Shape("train", "train", TRAIN_SEQ,
+                                        TRAIN_BATCH), "train")
+    rec = dict(arch=cfg.name, params=nparams, layers=cfg.n_layers,
+               d_model=cfg.d_model, compute=cfg.compute_dtype,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
+               first_step_s=steps[0]["seconds"], step_s=step_s,
+               step_s_min=min(r["seconds"] for r in steps[1:]),
+               step_s_max=max(r["seconds"] for r in steps[1:]),
+               enqueue_ms=statistics.median(r["enqueue_ms"] for r in steps[1:]),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               train_tflop=flops / 1e12,
+               train_mfu=flops / step_s / mesh.PEAK_OPS["bfloat16"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               params_moved=moved, step0_loss=steps[0]["loss"],
+               plain_forward_loss=float(plain_ce),
+               step0_loss_bitwise_remat_off=remat_bitwise,
+               profiled_device_busy_s=profiled["device_busy_s"],
+               profiled_idle_share=profiled["idle_share"])
+    say("train", **rec)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in steps), f"{cfg.name}: a non-finite loss or grad norm")
+    check(moved, f"{cfg.name}: a parameter did not move")
+    check(remat_bitwise, f"{cfg.name}: the step's loss {steps[0]['loss']!r} "
+          f"is not the plain forward's {float(plain_ce)!r}")
+    del model, opt, probe, marks, first, plain_ce
+    return rec
+
+
+def _cut_batch(torch, cfg, seed: int, step: int, dev):
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+
+    data = SyntheticCorpus(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           seed=seed)
+    return to_tensors(data.batch_at(step), dev)
+
+
+def _grads(torch, model, cfg, batch, remat: bool):
+    """The loss and every parameter's gradient of one forward and
+    backward (the train step's loss), the gradients taken off the
+    model."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_step import TrainConfig, token_xent
+
+    tcfg = TrainConfig()
+    logits, _, aux = T.decoder_forward(model, batch["tokens"], cfg,
+                                       remat=remat)
+    loss, _ = token_xent(logits, batch["targets"], tcfg.z_weight)
+    (loss + tcfg.aux_weight * aux).backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        grads[n], p.grad = p.grad, None
+    return loss.detach(), grads
+
+
+def train_remat(torch, cfg) -> dict:
+    """At ``cfg``'s width cut to ``TRAIN_CUT_LAYERS`` layers: the loss and
+    every gradient with remat off, full and ``"dots"`` must be bitwise
+    equal; whether two runs of the same step are bitwise equal is
+    printed."""
+    from repro_torch.models import registry as R
+
+    dev = torch.device(DEVICE)
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    model = R.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    batch = _cut_batch(torch, cut, 0, 0, dev)
+    t0 = time.perf_counter()
+    runs = {"off": _grads(torch, model, cut, batch, False),
+            "full": _grads(torch, model, cut, batch, True),
+            "dots": _grads(torch, model,
+                           dataclasses.replace(cut, remat_policy="dots"),
+                           batch, True),
+            "full again": _grads(torch, model, cut, batch, True)}
+    torch.cuda.synchronize()
+
+    def diff(a, b):
+        la, ga = runs[a]
+        lb, gb = runs[b]
+        return max([max_abs(la, lb)] + [max_abs(ga[n], gb[n]) for n in ga])
+
+    rec = dict(arch=cut.name, layers=cut.n_layers, d_model=cut.d_model,
+               seconds=time.perf_counter() - t0,
+               max_diff_full_vs_off=diff("full", "off"),
+               max_diff_dots_vs_off=diff("dots", "off"),
+               two_runs_bitwise=diff("full", "full again") == 0.0,
+               max_diff_two_runs=diff("full", "full again"))
+    say("train", remat=rec)
+    check(rec["max_diff_full_vs_off"] == 0.0 and
+          rec["max_diff_dots_vs_off"] == 0.0,
+          f"remat changed the numbers: {rec}")
+    del model, runs
+    return rec
+
+
+def train_ft_cycle(torch, cfg) -> dict:
+    """The fault-tolerance cycle at ``cfg``'s width cut to
+    ``TRAIN_CUT_LAYERS`` layers: an uninterrupted run of
+    ``TRAIN_FT_STEPS`` steps, then the same run persisting every
+    ``TRAIN_FT_PERIOD`` steps through ``TrainingRecovery`` (``save_async``:
+    the snapshot on the host, the drain in a thread), a host failure at
+    step ``TRAIN_FT_FAIL_AT``, the restore and the resume.  Slots go to a
+    fresh temporary directory, removed afterwards."""
+    import shutil
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.ft import (CheckpointConfig, NVMCheckpointManager,
+                                PersistencePeriodTuner, TrainingRecovery,
+                                inject_host_failure, optimal_period)
+    from repro_torch.models import registry as R
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device(DEVICE)
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    step_fn = make_train_step(R.make_train_forward(cut), AdamWConfig(lr=3e-4))
+
+    def fresh():
+        model = R.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        return model, adamw_init(model)
+
+    def run_step(model, opt, s):
+        batch = _cut_batch(torch, cut, 3, s, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    model, opt = fresh()
+    plain_s = [run_step(model, opt, s) for s in range(TRAIN_FT_STEPS)]
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    nparams = sum(p.numel() for p in model.parameters())
+    del model, opt
+
+    slot_bytes = 3 * 4 * nparams               # params, m and v in f32
+    directory = tempfile.mkdtemp(prefix="train_ft_")
+    try:
+        free = shutil.disk_usage(directory).free
+        say("train", ft_directory_free_bytes=free, needed_bytes=2 * slot_bytes)
+        if free < 2 * slot_bytes:
+            raise SmokeFailure(
+                f"the fault-tolerance cycle needs {2 * slot_bytes} bytes for "
+                f"two slots in {directory}; {free} are free")
+        mgr = NVMCheckpointManager(CheckpointConfig(directory))
+        tuner = PersistencePeriodTuner(mtbf_s=1e9, min_period=TRAIN_FT_PERIOD,
+                                       max_period=TRAIN_FT_PERIOD)
+        rec = TrainingRecovery(mgr, tuner)
+        model, opt = fresh()
+        s, injected, saves, overlap_s, recover_s = 0, False, [], [], 0.0
+        drain_pending = False
+        while s < TRAIN_FT_STEPS:
+            if s == TRAIN_FT_FAIL_AT and not injected:
+                injected = True
+                inject_host_failure({"params": model, "opt": opt})
+                t0 = time.perf_counter()
+                tree, ck_step, _ = rec.recover(convert.train_state_like(cut), s)
+                if drain_pending:
+                    saves[-1].update(zip(("drain_wall_s", "drain_modeled_s"),
+                                         mgr.last_persist_seconds))
+                    drain_pending = False
+                model, opt = convert.train_state_from_numpy(cut, tree, dev)
+                torch.cuda.synchronize()
+                recover_s = time.perf_counter() - t0
+                del tree
+                s = ck_step
+                continue
+            dt = run_step(model, opt, s)
+            if drain_pending and mgr._drainer is not None \
+                    and mgr._drainer.is_alive():
+                overlap_s.append(dt)        # the drain outlasted the step
+            s += 1
+            t0 = time.perf_counter()
+            if rec.maybe_persist(
+                    lambda: convert.train_state_to_numpy(model, opt), s):
+                saves.append({"step": s,
+                              "snapshot_s": time.perf_counter() - t0})
+                drain_pending = True
+        t0 = time.perf_counter()
+        mgr.join()
+        saves[-1].update(zip(("drain_wall_s", "drain_modeled_s"),
+                             mgr.last_persist_seconds),
+                         join_wait_s=time.perf_counter() - t0)
+        slot = mgr.last_persist_bytes
+        got = {n: p.detach() for n, p in model.named_parameters()}
+        errs = {n: float(((got[n] - w).abs()
+                          - TRAIN_FT_TOL * (1 + w.abs())).max())
+                for n, w in want.items()}
+        bitwise = all(torch.equal(got[n], w) for n, w in want.items())
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    step_s = statistics.median(plain_s)
+    snapshot_s = statistics.median(sv["snapshot_s"] for sv in saves)
+    out = dict(arch=cut.name, layers=cut.n_layers, params=nparams,
+               slot_bytes=slot, saves=saves, recover_s=recover_s,
+               step_s=step_s, mtbf_s=TRAIN_MTBF_S,
+               young_daly_period_steps=optimal_period(snapshot_s,
+                                                      TRAIN_MTBF_S, step_s),
+               step_s_while_draining=overlap_s,
+               failures_recovered=rec.failures_recovered,
+               steps_wasted=rec.steps_wasted, final_params_bitwise=bitwise,
+               worst_excess_over_tol=max(errs.values()), tol=TRAIN_FT_TOL)
+    say("train", ft=out)
+    check(rec.failures_recovered == 1 and rec.steps_wasted == 1,
+          f"recovered {rec.failures_recovered}, wasted {rec.steps_wasted}")
+    check(max(errs.values()) <= 0.0, "the resumed run's parameters are off "
+          f"the uninterrupted run's beyond rtol = atol = {TRAIN_FT_TOL}")
+    del model, opt, want, got
+    return out
+
+
+def _smoke_steps(torch, cfg, model, batch, dev):
+    """Two train steps of ``model`` on ``batch`` moved to ``dev``: each
+    step's metrics and the final parameters, on the host."""
+    from repro_torch.models import registry as R
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    step = make_train_step(R.make_train_forward(cfg), AdamWConfig())
+    opt = adamw_init(model)
+    moved = {k: v.to(dev) for k, v in batch.items()}
+    metrics = [{k: v.detach().cpu() for k, v in step(model, opt, moved).items()}
+               for _ in range(2)]
+    return metrics, {n: p.detach().cpu()
+                     for n, p in model.named_parameters()}
+
+
+def train_families(torch) -> list:
+    """Every SMOKE config in f32 takes two train steps on the card and on
+    the CPU from the same parameters (carried by ``convert``) and batch;
+    a second card run shows whether two runs are bitwise equal."""
+    from repro_torch import convert
+    from repro_torch.launch.train import stub_inputs
+    from repro_torch.models import registry as R
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+
+    dev = torch.device(DEVICE)
+    recs = []
+    for arch in R.ARCH_IDS:
+        base = R.get_config(arch, smoke=True)
+        kw = {"compute_dtype": "float32"}
+        if base.n_experts > 0:
+            kw["capacity_factor"] = 16.0
+        cfg = dataclasses.replace(base, **kw)
+        cpu = R.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tree = convert.lm_params_to_numpy(cpu)
+        data = SyntheticCorpus(vocab=cfg.vocab, batch=TRAIN_SMOKE_BATCH,
+                               seq=TRAIN_SMOKE_SEQ, seed=1)
+        cpu_dev = torch.device("cpu")
+        batch = stub_inputs(cfg, to_tensors(data.batch_at(0), cpu_dev), 0,
+                            cpu_dev)
+        want_m, want_p = _smoke_steps(torch, cfg, cpu, batch, cpu_dev)
+        runs = [_smoke_steps(torch, cfg, convert.lm_params_from_numpy(
+            cfg, tree, dev), batch, dev) for _ in range(2)]
+        (got_m, got_p), (again_m, again_p) = runs
+        metric_rel = max(abs(float(g[k]) - float(w[k])) / abs(float(w[k]))
+                         for g, w in zip(got_m, want_m)
+                         for k in ("loss", "grad_norm"))
+        excess = {n: float(((got_p[n] - w).abs() - TRAIN_SMOKE_ATOL
+                            - TRAIN_SMOKE_REL * w.abs()).max())
+                  for n, w in want_p.items()}
+        worst = max(excess, key=excess.get)
+        bitwise = (all(torch.equal(a[k], b[k]) for a, b in zip(got_m, again_m)
+                       for k in a)
+                   and all(torch.equal(got_p[n], again_p[n]) for n in got_p))
+        rec = dict(arch=cfg.name, loss=[float(m["loss"]) for m in got_m],
+                   metric_rel_err=metric_rel,
+                   max_param_diff=max(max_abs(got_p[n], w)
+                                      for n, w in want_p.items()),
+                   worst_param=worst, worst_param_excess=excess[worst],
+                   rel_tol=TRAIN_SMOKE_REL, abs_tol=TRAIN_SMOKE_ATOL,
+                   two_card_runs_bitwise=bitwise,
+                   finite=all(bool(torch.isfinite(p).all())
+                              for p in got_p.values()))
+        say("train", family=rec)
+        check(rec["finite"] and metric_rel <= TRAIN_SMOKE_REL
+              and excess[worst] <= 0.0,
+              f"{cfg.name}: the card's train steps are off the CPU's: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def train_cli(torch) -> dict:
+    """The train CLI in its own processes on the card: 12 steps, then 16
+    in the same checkpoint directory, which must resume."""
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        first, c1, s1 = run_cli(torch, "repro_torch.launch.train",
+                                [*TRAIN_CLI, "--steps", "12", "--ckpt-dir",
+                                 directory], timeout=300)
+        second, c2, s2 = run_cli(torch, "repro_torch.launch.train",
+                                 [*TRAIN_CLI, "--steps", "16", "--ckpt-dir",
+                                  directory], timeout=300)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    resume = [ln for ln in second
+              if ln.startswith("elastic restore: resuming from step ")]
+    rec = dict(first=first, second=second, seconds=[s1, s2])
+    say("train", cli=rec)
+    check(first[-1:] == ["done."] and second[-1:] == ["done."],
+          f"the train CLI did not finish: {rec}")
+    check(len(resume) == 1, f"the second train CLI run did not resume: {rec}")
+    return {k: c1.get(k, 0) + c2.get(k, 0) for k in set(c1) | set(c2)}
+
+
+def phase_train(torch) -> dict:
+    """LM training on the card: starcoder2_3b at full width and depth,
+    then remat, determinism and the fault-tolerance cycle at full width
+    cut to 2 layers, every family's SMOKE steps against the CPU and the
+    train CLI's resume.  The path has no hand-written kernel: its launch
+    counts (the CLI's counted in its processes) must be 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry as R
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    say("train", allocated_gib_before=torch.cuda.memory_allocated() / 2 ** 30)
+    ops.reset_launch_counts()
+    cfg = R.get_config(TRAIN_ARCH)
+    train_full_width(torch, cfg)
+    torch.cuda.empty_cache()
+    train_remat(torch, cfg)
+    torch.cuda.empty_cache()
+    train_ft_cycle(torch, cfg)
+    torch.cuda.empty_cache()
+    train_families(torch)
+    counts = ops.launch_counts()
+    cli = train_cli(torch)
+    counts = {k: counts[k] + cli.get(k, 0) for k in counts}
+    say("train", launches=counts, phase_seconds=time.perf_counter() - t_phase,
+        note="the training path runs no hand-written kernel")
+    check(not any(counts.values()), f"the training path launched {counts}")
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -2397,6 +2923,7 @@ def main() -> int:
         paths.append(phase_mesh(torch, rate, records, found))
         paths.append(phase_launch(torch, rate, found, t0))
         paths.append(phase_lm(torch, rate))
+        paths.append(phase_train(torch))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:

@@ -6,9 +6,10 @@ states cross as numpy arrays through the functions below; slots cross
 through the wire format itself (bytes encoded by either package's
 ``RecoverySchema.encode`` decode in the other).
 
-An LM's parameters and decode caches cross as the reference's pytrees
-of numpy arrays (:func:`lm_params_from_numpy`, :func:`lm_caches_from_
-numpy` and their inverses).  The reference stacks a pattern group's
+An LM's parameters, its training state and its decode caches cross as
+the reference's pytrees of numpy arrays (:func:`lm_params_from_numpy`,
+:func:`train_state_from_numpy`, :func:`lm_caches_from_numpy` and their
+inverses).  The reference stacks a pattern group's
 layers along a leading axis (``groups/{j}/...`` of shape ``(n_groups,
 ...)``, the encoder-decoder's ``enc``/``dec`` and its caches' ``self``/
 ``cross`` of shape ``(n_layers, ...)``); the port keeps one module, and
@@ -29,7 +30,7 @@ from repro_torch.core.poisson import StencilOperator
 from repro_torch.core.state import PCGState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, reference_path
 from repro_torch.solvers.bicgstab import BiCGStabState
 from repro_torch.solvers.chebyshev import ChebyshevState
 from repro_torch.solvers.gmres import GMRESState
@@ -120,25 +121,10 @@ def _tensor(arr, device: torch.device,
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A host copy of ``t`` (never a view of a CPU tensor, which a train
+    step goes on updating in place)."""
+    t = t.detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-
-def _ref_path(cfg: ModelConfig, name: str) -> Tuple[Tuple[str, ...],
-                                                     Optional[int]]:
-    """Where the port's parameter ``name`` lives in the reference's tree:
-    its path and, for a stacked leaf, its row."""
-    parts = tuple(name.split("."))
-    if parts[0] == "layers":
-        layer, rest = int(parts[1]), parts[2:]
-        period = cfg.group_size
-        if layer < cfg.n_groups * period:
-            g, j = divmod(layer, period)
-            return ("groups", str(j)) + rest, g
-        return ("tail", str(layer - cfg.n_groups * period)) + rest, None
-    if parts[0] in ("enc", "dec"):
-        return (parts[0],) + parts[2:], int(parts[1])
-    return parts, None
 
 
 def _get(tree: Mapping[str, Any], path: Sequence[str]):
@@ -157,7 +143,7 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     model = build_model(cfg, Init(torch.device("meta"))).to_empty(device=dev)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            path, row = _ref_path(cfg, name)
+            path, row = reference_path(cfg, name)
             arr = _get(tree, path)
             val = _tensor(arr if row is None else np.asarray(arr)[row], dev,
                           param.dtype)
@@ -178,21 +164,86 @@ def _nest(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
     return out
 
 
+def _ref_tree(cfg: ModelConfig, named) -> Dict[str, Any]:
+    """The reference's pytree of ``named`` (pairs of a parameter name and
+    a tensor keyed like it), as numpy arrays: a stacked leaf's rows are
+    copied into one array, row by row."""
+    rows: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for name, t in named:
+        path, row = reference_path(cfg, name)
+        if row is None:
+            flat[path] = _numpy(t)
+        else:
+            rows.setdefault(path, {})[row] = t
+    for path, by_row in rows.items():
+        first = _numpy(by_row[0])
+        out = np.empty((len(by_row),) + first.shape, first.dtype)
+        out[0] = first
+        for r in range(1, len(by_row)):
+            out[r] = _numpy(by_row[r])
+        flat[path] = out
+    tree = _nest(flat)
+    if cfg.family != "encdec":
+        tree.setdefault("tail", {})     # the reference's, empty or not
+    return tree
+
+
 def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`lm_params_from_numpy`: the reference's
     pytree of the model's parameters, as numpy arrays."""
+    return _ref_tree(model.cfg, model.named_parameters())
+
+
+def train_state_to_numpy(model: torch.nn.Module,
+                         opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The training state as the reference's tree: ``{"params": tree,
+    "opt": {"m": tree, "v": tree, "step": int32}}`` with stacked groups,
+    as numpy arrays (host copies; bfloat16 moments as their float32
+    values).  It is what a checkpoint slot holds in both packages.  The
+    error-feedback residual of ``compress_grads`` is not carried."""
+    if "ef" in opt_state:
+        raise ValueError("the error-feedback residual (opt_state['ef']) "
+                         "has no place in the reference's train state")
     cfg = model.cfg
-    flat: Dict[Tuple[str, ...], Any] = {}
-    for name, param in model.named_parameters():
-        path, row = _ref_path(cfg, name)
-        if row is None:
-            flat[path] = _numpy(param)
-        else:
-            flat.setdefault(path, {})[row] = _numpy(param)
-    for path, val in flat.items():
-        if isinstance(val, dict):
-            flat[path] = np.stack([val[r] for r in range(len(val))])
-    return _nest(flat)
+    return {"params": lm_params_to_numpy(model),
+            "opt": {"m": _ref_tree(cfg, opt_state["m"].items()),
+                    "v": _ref_tree(cfg, opt_state["v"].items()),
+                    "step": np.asarray(int(opt_state["step"]), np.int32)}}
+
+
+def train_state_like(cfg: ModelConfig) -> Dict[str, Any]:
+    """The structure of :func:`train_state_to_numpy`'s tree for ``cfg``,
+    its leaves empty stand-ins: the ``like`` a checkpoint restore reads
+    the keys from, with no copy of the state."""
+    model = build_model(cfg, Init(torch.device("meta")))
+    stand_in = {reference_path(cfg, name)[0]: np.empty(0, np.float32)
+                for name, _ in model.named_parameters()}
+    tree = _nest(stand_in)
+    return {"params": tree, "opt": {"m": tree, "v": tree,
+                                    "step": np.empty(0, np.int32)}}
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
+                           device: Union[str, torch.device] = "cuda"
+                           ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
+    """The inverse of :func:`train_state_to_numpy`: the model of ``cfg``
+    and its optimizer state (``adamw_init``'s layout; each moment keeps
+    its array's dtype) on ``device``, from the reference's train state
+    ``tree`` (numpy arrays)."""
+    dev = resolve_device(device)
+    model = lm_params_from_numpy(cfg, tree["params"], dev)
+    moments = {}
+    for part in ("m", "v"):
+        moments[part] = {}
+        for name, param in model.named_parameters():
+            path, row = reference_path(cfg, name)
+            arr = _get(tree["opt"][part], path)
+            moments[part][name] = _tensor(
+                arr if row is None else np.asarray(arr)[row], dev)
+    step = torch.tensor(int(np.asarray(tree["opt"]["step"])),
+                        dtype=torch.int32, device=dev)
+    return model, {"m": moments["m"], "v": moments["v"], "step": step}
 
 
 def _cache_paths(cfg: ModelConfig, layer: int) -> Tuple[Tuple[str, ...],

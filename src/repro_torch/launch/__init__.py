@@ -2,7 +2,8 @@
 production layouts on one card (``mesh``), the analytic roofline
 (``roofline``), the report tables (``report``), the serving CLI
 (``serve``: the solve service's trace replay, and LM prefill and decode
-with ``--arch``) and the solver dry run (``dryrun``)."""
+with ``--arch``), the fault-tolerant LM trainer (``train``) and the
+solver dry run (``dryrun``)."""
 
 #: where the dry run writes its rows, and the report reads them, unless
 #: told otherwise

@@ -2,10 +2,14 @@
 ``repro/models/config.py``).
 
 Every field and default is the reference's, so the ten configs under
-:mod:`repro_torch.configs` construct unchanged.  The XLA-only levers
-(``unroll_groups``, ``serve_resident``, ``microbatches``,
-``bf16_gather``, ``remat_policy``, ``explicit_sp``) are kept as inert
-fields: nothing in the serving path reads them.  ``pdt`` and ``cdt`` are
+:mod:`repro_torch.configs` construct unchanged.  The training forward
+reads ``remat_policy`` (``"dots"`` keeps the weight products through
+each layer's checkpoint).  ``microbatches`` is the value a train cell
+hands to ``TrainConfig(microbatches=...)``, as the reference's
+``build_cell`` does; the port's cells come with the LM dry run (ROADMAP,
+Queue 1 item 3.3), so nothing reads it yet.  The XLA-only levers
+(``unroll_groups``, ``serve_resident``, ``bf16_gather``,
+``explicit_sp``) are kept as inert fields.  ``pdt`` and ``cdt`` are
 ``torch.dtype`` s.
 """
 from __future__ import annotations

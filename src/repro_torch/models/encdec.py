@@ -10,7 +10,9 @@ positions (``use_rope=False``) and ties the unembedding to the token
 embedding.
 
 Caches are per-layer: a list with one ``{"self": {k, v}, "cross": {k,
-v}}`` a decoder layer.
+v}}`` a decoder layer.  ``remat=True`` (training, no caches)
+checkpoints each layer and saves nothing, as the reference's
+``nothing_saveable`` scan bodies do whatever ``cfg.remat_policy`` says.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _slice_clamped, unembed_logits
+from repro_torch.models.transformer import (_slice_clamped, remat_call,
+                                            unembed_logits)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -76,17 +79,53 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for _ in range(cfg.n_layers)]
 
 
-def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
+def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    h = lp.ln1(x, cfg.norm_eps)
+    mix, _ = lp.attn(h, causal=False)
+    x = x + mix
+    return x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+
+
+def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, enc_seq, d) precomputed embeddings (stub frontend)."""
     cdt = cfg.cdt
     x = frames.to(cdt) + model.enc_pos.to(cdt)[None]
     for lp in model.enc:
-        h = lp.ln1(x, cfg.norm_eps)
-        mix, _ = lp.attn(h, causal=False)
-        x = x + mix
-        x = x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+        x = (remat_call(_enc_layer, "none", lp, x, cfg) if remat
+             else _enc_layer(lp, x, cfg))
     return model.enc_norm(x, cfg.norm_eps)
+
+
+def _dec_layer(lp: DecLayer, x: torch.Tensor,
+               enc_out: Optional[torch.Tensor], lc: Optional[Cache],
+               cfg: ModelConfig, cache_index: Optional[int]
+               ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """One decoder layer; returns (x, its new cache entry or None)."""
+    cdt = cfg.cdt
+    h = lp.ln1(x, cfg.norm_eps)
+    mix, nself = lp.attn(h, cache=None if lc is None else lc["self"],
+                         cache_index=cache_index)
+    x = x + mix
+    hx = lp.ln_x(x, cfg.norm_eps)
+    if lc is not None and enc_out is None:
+        # cross K/V already cached at prefill: score against them
+        mixx = _cross_from_cache(lp.xattn, hx, lc["cross"], cfg)
+        ncross = lc["cross"]
+    else:
+        mixx, _ = lp.xattn(hx, kv_source=enc_out, causal=False)
+        ncross = None
+        if lc is not None:
+            # cache cross K/V for subsequent decode steps
+            e = enc_out.to(cdt)
+            k = L.project_heads(e, lp.xattn.wk.to(cdt))
+            v = L.project_heads(e, lp.xattn.wv.to(cdt))
+            ncross = {"k": k.to(lc["cross"]["k"].dtype),
+                      "v": v.to(lc["cross"]["v"].dtype)}
+    x = x + mixx
+    x = x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+    return x, None if lc is None else {"self": nself, "cross": ncross}
 
 
 def decode(
@@ -96,6 +135,7 @@ def decode(
     cfg: ModelConfig,
     caches: Optional[List[Cache]] = None,
     cache_index: Optional[int] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
     cdt = cfg.cdt
     s = tokens.shape[1]
@@ -103,33 +143,15 @@ def decode(
     start = 0 if cache_index is None else cache_index
     x = x + _slice_clamped(model.dec_pos, start, s).to(cdt)[None]
 
-    use_cached_cross = caches is not None and enc_out is None
     new_caches = None if caches is None else []
     for i, lp in enumerate(model.dec):
-        lc = None if caches is None else caches[i]
-        h = lp.ln1(x, cfg.norm_eps)
-        mix, nself = lp.attn(h, cache=None if lc is None else lc["self"],
-                             cache_index=cache_index)
-        x = x + mix
-        hx = lp.ln_x(x, cfg.norm_eps)
-        if use_cached_cross:
-            # cross K/V already cached at prefill: score against them
-            mixx = _cross_from_cache(lp.xattn, hx, lc["cross"], cfg)
-            ncross = lc["cross"]
+        if caches is None:
+            x, _ = (remat_call(_dec_layer, "none", lp, x, enc_out, None, cfg,
+                               cache_index) if remat
+                    else _dec_layer(lp, x, enc_out, None, cfg, cache_index))
         else:
-            mixx, _ = lp.xattn(hx, kv_source=enc_out, causal=False)
-            ncross = None
-            if lc is not None:
-                # cache cross K/V for subsequent decode steps
-                e = enc_out.to(cdt)
-                k = L.project_heads(e, lp.xattn.wk.to(cdt))
-                v = L.project_heads(e, lp.xattn.wv.to(cdt))
-                ncross = {"k": k.to(lc["cross"]["k"].dtype),
-                          "v": v.to(lc["cross"]["v"].dtype)}
-        x = x + mixx
-        x = x + lp.mlp(lp.ln2(x, cfg.norm_eps))
-        if new_caches is not None:
-            new_caches.append({"self": nself, "cross": ncross})
+            x, nc = _dec_layer(lp, x, enc_out, caches[i], cfg, cache_index)
+            new_caches.append(nc)
 
     x = model.final_norm(x, cfg.norm_eps)
     return unembed_logits(x, model.embed.T, cfg), new_caches

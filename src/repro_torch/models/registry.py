@@ -1,20 +1,24 @@
-"""Architecture registry, the serving half (port of
-``repro/models/registry.py``): config discovery, parameter and cache
-initialisation, and the prefill and decode step functions the
-:class:`~repro_torch.serving.engine.ServeEngine` runs.
+"""Architecture registry (port of ``repro/models/registry.py``): config
+discovery, parameter and cache initialisation, the training forward the
+train step differentiates, and the prefill and decode step functions
+the :class:`~repro_torch.serving.engine.ServeEngine` runs.
 
 Every architecture is a module in :mod:`repro_torch.configs` exposing
 ``CONFIG`` (the published shape) and ``SMOKE`` (a reduced same-family
-config for CPU tests).  The training half (``make_train_forward``) and
-the dry-run cells (``build_cell``, ``abstract_*``, ``batch_structs``,
-``Cell``) come with the training and LM dry-run slices (ROADMAP,
-Queue 1, items 3.2 and 3.3).
+config for CPU tests).  The dry-run cells (``build_cell``,
+``abstract_*``, ``batch_structs``, ``Cell``) come with the LM dry-run
+slice (ROADMAP, Queue 1, item 3.3).
+
+The reference keeps parameters in a pytree with a pattern group's layers
+stacked along a leading axis; :func:`reference_path` says where each of
+the port's parameters lives in it, and :func:`reference_leaf_order`
+lists them in that tree's flatten order.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -103,6 +107,57 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     if cfg.family == "encdec":
         return E.init_encdec_cache(cfg, batch, max_seq, cfg.cdt, dev)
     return T.init_decoder_cache(cfg, batch, max_seq, cfg.cdt, dev)
+
+
+def reference_path(cfg: ModelConfig, name: str
+                   ) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """Where the port's parameter ``name`` lives in the reference's tree:
+    its path and, for a stacked leaf, its row (layer ``g * period + j``
+    is row ``g`` of group slot ``j``; the encoder-decoder stacks every
+    ``enc``/``dec`` layer)."""
+    parts = tuple(name.split("."))
+    if parts[0] == "layers":
+        layer, rest = int(parts[1]), parts[2:]
+        period = cfg.group_size
+        if layer < cfg.n_groups * period:
+            g, j = divmod(layer, period)
+            return ("groups", str(j)) + rest, g
+        return ("tail", str(layer - cfg.n_groups * period)) + rest, None
+    if parts[0] in ("enc", "dec"):
+        return (parts[0],) + parts[2:], int(parts[1])
+    return parts, None
+
+
+def reference_leaf_order(model: nn.Module) -> List[List[str]]:
+    """The model's parameter names grouped by the reference's leaves, in
+    the order ``jax.tree.leaves`` visits them (sorted dict keys, so
+    sorted paths), a stacked leaf's rows in row order."""
+    leaves: Dict[Tuple[str, ...], list] = {}
+    for name, _ in model.named_parameters():
+        path, row = reference_path(model.cfg, name)
+        leaves.setdefault(path, []).append((row or 0, name))
+    return [[name for _, name in sorted(rows)]
+            for _, rows in sorted(leaves.items())]
+
+
+def make_train_forward(cfg: ModelConfig) -> Callable:
+    """forward(model, batch) -> (logits, aux), every layer checkpointed
+    (``remat=True``); the encoder-decoder's aux is a zero f32 scalar."""
+    if cfg.family == "encdec":
+        def forward(model, batch):
+            enc_out = E.encode(model, batch["frames"], cfg, remat=True)
+            logits, _ = E.decode(model, batch["tokens"], enc_out, cfg,
+                                 remat=True)
+            return logits, torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)
+        return forward
+
+    def forward(model, batch):
+        logits, _, aux = T.decoder_forward(
+            model, batch["tokens"], cfg, positions=batch.get("positions"),
+            remat=True)
+        return logits, aux
+    return forward
 
 
 def make_prefill(cfg: ModelConfig) -> Callable:

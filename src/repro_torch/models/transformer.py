@@ -12,13 +12,20 @@ reference's ``uniform_attn`` flattening with a traced ``lax.cond`` needs
 no counterpart.
 
 Caches are per-layer: a list with one dict a layer, in layer order.
+
+Training runs the stack with ``remat=True``: each layer is checkpointed
+on its own (:func:`remat_call`), the reference's nested per-layer
+remat, so the backward holds one layer's activations at a time.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -150,6 +157,27 @@ def unembed_logits(x: torch.Tensor, unembed: torch.Tensor,
     return logits
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: keep the weight products (``aten.mm``,
+    the 2-D products of activations and weights; the counterpart of
+    ``dots_with_no_batch_dims_saveable``), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn: Callable, policy: str, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under activation checkpointing: its
+    activations are recomputed in the backward, except the weight
+    products with ``policy="dots"`` (any other policy saves nothing).
+    The recompute runs the same operations on the same inputs, so the
+    values and gradients are those of the plain call."""
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
 def decoder_forward(
     model: Decoder,
     tokens: torch.Tensor,                 # (B, S) int, or (B, S, d) embeds
@@ -157,6 +185,7 @@ def decoder_forward(
     caches: Optional[List[Cache]] = None,
     cache_index: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Cache]], torch.Tensor]:
     """Returns (logits, new_caches, aux_loss).
 
@@ -164,7 +193,8 @@ def decoder_forward(
     caches and ``cache_index=0``; decode with one token a row and the
     caches at ``cache_index``.  Attention caches are written in place
     (the returned list holds the same tensors); recurrent and SSM states
-    are returned anew."""
+    are returned anew.  ``remat=True`` without caches checkpoints each
+    layer under ``cfg.remat_policy``."""
     cdt = cfg.cdt
     if tokens.dim() == 3:
         x = tokens.to(cdt)                  # stubbed modality embeddings
@@ -178,8 +208,12 @@ def decoder_forward(
     new_caches = None if caches is None else []
     for i, layer in enumerate(model.layers):
         c = None if caches is None else caches[i]
-        x, nc, aux = layer(x, cache=c, cache_index=cache_index,
-                           positions=positions)
+        if remat and c is None:
+            x, nc, aux = remat_call(layer, cfg.remat_policy, x,
+                                    positions=positions)
+        else:
+            x, nc, aux = layer(x, cache=c, cache_index=cache_index,
+                               positions=positions)
         if aux is not None:
             aux_total = aux_total + aux
         if new_caches is not None:

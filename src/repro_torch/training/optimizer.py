@@ -1,0 +1,119 @@
+"""AdamW over a model's named parameters (port of
+``repro/training/optimizer.py``).
+
+The arithmetic is the reference's, operation for operation: the global
+norm's leaf terms summed in the reference's leaf order, the clip scale
+``min(1, clip / (gnorm + 1e-12))``, the warmup ``lr * min(step /
+warmup, 1)`` in f32, ``mhat / (sqrt(vhat) + eps) + wd * p`` and the
+moments stored in ``moment_dtype``.  ``torch.optim.AdamW`` is not used:
+it puts ``eps`` after ``sqrt(v) / sqrt(bc2)`` and rounds differently.
+
+The optimizer state is ``{"m": {name: tensor}, "v": {name: tensor},
+"step": 0-d int32 tensor}`` on the parameters' device, keyed by the
+module's parameter names.  The update writes parameters and moments in
+place and returns its metrics as 0-d tensors: it never waits for the
+card.  ``moment_dtype="bfloat16"`` halves optimizer memory.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+    warmup_steps: int = 100
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    """A module's named parameters, or a mapping of names to tensors."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def adamw_init(params) -> Dict[str, object]:
+    """Zero f32 moments for every parameter of ``params`` (a module or a
+    mapping of names to tensors) and step 0, on the parameters'
+    device."""
+    named = _named(params)
+    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in named.items()}
+    dev = next(iter(named.values())).device
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def default_order(names: Iterable[str]) -> List[List[str]]:
+    """Each name its own leaf, in the order a nested dict of the dotted
+    names flattens (sorted paths)."""
+    return [[n] for n in sorted(names, key=lambda n: n.split("."))]
+
+
+def _global_norm(grads: Mapping[str, torch.Tensor],
+                 order: Optional[Sequence[Sequence[str]]] = None
+                 ) -> torch.Tensor:
+    """``sqrt`` of the sum of the leaves' sums of squares, the leaves
+    summed in ``order``: groups of names, one group a reference leaf (a
+    stacked leaf's rows are summed in row order into one term).  The
+    default order is :func:`default_order`'s."""
+    order = default_order(grads) if order is None else order
+    terms = []
+    for group in order:
+        sq = [torch.sum(torch.square(grads[n].float())) for n in group]
+        terms.append(sum(sq[1:], sq[0]))
+    return torch.sqrt(sum(terms))
+
+
+@torch.no_grad()
+def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict,
+                 params, cfg: AdamWConfig,
+                 order: Optional[Sequence[Sequence[str]]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """One AdamW step: ``params`` (a module or a mapping of names to
+    tensors) and ``opt_state``'s moments and step are updated in place
+    from ``grads`` (keyed as the parameters); ``order`` is the global
+    norm's leaf order (:func:`_global_norm`).  Returns ``{"grad_norm",
+    "lr"}`` as 0-d f32 tensors."""
+    named = _named(params)
+    opt_state["step"].add_(1)
+    step = opt_state["step"]
+    gnorm = _global_norm(grads, order)
+    scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
+             if cfg.grad_clip > 0 else 1.0)
+    lr = _schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - b1 ** step.float()
+    bc2 = 1.0 - b2 ** step.float()
+    mdt = getattr(torch, cfg.moment_dtype)
+    ms, vs = opt_state["m"], opt_state["v"]
+    for name, p in named.items():
+        g = grads[name].float() * scale
+        m_new = b1 * ms[name].float() + (1 - b1) * g
+        v_new = b2 * vs[name].float() + (1 - b2) * g * g
+        mhat = m_new / bc1
+        vhat = v_new / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        for store, new in ((ms, m_new), (vs, v_new)):
+            if store[name].dtype == mdt:
+                store[name].copy_(new)
+            else:
+                store[name] = new.to(mdt)
+    return {"grad_norm": gnorm, "lr": lr}

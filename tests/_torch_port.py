@@ -111,6 +111,14 @@ def lm_inputs(cfg, seed, b, s):
     return out
 
 
+def train_inputs(cfg, seed, b, s):
+    """:func:`lm_inputs` plus next-token ``targets (b, s)``."""
+    out = lm_inputs(cfg, seed, b, s)
+    out["targets"] = np.random.default_rng(seed + 1000).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)
+    return out
+
+
 def to_torch(inputs):
     """numpy inputs as CPU tensors (integer arrays as int64)."""
     return {k: torch.as_tensor(v).long() if v.dtype.kind in "iu"
@@ -121,6 +129,22 @@ def max_abs_diff(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)
     return float(np.max(np.abs(a - b))) if a.size else 0.0
+
+
+def ref_rows(tree, cfg, names):
+    """The reference tree's values of the port's parameters ``names``
+    (a stacked leaf's row for a layer), as numpy arrays."""
+    from repro_torch.models.registry import reference_path
+
+    out = {}
+    for name in names:
+        path, row = reference_path(cfg, name)
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        leaf = np.asarray(leaf)
+        out[name] = leaf if row is None else leaf[row]
+    return out
 
 
 def tree_max_abs_diff(a, b) -> float:

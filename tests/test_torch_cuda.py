@@ -674,3 +674,51 @@ def test_lm_family_logits_on_card_match_the_cpu(cuda_device, arch):
     for got, want in zip(run(card, cuda_device), run(cpu, "cpu")):
         assert torch.isfinite(got).all()
         assert float((got - want).abs().max()) < LM_TOL
+
+
+# ----------------------------------------------------------------------
+# LM training: each family's SMOKE train step on the card against the CPU
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "dbrx_132b",
+                                  "granite_20b", "starcoder2_3b", "llama3_8b",
+                                  "gemma3_12b", "whisper_small", "mamba2_370m",
+                                  "recurrentgemma_9b", "qwen2_vl_72b"])
+def test_train_steps_on_card_match_the_cpu(cuda_device, arch):
+    """Two f32 train steps of one SMOKE model (``make_train_step`` over
+    ``make_train_forward``), its parameters carried to the card by
+    ``convert``, against the same steps on the CPU: loss and grad norm
+    within 1e-4 relative, every parameter element within 1e-4 relative
+    plus twice the two steps' summed ``lr`` (the gradients sum in other
+    orders on the card; where an element's gradient is near zero, Adam's
+    normalised update can take either sign and move it by up to ``lr``
+    a step either way: 3e-6 and 6e-6 in the warmup)."""
+    from _torch_port import lm_cfg, to_torch, train_inputs
+    from repro_torch import convert
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer, train_step
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    cpu = registry.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    card = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(cpu),
+                                        device=cuda_device)
+    batch = to_torch(train_inputs(cfg, 7, 2, 16))
+    step = train_step.make_train_step(registry.make_train_forward(cfg),
+                                      optimizer.AdamWConfig())
+    runs = []
+    for model, dev in ((card, cuda_device), (cpu, "cpu")):
+        opt = optimizer.adamw_init(model)
+        moved = {k: v.to(dev) for k, v in batch.items()}
+        metrics = [step(model, opt, moved) for _ in range(2)]
+        runs.append(([{k: float(v) for k, v in m.items()} for m in metrics],
+                     {n: p.detach().cpu() for n, p in model.named_parameters()}))
+    (got_m, got_p), (want_m, want_p) = runs
+    for g, w in zip(got_m, want_m):
+        for k in ("loss", "grad_norm"):
+            assert abs(g[k] - w[k]) <= 1e-4 * abs(w[k]), (k, g[k], w[k])
+        assert g["lr"] == w["lr"]
+    for name, w in want_p.items():
+        assert torch.isfinite(got_p[name]).all()
+        excess = (got_p[name] - w).abs() - 2 * (3e-6 + 6e-6) - 1e-4 * w.abs()
+        assert float(excess.max()) <= 0.0, (name, float(excess.max()))

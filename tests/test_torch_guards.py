@@ -22,10 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import api, convert
+from repro_torch import api, convert, ft
 from repro_torch.core import poisson, solve_jit
 from repro_torch.kernels import _build, fused_cg, gf256_encode, ops, stencil7
-from repro_torch.launch import dryrun, mesh as launch_mesh, serve
+from repro_torch.launch import dryrun, mesh as launch_mesh, serve, train
 from repro_torch.solvers.driver import SolveConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -85,6 +85,15 @@ def _default_problem_parts():
     return problem.op, problem.precond, problem.b
 
 
+def _restore_on_cuda():
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = ft.NVMCheckpointManager(ft.CheckpointConfig(d))
+        mgr.save({"w": np.zeros(3)}, step=1)
+        mgr.restore({"w": np.zeros(3)}, device="cuda")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -111,11 +120,13 @@ def no_cuda(monkeypatch):
     lambda: dryrun.run_solver_cell("pcg_128m", results_path=None),
     lambda: launch_mesh.make_data_mesh(256),
     lambda: launch_mesh.device_memory_bytes(),
+    lambda: train.main(["--arch", "llama3_8b", "--smoke", "--steps", "1"]),
+    _restore_on_cuda,
 ], ids=["Problem.poisson", "make_poisson_problem", "StencilOperator",
         "problem_from_numpy", "state_from_numpy", "erasure solve", "advise",
         "solve_jit", "serve", "SolveService.submit_request", "serve CLI",
         "dryrun CLI", "run_solver_cell", "launch make_data_mesh",
-        "device_memory_bytes"])
+        "device_memory_bytes", "train CLI", "checkpoint restore"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

@@ -51,7 +51,6 @@ def test_config_fields_and_counts_are_the_references(arch, smoke):
 def test_model_shapes_are_the_references(arch):
     """Every parameter of the port's full-size model (built on the meta
     device: shapes only) has the reference's shape and dtype."""
-    from repro_torch.convert import _ref_path
     from repro_torch.models.layers import Init
 
     ref_cfg = RR.get_config(arch)
@@ -60,7 +59,7 @@ def test_model_shapes_are_the_references(arch):
     cfg = PR.get_config(arch)
     model = PR.build_model(cfg, Init(torch.device("meta")))
     for name, param in model.named_parameters():
-        path, row = _ref_path(cfg, name)
+        path, row = PR.reference_path(cfg, name)
         leaf = structs
         for key in path:
             leaf = leaf[key]
