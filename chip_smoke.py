@@ -147,14 +147,24 @@ non-zero and prints no result line):
    the train CLI (``python -m repro_torch.launch.train --arch
    starcoder2_3b --smoke``) for 12 steps and again for 16 in the same
    checkpoint directory, which must resume.  No hand-written kernel
-   runs: the launch counts must read 0.
+   runs: the launch counts must read 0;
+15. dryrun-lm — the LM dry run (``python -m repro_torch.launch.dryrun``)
+   in its own processes: llama3_8b's train_4k, prefill_32k and
+   decode_32k and mamba2_370m's long_500k on the 16x16 layout (the
+   depth variants g1 and g2 really run at full width, at one data
+   replica's batch, cut where the card needs it), llama3_8b's decode_32k
+   on 2x16x16 (the multi-pod pass, g1); every row ``ok`` with finite
+   losses or logits, its per-device argument bytes equal to the
+   reference's (``DRYRUN_LM_ARG_BYTES``), a calibrated row's
+   extrapolated replica step at least its g1 step; no hand-written
+   kernel runs: the launch counts must read 0 (about 110 s).
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
 ``repro_torch.launch.mesh``.  Kernel launches are counted from a reset
 just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
-sharded solve of 11, in their own processes the two CLIs of 12, 13 and
-14) to
+sharded solve of 11, in their own processes the two CLIs of 12, 13,
+14 and the dry-run processes of 15) to
 a reading just after it, graph replays included, and summed into the
 kernel summary.  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
@@ -2838,6 +2848,86 @@ def phase_train(torch) -> dict:
     return counts
 
 
+#: phase 15: the LM dry run, each call in its own process: llama3_8b's
+#: three cells on 16x16, mamba2_370m's long_500k on 16x16 and llama3_8b's
+#: decode_32k on 2x16x16 (the multi-pod pass)
+DRYRUN_LM_CALLS = (
+    ("--arch", "llama3_8b", "--mesh", "single"),
+    ("--arch", "mamba2_370m", "--shape", "long_500k", "--mesh", "single"),
+    ("--arch", "llama3_8b", "--shape", "decode_32k", "--mesh", "multi"),
+)
+#: the reference's per-device argument bytes of those cells: its
+#: ``build_cell`` on ``jax.sharding.AbstractMesh`` with every leaf's
+#: ``NamedSharding.shard_shape`` summed (written here as numbers: the
+#: smoke imports no JAX; ``tests/test_torch_dryrun_lm.py`` holds the port
+#: to the reference on every cell)
+DRYRUN_LM_ARG_BYTES = {
+    ("llama3_8b", "train_4k", "16x16"): 568_868_868,
+    ("llama3_8b", "prefill_32k", "16x16"): 726_581_248,
+    ("llama3_8b", "decode_32k", "16x16"): 2_336_931_876,
+    ("mamba2_370m", "long_500k", "16x16"): 12_089_352,
+    ("llama3_8b", "decode_32k", "2x16x16"): 1_263_190_036,
+}
+
+
+def phase_dryrun_lm(torch) -> dict:
+    """The LM dry run on the card (``python -m repro_torch.launch.dryrun``
+    in its own processes): every row ``ok`` with finite losses or
+    logits in every variant, its per-device argument bytes the
+    reference's, a calibrated row's extrapolated replica step at least
+    its g1 step and its roofline terms finite.  The path has no
+    hand-written kernel: its launch counts must read 0."""
+    from repro_torch.launch import report
+
+    t_phase = time.perf_counter()
+    out = os.path.join(ROOT, "results", "chip_smoke_dryrun_lm.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    counts = {}
+    for args in DRYRUN_LM_CALLS:
+        lines, got, _ = run_cli(torch, "repro_torch.launch.dryrun",
+                                [*args, "--out", out], 600)
+        for line in lines:
+            if line.startswith("["):
+                print(f"[dryrun-lm] {line}", flush=True)
+        counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+    rows = report.load(out)
+    check(sorted(rows) == sorted(DRYRUN_LM_ARG_BYTES),
+          f"dry-run rows {sorted(rows)}, want {sorted(DRYRUN_LM_ARG_BYTES)}")
+    for key, want in DRYRUN_LM_ARG_BYTES.items():
+        row = rows[key]
+        variants = row["measured"]["variants"]
+        got = row["memory"]["argument_bytes"]
+        say("dryrun-lm", cell=key, argument_bytes=got, reference=want,
+            peak_bytes_estimate=row["memory"]["peak_bytes"],
+            variants={g: {k: v[k] for k in ("batch", "step_s", "enqueue_s",
+                                            "peak_bytes", "finite")}
+                      for g, v in variants.items()},
+            replica_step_s=row["measured"]["replica_step_s"],
+            bf16_share=row["measured"]["bf16_share"],
+            roofline=row.get("roofline"), reduced=row["reduced"])
+        check(row["ok"] and all(v["finite"] for v in variants.values()),
+              f"{key}: a variant's outputs are not finite")
+        check(got == want, f"{key}: {got} argument bytes a device, the "
+                           f"reference's {want}")
+        if "roofline" in row:
+            rf = row["roofline"]
+            check(all(math.isfinite(rf[k]) for k in
+                      ("t_compute_s", "t_memory_s", "t_collective_s")),
+                  f"{key}: roofline terms not finite: {rf}")
+            check(row["measured"]["replica_step_s"]
+                  >= variants["g1"]["step_s"],
+                  f"{key}: the extrapolated step is under the g1 step")
+    print("[dryrun-lm] table, 16x16:\n" + report.table(rows), flush=True)
+    print("[dryrun-lm] multipod table:\n" + report.multipod_table(rows),
+          flush=True)
+    say("dryrun-lm", launches=counts,
+        phase_seconds=time.perf_counter() - t_phase,
+        note="the LM dry run runs no hand-written kernel")
+    check(not any(counts.values()), f"the LM dry run launched {counts}")
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -2924,6 +3014,7 @@ def main() -> int:
         paths.append(phase_launch(torch, rate, found, t0))
         paths.append(phase_lm(torch, rate))
         paths.append(phase_train(torch))
+        paths.append(phase_dryrun_lm(torch))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:

@@ -30,7 +30,8 @@ from repro_torch.core.poisson import StencilOperator
 from repro_torch.core.state import PCGState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
-from repro_torch.models.registry import build_model, reference_path
+from repro_torch.models.registry import (build_model, reference_cache_path,
+                                         reference_path)
 from repro_torch.solvers.bicgstab import BiCGStabState
 from repro_torch.solvers.chebyshev import ChebyshevState
 from repro_torch.solvers.gmres import GMRESState
@@ -246,16 +247,6 @@ def train_state_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     return model, {"m": moments["m"], "v": moments["v"], "step": step}
 
 
-def _cache_paths(cfg: ModelConfig, layer: int) -> Tuple[Tuple[str, ...],
-                                                        Optional[int]]:
-    """The reference cache entry of layer ``layer`` and its row."""
-    period = cfg.group_size
-    if layer < cfg.n_groups * period:
-        g, j = divmod(layer, period)
-        return ("groups", str(j)), g
-    return ("tail", str(layer - cfg.n_groups * period)), None
-
-
 def lm_caches_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                          device: Union[str, torch.device] = "cuda"
                          ) -> List[Dict[str, Any]]:
@@ -276,7 +267,7 @@ def lm_caches_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                 for i in range(cfg.n_layers)]
     caches = []
     for layer in range(cfg.n_layers):
-        path, row = _cache_paths(cfg, layer)
+        path, row = reference_cache_path(cfg, layer)
         entry = _get(tree, path)
         caches.append({n: conv(a if row is None else np.asarray(a)[row])
                        for n, a in entry.items()})
@@ -294,7 +285,7 @@ def lm_caches_to_numpy(cfg: ModelConfig, caches: Sequence[Mapping[str, Any]]
     rows: Dict[Tuple[str, ...], Dict[int, Mapping[str, Any]]] = {}
     flat: Dict[Tuple[str, ...], Any] = {}
     for layer, cache in enumerate(caches):
-        path, row = _cache_paths(cfg, layer)
+        path, row = reference_cache_path(cfg, layer)
         if row is None:
             flat[path] = {n: _numpy(t) for n, t in cache.items()}
         else:

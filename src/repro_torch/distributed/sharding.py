@@ -28,8 +28,10 @@ dimensions and an :class:`AxisRules` table maps them onto the axes of a
 mesh.  Torch has no ``PartitionSpec``: a spec is a plain tuple of
 physical axis names (or ``None``, or a tuple of names), and the mesh is
 any object with ``axis_names`` and a ``shape`` mapping (a
-:class:`LogicalMesh`, or the reference's ``jax.sharding.Mesh``).  On the
-one card every tensor is whole, so :func:`shard` is the identity, as the
+:class:`LogicalMesh`, or the reference's ``jax.sharding.Mesh``), and
+:func:`shard_shape` gives a tensor's per-device shape under the rules
+(what the LM dry run sums its per-device bytes from).  On the one card
+every tensor is whole, so :func:`shard` is the identity, as the
 reference's is with no mesh; a mesh over distinct cards waits for a
 machine with more than one card (ROADMAP, Queue 1 item 4).
 """
@@ -168,6 +170,25 @@ def spec_for_shape(rules: AxisRules, shape: Sequence[int],
         else:
             phys.append(tuple(kept))
     return tuple(phys)
+
+
+def shard_shape(rules: AxisRules, shape: Sequence[int],
+                logical: Sequence[Optional[str]]) -> Tuple[int, ...]:
+    """The per-device shape of a ``shape`` tensor with logical spec
+    ``logical`` (the counterpart of ``NamedSharding(mesh,
+    spec_for_shape(...)).shard_shape(shape)``): each dimension divided
+    by the product of the mesh extents :func:`spec_for_shape` keeps for
+    it; dimensions past the spec's length stay whole."""
+    spec = spec_for_shape(rules, shape, logical)
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        n = 1
+        for a in axes:
+            n *= int(rules.mesh.shape[a])
+        out.append(int(dim) // n)
+    return tuple(out)
 
 
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:

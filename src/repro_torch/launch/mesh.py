@@ -10,8 +10,11 @@ than being guessed at.
 
 The reference's production meshes (16x16 = 256 devices, 2x16x16 = 512)
 become one-card :class:`~repro_torch.distributed.sharding.DataMesh` es
-of 256 or 512 shards (:func:`make_data_mesh`): every shard's z-slab
-lives on the card.  The reference's elastic ``make_mesh_for`` (the
+of 256 or 512 shards for the solver (:func:`make_data_mesh`): every
+shard's z-slab lives on the card; for the LM dry run they are
+:class:`~repro_torch.distributed.sharding.LogicalMesh` es of axis names
+and extents (:func:`make_production_mesh`), whose collectives cross the
+network at :data:`NETWORK_RATE`.  The reference's elastic ``make_mesh_for`` (the
 ``(data, model)`` mesh of the LM axis rules) keeps its arithmetic
 (:func:`mesh_shape_for`); on the one card it is the ``(1, 1)``
 :class:`~repro_torch.distributed.sharding.LogicalMesh`, and a mesh over
@@ -39,6 +42,13 @@ PEAK_OPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 #: the reference's production layouts and their device (here: shard)
 #: counts
 LAYOUTS = {"16x16": 256, "2x16x16": 512}
+#: the network rate (bytes/s, one direction) a GPU has to the rest of a
+#: cluster: one ConnectX-7 NDR InfiniBand link of 400 Gb/s a GPU (NVIDIA
+#: DGX H100 data sheet: eight 400 Gb/s compute ports for its eight GPUs).
+#: It bounds every collective over a mesh axis longer than one 8-GPU
+#: HGX H100 node, as both production axes (16) are; NVLink's 450 GB/s a
+#: direction holds only inside a node.
+NETWORK_RATE = 400e9 / 8
 
 
 def hbm_rate(name: str) -> float:
@@ -111,6 +121,18 @@ def make_data_mesh(shards: int, device: Union[str, torch.device] = "cuda"
         raise ValueError(f"a production layout has {sorted(LAYOUTS.values())} "
                          f"shards, got {shards}")
     return sharding.make_data_mesh(shards, device)
+
+
+def make_production_mesh(multi_pod: bool = False) -> sharding.LogicalMesh:
+    """The reference's production mesh as axis names and extents:
+    ``(data=16, model=16)``, 256 chips, or with ``multi_pod`` ``(pod=2,
+    data=16, model=16)``, 512.  Nothing is placed on it: the LM dry run
+    reads per-device shapes and collective extents from it
+    (:func:`repro_torch.distributed.sharding.shard_shape`)."""
+    if multi_pod:
+        return sharding.LogicalMesh(("pod", "data", "model"),
+                                    {"pod": 2, "data": 16, "model": 16})
+    return sharding.LogicalMesh(("data", "model"), {"data": 16, "model": 16})
 
 
 def mesh_shape_for(devices: int, model_parallel: Optional[int] = None

@@ -7,10 +7,11 @@ the port's reports and registries and render byte for byte what the
 reference renders for reports with equal fields.  The dry-run tables
 read the rows of :mod:`repro_torch.launch.dryrun`: each row carries the
 card it ran on and that card's memory, so ``fits`` compares the cell's
-peak with the memory of the card that measured it.  Solver rows are
-float32 and get no collective correction, as in the reference; the
-reference's bf16 correction of LM rows (``corrected_coll_bytes``) comes
-with the NN stack (ROADMAP, Queue 1, item 3).
+peak with the memory of the card that measured it.  No row gets a
+collective correction: the reference corrects its bf16 LM rows for what
+the CPU backend's HLO inflates (``corrected_coll_bytes``, kept for
+parity), but the port's counts are analytic, in the dtype that is
+actually moved, like the solver rows.
 """
 from __future__ import annotations
 
@@ -40,28 +41,51 @@ def _gib(nbytes: Optional[float]) -> str:
     return "-" if nbytes is None else f"{nbytes / 2**30:.2f}"
 
 
-def table(rows: Dict, mesh: str = "16x16") -> str:
-    """The roofline table of the solver rows on ``mesh``: the step's
-    peak device memory against the card's, its three time terms on the
-    card, the bottleneck, the useful-operation ratio and the share of
-    the step's bound that the useful operations alone would take."""
+def corrected_coll_bytes(r: dict, bf16: bool = True) -> Optional[float]:
+    """The reference's TPU correction of a row's collective bytes read
+    from the CPU backend's HLO, which promotes bf16 values to f32 and
+    lacks the all-reduce -> reduce-scatter rewrite: ``0.5 (AG + AA + CP)
+    + 0.25 AR`` for bf16 models, the raw sum for f32 ones.  Kept for
+    parity only: the port counts its collectives from shapes in the
+    dtype that is moved, so :func:`table` never applies it."""
+    kinds = r.get("coll_by_kind")
+    if kinds is None:
+        return None
+    if not bf16:
+        return float(sum(kinds.values()))
+    ar = kinds.get("all-reduce", 0)
+    rest = sum(v for k, v in kinds.items() if k != "all-reduce")
+    return 0.5 * rest + 0.25 * ar
+
+
+def table(rows: Dict, mesh: str = "16x16", corrected: bool = True) -> str:
+    """The roofline table of the rows on ``mesh`` (the solver's and the
+    LM cells' calibrated rows): the step's peak device memory (measured
+    for a solver row, estimated for an LM row) against the card's, its
+    three time terms on the card, the bottleneck, the useful-operation
+    ratio and the share of the step's bound that the useful operations
+    alone would take.  ``corrected`` is the reference's switch; the
+    port's counts need no correction (:func:`corrected_coll_bytes`), so
+    it changes nothing."""
     out = []
     hdr = ("| arch | shape | peak GiB/dev | fits | t_comp ms | t_mem ms | "
            "t_coll ms | bottleneck | useful-flop | roofline frac |")
     out.append(hdr)
     out.append("|" + "---|" * 10)
     for (a, s, m), r in sorted(rows.items()):
-        if m != mesh or "roofline" not in r or a != "poisson_pcg":
+        if m != mesh or "roofline" not in r:
             continue
         rf = r["roofline"]
         tc, tm, tx = rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"]
         peak = r["memory"].get("peak_bytes")
-        fits = ("-" if peak is None
-                else "Y" if peak <= r["device"]["memory_bytes"] else "n")
+        memory = r["device"]["memory_bytes"]
+        fits = ("-" if peak is None or memory is None
+                else "Y" if peak <= memory else "n")
         uf = r.get("useful_flop_ratio")
         # the useful operations' time on the card, against the step's
-        # bound (the copies share HBM with the kernels: tm + tx)
-        bound = max(tc, tm + tx)
+        # bound (a solver step's copies share HBM with the kernels: tm +
+        # tx; an LM cell's collectives cross the network and overlap)
+        bound = r.get("step_bound_s", max(tc, tm + tx))
         frac = (uf or 0) * tc / bound if bound > 0 else 0
         out.append(
             f"| {a} | {s} | {_gib(peak)} | {fits} | {tc*1e3:.1f} | "
@@ -72,15 +96,50 @@ def table(rows: Dict, mesh: str = "16x16") -> str:
 
 
 def multipod_table(rows: Dict) -> str:
-    """The 2x16x16 layout's rows: peak device memory and first-step
-    seconds."""
-    out = ["| arch | shape | mesh | peak GiB/dev | compile s |",
-           "|---|---|---|---|---|"]
+    """The 2x16x16 layout's rows: peak device memory, first-step
+    seconds and, for an LM row, the exact per-device argument bytes (a
+    multi-pod pass runs one depth variant, so its peak is not
+    estimated)."""
+    out = ["| arch | shape | mesh | peak GiB/dev | compile s | args GiB/dev |",
+           "|---|---|---|---|---|---|"]
     for (a, s, m), r in sorted(rows.items()):
         if m != "2x16x16":
             continue
         peak = r["memory"].get("peak_bytes")
-        out.append(f"| {a} | {s} | {m} | {_gib(peak)} | {r['compile_s']} |")
+        args = r["memory"].get("argument_bytes")
+        out.append(f"| {a} | {s} | {m} | {_gib(peak)} | {r['compile_s']} | "
+                   f"{_gib(args)} |")
+    return "\n".join(out)
+
+
+def lm_table(rows: Dict, mesh: str = "16x16") -> str:
+    """The LM rows' measurements on ``mesh``: the exact per-device
+    argument bytes, the estimated peak against the card's memory, each
+    depth variant's step seconds at its batch, the extrapolated step of
+    one data replica and its ``model_flops`` share of the bf16 peak, the
+    cuts and refusals (``reduced``), and the card."""
+    out = ["| arch | shape | args GiB/dev | est. peak GiB/dev | fits | "
+           "variant steps s (batch) | replica step s | bf16 share | cuts | "
+           "card |", "|" + "---|" * 10]
+    for (a, s, m), r in sorted(rows.items()):
+        if m != mesh or "measured" not in r:
+            continue
+        msr, dev = r["measured"], r["device"]
+        peak = r["memory"].get("peak_bytes")
+        fits = ("-" if peak is None or dev["memory_bytes"] is None
+                else "Y" if peak <= dev["memory_bytes"] else "n")
+        steps = ", ".join(
+            f"{g} " + ("-" if v["step_s"] is None else f"{v['step_s']:.4f}")
+            + f" ({v['batch']})" for g, v in msr["variants"].items())
+        step, share = msr["replica_step_s"], msr["bf16_share"]
+        card = ("-" if dev["name"] is None
+                else f"{dev['name']}, {dev['power_limit']}")
+        out.append(
+            f"| {a} | {s} | {_gib(r['memory']['argument_bytes'])} | "
+            f"{_gib(peak)} | {fits} | {steps} | "
+            f"{'-' if step is None else f'{step:.3f}'} | "
+            f"{'-' if share is None else f'{share:.4f}'} | "
+            f"{'; '.join(r['reduced']) or '-'} | {card} |")
     return "\n".join(out)
 
 
@@ -265,3 +324,7 @@ if __name__ == "__main__":
     print(table(rows))
     print()
     print(multipod_table(rows))
+    if any("measured" in r for r in rows.values()):
+        for layout in ("16x16", "2x16x16"):
+            print()
+            print(lm_table(rows, layout))

@@ -28,6 +28,14 @@ For LM serving, :func:`model_flops` is the reference's MODEL_FLOPS
 formula and :func:`decode_step_bytes` counts a greedy decode step's
 compulsory bytes from the model's and the caches' shapes (built on the
 meta device: nothing is allocated).
+
+For the LM dry run's cells the work is counted, not derived: an
+:class:`OpCounter` dispatch mode over one step that really runs counts
+its products' operations (``torch.utils.flop_counter``'s registry) and
+every ATen op's input and output bytes, the eager counterpart of XLA's
+``cost_analysis``; :func:`lm_collectives` counts, from the cell's
+shapes and its layout under the axis rules, the bytes each chip must
+exchange over the network.
 """
 from __future__ import annotations
 
@@ -36,13 +44,17 @@ import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed.sharding import spec_for_shape
 from repro_torch.kernels.fused_cg import fused_pass_traffic
 from repro_torch.launch.mesh import peak_ops
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Init
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, param_specs
 
 DType = Union[str, torch.dtype]
 
@@ -140,12 +152,19 @@ def p_update_work(n: int, dtype: DType) -> Work:
 class Roofline:
     """A step's compulsory work on the card and its three time terms.
 
-    ``flops`` and ``hbm_bytes`` are the kernels' and the vector update's
-    counts on the whole card; ``coll_bytes`` the bytes moved between
-    shards (``coll_by_kind``), each a device-to-device copy through HBM;
-    ``chips`` the mesh's shard count; ``hbm_rate`` the card's HBM rate
+    ``flops`` and ``hbm_bytes`` are the card's counts (for a solver step
+    the kernels' and the vector update's on the whole card; for an LM
+    cell one chip's share, each chip a card of its own); ``coll_bytes``
+    the bytes moved between shards or chips (``coll_by_kind``);
+    ``chips`` the shards whose work the card holds (1 for an LM cell);
+    ``hbm_rate`` the card's HBM rate
     (:func:`repro_torch.launch.mesh.device_hbm_rate`: read from the card,
-    given on the CPU, never assumed) and ``dtype`` the grid's dtype."""
+    given on the CPU, never assumed) and ``dtype`` the dtype of the
+    peak rate the operations are held to.  ``coll_rate`` is the rate
+    the collectives move at: ``None`` for shards on one card, whose
+    collective bytes are device-to-device copies through HBM, or the
+    network's (:data:`repro_torch.launch.mesh.NETWORK_RATE`) for chips
+    on cards of their own."""
 
     flops: float
     hbm_bytes: float
@@ -154,6 +173,7 @@ class Roofline:
     chips: int
     hbm_rate: float
     dtype: str = "float32"
+    coll_rate: Optional[float] = None
 
     @property
     def t_compute(self) -> float:
@@ -167,9 +187,12 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        """The shard-to-shard bytes as copies on the card: each byte is
-        read and written once through HBM, so twice the bytes over the
-        HBM rate."""
+        """Over the network: the collective bytes over ``coll_rate``.  On
+        one card: the shard-to-shard bytes as copies, each byte read and
+        written once through HBM, so twice the bytes over the HBM
+        rate."""
+        if self.coll_rate is not None:
+            return self.coll_bytes / self.coll_rate
         return 2 * self.coll_bytes / self.hbm_rate
 
     @property
@@ -180,9 +203,12 @@ class Roofline:
 
     @property
     def step_time_lb(self) -> float:
-        """Lower bound on the step's time on the card.  The copies share
-        HBM with the kernels, so the memory and collective terms add;
-        compute overlaps them."""
+        """Lower bound on the step's time on the card.  On one card the
+        copies share HBM with the kernels, so the memory and collective
+        terms add and compute overlaps them; over the network the three
+        overlap (the reference's perfect-overlap bound)."""
+        if self.coll_rate is not None:
+            return max(self.t_compute, self.t_memory, self.t_collective)
         return max(self.t_compute, self.t_memory + self.t_collective)
 
     def as_row(self) -> Dict[str, float]:
@@ -344,3 +370,165 @@ def decode_step_bytes(cfg, batch: int, position: int) -> int:
                 total += 2 * sum(_nbytes(t) for t in c.values())
     logit = torch.empty((), dtype=getattr(torch, cfg.logit_dtype))
     return total + batch * cfg.padded_vocab * logit.element_size()
+
+
+# ----------------------------------------------------------------------
+# LM cells: the counted work of a step, and its collective bytes
+# ----------------------------------------------------------------------
+#: ops that allocate without writing a value: they move no byte
+_NO_TRAFFIC = frozenset(("empty", "empty_strided", "empty_like", "new_empty",
+                         "new_empty_strided"))
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts every ATen op dispatched while it is active (forward,
+    backward and the backward's recompute alike): ``flops``, the
+    operations of the products in ``torch.utils.flop_counter``'s
+    registry (``mm``, ``bmm``, ``addmm``, ``baddbmm``, convolutions,
+    attention kernels: two a multiply-add; any other op adds none, so
+    elementwise work is not in it), and ``nbytes``, the bytes of every
+    tensor an op takes and returns (read once, written once).  A view
+    moves nothing and allocations write nothing: neither is counted.
+    ``ops`` counts every op dispatched."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.nbytes = 0
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        packet = func._overloadpacket
+        if packet not in flop_registry:
+            # a composite op (``matmul`` under inference mode) is counted
+            # as the ops it decomposes into, as FlopCounterMode counts it
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        self.ops += 1
+        if packet in flop_registry:
+            self.flops += int(flop_registry[packet](*args, **kwargs,
+                                                    out_val=out))
+        if not func.is_view and packet.__name__ not in _NO_TRAFFIC:
+            for t in tree_leaves((args, kwargs, out)):
+                if isinstance(t, torch.Tensor):
+                    self.nbytes += t.numel() * t.element_size()
+        return out
+
+
+def _axes(phys) -> Tuple[str, ...]:
+    """The mesh axes of one physical spec entry."""
+    return () if phys is None else phys if isinstance(phys, tuple) else (phys,)
+
+
+def _extent(mesh, axes) -> int:
+    return math.prod(int(mesh.shape[a]) for a in axes)
+
+
+#: the logical axes of a row-parallel product's contraction dimension
+#: (its output is a partial sum over the axis' shards)
+_ROW_PARALLEL = {"wo": "heads", "w_out": ("mlp", "experts")}
+
+
+def lm_collectives(cell) -> Dict[str, int]:
+    """The bytes one chip must exchange in one step of an LM dry-run
+    cell (``repro_torch.models.registry.Cell``), by kind: the compulsory
+    transfers its layout under the axis rules implies, counted from the
+    shapes.  A ring all-gather or reduce-scatter over ``n`` chips moves
+    ``(n-1)/n`` of the whole tensor a chip, an all-reduce twice that.
+
+    - **FSDP gathers** (``all-gather``): every parameter sharded over
+      the ``fsdp`` axis (``n_f`` chips) is gathered whole along it
+      before use: ``(n_f - 1) x`` its per-device bytes, in the compute
+      dtype under ``bf16_gather`` (else the parameter dtype), once a
+      step when serving (none under ``serve_resident``, whose rules
+      drop ``fsdp``) and twice a microbatch in training (the forward
+      and the backward);
+    - **gradients** (training): an fsdp-sharded parameter's gradient is
+      reduce-scattered back (``reduce-scatter``, ``(n_f - 1) x`` its
+      per-device bytes, f32, or the compute dtype under
+      ``bf16_gather``), and every gradient is all-reduced over the batch
+      axes its parameter is not sharded on (``all-reduce``,
+      ``2 (n - 1) / n x`` its per-device bytes), once a step;
+    - **row-parallel products** (``all-reduce`` over ``model``,
+      ``n_m`` chips): the output of each product whose contraction
+      dimension is sharded over ``model`` (attention's ``wo`` over
+      ``heads``, the MLP's, recurrent and SSM blocks' ``w_out`` over
+      ``mlp``, the MoE combine over ``experts``) is summed across its
+      shards: ``2 (n_m - 1) / n_m x b_dev x tokens x d_model`` in the
+      compute dtype a layer (``b_dev`` the per-device batch, ``tokens``
+      the step's sequence, 1 for decode, ``enc_seq`` for the encoder),
+      in the forward and, in training, again in the backward (the input
+      gradient of the column-parallel products);
+    - **the decode softmax over a ``kv_seq``-sharded cache**
+      (``all-reduce`` over the cache's sequence shards, ``n``): each
+      attention layer combines its shards' partial outputs with their
+      running maximum and sum, ``2 (n - 1) / n x b_dev x n_heads x
+      (head_dim + 2)`` f32 values.
+
+    Microbatches split the batch, so the products' bytes do not grow
+    with them; the vocabulary-sharded loss's logsumexp and the
+    resharding of a prefill's K/V into the caches are not counted."""
+    cfg, rules, shape = cell.cfg, cell.rules, cell.shape
+    mesh = rules.mesh
+    train = shape.kind == "train"
+    out: Dict[str, float] = {}
+
+    def add(kind: str, nbytes: float) -> None:
+        if nbytes > 0:
+            out[kind] = out.get(kind, 0) + nbytes
+
+    def ring(n: int) -> float:
+        return (n - 1) / n
+
+    batch_axes = set(_axes(spec_for_shape(rules, (shape.batch, 1),
+                                          ("batch", None))[0]))
+    b_dev = shape.batch // _extent(mesh, batch_axes)
+    fsdp_axes = set(_axes(rules.physical("fsdp")))
+    cdt, pdt = _itemsize(cfg.cdt), _itemsize(cfg.pdt)
+    gather_item = cdt if cfg.bf16_gather else pdt
+    grad_item = cdt if cfg.bf16_gather else 4
+    gathers = 2 * cfg.microbatches if train else 1
+    model_n = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
+    tokens = shape.seq if shape.kind != "decode" else 1
+    specs = param_specs(cfg)
+    structs, physical = cell.in_structs[0], cell.in_shardings[0]
+    for path, st in structs.items():
+        ph = physical[path]
+        used = {a for dim in ph.spec for a in _axes(dim)}
+        numel = math.prod(ph.shape)
+        n_f = _extent(mesh, used & fsdp_axes)
+        if n_f > 1:
+            add("all-gather", gathers * (n_f - 1) * numel * gather_item)
+            if train:
+                add("reduce-scatter", (n_f - 1) * numel * grad_item)
+        n_r = _extent(mesh, batch_axes - used)
+        if train and n_r > 1:
+            add("all-reduce", 2 * ring(n_r) * numel * grad_item)
+
+        logical = specs[path]
+        want = _ROW_PARALLEL.get(path[-1], ())
+        want = want if isinstance(want, tuple) else (want,)
+        stacked = path[0] in ("groups", "enc", "dec")
+        dim = 1 if stacked else 0
+        if (logical[dim] in want and "model" in _axes(ph.spec[dim])
+                and not (path[0] == "enc" and shape.kind == "decode")):
+            rows = st.shape[0] if stacked else 1
+            seq = cfg.enc_seq if path[0] == "enc" else tokens
+            act = b_dev * seq * cfg.d_model * cdt
+            add("all-reduce", rows * (2 if train else 1) * 2 * ring(model_n)
+                * act)
+
+    if shape.kind == "decode":
+        for path, ph in cell.in_shardings[2].items():
+            if path[-1] != "k":
+                continue
+            n = _extent(mesh, _axes(ph.spec[2 if len(ph.shape) == 5 else 1]))
+            rows = ph.shape[0] if len(ph.shape) == 5 else 1
+            if n > 1:
+                add("all-reduce", rows * 2 * ring(n) * b_dev * cfg.n_heads
+                    * (cfg.hd + 2) * 4)
+    return {k: int(round(v)) for k, v in out.items()}

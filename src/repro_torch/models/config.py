@@ -6,10 +6,9 @@ Every field and default is the reference's, so the ten configs under
 reads ``remat_policy`` (``"dots"`` keeps the weight products through
 each layer's checkpoint).  ``microbatches`` is the value a train cell
 hands to ``TrainConfig(microbatches=...)``, as the reference's
-``build_cell`` does; the port's cells come with the LM dry run (ROADMAP,
-Queue 1 item 3.3), so nothing reads it yet.  The XLA-only levers
-(``unroll_groups``, ``serve_resident``, ``bf16_gather``,
-``explicit_sp``) are kept as inert fields.  ``pdt`` and ``cdt`` are
+``build_cell`` does.  The dry run reads ``serve_resident`` (its rules)
+and ``bf16_gather`` (its counted gathers); ``unroll_groups`` and
+``explicit_sp`` change nothing on one card.  ``pdt`` and ``cdt`` are
 ``torch.dtype`` s.
 """
 from __future__ import annotations

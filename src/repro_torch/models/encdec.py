@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_slice_clamped, remat_call,
                                             unembed_logits)
@@ -67,6 +68,36 @@ class EncDec(nn.Module):
                                  for _ in range(cfg.n_layers))
         self.enc_norm = L.RMSNorm(cfg.d_model, cfg.pdt, init)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.pdt, init)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[Tuple[str, ...], T.Spec]:
+    """Every parameter leaf's logical spec, keyed by its path in the
+    reference's tree (``encdec.py::init_encdec``'s spec tree: the
+    ``enc`` and ``dec`` stacks carry the leading layer axis)."""
+    enc = {"ln1": L.RMSNORM_SPECS, "attn": L.ATTENTION_SPECS,
+           "ln2": L.RMSNORM_SPECS, "mlp": L.mlp_specs(cfg)}
+    dec = {"ln1": L.RMSNORM_SPECS, "attn": L.ATTENTION_SPECS,
+           "ln_x": L.RMSNORM_SPECS, "xattn": L.ATTENTION_SPECS,
+           "ln2": L.RMSNORM_SPECS, "mlp": L.mlp_specs(cfg)}
+    specs = {("embed",): ("vocab", "fsdp"), ("enc_pos",): (None, "fsdp"),
+             ("dec_pos",): (None, "fsdp")}
+    if cfg.enc_layers > 0:
+        specs.update(T.flat_specs(enc, ("enc",), stacked=True))
+    if cfg.n_layers > 0:
+        specs.update(T.flat_specs(dec, ("dec",), stacked=True))
+    specs[("enc_norm", "scale")] = L.RMSNORM_SPECS["scale"]
+    specs[("final_norm", "scale")] = L.RMSNORM_SPECS["scale"]
+    return specs
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[Tuple[str, ...], T.Spec]:
+    """Every cache leaf's logical spec, keyed by its path in the
+    reference's cache tree (``init_encdec_cache``'s: ``self`` and
+    ``cross`` stacked over the decoder layers)."""
+    kv = T.layer_cache_specs("global")
+    if cfg.n_layers == 0:
+        return {}
+    return T.flat_specs({"self": kv, "cross": kv}, stacked=True)
 
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_seq: int,

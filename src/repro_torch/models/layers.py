@@ -7,6 +7,11 @@ Conventions
   hd, d)``, ``w_in (d, f)``, ...) and names, so carrying the reference's
   parameters across is a copy (:func:`repro_torch.convert.
   lm_params_from_numpy`).
+- Every block's parameters have the reference's logical specs beside
+  them (``RMSNORM_SPECS``, ``ATTENTION_SPECS``, :func:`mlp_specs`, and
+  their kin in the other family modules): plain data, never tensor
+  attributes, read by the dry run
+  (:func:`repro_torch.models.registry.param_specs`).
 - Parameters are stored in ``cfg.pdt`` (float32) and cast to ``cfg.cdt``
   (bfloat16) at each use (:func:`use_param`), as the reference does.
 - Compute runs in ``cfg.cdt`` with fp32 where the reference keeps it:
@@ -80,6 +85,11 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+#: the logical spec of an :class:`RMSNorm`'s parameter
+#: (``layers.py::init_rmsnorm``'s spec tree)
+RMSNORM_SPECS = {"scale": ("embed",)}
 
 
 class RMSNorm(nn.Module):
@@ -253,6 +263,16 @@ def merge_heads(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(out.shape[:-2] + (h * k,)) @ w.reshape(h * k, d)
 
 
+#: the logical specs of an :class:`Attention`'s parameters
+#: (``layers.py::init_attention``'s spec tree)
+ATTENTION_SPECS = {
+    "wq": ("fsdp", "heads", None),
+    "wk": ("fsdp", "kv_heads", None),
+    "wv": ("fsdp", "kv_heads", None),
+    "wo": ("heads", None, "fsdp"),
+}
+
+
 class Attention(nn.Module):
     """GQA attention: ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``, ``wo
     (h, hd, d)``."""
@@ -386,6 +406,15 @@ def _act(name: str, h: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
     if name == "gelu_gated":
         return gelu(g) * h
     return gelu(h)
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical specs of an :class:`MLP`'s parameters
+    (``layers.py::init_mlp``'s spec tree)."""
+    specs = {"w_in": ("fsdp", "mlp"), "w_out": ("mlp", "fsdp")}
+    if "gated" in cfg.mlp_act:
+        specs["w_gate"] = ("fsdp", "mlp")
+    return specs
 
 
 class MLP(nn.Module):

@@ -33,6 +33,16 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, gelu, use_param
 
 
+def moe_specs(cfg: ModelConfig) -> dict:
+    """The logical specs of a :class:`MoE`'s parameters
+    (``moe.py::init_moe``'s spec tree)."""
+    specs = {"router": (None, None), "w_in": ("experts", "fsdp", None),
+             "w_out": ("experts", None, "fsdp")}
+    if "gated" in cfg.mlp_act:
+        specs["w_gate"] = ("experts", "fsdp", None)
+    return specs
+
+
 class MoE(nn.Module):
     """``router (d, e)`` (fp32), ``w_in``/``w_gate (e, d, f)``, ``w_out
     (e, f, d)``."""

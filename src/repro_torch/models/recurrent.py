@@ -33,6 +33,16 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 _C = 8.0
 
 
+#: the logical specs of an :class:`RGLRUBlock`'s parameters
+#: (``recurrent.py::init_rglru_block``'s spec tree)
+RGLRU_SPECS = {
+    "w_gate": ("fsdp", "mlp"), "w_lin": ("fsdp", "mlp"),
+    "conv": (None, "mlp"), "w_a": ("fsdp", "mlp"), "b_a": (None,),
+    "w_i": ("fsdp", "mlp"), "b_i": (None,), "lam": (None,),
+    "w_out": ("mlp", "fsdp"),
+}
+
+
 class RGLRUBlock(nn.Module):
     """The recurrent block's parameters, the reference's names and
     shapes."""

@@ -5,9 +5,12 @@ the :class:`~repro_torch.serving.engine.ServeEngine` runs.
 
 Every architecture is a module in :mod:`repro_torch.configs` exposing
 ``CONFIG`` (the published shape) and ``SMOKE`` (a reduced same-family
-config for CPU tests).  The dry-run cells (``build_cell``,
-``abstract_*``, ``batch_structs``, ``Cell``) come with the LM dry-run
-slice (ROADMAP, Queue 1, item 3.3).
+config for CPU tests).  The dry run's half builds, per (arch, shape)
+cell, the step function with abstract (``meta``) stand-ins of its
+inputs, their logical specs and, under an :class:`~repro_torch.
+distributed.sharding.AxisRules`, each leaf's physical spec and
+per-device shape (``build_cell``, ``abstract_*``, ``batch_structs``,
+``specs_to_physical``, ``Cell``): nothing is allocated.
 
 The reference keeps parameters in a pytree with a pattern group's layers
 stacked along a leading axis; :func:`reference_path` says where each of
@@ -17,13 +20,17 @@ lists them in that tree's flatten order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
-from typing import Callable, Dict, List, Optional, Tuple, Union
+import math
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.sharding import (AxisRules, Spec,
+                                              shard_shape, spec_for_shape)
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -128,6 +135,22 @@ def reference_path(cfg: ModelConfig, name: str
     return parts, None
 
 
+def reference_cache_path(cfg: ModelConfig, layer: int
+                         ) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """Where layer ``layer``'s decode cache lives in the reference's
+    cache tree: its entry's path and, for a stacked entry, its row (a
+    pattern group's caches are stacked as its parameters are; the
+    encoder-decoder's ``self`` and ``cross`` caches stack every decoder
+    layer under the root)."""
+    if cfg.family == "encdec":
+        return (), layer
+    period = cfg.group_size
+    if layer < cfg.n_groups * period:
+        g, j = divmod(layer, period)
+        return ("groups", str(j)), g
+    return ("tail", str(layer - cfg.n_groups * period)), None
+
+
 def reference_leaf_order(model: nn.Module) -> List[List[str]]:
     """The model's parameter names grouped by the reference's leaves, in
     the order ``jax.tree.leaves`` visits them (sorted dict keys, so
@@ -191,3 +214,230 @@ def make_decode(cfg: ModelConfig) -> Callable:
                                               cache_index=index)
         return logits, caches
     return decode
+
+
+# ----------------------------------------------------------------------
+# dry-run cell construction (meta stand-ins and their layout, no
+# allocation)
+# ----------------------------------------------------------------------
+META = torch.device("meta")
+
+
+class Physical(NamedTuple):
+    """One leaf's layout under the axis rules: its physical spec
+    (``spec_for_shape``) and per-device shape (``shard_shape``)."""
+
+    spec: Spec
+    shape: Tuple[int, ...]
+
+
+def param_specs(cfg: ModelConfig) -> Dict[Tuple[str, ...], Spec]:
+    """Every parameter leaf's logical spec by its reference path."""
+    if cfg.family == "encdec":
+        return E.param_specs(cfg)
+    return T.param_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[Tuple[str, ...], Spec]:
+    """Every cache leaf's logical spec by its reference path."""
+    if cfg.family == "encdec":
+        return E.cache_specs(cfg)
+    return T.cache_specs(cfg)
+
+
+def _stacked(rows: Dict[Tuple[str, ...], list]) -> Dict[Tuple[str, ...],
+                                                        torch.Tensor]:
+    """Meta stand-ins of the reference's leaves from the port's tensors
+    grouped by leaf: ``[(row, tensor), ...]``, a stacked leaf's rows
+    along a new leading axis."""
+    out = {}
+    for path, ts in rows.items():
+        row, t = ts[0]
+        shape = tuple(t.shape) if row is None else (len(ts),) + tuple(t.shape)
+        out[path] = torch.empty(shape, dtype=t.dtype, device=META)
+    return out
+
+
+def abstract_params(cfg: ModelConfig
+                    ) -> Tuple[Dict[Tuple[str, ...], torch.Tensor],
+                               Dict[Tuple[str, ...], Spec]]:
+    """``(structs, specs)``: a meta tensor of every reference parameter
+    leaf (stacked leaves whole), keyed by its path, and its logical
+    spec.  The model is built on the ``meta`` device: nothing is
+    allocated."""
+    model = build_model(cfg, Init(META))
+    rows: Dict[Tuple[str, ...], list] = {}
+    for name, param in model.named_parameters():
+        path, row = reference_path(cfg, name)
+        rows.setdefault(path, []).append((row, param))
+    return _stacked(rows), param_specs(cfg)
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int
+                    ) -> Tuple[Dict[Tuple[str, ...], torch.Tensor],
+                               Dict[Tuple[str, ...], Spec]]:
+    """``(structs, specs)`` of the decode caches in the compute dtype,
+    as :func:`abstract_params` gives the parameters."""
+    if cfg.family == "encdec":
+        layers = E.init_encdec_cache(cfg, batch, max_seq, cfg.cdt, META)
+    else:
+        layers = T.init_decoder_cache(cfg, batch, max_seq, cfg.cdt, META)
+    rows: Dict[Tuple[str, ...], list] = {}
+    for layer, cache in enumerate(layers):
+        prefix, row = reference_cache_path(cfg, layer)
+        for key, val in cache.items():
+            leaves = val.items() if isinstance(val, dict) else [(None, val)]
+            for sub, t in leaves:
+                path = prefix + (key,) + (() if sub is None else (sub,))
+                rows.setdefault(path, []).append((row, t))
+    return _stacked(rows), cache_specs(cfg)
+
+
+def batch_structs(cfg: ModelConfig, shape: Shape
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Spec]]:
+    """(meta structs, logical specs) of one training batch: int32
+    ``tokens (b, s)``, or for the vision frontend ``(b, s, d_model)``
+    patch embeddings in ``cdt`` with int32 ``positions (3, b, s)``; the
+    encoder-decoder's ``frames (b, enc_seq, d_model)`` in ``cdt``; int32
+    ``targets (b, s)``."""
+    b, s = shape.batch, shape.seq
+    empty = functools.partial(torch.empty, device=META)
+    structs: Dict[str, torch.Tensor] = {}
+    specs: Dict[str, Spec] = {}
+    if cfg.frontend == "vision":
+        structs["tokens"] = empty((b, s, cfg.d_model), dtype=cfg.cdt)
+        specs["tokens"] = ("batch", None, None)
+        structs["positions"] = empty((3, b, s), dtype=torch.int32)
+        specs["positions"] = (None, "batch", None)
+    else:
+        structs["tokens"] = empty((b, s), dtype=torch.int32)
+        specs["tokens"] = ("batch", None)
+    if cfg.family == "encdec":
+        structs["frames"] = empty((b, cfg.enc_seq, cfg.d_model), dtype=cfg.cdt)
+        specs["frames"] = ("batch", None, None)
+    structs["targets"] = empty((b, s), dtype=torch.int32)
+    specs["targets"] = ("batch", None)
+    return structs, specs
+
+
+def specs_to_physical(spec_tree, rules: AxisRules, struct_tree):
+    """Logical specs -> :class:`Physical` leaves, shape-aware (a
+    dimension whose mesh extent does not divide it degrades to
+    replication, per tensor): the counterpart of the reference's
+    ``_specs_to_shardings(spec_tree, rules, struct_tree)``.  The trees
+    are dicts with the same keys; their leaves are spec tuples and
+    tensors."""
+    if isinstance(struct_tree, dict):
+        return {k: specs_to_physical(spec_tree[k], rules, v)
+                for k, v in struct_tree.items()}
+    shape = tuple(struct_tree.shape)
+    return Physical(spec_for_shape(rules, shape, spec_tree),
+                    shard_shape(rules, shape, spec_tree))
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of dicts, in its order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def _serving(fn: Callable) -> Callable:
+    """``fn`` under ``torch.inference_mode``, as the engine runs it."""
+    @functools.wraps(fn)
+    def run(*args):
+        with torch.inference_mode():
+            return fn(*args)
+    return run
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch x shape) dry-run cell: its step function, the meta
+    stand-ins of its arguments in the reference's layout, their layout
+    under ``rules`` (one :class:`Physical` a leaf, same trees), the
+    arguments the step updates in place (the reference's donated ones),
+    and the config and rules it was built with.
+
+    ``fn`` takes the port's arguments: ``(model, opt_state, batch)`` for
+    training, ``(model, inputs, caches)`` for prefill and ``(model, tok,
+    caches, index)`` for decode."""
+
+    arch: str
+    shape: Shape
+    fn: Callable
+    in_structs: Tuple
+    in_shardings: Tuple
+    donate: Tuple[int, ...] = ()
+    cfg: Optional[ModelConfig] = None
+    rules: Optional[AxisRules] = None
+
+    def argument_bytes(self) -> int:
+        """The per-device bytes of every argument: each leaf's
+        per-device shape times its item size, summed."""
+        total = 0
+        for structs, phys in zip(self.in_structs, self.in_shardings):
+            for st, ph in zip(tree_leaves(structs), tree_leaves(phys)):
+                total += math.prod(ph.shape) * st.element_size()
+        return total
+
+
+def build_cell(cfg: ModelConfig, arch: str, shape_name: Union[str, Shape],
+               rules: AxisRules, opt_cfg=None) -> Cell:
+    """The cell of ``cfg`` at ``SHAPES[shape_name]`` (or at the
+    :class:`Shape` given) under ``rules``.
+
+    Training: ``(params, opt_state, batch)``, the first two updated in
+    place (donated).  Prefill: ``(params, inputs, caches)`` (no
+    ``targets``), the caches written.  Decode: one new token a row
+    against a ``seq``-long cache: ``(params, tok (b, 1), caches,
+    index)``.  With ``cfg.serve_resident`` a serving cell drops the
+    ``fsdp`` axis from the rules (weights stay resident, replicated over
+    ``data``)."""
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init_specs
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    if cfg.serve_resident and shape.kind != "train":
+        r = dict(rules.rules)
+        r["fsdp"] = None
+        rules = AxisRules(rules.mesh, r)
+    params_structs, p_specs = abstract_params(cfg)
+    params_sh = specs_to_physical(p_specs, rules, params_structs)
+
+    if shape.kind == "train":
+        step = make_train_step(make_train_forward(cfg), opt_cfg or AdamWConfig(),
+                               TrainConfig(microbatches=cfg.microbatches))
+        moments = {k: torch.empty(v.shape, dtype=torch.float32, device=META)
+                   for k, v in params_structs.items()}
+        opt_structs = {"m": moments, "v": dict(moments),
+                       "step": torch.empty((), dtype=torch.int32, device=META)}
+        opt_sh = specs_to_physical(adamw_init_specs(p_specs), rules,
+                                   opt_structs)
+        bstructs, bspecs = batch_structs(cfg, shape)
+        b_sh = specs_to_physical(bspecs, rules, bstructs)
+        return Cell(arch, shape, step, (params_structs, opt_structs, bstructs),
+                    (params_sh, opt_sh, b_sh), donate=(0, 1), cfg=cfg,
+                    rules=rules)
+
+    cache_structs, c_specs = abstract_caches(cfg, shape.batch, shape.seq)
+    cache_sh = specs_to_physical(c_specs, rules, cache_structs)
+    if shape.kind == "prefill":
+        bstructs, bspecs = batch_structs(cfg, shape)
+        bstructs.pop("targets")
+        bspecs.pop("targets")
+        b_sh = specs_to_physical(bspecs, rules, bstructs)
+        return Cell(arch, shape, _serving(make_prefill(cfg)),
+                    (params_structs, bstructs, cache_structs),
+                    (params_sh, b_sh, cache_sh), donate=(2,), cfg=cfg,
+                    rules=rules)
+
+    tok = torch.empty((shape.batch, 1), dtype=torch.int32, device=META)
+    idx = torch.empty((), dtype=torch.int32, device=META)
+    return Cell(arch, shape, _serving(make_decode(cfg)),
+                (params_structs, tok, cache_structs, idx),
+                (params_sh, specs_to_physical(("batch", None), rules, tok),
+                 cache_sh, specs_to_physical((), rules, idx)),
+                donate=(2,), cfg=cfg, rules=rules)

@@ -25,6 +25,17 @@ from repro_torch.models.layers import Init, softplus
 Cache = Dict[str, torch.Tensor]
 
 
+#: the logical specs of an :class:`SSMBlock`'s parameters
+#: (``ssm.py::init_ssm_block``'s spec tree)
+SSM_SPECS = {
+    "w_z": ("fsdp", "mlp"), "w_x": ("fsdp", "mlp"),
+    "w_b": ("fsdp", None), "w_c": ("fsdp", None),
+    "w_dt": ("fsdp", None), "dt_bias": (None,), "a_log": (None,),
+    "d_skip": (None,), "conv_x": (None, "mlp"), "conv_b": (None, None),
+    "conv_c": (None, None), "norm": ("mlp",), "w_out": ("mlp", "fsdp"),
+}
+
+
 class SSMBlock(nn.Module):
     """The Mamba-2 mixer's parameters, the reference's names and shapes."""
 

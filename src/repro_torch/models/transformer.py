@@ -13,6 +13,10 @@ no counterpart.
 
 Caches are per-layer: a list with one dict a layer, in layer order.
 
+The reference's logical spec trees come beside the modules, keyed by
+each leaf's path in the reference's tree (:func:`param_specs`,
+:func:`cache_specs`); the modules carry none.
+
 Training runs the stack with ``remat=True``: each layer is checkpointed
 on its own (:func:`remat_call`), the reference's nested per-layer
 remat, so the backward holds one layer's activations at a time.
@@ -93,6 +97,66 @@ class Layer(nn.Module):
         return x, new_cache, aux
 
 
+Spec = Tuple[Optional[str], ...]
+
+
+def layer_specs(cfg: ModelConfig, kind: str) -> Dict[str, Dict[str, Spec]]:
+    """The logical specs of one :class:`Layer`'s parameters, by block
+    (``transformer.py::init_layer``'s spec tree)."""
+    specs = {"ln1": L.RMSNORM_SPECS}
+    if kind in ("global", "local"):
+        specs["attn"] = L.ATTENTION_SPECS
+    elif kind == "rec":
+        specs["rec"] = R.RGLRU_SPECS
+    elif kind == "ssm":
+        specs["ssm"] = S.SSM_SPECS
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if cfg.d_ff > 0:
+        specs["ln2"] = L.RMSNORM_SPECS
+        if cfg.n_experts > 0:
+            specs["moe"] = M.moe_specs(cfg)
+        else:
+            specs["mlp"] = L.mlp_specs(cfg)
+    return specs
+
+
+def flat_specs(tree: Dict, prefix: Tuple[str, ...] = (), stacked: bool = False
+               ) -> Dict[Tuple[str, ...], Spec]:
+    """A nested spec tree as ``{path: spec}``; ``stacked`` prepends the
+    unsharded layer axis of a stacked leaf (``_stack_init``'s leading
+    ``None``)."""
+    out = {}
+    for key, val in tree.items():
+        path = prefix + (key,)
+        if isinstance(val, dict):
+            out.update(flat_specs(val, path, stacked))
+        else:
+            out[path] = ((None,) if stacked else ()) + tuple(val)
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> Dict[Tuple[str, ...], Spec]:
+    """Every parameter leaf's logical spec, keyed by its path in the
+    reference's tree (``registry.reference_path``;
+    ``transformer.py::init_decoder``'s spec tree): a pattern group's
+    stacked leaves carry the leading layer axis."""
+    specs = {("embed",): ("vocab", "fsdp")}
+    if not cfg.use_rope and cfg.max_pos > 0:
+        specs[("pos_embed",)] = (None, "fsdp")
+    pattern = cfg.attn_pattern
+    if cfg.n_groups > 0:
+        for j, kind in enumerate(pattern):
+            specs.update(flat_specs(layer_specs(cfg, kind),
+                                    ("groups", str(j)), stacked=True))
+    for i, kind in enumerate(pattern[: cfg.n_tail]):
+        specs.update(flat_specs(layer_specs(cfg, kind), ("tail", str(i))))
+    specs[("final_norm", "scale")] = L.RMSNORM_SPECS["scale"]
+    if not cfg.tie_embeddings:
+        specs[("unembed",)] = ("fsdp", "vocab")
+    return specs
+
+
 class Decoder(nn.Module):
     """``embed (padded_vocab, d)``, ``pos_embed (max_pos, d)`` with
     learned positions, ``layers``, ``final_norm`` and, untied,
@@ -132,6 +196,40 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
     if kind == "ssm":
         return S.init_ssm_cache(cfg, batch, dtype, device)
     raise ValueError(kind)
+
+
+def layer_cache_specs(kind: str) -> Dict[str, Spec]:
+    """The logical specs of one layer's decode cache
+    (``transformer.py::init_layer_cache``'s spec tree)."""
+    kv = ("batch", "kv_seq", None, None)
+    if kind == "global":
+        return {"k": kv, "v": kv}
+    if kind == "local":
+        return {"k": kv, "v": kv, "pos": ("kv_seq",)}
+    if kind == "rec":
+        return {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}
+    if kind == "ssm":
+        return {"ssm": ("batch", "mlp", None, None),
+                "conv_x": ("batch", None, "mlp"),
+                "conv_b": ("batch", None, None),
+                "conv_c": ("batch", None, None)}
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[Tuple[str, ...], Spec]:
+    """Every cache leaf's logical spec, keyed by its path in the
+    reference's cache tree (``init_decoder_cache``'s spec tree: a
+    group's caches stacked with a leading layer axis, the tail's
+    not)."""
+    specs = {}
+    pattern = cfg.attn_pattern
+    if cfg.n_groups > 0:
+        for j, kind in enumerate(pattern):
+            specs.update(flat_specs(layer_cache_specs(kind),
+                                    ("groups", str(j)), stacked=True))
+    for i, kind in enumerate(pattern[: cfg.n_tail]):
+        specs.update(flat_specs(layer_cache_specs(kind), ("tail", str(i))))
+    return specs
 
 
 def init_decoder_cache(cfg: ModelConfig, batch: int, max_seq: int,

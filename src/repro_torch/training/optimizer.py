@@ -11,7 +11,7 @@ it puts ``eps`` after ``sqrt(v) / sqrt(bc2)`` and rounds differently.
 The optimizer state is ``{"m": {name: tensor}, "v": {name: tensor},
 "step": 0-d int32 tensor}`` on the parameters' device, keyed by the
 module's parameter names.  The update writes parameters and moments in
-place and returns its metrics as 0-d tensors: it never waits for the
+place, ``UPDATE_CHUNK`` values of a leaf at a time, and returns its metrics as 0-d tensors: it never waits for the
 card.  ``moment_dtype="bfloat16"`` halves optimizer memory.
 """
 from __future__ import annotations
@@ -20,6 +20,13 @@ import dataclasses
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 import torch
+
+
+#: the values of a leaf one pass of the update works on: the update is
+#: elementwise, so a leaf updated chunk by chunk has the bits of one
+#: updated whole, and its f32 temporaries (about eight) stay a chunk's
+#: size, 256 MiB each, where a 262144 x 3840 embedding's would be 4 GB
+UPDATE_CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +64,15 @@ def adamw_init(params) -> Dict[str, object]:
     dev = next(iter(named.values())).device
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def adamw_init_specs(param_specs: Mapping) -> Dict[str, object]:
+    """The optimizer state's logical specs: the moments mirror the
+    parameters' (``param_specs``, keyed as the parameters are, by the
+    reference's leaf paths in the dry run) and ``step`` is replicated
+    (the reference's ``adamw_init_specs``; the layout of
+    ``convert.train_state_to_numpy``'s ``"opt"``)."""
+    return {"m": dict(param_specs), "v": dict(param_specs), "step": ()}
 
 
 def default_order(names: Iterable[str]) -> List[List[str]]:
@@ -103,17 +119,23 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: Dict,
     mdt = getattr(torch, cfg.moment_dtype)
     ms, vs = opt_state["m"], opt_state["v"]
     for name, p in named.items():
-        g = grads[name].float() * scale
-        m_new = b1 * ms[name].float() + (1 - b1) * g
-        v_new = b2 * vs[name].float() + (1 - b2) * g * g
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        for store, new in ((ms, m_new), (vs, v_new)):
-            if store[name].dtype == mdt:
-                store[name].copy_(new)
-            else:
-                store[name] = new.to(mdt)
+        m_old, v_old = ms[name], vs[name]
+        m_out, v_out = (old if old.dtype == mdt else
+                        torch.empty(old.shape, dtype=mdt, device=old.device)
+                        for old in (m_old, v_old))
+        grad = grads[name].reshape(-1)
+        for start in range(0, p.numel(), UPDATE_CHUNK):
+            sl = slice(start, start + UPDATE_CHUNK)
+            pc = p.view(-1)[sl]
+            g = grad[sl].float() * scale
+            m_new = b1 * m_old.view(-1)[sl].float() + (1 - b1) * g
+            v_new = b2 * v_old.view(-1)[sl].float() + (1 - b2) * g * g
+            mhat = m_new / bc1
+            vhat = v_new / bc2
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+                + cfg.weight_decay * pc.float()
+            pc.copy_(pc.float() - lr * delta)
+            m_out.view(-1)[sl].copy_(m_new)
+            v_out.view(-1)[sl].copy_(v_new)
+        ms[name], vs[name] = m_out, v_out
     return {"grad_norm": gnorm, "lr": lr}

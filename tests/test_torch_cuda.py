@@ -722,3 +722,59 @@ def test_train_steps_on_card_match_the_cpu(cuda_device, arch):
         assert torch.isfinite(got_p[name]).all()
         excess = (got_p[name] - w).abs() - 2 * (3e-6 + 6e-6) - 1e-4 * w.abs()
         assert float(excess.max()) <= 0.0, (name, float(excess.max()))
+
+
+# ----------------------------------------------------------------------
+# the LM dry run: each kind's SMOKE cell on the card against the CPU
+# ----------------------------------------------------------------------
+def _to_device(obj, dev):
+    """A cell's arguments (modules, tensors, dicts and lists of them) on
+    ``dev``."""
+    if isinstance(obj, (torch.Tensor, torch.nn.Module)):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_device(v, dev) for v in obj]
+    return obj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_lm_dry_run_cell_on_card_matches_the_cpu(cuda_device, shape):
+    """llama3_8b's SMOKE cell (f32 compute) at the dry run's smoke cut of
+    ``shape``: its step on the card from the arguments ``cell_args``
+    makes on the CPU (seed 0), against the same step on the CPU: the
+    train step's loss and grad norm, or the logits, within 1e-5 of the
+    largest magnitude; then ``run_cell`` on the card, whose row measures
+    every variant and estimates the peak."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.distributed.sharding import AxisRules, DEFAULT_RULES
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config("llama3_8b", smoke=True),
+                              compute_dtype="float32")
+    rules = AxisRules(mesh.make_production_mesh(), dict(DEFAULT_RULES))
+    cell = registry.build_cell(cfg, "llama3_8b",
+                               dryrun._cell_shape(shape, True), rules)
+    cpu = torch.device("cpu")
+    outs = []
+    for dev in (cuda_device, cpu):
+        args = _to_device(dryrun.cell_args(cell, 2, cpu), dev)
+        out = cell.fn(*args)
+        outs.append([out["loss"], out["grad_norm"]] if shape == "train_4k"
+                    else [out[0]])
+    for got, want in zip(*outs):
+        got = got.cpu()
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    row = dryrun.run_cell("llama3_8b", shape, False, None, verbose=False,
+                          device="cuda", smoke=True)
+    assert row["ok"] and row["device"]["name"]
+    assert row["memory"]["peak_bytes"] >= row["memory"]["argument_bytes"]
+    for var in row["measured"]["variants"].values():
+        assert var["step_s"] > 0 and var["peak_bytes"] > 0 and var["finite"]
+    assert row["measured"]["replica_step_s"] > 0

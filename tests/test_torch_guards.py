@@ -118,6 +118,8 @@ def no_cuda(monkeypatch):
     lambda: serve.main(["--requests", "1"]),
     lambda: dryrun.main(["--solver", "--smoke"]),
     lambda: dryrun.run_solver_cell("pcg_128m", results_path=None),
+    lambda: dryrun.main(["--arch", "llama3_8b", "--smoke"]),
+    lambda: dryrun.run_cell("llama3_8b", "train_4k", False, None),
     lambda: launch_mesh.make_data_mesh(256),
     lambda: launch_mesh.device_memory_bytes(),
     lambda: train.main(["--arch", "llama3_8b", "--smoke", "--steps", "1"]),
@@ -125,7 +127,8 @@ def no_cuda(monkeypatch):
 ], ids=["Problem.poisson", "make_poisson_problem", "StencilOperator",
         "problem_from_numpy", "state_from_numpy", "erasure solve", "advise",
         "solve_jit", "serve", "SolveService.submit_request", "serve CLI",
-        "dryrun CLI", "run_solver_cell", "launch make_data_mesh",
+        "dryrun CLI", "run_solver_cell", "LM dryrun CLI", "run_cell",
+        "launch make_data_mesh",
         "device_memory_bytes", "train CLI", "checkpoint restore"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):

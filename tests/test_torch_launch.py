@@ -607,10 +607,20 @@ def test_dry_run_cli_on_the_cpu_and_its_table(tmp_path, capsys):
         {("poisson_pcg", "smoke_auto", "2x16x16"): row}, mesh="2x16x16")
 
 
-@pytest.mark.parametrize("argv", [[], ["--solver", "--opt", "remat_dots"]],
-                         ids=["LM cells", "--opt"])
-def test_dry_run_refuses_the_lm_cells(argv):
+@pytest.mark.parametrize("argv,code,says", [
+    (["--arch", "llama3_8b", "--shape", "train_4k", "--mesh", "single",
+      "--smoke", "--device", "cpu", "--memory-bytes", "4096", "--hbm-rate",
+      str(H100)], 1, "does not fit"),
+    (["--solver", "--opt", "remat_dot"], 2, "unknown --opt lever")],
+    ids=["LM cells", "--opt"])
+def test_dry_run_refuses_the_lm_cells(tmp_path, capsys, argv, code, says):
+    """An LM cell whose variants do not fit the device is refused before
+    anything is allocated (the run exits 1 naming it); an unknown lever
+    is refused before any cell runs."""
     with pytest.raises(SystemExit) as exc:
-        dryrun.main(argv)
-    assert "ROADMAP Queue 1 item 3" in str(exc.value.code)
+        dryrun.main(argv + ["--out", str(tmp_path / "rows.jsonl")])
+    assert exc.value.code == code
+    captured = capsys.readouterr()
+    assert says in captured.out + captured.err
+    assert not (tmp_path / "rows.jsonl").exists()
 
