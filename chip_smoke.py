@@ -156,8 +156,11 @@ non-zero and prints no result line):
    on 2x16x16 (the multi-pod pass, g1); every row ``ok`` with finite
    losses or logits, its per-device argument bytes equal to the
    reference's (``DRYRUN_LM_ARG_BYTES``), a calibrated row's
-   extrapolated replica step at least its g1 step; no hand-written
-   kernel runs: the launch counts must read 0 (about 110 s).
+   extrapolated replica step at least its g1 step and within its range
+   over the quartiles of the variants' timed steps; no hand-written
+   kernel runs: the launch counts must read 0 (79-135 s on an H100 80GB
+   HBM3 at 700 W with three timed steps a variant; each variant now
+   times at least 2 s of steps, a few seconds more).
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
@@ -2875,7 +2878,7 @@ def phase_dryrun_lm(torch) -> dict:
     in its own processes): every row ``ok`` with finite losses or
     logits in every variant, its per-device argument bytes the
     reference's, a calibrated row's extrapolated replica step at least
-    its g1 step and its roofline terms finite.  The path has no
+    its g1 step and within its range, and its roofline terms finite.  The path has no
     hand-written kernel: its launch counts must read 0."""
     from repro_torch.launch import report
 
@@ -2900,10 +2903,12 @@ def phase_dryrun_lm(torch) -> dict:
         got = row["memory"]["argument_bytes"]
         say("dryrun-lm", cell=key, argument_bytes=got, reference=want,
             peak_bytes_estimate=row["memory"]["peak_bytes"],
-            variants={g: {k: v[k] for k in ("batch", "step_s", "enqueue_s",
-                                            "peak_bytes", "finite")}
-                      for g, v in variants.items()},
+            variants={g: {k: v[k] for k in (
+                "batch", "step_s", "step_q1_s", "step_q3_s", "timed_steps",
+                "enqueue_s", "peak_bytes", "finite")}
+                for g, v in variants.items()},
             replica_step_s=row["measured"]["replica_step_s"],
+            replica_step_range_s=row["measured"]["replica_step_range_s"],
             bf16_share=row["measured"]["bf16_share"],
             roofline=row.get("roofline"), reduced=row["reduced"])
         check(row["ok"] and all(v["finite"] for v in variants.values()),
@@ -2915,9 +2920,13 @@ def phase_dryrun_lm(torch) -> dict:
             check(all(math.isfinite(rf[k]) for k in
                       ("t_compute_s", "t_memory_s", "t_collective_s")),
                   f"{key}: roofline terms not finite: {rf}")
-            check(row["measured"]["replica_step_s"]
-                  >= variants["g1"]["step_s"],
+            step = row["measured"]["replica_step_s"]
+            least, most = row["measured"]["replica_step_range_s"]
+            check(step >= variants["g1"]["step_s"],
                   f"{key}: the extrapolated step is under the g1 step")
+            check(least <= step <= most,
+                  f"{key}: the replica step {step} is outside its range "
+                  f"{least}-{most}")
     print("[dryrun-lm] table, 16x16:\n" + report.table(rows), flush=True)
     print("[dryrun-lm] multipod table:\n" + report.multipod_table(rows),
           flush=True)

@@ -22,8 +22,10 @@ shapes, and from real steps on the card.
    the extent of the batch axes ``spec_for_shape`` keeps), on depth
    variants (:func:`_depth_variant`): g1 and g2 on the single-pod
    layout, g1 alone as the multi-pod pass; each variant's state comes
-   from seeded generators and takes ``1 + WARM_STEPS`` steps timed with
-   CUDA events, then one untimed step under
+   from seeded generators and takes one step, then timed steps (CUDA
+   events) until there are at least ``WARM_STEPS`` and, on the card,
+   they add up to ``TIMED_WINDOW_S`` (:func:`keep_timing`), then one
+   untimed step under
    :class:`~repro_torch.launch.roofline.OpCounter` (calibrating passes
    only); the peak is ``max_memory_allocated`` after
    ``reset_peak_memory_stats``;
@@ -41,9 +43,15 @@ shapes, and from real steps on the card.
    once, is 1 here), and scaled by the batch cut (exact in batch for
    the counts): the full-depth step of one data replica on one card,
    which on the production mesh is the work of ``model`` = 16 chips;
-   the counts over the chips give the roofline's perfectly partitioned
-   share, and :func:`~repro_torch.launch.roofline.lm_collectives` the
-   bytes a chip exchanges over the network;
+   the extrapolation multiplies the variants' step difference by about
+   ``groups_eff - 1``, so the row also gives the replica step's range
+   over the quartiles of the variants' timed steps
+   (:func:`replica_steps`); the counts over the chips give the
+   roofline's perfectly partitioned share (the operations of the
+   products only; the bytes the eager program's ATen traffic, which is
+   not a compulsory bound: :class:`~repro_torch.launch.roofline.
+   OpCounter`), and :func:`~repro_torch.launch.roofline.lm_collectives`
+   the bytes a chip exchanges over the network;
 5. one JSON row with the reference's keys (``arch, shape, mesh, chips,
    compile_s`` (the first step's wall), ``memory, roofline,
    coll_by_kind, model_flops_global, model_flops_per_chip,
@@ -132,6 +140,12 @@ from repro_torch.training.optimizer import UPDATE_CHUNK, adamw_init
 USEFUL_OPS_PER_POINT = 18.0
 #: the warm steps after the first whose median wall is ``step_s``
 WARM_STEPS = 3
+#: an LM variant's timed steps on the card add up to at least this many
+#: seconds (beyond ``WARM_STEPS``, at most ``MAX_TIMED_STEPS``): a
+#: short step's noise grows about ``groups_eff - 1`` times in the
+#: extrapolated replica step
+TIMED_WINDOW_S = 2.0
+MAX_TIMED_STEPS = 500
 #: the grids' dtype (``lower_pcg_step``'s default)
 DTYPE = torch.float32
 #: the seed of every cell's right-hand side
@@ -323,8 +337,9 @@ INERT_LEVERS = ("explicit_sp",)
 
 
 #: a variant's fields that hold device metrics (``None`` on the CPU)
-DEVICE_FIELDS = ("first_step_s", "step_s", "enqueue_s", "warm_steps_s",
-                 "allocated_bytes", "peak_bytes", "nonarg_peak_bytes")
+DEVICE_FIELDS = ("first_step_s", "step_s", "step_q1_s", "step_q3_s",
+                 "timed_steps", "enqueue_s", "allocated_bytes",
+                 "peak_bytes", "nonarg_peak_bytes")
 
 
 def _depth_variant(cfg, groups: int):
@@ -354,6 +369,43 @@ def extrapolate(lo: int, values: Tuple[float, float], geff: float) -> float:
     reference's ``a + (b - a) (groups_eff - 1)`` from g1 and g2)."""
     a, b = values
     return a + (b - a) * (geff - lo)
+
+
+def extrapolate_range(lo: int, lows: Tuple[float, float],
+                      highs: Tuple[float, float],
+                      geff: float) -> Tuple[float, float]:
+    """The least and the most :func:`extrapolate` gives over each
+    variant's low (``lows``) and high (``highs``) step: past one group
+    the shallower variant's weight is negative, so its high step with
+    the deeper one's low gives the least."""
+    ends = [extrapolate(lo, (a, b), geff)
+            for a in (lows[0], highs[0]) for b in (lows[1], highs[1])]
+    return min(ends), max(ends)
+
+
+def replica_steps(runs: Dict[int, Dict], pair: Tuple[int, int],
+                  geff: float, cut: float) -> Tuple[float, List[float]]:
+    """The replica's full-depth step from the variants ``pair`` (their
+    median steps extrapolated, times the batch cut) and its range over
+    their steps' first and third quartiles (:func:`extrapolate_range`):
+    the spread of half the timed steps, which the extremes of hundreds
+    of short steps would overstate."""
+    def ends(key):
+        return tuple(runs[g][key] for g in pair)
+
+    least, most = extrapolate_range(pair[0], ends("step_q1_s"),
+                                    ends("step_q3_s"), geff)
+    return (extrapolate(pair[0], ends("step_s"), geff) * cut,
+            [least * cut, most * cut])
+
+
+def keep_timing(steps: Sequence[float], window: float) -> bool:
+    """Whether a variant times another step after ``steps``: until
+    there are ``WARM_STEPS``, then while they add up to less than
+    ``window`` seconds, up to ``MAX_TIMED_STEPS``."""
+    if len(steps) < WARM_STEPS:
+        return True
+    return sum(steps) < window and len(steps) < MAX_TIMED_STEPS
 
 
 def _nbytes(structs) -> int:
@@ -549,9 +601,11 @@ def _finite(kind: str, out) -> bool:
 
 
 def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
-    """``1 + WARM_STEPS`` steps of ``cell`` at ``batch`` rows on
-    ``device`` (each timed by CUDA events on the card, by the host's
-    clock on the CPU), then with ``count`` one step under
+    """One step of ``cell`` at ``batch`` rows on ``device``, then timed
+    steps while :func:`keep_timing` says so (CUDA events over a window
+    of ``TIMED_WINDOW_S`` on the card; ``WARM_STEPS`` by the host's
+    clock on the CPU, which names no device time), then with ``count``
+    one step under
     :class:`~repro_torch.launch.roofline.OpCounter`.  Returns the
     variant's measurements; raises when a step's loss, gradient norm or
     logits are not finite."""
@@ -569,7 +623,7 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
         torch.cuda.synchronize(device)
     first_s = time.perf_counter() - t0
     steps, enqueues = [], []
-    for _ in range(WARM_STEPS):
+    while keep_timing(steps, TIMED_WINDOW_S if cuda else 0.0):
         del out
         if cuda:
             start, end = (torch.cuda.Event(enable_timing=True)
@@ -587,9 +641,11 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else None
     finite = _finite(cell.shape.kind, out)
     del out
+    q1, _, q3 = statistics.quantiles(steps, n=4, method="inclusive")
     rec = {"batch": batch, "first_step_s": first_s,
-           "step_s": statistics.median(steps),
-           "enqueue_s": statistics.median(enqueues), "warm_steps_s": steps,
+           "step_s": statistics.median(steps), "step_q1_s": q1,
+           "step_q3_s": q3, "timed_steps": len(steps),
+           "enqueue_s": statistics.median(enqueues),
            "allocated_bytes": allocated if cuda else None,
            "peak_bytes": peak,
            "nonarg_peak_bytes": peak - allocated if cuda else None,
@@ -731,7 +787,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                    else None},
         "measured": {"variants": measured, "replica_batch": rep_batch,
                      "replicas": replicas, "batch_cut": cut,
-                     "replica_step_s": None, "bf16_share": None},
+                     "replica_step_s": None,
+                     "replica_step_range_s": None, "bf16_share": None},
         "reduced": reduced,
         "levers": levers,
         "levers_inert": [lv for lv in levers if lv in INERT_LEVERS],
@@ -753,7 +810,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                            dtype="bfloat16", coll_rate=M.NETWORK_RATE)
         model_n = int(mesh.shape["model"])
         row.update({
-            "roofline": roof.as_row(),
+            "roofline": {
+                **roof.as_row(),
+                "flops_are": "the products' operations only "
+                             "(torch.utils.flop_counter's registry)",
+                "hbm_bytes_are": "the eager program's ATen traffic (every "
+                                 "op's inputs and outputs), not compulsory "
+                                 "bytes: t_memory_s bounds nothing"},
             "step_bound_s": roof.step_time_lb,
             "coll_by_kind": roof.coll_by_kind,
             "model_flops_global": mflops,
@@ -767,19 +830,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 **{f"hbm_bytes_g{g}": runs[g]["hbm_bytes"] for g in pair}},
         })
         if cuda:
-            step = ext("step_s") * cut
+            step, span = replica_steps(runs, pair, geff, cut)
             # a peak grows with depth: allocator noise in a small step
             # cannot make it shrink below the deeper variant's
             nonarg = max(ext("nonarg_peak_bytes"),
                          runs[pair[1]]["nonarg_peak_bytes"]) * cut
             row["memory"]["peak_bytes"] = int(arg_bytes + nonarg / model_n)
             row["measured"].update(
-                replica_step_s=step,
+                replica_step_s=step, replica_step_range_s=span,
                 bf16_share=mflops / replicas / step / M.peak_ops("bfloat16"))
     if verbose:
         msr = row["measured"]
         step_s = ("not measured" if msr["replica_step_s"] is None
-                  else f"{msr['replica_step_s']:.4f}s")
+                  else f"{msr['replica_step_s']:.4f}s (%.4f-%.4f)"
+                  % tuple(msr["replica_step_range_s"]))
         peak = row["memory"]["peak_bytes"]
         peak_s = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
         head = (f"[{label} x {shape_name} x {layout} on {card['name']}] "

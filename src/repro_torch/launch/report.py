@@ -9,9 +9,8 @@ read the rows of :mod:`repro_torch.launch.dryrun`: each row carries the
 card it ran on and that card's memory, so ``fits`` compares the cell's
 peak with the memory of the card that measured it.  No row gets a
 collective correction: the reference corrects its bf16 LM rows for what
-the CPU backend's HLO inflates (``corrected_coll_bytes``, kept for
-parity), but the port's counts are analytic, in the dtype that is
-actually moved, like the solver rows.
+the CPU backend's HLO inflates, but the port's counts are analytic, in
+the dtype that is actually moved, like the solver rows.
 """
 from __future__ import annotations
 
@@ -41,33 +40,23 @@ def _gib(nbytes: Optional[float]) -> str:
     return "-" if nbytes is None else f"{nbytes / 2**30:.2f}"
 
 
-def corrected_coll_bytes(r: dict, bf16: bool = True) -> Optional[float]:
-    """The reference's TPU correction of a row's collective bytes read
-    from the CPU backend's HLO, which promotes bf16 values to f32 and
-    lacks the all-reduce -> reduce-scatter rewrite: ``0.5 (AG + AA + CP)
-    + 0.25 AR`` for bf16 models, the raw sum for f32 ones.  Kept for
-    parity only: the port counts its collectives from shapes in the
-    dtype that is moved, so :func:`table` never applies it."""
-    kinds = r.get("coll_by_kind")
-    if kinds is None:
-        return None
-    if not bf16:
-        return float(sum(kinds.values()))
-    ar = kinds.get("all-reduce", 0)
-    rest = sum(v for k, v in kinds.items() if k != "all-reduce")
-    return 0.5 * rest + 0.25 * ar
+#: the note under a roofline table that holds LM rows: what their
+#: counts are (``repro_torch.launch.roofline.OpCounter``)
+LM_COUNTS_NOTE = ("LM rows: flops count the products only (elementwise "
+                  "work is not counted, so useful-flop can exceed 1); "
+                  "t_mem is the eager program's counted ATen traffic over "
+                  "the HBM rate, not a compulsory bound, so a memory "
+                  "bottleneck names that traffic.")
 
 
-def table(rows: Dict, mesh: str = "16x16", corrected: bool = True) -> str:
+def table(rows: Dict, mesh: str = "16x16") -> str:
     """The roofline table of the rows on ``mesh`` (the solver's and the
     LM cells' calibrated rows): the step's peak device memory (measured
     for a solver row, estimated for an LM row) against the card's, its
     three time terms on the card, the bottleneck, the useful-operation
     ratio and the share of the step's bound that the useful operations
-    alone would take.  ``corrected`` is the reference's switch; the
-    port's counts need no correction (:func:`corrected_coll_bytes`), so
-    it changes nothing."""
-    out = []
+    alone would take; under LM rows, :data:`LM_COUNTS_NOTE`."""
+    out, lm = [], False
     hdr = ("| arch | shape | peak GiB/dev | fits | t_comp ms | t_mem ms | "
            "t_coll ms | bottleneck | useful-flop | roofline frac |")
     out.append(hdr)
@@ -76,6 +65,7 @@ def table(rows: Dict, mesh: str = "16x16", corrected: bool = True) -> str:
         if m != mesh or "roofline" not in r:
             continue
         rf = r["roofline"]
+        lm = lm or "measured" in r
         tc, tm, tx = rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"]
         peak = r["memory"].get("peak_bytes")
         memory = r["device"]["memory_bytes"]
@@ -92,6 +82,8 @@ def table(rows: Dict, mesh: str = "16x16", corrected: bool = True) -> str:
             f"{tm*1e3:.1f} | {tx*1e3:.1f} | {rf['bottleneck']} | "
             f"{uf:.2f} | {frac:.3f} |" if uf is not None else
             f"| {a} | {s} | {_gib(peak)} | {fits} | - | - | - | - | - | - |")
+    if lm:
+        out += ["", LM_COUNTS_NOTE]
     return "\n".join(out)
 
 
@@ -115,12 +107,14 @@ def multipod_table(rows: Dict) -> str:
 def lm_table(rows: Dict, mesh: str = "16x16") -> str:
     """The LM rows' measurements on ``mesh``: the exact per-device
     argument bytes, the estimated peak against the card's memory, each
-    depth variant's step seconds at its batch, the extrapolated step of
-    one data replica and its ``model_flops`` share of the bf16 peak, the
-    cuts and refusals (``reduced``), and the card."""
+    depth variant's median step seconds at its batch and its number of
+    timed steps, the extrapolated step of one data replica with its
+    range over the quartiles of the variants' steps, and its
+    ``model_flops`` share of the bf16 peak, the cuts and refusals
+    (``reduced``), and the card."""
     out = ["| arch | shape | args GiB/dev | est. peak GiB/dev | fits | "
-           "variant steps s (batch) | replica step s | bf16 share | cuts | "
-           "card |", "|" + "---|" * 10]
+           "variant steps s (batch, timed steps) | replica step s (range) | "
+           "bf16 share | cuts | card |", "|" + "---|" * 10]
     for (a, s, m), r in sorted(rows.items()):
         if m != mesh or "measured" not in r:
             continue
@@ -130,14 +124,20 @@ def lm_table(rows: Dict, mesh: str = "16x16") -> str:
                 else "Y" if peak <= dev["memory_bytes"] else "n")
         steps = ", ".join(
             f"{g} " + ("-" if v["step_s"] is None else f"{v['step_s']:.4f}")
-            + f" ({v['batch']})" for g, v in msr["variants"].items())
+            + f" ({v['batch']}" + ("" if v.get("timed_steps") is None
+                                   else f", {v['timed_steps']}") + ")"
+            for g, v in msr["variants"].items())
         step, share = msr["replica_step_s"], msr["bf16_share"]
+        span = msr.get("replica_step_range_s")
+        if step is not None:
+            step = f"{step:.3f}" + ("" if span is None
+                                    else " (%.3f-%.3f)" % tuple(span))
         card = ("-" if dev["name"] is None
                 else f"{dev['name']}, {dev['power_limit']}")
         out.append(
             f"| {a} | {s} | {_gib(r['memory']['argument_bytes'])} | "
             f"{_gib(peak)} | {fits} | {steps} | "
-            f"{'-' if step is None else f'{step:.3f}'} | "
+            f"{'-' if step is None else step} | "
             f"{'-' if share is None else f'{share:.4f}'} | "
             f"{'; '.join(r['reduced']) or '-'} | {card} |")
     return "\n".join(out)

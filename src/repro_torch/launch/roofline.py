@@ -153,8 +153,12 @@ class Roofline:
     """A step's compulsory work on the card and its three time terms.
 
     ``flops`` and ``hbm_bytes`` are the card's counts (for a solver step
-    the kernels' and the vector update's on the whole card; for an LM
-    cell one chip's share, each chip a card of its own); ``coll_bytes``
+    the kernels' and the vector update's compulsory work on the whole
+    card; for an LM cell one chip's share of what :class:`OpCounter`
+    counts, each chip a card of its own: the products' operations only,
+    and the eager program's ATen traffic, which is no compulsory bound,
+    so there ``t_memory``, ``bottleneck`` and ``step_time_lb`` describe
+    the eager program, not a lower bound); ``coll_bytes``
     the bytes moved between shards or chips (``coll_by_kind``);
     ``chips`` the shards whose work the card holds (1 for an LM cell);
     ``hbm_rate`` the card's HBM rate
@@ -182,7 +186,7 @@ class Roofline:
 
     @property
     def t_memory(self) -> float:
-        """Compulsory bytes over the card's HBM rate."""
+        """The counted bytes over the card's HBM rate."""
         return self.hbm_bytes / self.hbm_rate
 
     @property
@@ -203,7 +207,9 @@ class Roofline:
 
     @property
     def step_time_lb(self) -> float:
-        """Lower bound on the step's time on the card.  On one card the
+        """Lower bound on the step's time on the card where the counts
+        are compulsory (a solver step; an LM cell's counted traffic makes
+        it the eager program's roofline time instead).  On one card the
         copies share HBM with the kernels, so the memory and collective
         terms add and compute overlaps them; over the network the three
         overlap (the reference's perfect-overlap bound)."""
@@ -386,10 +392,13 @@ class OpCounter(TorchDispatchMode):
     operations of the products in ``torch.utils.flop_counter``'s
     registry (``mm``, ``bmm``, ``addmm``, ``baddbmm``, convolutions,
     attention kernels: two a multiply-add; any other op adds none, so
-    elementwise work is not in it), and ``nbytes``, the bytes of every
-    tensor an op takes and returns (read once, written once).  A view
-    moves nothing and allocations write nothing: neither is counted.
-    ``ops`` counts every op dispatched."""
+    elementwise work is not in it, and a step whose useful work is
+    mostly elementwise, an SSM or recurrent decode, counts fewer
+    operations than ``model_flops``), and ``nbytes``, the bytes of every
+    tensor an op takes and returns (read once, written once): the eager
+    program's traffic, f32 temporaries included, not the step's
+    compulsory bytes.  A view moves nothing and allocations write
+    nothing: neither is counted.  ``ops`` counts every op dispatched."""
 
     def __init__(self):
         super().__init__()

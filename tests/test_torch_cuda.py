@@ -777,4 +777,7 @@ def test_lm_dry_run_cell_on_card_matches_the_cpu(cuda_device, shape):
     assert row["memory"]["peak_bytes"] >= row["memory"]["argument_bytes"]
     for var in row["measured"]["variants"].values():
         assert var["step_s"] > 0 and var["peak_bytes"] > 0 and var["finite"]
-    assert row["measured"]["replica_step_s"] > 0
+        assert var["step_q1_s"] <= var["step_s"] <= var["step_q3_s"]
+        assert var["timed_steps"] >= dryrun.WARM_STEPS
+    least, most = row["measured"]["replica_step_range_s"]
+    assert 0 < least <= row["measured"]["replica_step_s"] <= most

@@ -12,18 +12,20 @@
 - ``abstract_params`` counts the reference's parameters;
   ``_depth_variant`` and ``OPT_LEVERS`` are the reference's.
 - ``build_cell``'s step at SMOKE on a small shape matches the
-  reference's ``cell.fn`` with the same weights: a train step within
-  1e-4 of each leaf's scale, prefill and decode logits and caches within
-  ``LM_TOL``.
-- ``corrected_coll_bytes`` is the reference's; ``run_cell`` and the CLI
-  run the SMOKE cells on the CPU, every lever among them, and
-  ``report.table`` renders their rows.
+  reference's ``cell.fn`` with the same weights: a train step's metrics,
+  parameters and AdamW moments within 1e-4 of each leaf's scale, each
+  leaf moved as far as the reference moves it; prefill and decode logits
+  and caches within ``LM_TOL``.
+- The timed steps' window and the replica step's range; ``run_cell``
+  and the CLI run the SMOKE cells on the CPU, every lever among them,
+  and ``report.table`` renders their rows.
 - The collective kinds and bytes of two SMOKE cells on a (2, 2, 2) mesh
   against the reference's HLO counts (ROADMAP Queue 3, C2).
 """
 import dataclasses
 import math
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +37,6 @@ from jax.sharding import AbstractMesh
 from _torch_port import (LM_TOL, lm_inputs, max_abs_diff, port_lm, ref_lm,
                          to_torch, train_inputs, tree_max_abs_diff)
 from repro.distributed import sharding as RS
-from repro.launch import report as RREP
 from repro.models import registry as RR
 from repro.training import optimizer as RO
 from repro_torch import convert
@@ -258,13 +259,29 @@ def test_cell_step_matches_the_reference(monkeypatch, arch, kind):
     rfn = jax.jit(rc.fn)
     if kind == "train":
         np_in = train_inputs(rcfg, 7, b, s)
-        rp, _, rm = rfn(params, RO.adamw_init(params),
-                        {k: jnp.asarray(v) for k, v in np_in.items()})
-        pm = pc.fn(model, PO.adamw_init(model), to_torch(np_in))
+        before = convert.lm_params_to_numpy(model)
+        rp, ro, rm = rfn(params, RO.adamw_init(params),
+                         {k: jnp.asarray(v) for k, v in np_in.items()})
+        popt = PO.adamw_init(model)
+        pm = pc.fn(model, popt, to_torch(np_in))
         for k in ("loss", "grad_norm"):
             _close_tree(pm[k].numpy(), rm[k])
-        _close_tree(convert.lm_params_to_numpy(model),
-                    jax.tree.map(np.asarray, rp))
+        got = convert.train_state_to_numpy(model, popt)
+        rp, ro = jax.tree.map(np.asarray, (rp, ro))
+        _close_tree(got["params"], rp)
+        # the first step moves a parameter by about lr (3e-6 in the
+        # warmup), under the tolerance above: the update is held by the
+        # moments (m = 0.1 g, v = 0.001 g^2 after one step) and by how
+        # far each leaf moved
+        for part in ("m", "v"):
+            _close_tree(got["opt"][part], ro[part])
+        assert int(got["opt"]["step"]) == int(ro["step"]) == 1
+        moved = jax.tree.map(
+            lambda new, old: float(np.max(np.abs(
+                new.astype(np.float64) - old.astype(np.float64)))),
+            (got["params"], rp), (before, params))
+        for pmove, rmove in zip(*map(jax.tree.leaves, moved)):
+            assert rmove > 0 and pmove == pytest.approx(rmove, rel=0.01)
         return
     if kind == "prefill":
         np_in = lm_inputs(rcfg, 7, b, s)
@@ -314,15 +331,44 @@ def test_chunked_adamw_update_is_bitwise_the_whole_leaf(monkeypatch):
 # ----------------------------------------------------------------------
 # the reports
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("kinds", [
-    None, {}, {"all-reduce": 1000}, {"all-gather": 64, "all-to-all": 8},
-    {"all-gather": 3, "reduce-scatter": 5, "all-reduce": 7,
-     "collective-permute": 11}])
-def test_corrected_coll_bytes_is_the_reference(kinds):
-    row = {} if kinds is None else {"coll_by_kind": kinds}
-    for bf16 in (True, False):
-        assert report.corrected_coll_bytes(row, bf16) == \
-            RREP.corrected_coll_bytes(row, bf16)
+@pytest.mark.parametrize("steps,window,more", [
+    ([], 2.0, True), ([0.9, 0.9], 2.0, True), ([0.9] * 3, 2.0, False),
+    ([0.4] * 3, 2.0, True), ([0.4] * 5, 2.0, False),
+    ([0.001] * dryrun.MAX_TIMED_STEPS, 2.0, False), ([10.0] * 2, 0.0, True),
+    ([1e-4] * 3, 0.0, False)])
+def test_a_variant_times_steps_over_its_window(steps, window, more):
+    """At least ``WARM_STEPS`` timed steps, then more until they add up
+    to the window (the card's ``TIMED_WINDOW_S``; none on the CPU), at
+    most ``MAX_TIMED_STEPS``."""
+    assert dryrun.keep_timing(steps, window) is more
+
+
+@pytest.mark.parametrize("lo,geff", [(1, 32.0), (0, 48.0), (1, 1.5),
+                                     (1, 1.0)])
+def test_the_replica_step_range_brackets_its_extrapolation(lo, geff):
+    """The range over each variant's low and high step holds the
+    extrapolation of any steps between them, its ends among them, and
+    closes on the extrapolation when the steps do not spread."""
+    lows, highs = (0.40, 0.65), (0.45, 0.70)
+    least, most = dryrun.extrapolate_range(lo, lows, highs, geff)
+    grid = [dryrun.extrapolate(lo, (a, b), geff)
+            for a in np.linspace(lows[0], highs[0], 5)
+            for b in np.linspace(lows[1], highs[1], 5)]
+    assert least == pytest.approx(min(grid)) and most == pytest.approx(
+        max(grid))
+    assert least <= dryrun.extrapolate(lo, (0.42, 0.68), geff) <= most
+    one = dryrun.extrapolate(lo, lows, geff)
+    assert dryrun.extrapolate_range(lo, lows, lows, geff) == (one, one)
+    # a row's replica step: the medians' extrapolation inside the range,
+    # both times the batch cut
+    runs = {lo + i: {"step_s": (lows[i] + highs[i]) / 2,
+                     "step_q1_s": lows[i], "step_q3_s": highs[i]}
+            for i in range(2)}
+    step, span = dryrun.replica_steps(runs, (lo, lo + 1), geff, 4.0)
+    assert step == pytest.approx(4 * dryrun.extrapolate(
+        lo, (0.425, 0.675), geff))
+    assert span == pytest.approx([4 * least, 4 * most])
+    assert span[0] <= step <= span[1]
 
 
 # ----------------------------------------------------------------------
@@ -383,10 +429,14 @@ def test_lm_dry_run_cli_on_the_cpu_and_its_tables(tmp_path, capsys):
         assert row["useful_flop_ratio"] == pytest.approx(
             row["model_flops_per_chip"] / flops)
     lines = report.table(rows).splitlines()
-    assert len(lines) == 5 and lines[0].startswith("| arch | shape |")
+    assert len(lines) == 7 and lines[0].startswith("| arch | shape |")
     assert all(ln.startswith("| llama3_8b@smoke | ") and "| - | - | " in ln
-               for ln in lines[2:])
-    assert report.table(rows, corrected=False) == report.table(rows)
+               for ln in lines[2:5])
+    assert lines[5:] == ["", report.LM_COUNTS_NOTE]
+    lm = report.lm_table(rows).splitlines()
+    assert len(lm) == 5 and all(
+        re.search(r" \| g1 - \(\d+\), g2 - \(\d+\) \| - \| - \| ", ln)
+        for ln in lm[2:])
     multi = report.multipod_table(rows).splitlines()
     assert len(multi) == 5 and multi[0].endswith("| args GiB/dev |")
 
