@@ -19,7 +19,8 @@ non-zero and prints no result line):
    per call included), and 25 launches back to back between two events
    (``device_ms``, the median of three such windows), beside the least
    time the card could take (``bound_ms``) and, where one PyTorch call
-   computes the same function, that call's two times: K1 (stencil7; conv3d in float64 and float32),
+   computes the same function, that call's two times: K1 (stencil7; conv3d in float64 and float32;
+   both also timed as 25 launches inside one CUDA graph),
    K2 (fused_cg_update, its ``rz'`` bitwise ``det_dot(r', z')`` and
    ``det_dot_order_plain``), det_dot (bitwise ``det_dot_order_plain``,
    at 256^3/8 and at recovery's local-CG shape, 2 blocks with
@@ -35,7 +36,14 @@ non-zero and prints no result line):
    (``nblocks=8``, PCG, ``nvm-prd``): unprotected, persisted without
    failure, and with blocks (1, 2) failing at iteration 20 in sync and in
    overlap mode; the recovered runs must match the failure-free run at
-   rtol = atol = 1e-8 and K1, K2 and det_dot must have launched;
+   rtol = atol = 1e-8 and K1, K2 and det_dot must have launched.
+   Recovery's local CG runs as a CUDA graph replayed chunk by chunk; its
+   K1 and det_dot launches (replays included) are counted apart.  The
+   sync recovery runs again, up to iteration
+   21, with the plain loop (a host read an iteration): the recovered
+   state and the local CG's ``x_F`` must be bitwise the graph's, at the
+   same iteration; both recoveries' seconds and local-CG seconds are
+   printed side by side;
 5. erasure path — the same problem on ``erasure(nvm-prd x4+2p)`` with
    ``fused_persist=True`` in sync (K3 every event) and overlap (K4 every
    step) mode, under a storage-only PRD kill at iteration 10 and blocks
@@ -112,20 +120,29 @@ non-zero and prints no result line):
    d_model 4096, 8.03 B parameters in float32, bf16 compute),
    initialised on the card from a seeded ``torch.Generator``, answers 4
    requests of a 512-token prompt and 32 greedy tokens through
-   ``ServeEngine.generate``: logits finite, the first token the argmax
-   of a teacher-forced ``decoder_forward`` over the prompt; the prefill
-   seconds, decode ms a token (median of the steps after the first),
-   tokens/s, peak memory, and the prefill's ``model_flops`` as a share
-   of the bf16 peak and the decode step's compulsory bytes
-   (``roofline.decode_step_bytes``) as a share of the HBM rate.  Then
+   ``ServeEngine.generate``, whose decode runs one eager step and then
+   replays of one CUDA-graph capture (30 replays, checked): logits
+   finite, the first token the argmax of a teacher-forced
+   ``decoder_forward`` over the prompt; the prefill seconds, the eager
+   step's ms, the capture's seconds, decode ms a token (CUDA events
+   between steps, median over the replays after the first), the host's
+   enqueue ms a token, tokens/s (with and without the capture), peak
+   memory, beside the card's name and power limit, and the prefill's
+   ``model_flops`` as a share of the bf16 peak and the decode step's
+   compulsory bytes (``roofline.decode_step_bytes``) as a share of the
+   HBM rate; a second run's tokens and every step's logits bitwise an
+   eager ``make_decode`` loop's from the same prefill.  Then
    the nine other configs at full width in f32 (MoE capacity factor
    16), cut in depth only to one pattern period (gemma3 6 layers,
    recurrentgemma 4 so its tail layer runs, the rest 1; whisper, mamba2
    and starcoder2 whole): prefill 2 x 64 and 4 decode steps, each
    position's logits within ``LM_REL_TOL`` of the largest |logit| of
    the teacher-forced forward; qwen2-vl runs on patch embeddings with
-   three M-RoPE streams (no decode: the CLI refuses vision).  The path
-   has no hand-written kernel: its launch counts must read 0;
+   three M-RoPE streams (no decode against the forward: the CLI refuses
+   vision).  Each of the nine then decodes 3 steps through a captured
+   graph, every step's logits bitwise its eager steps' (qwen2-vl: token
+   ids after its embeddings).  The path has no hand-written kernel: its
+   launch counts must read 0;
 14. train — LM training (``repro_torch.training``, ``repro_torch.ft``):
    ``starcoder2_3b`` at its full ``CONFIG`` (30 layers, d_model 3072,
    3.18 B f32 parameters, bf16 compute) takes four AdamW steps of batch
@@ -149,7 +166,7 @@ non-zero and prints no result line):
    checkpoint directory, which must resume.  No hand-written kernel
    runs: the launch counts must read 0;
 15. dryrun-lm — the LM dry run (``python -m repro_torch.launch.dryrun``)
-   in its own processes: llama3_8b's train_4k, prefill_32k and
+   in two processes of its own: llama3_8b's train_4k, prefill_32k and
    decode_32k and mamba2_370m's long_500k on the 16x16 layout (the
    depth variants g1 and g2 really run at full width, at one data
    replica's batch, cut where the card needs it), llama3_8b's decode_32k
@@ -157,7 +174,9 @@ non-zero and prints no result line):
    losses or logits, its per-device argument bytes equal to the
    reference's (``DRYRUN_LM_ARG_BYTES``), a calibrated row's
    extrapolated replica step at least its g1 step and within its range
-   over the quartiles of the variants' timed steps; no hand-written
+   over the quartiles of the variants' timed steps, decode and
+   long_500k steps timed as graph replays and the others eagerly (each
+   variant's ``step_mode``); no hand-written
    kernel runs: the launch counts must read 0 (79-135 s on an H100 80GB
    HBM3 at 700 W with three timed steps a variant; each variant now
    times at least 2 s of steps, a few seconds more).
@@ -169,7 +188,9 @@ just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
 sharded solve of 11, in their own processes the two CLIs of 12, 13,
 14 and the dry-run processes of 15) to
 a reading just after it, graph replays included, and summed into the
-kernel summary.  The line before the last is the
+kernel summary; K1's and det_dot's entries also give the launches of
+recovery's local CG on the main path, phase 4 (``local_cg_launches``,
+``local_cg["launches"]``).  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
@@ -201,6 +222,9 @@ STORAGE_KILL_AT = 10
 MAXITER = 30
 REPS = 25
 DEVICE = "cuda"
+#: the card's ``nvidia-smi`` name and power limit, printed beside the LM
+#: timings (set by phase 1)
+CARD = None
 #: the erasure path's stripe: K data + P parity children
 STRIPE = "erasure(nvm-prd x4+2p)"
 K_DATA, NPARITY = 4, 2
@@ -400,6 +424,8 @@ def phase_kernels(torch, rate: float):
     conv64 = lambda: F.conv3d(u[None, None], w, padding=1)  # noqa: E731
     conv64_err = max_abs(conv64()[0, 0], got)
     library_ms, library_dev_ms = both_ms(torch, conv64)
+    graph_ms = in_graph_ms(torch, lambda: k1.stencil7_cuda(u))
+    library_graph_ms = in_graph_ms(torch, conv64)
     u32, w32 = u.float(), w.float()
     conv = lambda: F.conv3d(u32[None, None], w32, padding=1)  # noqa: E731
     k32 = k1.stencil7_cuda(u32)
@@ -409,8 +435,9 @@ def phase_kernels(torch, rate: float):
     b_ms, b_by = RL.bound_ms(RL.stencil7_work(n, "float64"), "float64", rate)
     b32_ms, _ = RL.bound_ms(RL.stencil7_work(n, "float32"), "float32", rate)
     say("kernels", kernel="stencil7", kernel_ms=ms, kernel_device_ms=dev_ms,
-        plain_ms=plain_ms, library_ms=library_ms,
-        library_device_ms=library_dev_ms, library="conv3d float64",
+        kernel_in_graph_ms=graph_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library_device_ms=library_dev_ms,
+        library_in_graph_ms=library_graph_ms, library="conv3d float64",
         conv_vs_kernel_f64_max_abs_err=conv64_err, bound_ms=b_ms,
         bound_by=b_by, f32_kernel_ms=k32_ms, f32_kernel_device_ms=k32_dev_ms,
         f32_bound_ms=b32_ms, f32_library_ms=lib32_ms,
@@ -421,9 +448,10 @@ def phase_kernels(torch, rate: float):
         name="stencil7", route="cuda",
         source="src/repro_torch/kernels/csrc/stencil7.cu",
         replaces="src/repro/kernels/stencil7.py:53", max_abs_err=err,
-        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms,
-        library_device_ms=library_dev_ms)
+        ms=ms, device_ms=dev_ms, in_graph_ms=graph_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        library_device_ms=library_dev_ms,
+        library_in_graph_ms=library_graph_ms)
     del u, got, want, u32, k32
 
     # ---- K1 small float32 / bfloat16 (reference tolerances) -----------
@@ -833,6 +861,55 @@ def iteration_breakdown(torch, problem, p, first_run_s: float,
     return step_dev_ms
 
 
+def local_cg_plain_vs_graph(torch, problem, spec, failure, graph_run,
+                            graph_call) -> None:
+    """Phase 4's sync recovery once more, up to the iteration after it,
+    with the plain local CG (a host read an iteration) in place of the
+    graph: the recovered state (``captured`` at the failure) and the
+    local CG's ``x_F`` bitwise the graph run's (``graph_run``: its
+    result and tracer), at the same iteration, and the recovery seconds
+    of both side by side."""
+    from repro_torch import api
+    from repro_torch.obs import Tracer
+
+    graph_run, graph_tracer = graph_run
+    tracer = Tracer()
+    with LocalCGWatch(torch, "_local_cg_plain") as watch:
+        torch.cuda.synchronize()
+        res = api.solve(problem, dataclasses.replace(spec,
+                                                     maxiter=FAIL_AT + 1),
+                        api.ResilienceSpec("nvm-prd", persist_mode="sync"),
+                        failures=failure, capture_states_at=[FAIL_AT],
+                        tracer=tracer)
+        torch.cuda.synchronize()
+    plain_call = watch.calls[0]
+    same_x = bool(torch.equal(plain_call["x"], graph_call["x"]))
+    same_state = all(bool(torch.equal(getattr(res.captured[FAIL_AT], f),
+                                      getattr(graph_run.captured[FAIL_AT], f)))
+                     for f in ("x", "r", "z", "p", "rz"))
+    graph_recovery = _recovery_seconds(graph_tracer)
+    plain_recovery = _recovery_seconds(tracer)
+    say("main", recovery="blocks (1, 2) at 20, sync: plain loop vs graph",
+        iterations=graph_call["iterations"],
+        plain_iterations=plain_call["iterations"],
+        plain_recovery_s=plain_recovery, graph_recovery_s=graph_recovery,
+        plain_local_cg_s=plain_call["seconds"],
+        graph_local_cg_s=graph_call["seconds"],
+        graph_capture_s=graph_call["capture_s"],
+        graph_chunk=graph_call["chunk"], graph_chunks=graph_call["chunks"],
+        graph_eager_iterations=graph_call["eager_iterations"],
+        graph_launches_per_chunk=graph_call["launches_per_chunk"],
+        plain_ms_per_iteration=1e3 * plain_call["seconds"]
+        / plain_call["iterations"],
+        graph_ms_per_iteration=1e3 * graph_call["seconds"]
+        / graph_call["iterations"],
+        x_f_bitwise=same_x, recovered_state_bitwise=same_state)
+    check(plain_call["iterations"] == graph_call["iterations"],
+          "the plain local CG stopped at another iteration than the graph")
+    check(same_x and same_state,
+          "the graph's recovered state is not the plain loop's bitwise")
+
+
 def pcg_step(problem):
     """(solver, initial state, step) of PCG on ``problem`` (a sharded
     problem's step runs shard by shard)."""
@@ -843,10 +920,58 @@ def pcg_step(problem):
     return solver, state, solver.make_step(problem.op, problem.precond)
 
 
-def phase_main_path(torch, found):
+class LocalCGWatch:
+    """Recovery's local CG (``core.reconstruction._local_cg``) wrapped
+    while a path runs: each call's seconds (host clock between
+    synchronisations), iterations, statistics, result and the launches
+    it made, graph replays included, so that they are counted apart from
+    the path's other launches.  ``loop`` picks the loop the wrapper
+    calls: the dispatching ``_local_cg`` (the graph on the card) or
+    ``_local_cg_plain``."""
+
+    def __init__(self, torch, loop: str = "_local_cg"):
+        from repro_torch.core import reconstruction as rec
+
+        self.torch, self.rec = torch, rec
+        self.loop = getattr(rec, loop)
+        self.calls = []
+        self.launches = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        def watched(apply_fn, rhs, tol=1e-14, maxiter=10000, info=None):
+            info = {} if info is None else info
+            before = ops.launch_counts()
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = self.loop(apply_fn, rhs, tol, maxiter, info=info)
+            self.torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = ops.launch_counts()
+            for name, n in after.items():
+                self.launches[name] = (self.launches.get(name, 0)
+                                       + n - before[name])
+            self.calls.append(dict(info, seconds=seconds, x=x))
+            return x
+
+        self.saved = self.rec._local_cg
+        self.rec._local_cg = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.rec._local_cg = self.saved
+
+    def summary(self) -> list:
+        return [{k: v for k, v in call.items() if k != "x"}
+                for call in self.calls]
+
+
+def phase_main_path(torch, found, records):
     """The port's main path at full width; returns the launch counts.
     Its reports and its step's device time go into ``found`` (phase
-    12)."""
+    12), and the launches of recovery's local CG, counted apart, into
+    K1's and det_dot's ``records``."""
     from repro_torch import api
     from repro_torch.kernels import ops
     from repro_torch.obs import Tracer
@@ -875,6 +1000,7 @@ def phase_main_path(torch, found):
         return res, wall
 
     ops.reset_launch_counts()
+    watch = LocalCGWatch(torch).__enter__()
     plain, plain_wall = run("unprotected", None)
     recovered = {"free": (plain.state.x, plain.state.r)}
     base, _ = run("nvm-prd sync, no failure", api.ResilienceSpec("nvm-prd"))
@@ -902,12 +1028,27 @@ def phase_main_path(torch, found):
                 rtol=1e-8, atol=1e-8, ok=bool(ok))
             check(bool(ok), f"{mode}: {what} differs from the failure-free run")
         recovered[mode] = (res.state.x, res.state.r)
-        del res
+        if mode == "sync":
+            graph_run = (res, tracer)
+        else:
+            del res
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    say("main", launches=counts)
+    watch.__exit__()
+    say("main", launches=counts, local_cg_launches=watch.launches,
+        local_cg_calls=watch.summary())
     for name in ("stencil7", "fused_cg_update", "det_dot"):
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
+    for name in ("stencil7", "det_dot"):
+        check(watch.launches.get(name, 0) > 0,
+              f"recovery's local CG never launched {name}")
+    check(all(c["graph"] for c in watch.calls),
+          "a local CG on the card did not run as a graph")
+    records["stencil7"]["local_cg_launches"] = watch.launches["stencil7"]
+    records["det_dot"]["local_cg"]["launches"] = watch.launches["det_dot"]
+    local_cg_plain_vs_graph(torch, problem, spec, failure, graph_run,
+                            watch.calls[0])
+    del graph_run
     found["steps"]["phase 4: PCG step (main path)"] = dict(
         device_ms=iteration_breakdown(torch, problem, base.state.p,
                                       plain_wall / MAXITER),
@@ -1838,17 +1979,21 @@ _TENANT_LINE = re.compile(
     r"^  (\S+): (\S+)\s+conv=(\S+)\s+iters=\s*(\d+) recovered=(\d+) ")
 
 
-def run_cli(torch, module: str, args, timeout: float):
-    """``python -m module *args`` in a fresh process on the card, with
-    the kernels' launch counts reset to 0 there before the module runs
-    and read after it; returns (its stdout lines, the counts, seconds).
-    The process is killed if it outlives ``timeout``."""
+def run_cli(torch, module: str, args, timeout: float, then=()):
+    """``python -m module *args`` in a fresh process on the card, then in
+    the same process the module again with each argument list of
+    ``then``, with the kernels' launch counts reset to 0 there before
+    the module runs and read after the last run; returns (its stdout
+    lines, the counts, seconds).  The process is killed if it outlives
+    ``timeout``."""
+    argvs = [[module, *a] for a in (args, *then)]
     code = ("import json, runpy, sys\n"
             "from repro_torch.kernels import ops\n"
-            f"sys.argv = {[module, *args]!r}\n"
             "ops.reset_launch_counts()\n"
             "try:\n"
-            f"    runpy.run_module({module!r}, run_name='__main__', "
+            f"    for argv in {argvs!r}:\n"
+            "        sys.argv = argv\n"
+            f"        runpy.run_module({module!r}, run_name='__main__', "
             "alter_sys=True)\n"
             "finally:\n"
             "    print('LAUNCHES ' + json.dumps(ops.launch_counts()), "
@@ -1865,7 +2010,8 @@ def run_cli(torch, module: str, args, timeout: float):
     counts = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
               if ln.startswith("LAUNCHES ")]
     lines = [ln for ln in lines if not ln.startswith("LAUNCHES ")]
-    say("launch", cli=module, args=list(args), exit_code=res.returncode,
+    say("launch", cli=module, args=[list(a) for a in (args, *then)],
+        exit_code=res.returncode,
         seconds=seconds, launches=counts[0] if counts else None)
     check(res.returncode == 0 and len(counts) == 1,
           f"{module} {' '.join(args)} exited {res.returncode}:\n"
@@ -2107,24 +2253,6 @@ LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_STEPS = 2, 64, 4
 LM_REL_TOL = 5e-4
 
 
-def _lm_timed(torch, kind: str, fn, marks: list):
-    """``fn`` with CUDA events recorded around each call (no
-    synchronisation), whether its logits were finite (a device tensor)
-    and the host ms until the call returned (every launch enqueued),
-    appended to ``marks``."""
-    def call(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        logits, caches = fn(*args)
-        end.record()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        marks.append((kind, start, end, torch.isfinite(logits).all(), host_ms))
-        return logits, caches
-    return call
-
-
 def _aten_ops(fn) -> int:
     """The ATen operations ``fn`` dispatches (a count, not a time: the
     dispatch mode slows every op it sees)."""
@@ -2144,17 +2272,35 @@ def _aten_ops(fn) -> int:
     return count.n
 
 
+def _step_marks(torch, marks: list):
+    """An ``on_step`` for ``ServeEngine.generate`` that appends, at each
+    step, a CUDA event recorded on the engine's stream (no
+    synchronisation), the host clock, and whether the logits were finite
+    (a device tensor)."""
+    def mark(i, logits):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((i, event, time.perf_counter(),
+                      torch.isfinite(logits).all()))
+    return mark
+
+
 def lm_serve(torch, cfg, batch: int, prompt_len: int, gen: int,
              rate: float, device=DEVICE) -> dict:
     """``cfg`` initialised on the card from a seeded ``torch.Generator``
     serves ``batch`` requests through ``ServeEngine.generate`` (a warm-up
-    of 2 tokens, then the timed run of ``gen``): the prefill seconds, the
-    decode ms a token (median of the steps after the first), the host ms
-    until a step's launches are enqueued, tokens/s, peak memory, and the
-    shares of the bf16 peak (prefill) and of the HBM rate (decode), with
-    the first token checked against the argmax of a teacher-forced
-    forward over the prompt; then the ATen ops one decode step
-    dispatches, counted apart from the timed run."""
+    of 3 tokens, then the timed run of ``gen``): the decode runs one
+    eager step, then replays of one CUDA-graph capture.  Measured: the
+    prefill seconds, the eager first decode step's ms, the capture's
+    seconds, the decode ms a token (CUDA events between consecutive
+    steps, median over the replays after the first), the host's enqueue
+    ms a token over the same steps, tokens/s, peak memory, and the
+    shares of the bf16 peak (prefill) and of the HBM rate (decode); the
+    first token checked against the argmax of a teacher-forced forward
+    over the prompt.  Then a second graph run's tokens and every step's
+    logits against an eager loop over ``make_decode`` from its own
+    prefill, bit for bit, and the ATen ops one decode step dispatches,
+    counted apart from the timed run."""
     from repro_torch.launch import mesh
     from repro_torch.launch import roofline as RL
     from repro_torch.models import registry as R
@@ -2171,34 +2317,43 @@ def lm_serve(torch, cfg, batch: int, prompt_len: int, gen: int,
     nparams = sum(p.numel() for p in model.parameters())
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
-    marks: list = []
-    eng = ServeEngine(_lm_timed(torch, "prefill", R.make_prefill(cfg), marks),
-                      _lm_timed(torch, "decode", R.make_decode(cfg), marks),
+    eng = ServeEngine(R.make_prefill(cfg), R.make_decode(cfg),
                       lambda b, s: R.init_caches(cfg, b, s, device=dev))
     t0 = time.perf_counter()
-    eng.generate(model, prompt, 2)
+    eng.generate(model, prompt, 3)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    marks.clear()
+    marks: list = []
+    start = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
-    out = eng.generate(model, prompt, gen)
+    start.record()
+    out = eng.generate(model, prompt, gen, on_step=_step_marks(torch, marks))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    times = [(kind, start.elapsed_time(end), bool(fin), host)
-             for kind, start, end, fin, host in marks]
-    check(all(t[2] for t in times), f"{cfg.name}: non-finite logits")
+    stats = dict(eng.stats)
+    check(all(bool(m[3]) for m in marks), f"{cfg.name}: non-finite logits")
     check(tuple(out.shape) == (batch, gen), f"{cfg.name}: out {out.shape}")
-    prefill_ms = times[0][1]
-    decode_ms = [t[1] for t in times if t[0] == "decode"]
-    decode_host_ms = [t[3] for t in times if t[0] == "decode"]
-    check(len(decode_ms) == gen - 1, f"{len(decode_ms)} decode steps")
-    step_ms = statistics.median(decode_ms[1:])
+    check([m[0] for m in marks] == list(range(gen)),
+          f"{cfg.name}: on_step saw {[m[0] for m in marks]}")
+    check(stats["graph"] and stats["eager_steps"] == 1
+          and stats["replays"] == gen - 2,
+          f"{cfg.name}: the engine ran {stats}, want one eager decode step "
+          f"and {gen - 2} replays")
+    prefill_ms = start.elapsed_time(marks[0][1])
+    eager_ms = marks[0][1].elapsed_time(marks[1][1])
+    # step i >= 3: one replay, the argmax and the static inputs' writes
+    replay_ms = [marks[i - 1][1].elapsed_time(marks[i][1])
+                 for i in range(3, gen)]
+    enqueue_ms = [1e3 * (marks[i][2] - marks[i - 1][2]) for i in range(3, gen)]
+    step_ms = statistics.median(replay_ms)
+    bitwise = lm_graph_vs_eager(torch, cfg, model, prompt, gen, eng)
     with torch.inference_mode():
         forced = T.decoder_forward(model, prompt, cfg)[0][:, -1]
         caches = R.init_caches(cfg, batch, prompt_len + 1, device=dev)
         _, caches = R.make_prefill(cfg)(model, prompt, caches)
+        position = torch.tensor(prompt_len, dtype=torch.int32, device=dev)
         decode_ops = _aten_ops(lambda: R.make_decode(cfg)(
-            model, out[:, :1], caches, prompt_len))
+            model, out[:, :1], caches, position))
     first_ok = torch.equal(forced.argmax(-1), out[:, 0])
     check(first_ok, f"{cfg.name}: the first token is not the argmax of the "
           f"teacher-forced forward over the prompt")
@@ -2211,12 +2366,16 @@ def lm_serve(torch, cfg, batch: int, prompt_len: int, gen: int,
                d_model=cfg.d_model, compute=cfg.compute_dtype, batch=batch,
                prompt=prompt_len, gen=gen, init_s=init_s,
                first_generate_s=first_s, prefill_s=prefill_ms / 1e3,
-               decode_ms_per_token=step_ms, decode_ms_min=min(decode_ms[1:]),
-               decode_ms_max=max(decode_ms[1:]), first_decode_ms=decode_ms[0],
-               decode_enqueue_ms=statistics.median(decode_host_ms[1:]),
+               eager_step_ms=eager_ms, capture_s=stats["capture_s"],
+               replays=stats["replays"], first_replay_ms=marks[1][1]
+               .elapsed_time(marks[2][1]),
+               decode_ms_per_token=step_ms, decode_ms_min=min(replay_ms),
+               decode_ms_max=max(replay_ms),
+               decode_enqueue_ms=statistics.median(enqueue_ms),
                decode_aten_ops=decode_ops,
-               prefill_enqueue_ms=times[0][3],
                generate_s=wall, tokens_per_s=batch * gen / wall,
+               tokens_per_s_without_capture=batch * gen
+               / (wall - stats["capture_s"]),
                peak_gib=peak / 2 ** 30, prefill_tflop=flops / 1e12,
                prefill_share_of_bf16_peak=flops / (prefill_ms / 1e3)
                / mesh.PEAK_OPS["bfloat16"],
@@ -2224,10 +2383,44 @@ def lm_serve(torch, cfg, batch: int, prompt_len: int, gen: int,
                decode_bound_ms=1e3 * step_bytes / rate,
                decode_share_of_hbm=1e3 * step_bytes / rate / step_ms,
                first_token_is_forced_argmax=first_ok,
-               tokens_row0=out[0, :8].tolist())
+               graph_tokens_and_logits_bitwise_eager=bitwise,
+               tokens_row0=out[0, :8].tolist(), card=CARD)
     say("lm", **rec)
     del model, forced, eng, out, caches
     return rec
+
+
+def lm_graph_vs_eager(torch, cfg, model, prompt, gen: int, eng) -> bool:
+    """``eng.generate`` (graph) against an eager loop over ``make_decode``
+    with the position as a 0-d tensor, each from its own prefill: the
+    tokens and every step's logits bit for bit (checked)."""
+    from repro_torch.models import registry as R
+
+    seen = []
+    out = eng.generate(model, prompt, gen,
+                       on_step=lambda i, logits: seen.append(logits.clone()))
+    dev = prompt.device
+    b, s = prompt.shape
+    with torch.inference_mode():
+        caches = R.init_caches(cfg, b, s + gen, device=dev)
+        logits, caches = R.make_prefill(cfg)(model, prompt, caches)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+        want, same = [tok], [bool(torch.equal(logits, seen[0]))]
+        decode = R.make_decode(cfg)
+        for i in range(1, gen):
+            pos = torch.tensor(s + i - 1, dtype=torch.int32, device=dev)
+            logits, caches = decode(model, tok, caches, pos)
+            same.append(bool(torch.equal(logits, seen[i])))
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+            want.append(tok)
+    tokens_same = bool(torch.equal(out, torch.cat(want, dim=1)))
+    say("lm", arch=cfg.name, graph_vs_eager="tokens and each step's logits",
+        steps_bitwise=sum(same), steps=len(same), tokens_bitwise=tokens_same,
+        first_differing_step=None if all(same) else same.index(False))
+    check(all(same) and tokens_same,
+          f"{cfg.name}: the graph's logits or tokens are not the eager "
+          f"decode's bit for bit")
+    return True
 
 
 def _lm_inputs(torch, cfg, batch: int, length: int, dev):
@@ -2299,6 +2492,8 @@ def lm_consistency(torch, cfg, batch: int, prompt: int, steps: int,
                 tok = inputs["tokens"][:, prompt + t:prompt + t + 1]
                 logits, caches = decode(model, tok, caches, prompt + t)
                 errs.append(max_abs(logits[:, 0], forced[:, prompt + t]))
+    graph_steps = graph_vs_eager_decode(torch, cfg, model, inputs, prompt,
+                                        steps)
     torch.cuda.synchronize()
     rel = max(errs) / scale
     rec = dict(arch=cfg.name, params=nparams, layers=cfg.n_layers,
@@ -2307,13 +2502,64 @@ def lm_consistency(torch, cfg, batch: int, prompt: int, steps: int,
                seconds=time.perf_counter() - t0,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                max_abs_err=max(errs), max_abs_logit=scale, rel_err=rel,
-               rel_tol=LM_REL_TOL, finite=bool(torch.isfinite(forced).all()))
+               rel_tol=LM_REL_TOL, finite=bool(torch.isfinite(forced).all()),
+               graph_decode_steps_bitwise=graph_steps)
     say("lm", **rec)
     check(rec["finite"], f"{cfg.name}: non-finite logits")
     check(rel <= LM_REL_TOL, f"{cfg.name}: prefill/decode logits off the "
           f"teacher-forced forward by {rel:.3g} of the largest logit")
     del model, forced, caches, logits
     return rec
+
+
+def graph_vs_eager_decode(torch, cfg, model, inputs, prompt: int,
+                          steps: int) -> int:
+    """``steps - 1`` decode steps after a prefill of ``prompt``
+    positions, twice from the same prefill: eagerly with the position a
+    0-d tensor, and as the engine runs them on the card (one eager step
+    on a stream of its own, then replays of one ``DecodeGraph``
+    capture).  Every step's logits must be bitwise the same (checked);
+    returns the count.  The text configs decode their true next tokens,
+    the vision config seeded token ids after its embeddings."""
+    from repro_torch.models import registry as R
+    from repro_torch.serving.engine import DecodeGraph
+
+    dev = torch.device(DEVICE)
+    batch = inputs["tokens"].shape[0]
+    if cfg.frontend == "vision":
+        pre = inputs
+        toks = torch.randint(0, cfg.vocab, (batch, steps - 1), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(3))
+    else:
+        pre = {k: (v[:, :prompt] if k == "tokens" else v)
+               for k, v in inputs.items()}
+        toks = inputs["tokens"][:, prompt:prompt + steps - 1]
+    toks = [toks[:, t:t + 1] for t in range(steps - 1)]
+    decode = R.make_decode(cfg)
+    runs = []
+    for graph in (False, True):
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        logits_seen = []
+        with torch.cuda.stream(stream), torch.inference_mode():
+            caches = R.init_caches(cfg, batch, prompt + steps, device=dev)
+            _, caches = R.make_prefill(cfg)(model, pre, caches)
+            pos = torch.full((), prompt, dtype=torch.int32, device=dev)
+            for t, tok in enumerate(toks):
+                if t == 0 or not graph:
+                    logits, caches = decode(model, tok, caches, pos + t)
+                else:
+                    if t == 1:
+                        step = DecodeGraph(decode, model, tok, caches, stream)
+                    logits = step(tok, prompt + t)
+                logits_seen.append(logits.clone())
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        runs.append(logits_seen)
+    same = [bool(torch.equal(g, e)) for g, e in zip(runs[1], runs[0])]
+    check(all(same), f"{cfg.name}: decode steps through the graph are not "
+          f"the eager steps bit for bit: {same}")
+    return sum(same)
 
 
 def phase_lm(torch, rate: float) -> dict:
@@ -2851,13 +3097,14 @@ def phase_train(torch) -> dict:
     return counts
 
 
-#: phase 15: the LM dry run, each call in its own process: llama3_8b's
-#: three cells on 16x16, mamba2_370m's long_500k on 16x16 and llama3_8b's
-#: decode_32k on 2x16x16 (the multi-pod pass)
+#: phase 15: the LM dry run in two processes, each a tuple of CLI calls
+#: run one after the other: llama3_8b's three cells and mamba2_370m's
+#: long_500k on 16x16; llama3_8b's decode_32k on 2x16x16 (the multi-pod
+#: pass)
 DRYRUN_LM_CALLS = (
-    ("--arch", "llama3_8b", "--mesh", "single"),
-    ("--arch", "mamba2_370m", "--shape", "long_500k", "--mesh", "single"),
-    ("--arch", "llama3_8b", "--shape", "decode_32k", "--mesh", "multi"),
+    (("--arch", "llama3_8b", "--mesh", "single"),
+     ("--arch", "mamba2_370m", "--shape", "long_500k", "--mesh", "single")),
+    (("--arch", "llama3_8b", "--shape", "decode_32k", "--mesh", "multi"),),
 )
 #: the reference's per-device argument bytes of those cells: its
 #: ``build_cell`` on ``jax.sharding.AbstractMesh`` with every leaf's
@@ -2887,9 +3134,10 @@ def phase_dryrun_lm(torch) -> dict:
     if os.path.exists(out):
         os.remove(out)
     counts = {}
-    for args in DRYRUN_LM_CALLS:
+    for first, *then in DRYRUN_LM_CALLS:
         lines, got, _ = run_cli(torch, "repro_torch.launch.dryrun",
-                                [*args, "--out", out], 600)
+                                [*first, "--out", out], 600,
+                                then=[[*a, "--out", out] for a in then])
         for line in lines:
             if line.startswith("["):
                 print(f"[dryrun-lm] {line}", flush=True)
@@ -2905,7 +3153,7 @@ def phase_dryrun_lm(torch) -> dict:
             peak_bytes_estimate=row["memory"]["peak_bytes"],
             variants={g: {k: v[k] for k in (
                 "batch", "step_s", "step_q1_s", "step_q3_s", "timed_steps",
-                "enqueue_s", "peak_bytes", "finite")}
+                "step_mode", "enqueue_s", "peak_bytes", "finite")}
                 for g, v in variants.items()},
             replica_step_s=row["measured"]["replica_step_s"],
             replica_step_range_s=row["measured"]["replica_step_range_s"],
@@ -2915,6 +3163,9 @@ def phase_dryrun_lm(torch) -> dict:
               f"{key}: a variant's outputs are not finite")
         check(got == want, f"{key}: {got} argument bytes a device, the "
                            f"reference's {want}")
+        mode = "graph" if key[1] in ("decode_32k", "long_500k") else "eager"
+        check(all(v["step_mode"] == mode for v in variants.values()),
+              f"{key}: timed steps not run as {mode}")
         if "roofline" in row:
             rf = row["roofline"]
             check(all(math.isfinite(rf[k]) for k in
@@ -2976,7 +3227,7 @@ def kernel_times(torch, rate: float) -> dict:
 
 
 def main() -> int:
-    global SRC
+    global SRC, CARD
     import torch
 
     args = sys.argv[1:]
@@ -2996,7 +3247,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     try:
-        name, _ = phase_device(torch)
+        name, CARD = phase_device(torch)
         from repro_torch.launch import mesh
 
         try:
@@ -3010,7 +3261,7 @@ def main() -> int:
             return 0
         records = phase_kernels(torch, rate)
         found = {"steps": {}, "reports": [], "advice": []}
-        counts, problem, recovered = phase_main_path(torch, found)
+        counts, problem, recovered = phase_main_path(torch, found, records)
         paths = [counts, phase_erasure(torch, problem, recovered, found)]
         del recovered
         phase_convergence(torch)

@@ -21,7 +21,10 @@ r'z / p'Ap``, identical to the paper's ``r'z / r'Ap`` in exact
 arithmetic.
 
 :func:`solve_jit` is the reference's fused perf path: PCG with no
-recovery hooks, its loop captured as a CUDA graph on the card.
+recovery hooks, its loop captured as a CUDA graph on the card by
+:func:`run_chunks`, which also runs recovery's local CG
+(``core/reconstruction.py``): the reference compiles both loops as
+``lax.while_loop``.
 
 :func:`solve` is the reference's legacy entry (PCG predates the zoo):
 the generic driver with the PCG solver, configured by ``PCGConfig``,
@@ -38,6 +41,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch._device import capturing
 from repro_torch.core.spmv import make_det_dot, sharded_fused_update
 from repro_torch.core.state import PCGState
 from repro_torch.kernels import fused_cg, ops
@@ -154,49 +158,74 @@ def make_persist_step(op_apply: Callable, inv_diag: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
-# The fused perf path: the loop as a CUDA graph
+# Loops as CUDA graphs: chunks of iterations on static buffers
 # ----------------------------------------------------------------------
-_FIELDS = ("x", "r", "z", "p", "rz", "beta_prev")
-#: 0-d results one captured iteration takes from the reduction's pool:
-#: det_dot(p, ap), K2's rz' and det_dot(r, r)
-_SCALARS_PER_ITERATION = 3
+class LoopChunk:
+    """``size`` iterations of a loop on the static buffers ``buf``.
 
+    A subclass gives :meth:`iterate` (one iteration on a dict of the
+    loop's tensors, returning the new dict and the 0-d value the stop
+    test reads) and ``SCALARS``, the 0-d results one iteration takes
+    from the reduction's pool.  :meth:`run` keeps the chunk's starting
+    state in ``backup``, writes each iteration's stop value into its
+    slot of ``rr`` and copies the end state back into ``buf``: the same
+    calls whether they run eagerly or are captured once and
+    replayed."""
 
-class _Chunk:
-    """``size`` PCG iterations on static buffers.  :meth:`run` keeps the
-    chunk's starting state in ``backup``, writes each iteration's ``rr =
-    det_dot(r, r)`` into its slot of ``rr`` and copies the end state
-    back into ``buf``: the same calls whether they run eagerly or are
-    captured once and replayed."""
+    SCALARS = 0
 
-    def __init__(self, step: Callable, dot: Callable, state: PCGState,
-                 size: int):
-        self.step, self.dot, self.size = step, dot, size
-        self.buf = {f: getattr(state, f).clone() for f in _FIELDS}
+    def __init__(self, buf: Dict[str, torch.Tensor], size: int):
+        self.size = size
+        self.buf = {f: t.clone() for f, t in buf.items()}
         self.backup = {f: t.clone() for f, t in self.buf.items()}
-        self.rr = torch.empty(size, dtype=state.r.dtype, device=state.r.device)
+        self.rr = torch.empty(size, dtype=self.buf["r"].dtype,
+                              device=self.buf["r"].device)
 
-    def state(self, k: int) -> PCGState:
-        return PCGState(k=k, **self.buf)
+    def iterate(self, vals: Dict[str, torch.Tensor]
+                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        raise NotImplementedError
 
-    def run(self) -> None:
+    def run(self, iterations: Optional[int] = None) -> None:
+        """``iterations`` (default: ``size``) iterations from ``buf``."""
         for f, t in self.buf.items():
             self.backup[f].copy_(t)
-        st = self.state(0)
-        for j in range(self.size):
-            st = self.step(st)
-            self.rr[j].copy_(self.dot(st.r, st.r))
+        vals = dict(self.buf)
+        for j in range(self.size if iterations is None else iterations):
+            vals, value = self.iterate(vals)
+            self.rr[j].copy_(value)
         for f, t in self.buf.items():
-            t.copy_(getattr(st, f))
+            t.copy_(vals[f])
 
     def restore(self) -> None:
         for f, t in self.buf.items():
             t.copy_(self.backup[f])
 
 
+_FIELDS = ("x", "r", "z", "p", "rz", "beta_prev")
+
+
+class _Chunk(LoopChunk):
+    """``size`` PCG iterations; each one's stop value is ``rr =
+    det_dot(r, r)``."""
+
+    #: det_dot(p, ap), K2's rz' and det_dot(r, r)
+    SCALARS = 3
+
+    def __init__(self, step: Callable, dot: Callable, state: PCGState,
+                 size: int):
+        self.step, self.dot = step, dot
+        super().__init__({f: getattr(state, f) for f in _FIELDS}, size)
+
+    def iterate(self, vals):
+        st = self.step(PCGState(k=0, **vals))
+        return {f: getattr(st, f) for f in _FIELDS}, self.dot(st.r, st.r)
+
+
 class _ChunkGraph:
-    """A :class:`_Chunk` captured as a CUDA graph on a stream of its own;
-    the solve's launches all go to that stream (enter :attr:`stream`).
+    """A :class:`LoopChunk` captured as a CUDA graph on a stream of its
+    own; the loop's launches all go to that stream (enter
+    :attr:`stream`).  ``nblocks`` is the block count of the chunk's
+    dots, on vectors the length of its ``r``.
 
     Where the capture could go wrong, and what is done about it:
 
@@ -204,7 +233,8 @@ class _ChunkGraph:
       replaces ``partials`` and ``tickets`` when a larger geometry comes
       to the same stream, and a graph captured before that would write
       into freed memory.  The capture runs on its own stream after a
-      warm-up of its one geometry there, and the graph keeps a
+      warm-up iteration there (which reserves the one geometry's
+      workspace and leaves ``buf`` as it was), and the graph keeps a
       reference to the workspace tensors whose pointers it captured.
     - *Scalar-pool views can be freed.*  The 0-d results are views of a
       pool that lives on only through its views.  The pool is topped up
@@ -219,24 +249,20 @@ class _ChunkGraph:
       and the workspace's allocation count must not move across it.
     """
 
-    def __init__(self, chunk: _Chunk, step: Callable, nblocks: int):
+    def __init__(self, chunk: LoopChunk, nblocks: int):
         device = chunk.rr.device
         self.stream = torch.cuda.Stream(device)
         self.stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(self.stream):
-            # warm-up: the one geometry (n, nblocks) reserves its
-            # workspace on this stream, outside the capture
-            warm = step(chunk.state(0))
-            chunk.dot(warm.r, warm.r)
-            ws = fused_cg.workspace(warm.r, nblocks)
-            del warm
-            views = ws.reserve_scalars(
-                chunk.rr.dtype, _SCALARS_PER_ITERATION * chunk.size)
+            chunk.iterate(dict(chunk.buf))
+            ws = fused_cg.workspace(chunk.buf["r"], nblocks)
+            views = ws.reserve_scalars(chunk.rr.dtype,
+                                       chunk.SCALARS * chunk.size)
             self._keep = (ws.partials, ws.tickets, views)
             allocations = ws.allocations
             before = ops.launch_counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=self.stream):
+            with capturing(self.graph, self.stream):
                 chunk.run()
             self.per_chunk = ops.uncount_capture(before)
         if ws.allocations != allocations:
@@ -249,56 +275,37 @@ class _ChunkGraph:
         ops.count_replay(self.per_chunk)
 
 
-def solve_jit(op, precond, b: torch.Tensor, tol: float = 1e-10,
-              maxiter: int = 10_000, chunk: int = 32,
-              info: Optional[dict] = None) -> Tuple[torch.Tensor, int]:
-    """Fused PCG with no recovery hooks: the perf path (the reference's
-    ``solve_jit``).
-
-    The reference's contract: PCG from ``x0 = 0``, stopping at the first
-    ``k`` where ``rr = det_dot(r, r)`` is not above ``tol^2 * (b.b)`` or at
-    ``maxiter``; returns ``(x, k)``.  The port's step fuses the
-    preconditioner into K2, which needs its ``inv_diag`` and the
-    operator's ``nblocks``, so it takes the operator and preconditioner
-    objects ``(op, precond)`` where the reference takes their apply
-    functions.  Every dot is ``det_dot``; the state is bitwise that of
-    the driver's unprotected PCG loop at the same ``k``.
-
-    The loop runs in chunks of ``chunk`` iterations.  On a CUDA tensor a
-    chunk is captured once as a CUDA graph and replayed; on a CPU tensor
-    the same chunk runs eagerly (dispatch on the device, not a
-    fallback).  After each chunk the host reads its ``chunk`` values of
-    ``rr`` at once.  When the stop falls inside a chunk, the chunk's
-    starting state is restored and its first iterations rerun eagerly
-    with the same step and kernels, so ``k`` is exact at one host sync
-    per chunk.  ``info``, when given, is filled with the chunk size,
-    the chunks run (``chunks``), the launches of one chunk
-    (``launches_per_chunk``, graph only), the host seconds of the
-    warm-up and capture (``capture_s``) and of the chunks with their
-    reads (``chunk_s``), and the iterations rerun eagerly.
-    """
-    inv_diag = getattr(precond, "inv_diag", None)
-    if inv_diag is None:
-        raise ValueError(
-            f"solve_jit fuses a diagonal preconditioner into kernel K2; "
-            f"{type(precond).__name__} exposes no inv_diag")
-    step = make_step(op.apply, inv_diag, op.nblocks)
-    dot = make_det_dot(op.nblocks)
-    state = init_state(op, precond, b, dot=dot)
-    threshold = (tol * tol) * float(dot(b, b))
-    on_card = b.device.type == "cuda"
+def chunk_stats(info: Optional[dict], on_card: bool) -> dict:
+    """``info`` (or a new dict) reset to what :func:`run_chunks` fills."""
     stats = {} if info is None else info
     stats.update(chunk=0, chunks=0, graph=on_card, launches_per_chunk=None,
                  capture_s=0.0, chunk_s=0.0, eager_iterations=0)
-    if maxiter <= 0 or not float(dot(state.r, state.r)) > threshold:
-        return state.x, 0
+    return stats
 
-    size = min(chunk, maxiter)
-    body = _Chunk(step, dot, state, size)
-    run, context = body.run, contextlib.nullcontext()
-    if on_card:
+
+def run_chunks(body: LoopChunk, nblocks: int, threshold: float,
+               maxiter: int, stats: dict) -> int:
+    """Run ``body`` from its buffers until the first iteration whose stop
+    value is not above ``threshold``, or ``maxiter`` iterations; returns
+    that count, with ``body.buf`` holding the state it reached.
+
+    On a CUDA tensor a chunk is captured once as a CUDA graph
+    (:class:`_ChunkGraph`) and replayed; on a CPU tensor the same chunk
+    runs eagerly (dispatch on the device, not a fallback).  After each
+    chunk the host reads its ``size`` stop values at once.  When the
+    stop falls inside a chunk, the chunk's starting state is restored
+    and its first iterations rerun eagerly with the same calls, so the
+    count is exact at one host sync per chunk.  ``stats`` (from
+    :func:`chunk_stats`) gets the chunk size, the chunks run
+    (``chunks``), the launches of one chunk (``launches_per_chunk``,
+    graph only), the host seconds of the warm-up and capture
+    (``capture_s``) and of the chunks with their reads (``chunk_s``),
+    and the iterations rerun eagerly."""
+    size = body.size
+    run, context, graph = body.run, contextlib.nullcontext(), None
+    if stats["graph"]:
         t0 = time.perf_counter()
-        graph = _ChunkGraph(body, step, op.nblocks)
+        graph = _ChunkGraph(body, nblocks)
         stats.update(launches_per_chunk=graph.per_chunk,
                      capture_s=time.perf_counter() - t0)
         run, context = graph.replay, torch.cuda.stream(graph.stream)
@@ -319,21 +326,53 @@ def solve_jit(op, precond, b: torch.Tensor, tol: float = 1e-10,
                 # start, then its first `todo` iterations eagerly, on the
                 # same kernels and so the same bits
                 body.restore()
-                st = body.state(k)
-                for _ in range(todo):
-                    st = step(st)
-                x, k = st.x, k + todo
+                body.run(todo)
                 stats["eager_iterations"] = todo
+                k += todo
                 break
             k += size
             if stop is not None or k >= maxiter:
-                x = body.buf["x"]
                 break
-    if on_card:
-        current = torch.cuda.current_stream(b.device)
-        current.wait_stream(graph.stream)
-        x.record_stream(current)
-    return x, k
+    if graph is not None:
+        torch.cuda.current_stream(body.rr.device).wait_stream(graph.stream)
+    return k
+
+
+def solve_jit(op, precond, b: torch.Tensor, tol: float = 1e-10,
+              maxiter: int = 10_000, chunk: int = 32,
+              info: Optional[dict] = None) -> Tuple[torch.Tensor, int]:
+    """Fused PCG with no recovery hooks: the perf path (the reference's
+    ``solve_jit``).
+
+    The reference's contract: PCG from ``x0 = 0``, stopping at the first
+    ``k`` where ``rr = det_dot(r, r)`` is not above ``tol^2 * (b.b)`` or at
+    ``maxiter``; returns ``(x, k)``.  The port's step fuses the
+    preconditioner into K2, which needs its ``inv_diag`` and the
+    operator's ``nblocks``, so it takes the operator and preconditioner
+    objects ``(op, precond)`` where the reference takes their apply
+    functions.  Every dot is ``det_dot``; the state is bitwise that of
+    the driver's unprotected PCG loop at the same ``k``.
+
+    The loop runs in chunks of ``chunk`` iterations (:func:`run_chunks`:
+    a CUDA graph on the card, eager on the CPU, one host read a chunk,
+    the exact ``k`` by an eager rerun); ``info``, when given, gets
+    :func:`run_chunks`' statistics.
+    """
+    inv_diag = getattr(precond, "inv_diag", None)
+    if inv_diag is None:
+        raise ValueError(
+            f"solve_jit fuses a diagonal preconditioner into kernel K2; "
+            f"{type(precond).__name__} exposes no inv_diag")
+    step = make_step(op.apply, inv_diag, op.nblocks)
+    dot = make_det_dot(op.nblocks)
+    state = init_state(op, precond, b, dot=dot)
+    threshold = (tol * tol) * float(dot(b, b))
+    stats = chunk_stats(info, b.device.type == "cuda")
+    if maxiter <= 0 or not float(dot(state.r, state.r)) > threshold:
+        return state.x, 0
+    body = _Chunk(step, dot, state, min(chunk, maxiter))
+    k = run_chunks(body, op.nblocks, threshold, maxiter, stats)
+    return body.buf["x"], k
 
 
 # ----------------------------------------------------------------------

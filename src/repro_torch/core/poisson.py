@@ -50,9 +50,17 @@ class BlockPartition:
     def _blocks(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.nblocks, self.block_size)
 
-    @staticmethod
-    def _index(blocks: Sequence[int], device) -> torch.Tensor:
-        return torch.as_tensor(list(blocks), dtype=torch.long, device=device)
+    def _index(self, blocks: Sequence[int], device) -> torch.Tensor:
+        """``blocks`` as a long tensor on ``device``, made once a (blocks,
+        device): recovery's local CG captures ``embed`` and ``restrict``
+        in a CUDA graph, where no host-to-device copy may run."""
+        key = (tuple(blocks), torch.device(device))
+        cache = self.__dict__.setdefault("_indices", {})
+        index = cache.get(key)
+        if index is None:
+            index = cache[key] = torch.as_tensor(list(blocks), dtype=torch.long,
+                                                 device=device)
+        return index
 
     def restrict(self, x: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
         """``x[I_F]`` for the union F of ``blocks`` (concatenated, flat)."""

@@ -11,7 +11,9 @@ static data (A rows, P rows, b), the failed state is rebuilt exactly:
 
 ``A[F,F]`` is SPD, so the local solve is a dense Cholesky for small
 unions or matrix-free local CG for large ones.  Every stencil apply runs
-through ``ops.stencil7`` (K1 on CUDA).
+through ``ops.stencil7`` (K1 on CUDA).  On the card the local CG runs
+as a CUDA graph replayed chunk by chunk (:func:`_local_cg_chunked`),
+bitwise the plain loop the CPU runs.
 """
 from __future__ import annotations
 
@@ -19,33 +21,98 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.pcg import LoopChunk, chunk_stats, run_chunks
 from repro_torch.core.spmv import make_det_dot
 from repro_torch.core.state import PCGState
 
 #: inner product of the replacement-node local solve (one block: the
 #: union is solved as a single local vector)
 _local_dot = make_det_dot(1)
+#: iterations of one chunk of the local CG on the card (one host read
+#: each)
+LOCAL_CG_CHUNK = 32
 
 
-def _local_cg(apply_fn, rhs: torch.Tensor, tol: float = 1e-14,
-              maxiter: int = 10000) -> torch.Tensor:
+def _cg_iteration(apply_fn, x, r, p, rs):
+    """One iteration of the local CG: ``(x, r, p, r.r)`` after it."""
+    ap = apply_fn(p)
+    alpha = rs / _local_dot(p, ap)
+    x = x + alpha * p
+    r = r - alpha * ap
+    rs_new = _local_dot(r, r)
+    p = r + (rs_new / rs) * p
+    return x, r, p, rs_new
+
+
+def _local_cg_plain(apply_fn, rhs: torch.Tensor, tol: float = 1e-14,
+                    maxiter: int = 10000, info: Optional[dict] = None
+                    ) -> torch.Tensor:
     """Matrix-free CG on the failed-block operator (replacement-node
-    solve).  The stopping test pulls one scalar per iteration."""
+    solve), the reference's ``while_loop`` run from the host: it stops at
+    the first iteration where ``r.r`` is not above ``tol^2 * rhs.rhs``,
+    or at ``maxiter``, and pulls one scalar an iteration for that test.
+    ``info`` gets the iteration count."""
     x = torch.zeros_like(rhs)
     r, p = rhs, rhs
     rs = _local_dot(rhs, rhs)
     threshold = tol * tol * rs
     it = 0
     while it < maxiter and bool(rs > threshold):
-        ap = apply_fn(p)
-        alpha = rs / _local_dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = _local_dot(r, r)
-        p = r + (rs_new / rs) * p
-        rs = rs_new
+        x, r, p, rs = _cg_iteration(apply_fn, x, r, p, rs)
         it += 1
+    if info is not None:
+        info["iterations"] = it
     return x
+
+
+class _LocalCGChunk(LoopChunk):
+    """``size`` local-CG iterations on static ``x, r, p, rs``; each one's
+    stop value is its ``rs``."""
+
+    #: det_dot(p, ap) and det_dot(r, r)
+    SCALARS = 2
+
+    def __init__(self, apply_fn, rhs: torch.Tensor, rs: torch.Tensor,
+                 size: int):
+        self.apply_fn = apply_fn
+        super().__init__({"x": torch.zeros_like(rhs), "r": rhs, "p": rhs,
+                          "rs": rs}, size)
+
+    def iterate(self, vals):
+        x, r, p, rs = _cg_iteration(self.apply_fn, vals["x"], vals["r"],
+                                    vals["p"], vals["rs"])
+        return {"x": x, "r": r, "p": p, "rs": rs}, rs
+
+
+def _local_cg_chunked(apply_fn, rhs: torch.Tensor, tol: float = 1e-14,
+                      maxiter: int = 10000, chunk: int = LOCAL_CG_CHUNK,
+                      info: Optional[dict] = None) -> torch.Tensor:
+    """:func:`_local_cg_plain`'s loop in chunks of ``chunk`` iterations
+    (``core.pcg.run_chunks``: a CUDA graph on the card, eager on the
+    CPU, one host read a chunk and an eager rerun of the chunk the stop
+    falls in): the same calls, so the same ``x`` bitwise at the same
+    iteration.  ``info`` gets the iteration count and the chunks'
+    statistics."""
+    stats = chunk_stats(info, rhs.device.type == "cuda")
+    rs = _local_dot(rhs, rhs)
+    threshold = float(tol * tol * rs)
+    if maxiter <= 0 or not float(rs) > threshold:
+        stats["iterations"] = 0
+        return torch.zeros_like(rhs)
+    body = _LocalCGChunk(apply_fn, rhs, rs, min(chunk, maxiter))
+    stats["iterations"] = run_chunks(body, 1, threshold, maxiter, stats)
+    return body.buf["x"]
+
+
+def _local_cg(apply_fn, rhs: torch.Tensor, tol: float = 1e-14,
+              maxiter: int = 10000, info: Optional[dict] = None
+              ) -> torch.Tensor:
+    """The local CG, dispatched on ``rhs``'s device: chunked and captured
+    as a CUDA graph on the card (the reference compiles its
+    ``while_loop``), the plain loop on the CPU."""
+    if rhs.device.type == "cuda":
+        return _local_cg_chunked(apply_fn, rhs, tol, maxiter, info=info)
+    return _local_cg_plain(apply_fn, rhs, tol, maxiter, info)
 
 
 def _local_dense_solve(apply_fn, rhs: torch.Tensor) -> torch.Tensor:

@@ -109,6 +109,7 @@ on its 8 blocks as shards, in place of ``GRIDS``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -129,6 +130,7 @@ from repro_torch.launch import DRYRUN_OUT
 from repro_torch.launch import mesh as M
 from repro_torch.launch import roofline as RL
 from repro_torch.models import registry as R
+from repro_torch.serving.engine import DecodeGraph
 from repro_torch.training.optimizer import UPDATE_CHUNK, adamw_init
 #: a PCG iteration's useful operations a grid point, counted as
 #: :mod:`repro_torch.launch.roofline` counts the step's (one per rounded
@@ -600,15 +602,34 @@ def _finite(kind: str, out) -> bool:
     return all(bool(torch.isfinite(rows).all()) for rows in logits.split(1024))
 
 
+def _decode_graph(cell, args, device: torch.device):
+    """``cell.fn``'s decode step captured once as a CUDA graph
+    (:class:`~repro_torch.serving.engine.DecodeGraph`) on a stream of
+    its own, after one eager step there, at the cell's position as a
+    0-d tensor: ``(stream, step)``, ``step()`` a replay returning
+    ``(logits, caches)``."""
+    model, tok, caches, index = args
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        pos = torch.full((), index, dtype=torch.int32, device=device)
+        _, caches = cell.fn(model, tok, caches, pos)
+        graph = DecodeGraph(cell.fn, model, tok, caches, stream)
+    return stream, lambda: (graph(tok, index), graph.caches)
+
+
 def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
     """One step of ``cell`` at ``batch`` rows on ``device``, then timed
     steps while :func:`keep_timing` says so (CUDA events over a window
     of ``TIMED_WINDOW_S`` on the card; ``WARM_STEPS`` by the host's
     clock on the CPU, which names no device time), then with ``count``
     one step under
-    :class:`~repro_torch.launch.roofline.OpCounter`.  Returns the
-    variant's measurements; raises when a step's loss, gradient norm or
-    logits are not finite."""
+    :class:`~repro_torch.launch.roofline.OpCounter`.  On the card a
+    decode cell's timed steps are replays of one capture of its step
+    (``"step_mode": "graph"``, the step the reference jits); train and
+    prefill steps, the first step and the counted one run eagerly
+    (``"eager"``).  Returns the variant's measurements; raises when a
+    step's loss, gradient norm or logits are not finite."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
@@ -622,22 +643,32 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
     if cuda:
         torch.cuda.synchronize(device)
     first_s = time.perf_counter() - t0
-    steps, enqueues = [], []
-    while keep_timing(steps, TIMED_WINDOW_S if cuda else 0.0):
+    mode = "graph" if cuda and cell.shape.kind == "decode" else "eager"
+    stream, step = None, lambda: cell.fn(*args)
+    if mode == "graph":
         del out
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-        t0 = time.perf_counter()
-        out = cell.fn(*args)
-        enqueues.append(time.perf_counter() - t0)
-        if cuda:
-            end.record()
-            end.synchronize()
-            steps.append(start.elapsed_time(end) / 1e3)
-        else:
-            steps.append(time.perf_counter() - t0)
+        stream, step = _decode_graph(cell, args, device)
+        out = step()
+    steps, enqueues = [], []
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        while keep_timing(steps, TIMED_WINDOW_S if cuda else 0.0):
+            del out
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+            t0 = time.perf_counter()
+            out = step()
+            enqueues.append(time.perf_counter() - t0)
+            if cuda:
+                end.record()
+                end.synchronize()
+                steps.append(start.elapsed_time(end) / 1e3)
+            else:
+                steps.append(time.perf_counter() - t0)
+    if stream is not None:
+        torch.cuda.current_stream(device).wait_stream(stream)
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else None
     finite = _finite(cell.shape.kind, out)
     del out
@@ -649,7 +680,7 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
            "allocated_bytes": allocated if cuda else None,
            "peak_bytes": peak,
            "nonarg_peak_bytes": peak - allocated if cuda else None,
-           "finite": finite}
+           "step_mode": mode, "finite": finite}
     if count:
         counter = RL.OpCounter()
         with counter:

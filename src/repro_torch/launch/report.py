@@ -107,13 +107,14 @@ def multipod_table(rows: Dict) -> str:
 def lm_table(rows: Dict, mesh: str = "16x16") -> str:
     """The LM rows' measurements on ``mesh``: the exact per-device
     argument bytes, the estimated peak against the card's memory, each
-    depth variant's median step seconds at its batch and its number of
-    timed steps, the extrapolated step of one data replica with its
+    depth variant's median step seconds at its batch, its number of
+    timed steps and how they ran (``eager``, or ``graph``: replays of one
+    CUDA-graph capture), the extrapolated step of one data replica with its
     range over the quartiles of the variants' steps, and its
     ``model_flops`` share of the bf16 peak, the cuts and refusals
     (``reduced``), and the card."""
     out = ["| arch | shape | args GiB/dev | est. peak GiB/dev | fits | "
-           "variant steps s (batch, timed steps) | replica step s (range) | "
+           "variant steps s (batch, timed steps, mode) | replica step s (range) | "
            "bf16 share | cuts | card |", "|" + "---|" * 10]
     for (a, s, m), r in sorted(rows.items()):
         if m != mesh or "measured" not in r:
@@ -125,7 +126,8 @@ def lm_table(rows: Dict, mesh: str = "16x16") -> str:
         steps = ", ".join(
             f"{g} " + ("-" if v["step_s"] is None else f"{v['step_s']:.4f}")
             + f" ({v['batch']}" + ("" if v.get("timed_steps") is None
-                                   else f", {v['timed_steps']}") + ")"
+                                   else f", {v['timed_steps']}, "
+                                   f"{v.get('step_mode', 'eager')}") + ")"
             for g, v in msr["variants"].items())
         step, share = msr["replica_step_s"], msr["bf16_share"]
         span = msr.get("replica_step_range_s")

@@ -131,7 +131,7 @@ def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
 
 def _dec_layer(lp: DecLayer, x: torch.Tensor,
                enc_out: Optional[torch.Tensor], lc: Optional[Cache],
-               cfg: ModelConfig, cache_index: Optional[int]
+               cfg: ModelConfig, cache_index: Optional[L.Position]
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """One decoder layer; returns (x, its new cache entry or None)."""
     cdt = cfg.cdt
@@ -165,7 +165,7 @@ def decode(
     enc_out: Optional[torch.Tensor],      # (B, enc_seq, d); None if cached
     cfg: ModelConfig,
     caches: Optional[List[Cache]] = None,
-    cache_index: Optional[int] = None,
+    cache_index: Optional[L.Position] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
     cdt = cfg.cdt

@@ -29,7 +29,7 @@ Conventions
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +38,10 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, torch.Tensor]
+#: a decode position: an int, or a 0-d integer tensor on the model's
+#: device (the reference's traced ``int32`` index), which keeps the step
+#: free of host reads so that it can be captured as a CUDA graph
+Position = Union[int, torch.Tensor]
 
 
 # ----------------------------------------------------------------------
@@ -242,11 +246,18 @@ def _sdpa_banded(q, k, v, *, window: int, chunk: int) -> torch.Tensor:
     return outs[0] if n == 1 else torch.cat(outs, dim=1)
 
 
-def _update_slice(buf: torch.Tensor, update: torch.Tensor, start: int,
+def _update_slice(buf: torch.Tensor, update: torch.Tensor, start: Position,
                   dim: int) -> None:
     """``lax.dynamic_update_slice_in_dim`` in place: the start index is
-    *clamped* so that the update fits, as XLA clamps it."""
+    *clamped* so that the update fits, as XLA clamps it.  A tensor
+    ``start`` (0-d, on ``buf``'s device) is clamped and written on the
+    device, with no host read, bitwise the int form."""
     size = update.shape[dim]
+    if isinstance(start, torch.Tensor):
+        rows = (start.clamp(0, buf.shape[dim] - size)
+                + torch.arange(size, device=buf.device))
+        buf.index_copy_(dim, rows, update)
+        return
     start = min(max(int(start), 0), buf.shape[dim] - size)
     buf.narrow(dim, start, size).copy_(update)
 
@@ -293,7 +304,7 @@ class Attention(nn.Module):
         kind: str = "global",          # "global" | "local"
         positions: Optional[torch.Tensor] = None,
         cache: Optional[Cache] = None,
-        cache_index: Optional[int] = None,
+        cache_index: Optional[Position] = None,
         kv_source: Optional[torch.Tensor] = None,   # cross-attention
         causal: bool = True,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
@@ -305,7 +316,8 @@ class Attention(nn.Module):
             fill it with K/V.)
           - decode: ``cache`` + ``cache_index`` -> attend over the cache.
             A cache with a ``pos`` entry is a *ring buffer*
-            (sliding-window layers keep only ``window`` slots).
+            (sliding-window layers keep only ``window`` slots).  The
+            index is an int or a 0-d integer tensor (:data:`Position`).
           - cross: ``kv_source`` given -> no causal mask, no cache update.
 
         The cache's tensors are updated in place and returned in a new
@@ -348,7 +360,11 @@ class Attention(nn.Module):
                     slot = cache_index % w
                     _update_slice(ck, k.to(cdtc), slot, 1)
                     _update_slice(cv, v.to(cdtc), slot, 1)
-                    cpos[slot] = cache_index
+                    if isinstance(cache_index, torch.Tensor):
+                        _update_slice(cpos, cache_index.reshape(1).to(cpos.dtype),
+                                      slot, 0)
+                    else:
+                        cpos[slot] = cache_index
                 elif s >= w:
                     # prefill into the ring: keep the last `w` positions
                     shift = (s - w) % w

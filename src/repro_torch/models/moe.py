@@ -68,6 +68,15 @@ def top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _count(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``, at a
+    fixed length: ``bincount`` reads the largest id back to the host on
+    the card, which a CUDA-graph capture cannot do (integer sums, so the
+    counts are the same in any order)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router and sort-based dispatch of ``t`` tokens ``xt (t, d)``.
@@ -87,12 +96,12 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
 
     # Switch aux loss: e * sum_e( frac_tokens_e * mean_router_prob_e )
     probs = torch.softmax(logits, dim=-1)
-    counts = torch.bincount(top_e.reshape(-1), minlength=e).float()
+    counts = _count(top_e.reshape(-1), e).float()
     frac = counts / (t * k)
     aux = e * torch.sum(frac * torch.mean(probs, dim=0))
 
     flat_e = top_e.reshape(-1)                            # (t*k,)
-    flat_t = torch.repeat_interleave(torch.arange(t, device=dev), k)
+    flat_t = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
     flat_w = top_w.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
@@ -118,7 +127,7 @@ def combine(y: torch.Tensor, tok_table: torch.Tensor, t: int, k: int
     nslots, d = y.shape
     # slots grouped by token, ascending within a token
     order = torch.argsort(flat_tok, stable=True)
-    counts = torch.bincount(flat_tok, minlength=t + 1)[:t]
+    counts = _count(flat_tok, t + 1)[:t]
     starts = torch.cumsum(counts, 0) - counts
     j = torch.arange(k, device=y.device)
     take = starts[:, None] + j[None, :]                   # (t, k)

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Init, gelu, softplus
+from repro_torch.models.layers import Init, Position, gelu, softplus
 from repro_torch.models.ssm import _causal_conv, _conv_step
 
 Cache = Dict[str, torch.Tensor]
@@ -65,7 +65,7 @@ class RGLRUBlock(nn.Module):
         self.w_out = init.dense((w, d), cfg.pdt, fan_in=w)
 
     def forward(self, u: torch.Tensor, cache: Optional[Cache] = None,
-                cache_index: Optional[int] = None
+                cache_index: Optional[Position] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         return rglru_block(self, u, self.cfg, cache, cache_index)
 
@@ -145,7 +145,7 @@ def rglru_block(
     u: torch.Tensor,
     cfg: ModelConfig,
     cache: Optional[Cache] = None,
-    cache_index: Optional[int] = None,
+    cache_index: Optional[Position] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     cdt = cfg.cdt
     gate = gelu(u @ p.w_gate.to(cdt))

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Init, softplus
+from repro_torch.models.layers import Init, Position, softplus
 
 Cache = Dict[str, torch.Tensor]
 
@@ -63,7 +63,7 @@ class SSMBlock(nn.Module):
         self.w_out = init.dense((di, d), cfg.pdt, fan_in=di)
 
     def forward(self, u: torch.Tensor, cache: Optional[Cache] = None,
-                cache_index: Optional[int] = None
+                cache_index: Optional[Position] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         return ssm_block(self, u, self.cfg, cache, cache_index)
 
@@ -143,7 +143,7 @@ def ssm_block(
     u: torch.Tensor,
     cfg: ModelConfig,
     cache: Optional[Cache] = None,
-    cache_index: Optional[int] = None,
+    cache_index: Optional[Position] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Full Mamba-2 mixer. Train/prefill when cache is None or s>1;
     single-token recurrent decode when s == 1 with a cache."""

@@ -71,7 +71,7 @@ class Layer(nn.Module):
                 self.mlp = L.MLP(cfg, init)
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
-                cache_index: Optional[int] = None,
+                cache_index: Optional[L.Position] = None,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
         """Returns (x, new_cache, aux): ``aux`` is the MoE's aux loss, None
@@ -238,9 +238,15 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for kind in layer_kinds(cfg)]
 
 
-def _slice_clamped(table: torch.Tensor, start: int, size: int) -> torch.Tensor:
+def _slice_clamped(table: torch.Tensor, start: L.Position,
+                   size: int) -> torch.Tensor:
     """``lax.dynamic_slice_in_dim(table, start, size, 0)``: the start is
-    clamped so that the slice fits, as XLA clamps it."""
+    clamped so that the slice fits, as XLA clamps it; a tensor ``start``
+    on the device, with no host read (a gather of the same rows)."""
+    if isinstance(start, torch.Tensor):
+        rows = (start.clamp(0, table.shape[0] - size)
+                + torch.arange(size, device=table.device))
+        return table.index_select(0, rows)
     start = min(max(int(start), 0), table.shape[0] - size)
     return table[start:start + size]
 
@@ -281,7 +287,7 @@ def decoder_forward(
     tokens: torch.Tensor,                 # (B, S) int, or (B, S, d) embeds
     cfg: ModelConfig,
     caches: Optional[List[Cache]] = None,
-    cache_index: Optional[int] = None,
+    cache_index: Optional[L.Position] = None,
     positions: Optional[torch.Tensor] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Cache]], torch.Tensor]:
@@ -289,7 +295,8 @@ def decoder_forward(
 
     Teacher-forced with ``caches=None``; prefill-with-cache with zeroed
     caches and ``cache_index=0``; decode with one token a row and the
-    caches at ``cache_index``.  Attention caches are written in place
+    caches at ``cache_index`` (an int, or a 0-d integer tensor on the
+    device: then the step reads nothing back to the host).  Attention caches are written in place
     (the returned list holds the same tensors); recurrent and SSM states
     are returned anew.  ``remat=True`` without caches checkpoints each
     layer under ``cfg.remat_policy``."""

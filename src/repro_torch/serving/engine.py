@@ -5,14 +5,77 @@
 full-length caches; local layers: O(window) ring buffers; SSM/RG-LRU
 layers: constant-size recurrent state).  ``decode`` appends one token.
 Greedy sampling; batch-synchronous (all requests share a position).
-The reference compiles its two step functions with ``jax.jit``; here
-they run eagerly under ``torch.inference_mode()``.
+
+The reference compiles its two step functions with ``jax.jit`` and
+passes the decode position as a device ``int32``.  Here both run under
+``torch.inference_mode()``, and the position is a 0-d ``int32`` tensor
+on the prompt's device, so a decode step reads nothing back to the
+host.  The prefill runs eagerly (one call a request).  On the card the
+decode step is captured once a :meth:`ServeEngine.generate` as a CUDA
+graph (:class:`DecodeGraph`), after one eager step on the graph's
+stream, and replayed for every later token; on the CPU every step runs
+eagerly.  The choice follows the prompt's device alone.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch._device import capturing
+
+
+def _write_back(caches, new) -> None:
+    """Copy each leaf of ``new`` into the same leaf of ``caches`` where
+    the two are distinct tensors: a decode step writes the attention
+    caches in place and returns the recurrent states anew."""
+    if isinstance(caches, dict):
+        for key, leaf in caches.items():
+            _write_back(leaf, new[key])
+    elif isinstance(caches, (list, tuple)):
+        for leaf, new_leaf in zip(caches, new):
+            _write_back(leaf, new_leaf)
+    elif new is not caches:
+        caches.copy_(new)
+
+
+class DecodeGraph:
+    """One decode step ``decode_fn(params, tok, caches, index)`` captured
+    as a CUDA graph on ``stream``, over static inputs: a token tensor
+    shaped like ``tok``, a 0-d ``int32`` position and ``caches``
+    themselves, which every replay reads and updates in place (new
+    recurrent states are copied back into them inside the graph).
+
+    Capture after at least one eager step on ``stream``, so that the
+    libraries the step calls set up their per-stream state outside the
+    capture.  A capture that fails raises; nothing falls back to eager.
+    :meth:`__call__` writes the token and the position into the static
+    inputs and replays; the logits it returns are a static tensor that
+    the next replay overwrites."""
+
+    def __init__(self, decode_fn: Callable, params, tok: torch.Tensor,
+                 caches, stream: torch.cuda.Stream):
+        t0 = time.perf_counter()
+        self.caches = caches
+        self.replays = 0
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode():
+            self.tok = tok.clone()
+            self.index = torch.zeros((), dtype=torch.int32, device=tok.device)
+            with capturing(self.graph, stream):
+                logits, new = decode_fn(params, self.tok, caches, self.index)
+                _write_back(caches, new)
+        self.logits = logits
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, tok: torch.Tensor, index: int) -> torch.Tensor:
+        with torch.inference_mode():
+            self.tok.copy_(tok)
+            self.index.fill_(index)
+        self.graph.replay()
+        self.replays += 1
+        return self.logits
 
 
 class ServeEngine:
@@ -22,26 +85,82 @@ class ServeEngine:
         - prefill_fn(model, tokens_or_embeds, caches) -> (logits, caches)
         - decode_fn(model, last_tokens (B,1), caches, index) -> (logits, caches)
         - cache_init(batch, max_seq) -> caches
-        """
+
+        ``stats`` describes the last :meth:`generate`: whether its decode
+        ran as a graph, its eager decode steps, its replays and the host
+        seconds of the capture."""
         self._prefill = prefill_fn
         self._decode = decode_fn
         self._cache_init = cache_init
+        self._streams: dict = {}
+        self.stats: dict = {}
 
     def generate(self, params, prompt: torch.Tensor, steps: int,
-                 max_seq: Optional[int] = None) -> torch.Tensor:
+                 max_seq: Optional[int] = None,
+                 on_step: Optional[Callable] = None) -> torch.Tensor:
         """``steps`` greedy tokens a row after ``prompt (B, S)``, as a
-        ``(B, steps)`` tensor of ``prompt``'s dtype."""
+        ``(B, steps)`` tensor of ``prompt``'s dtype.  ``on_step(i,
+        logits)``, when given, is called after the prefill (``i = 0``)
+        and after each decode step ``i``, with that step's logits (on
+        the card, the graph's static output)."""
         b, s = prompt.shape[0], prompt.shape[1]
         max_seq = max_seq if max_seq is not None else s + steps
+        on_card = prompt.device.type == "cuda"
+        self.stats = {"graph": on_card, "eager_steps": 0, "replays": 0,
+                      "capture_s": 0.0}
         with torch.inference_mode():
             caches = self._cache_init(b, max_seq)
             logits, caches = self._prefill(params, prompt, caches)
             tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
-            out = [tok]
-            idx = s
-            for _ in range(steps - 1):
-                logits, caches = self._decode(params, tok, caches, idx)
+            if on_step is not None:
+                on_step(0, logits)
+            if not on_card:
+                out = [tok]
+                idx = torch.tensor(s, dtype=torch.int32)
+                for i in range(1, steps):
+                    logits, caches = self._decode(params, tok, caches, idx)
+                    tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+                    out.append(tok)
+                    if on_step is not None:
+                        on_step(i, logits)
+                    idx = idx + 1
+                self.stats["eager_steps"] = steps - 1
+                return torch.cat(out, dim=1)
+            return self._generate_on_card(params, prompt, tok, caches, steps,
+                                          on_step)
+
+    def _generate_on_card(self, params, prompt, tok, caches, steps, on_step):
+        """The decode loop on the card: the first step eagerly on the
+        engine's stream for the device (made once, so that the libraries'
+        per-stream state is set up once), then one capture replayed for
+        the other steps."""
+        dev = prompt.device
+        s = prompt.shape[1]
+        current = torch.cuda.current_stream(dev)
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        stream.wait_stream(current)
+        out = [tok]
+        graph = None
+        with torch.cuda.stream(stream):
+            for i in range(1, steps):
+                if graph is None:
+                    idx = torch.full((), s, dtype=torch.int32, device=dev)
+                    logits, caches = self._decode(params, tok, caches, idx)
+                    self.stats["eager_steps"] += 1
+                    if i + 1 < steps:
+                        graph = DecodeGraph(self._decode, params, tok,
+                                            caches, stream)
+                        self.stats["capture_s"] = graph.capture_s
+                else:
+                    logits = graph(tok, s + i - 1)
+                    self.stats["replays"] = graph.replays
                 tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
                 out.append(tok)
-                idx = idx + 1
-            return torch.cat(out, dim=1)
+                if on_step is not None:
+                    on_step(i, logits)
+            result = torch.cat(out, dim=1)
+        current.wait_stream(stream)
+        result.record_stream(current)
+        return result

@@ -268,7 +268,7 @@ def test_graph_survives_a_grown_workspace_on_card(cuda_device):
     dot = pcg.make_det_dot(op.nblocks)
     start = pcg.init_state(op, pre, b, dot=dot)
     body = pcg._Chunk(step, dot, start, 8)
-    graph = pcg._ChunkGraph(body, step, op.nblocks)
+    graph = pcg._ChunkGraph(body, op.nblocks)
     with torch.cuda.stream(graph.stream):
         ws = fused_cg.workspace(b, op.nblocks)
         old = (ws.partials.data_ptr(), ws.tickets.data_ptr())
@@ -778,6 +778,138 @@ def test_lm_dry_run_cell_on_card_matches_the_cpu(cuda_device, shape):
     for var in row["measured"]["variants"].values():
         assert var["step_s"] > 0 and var["peak_bytes"] > 0 and var["finite"]
         assert var["step_q1_s"] <= var["step_s"] <= var["step_q3_s"]
+        assert var["step_mode"] == ("graph" if shape == "decode_32k"
+                                    else "eager")
         assert var["timed_steps"] >= dryrun.WARM_STEPS
     least, most = row["measured"]["replica_step_range_s"]
     assert 0 < least <= row["measured"]["replica_step_s"] <= most
+
+
+# ----------------------------------------------------------------------
+# the reference's compiled loops as CUDA graphs: recovery's local CG and
+# the LM decode step
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 7, 1000])
+def test_local_cg_graph_is_the_plain_loop_bitwise_on_card(cuda_device, chunk):
+    """Recovery's local CG as replays of one captured chunk: ``x`` bitwise
+    the plain loop's on the card at the same iteration, the launch
+    counts holding every replay (one K1 and two det_dot a captured
+    iteration), and within 1e-10 of the plain loop on the CPU."""
+    from repro_torch.core import reconstruction as rec
+
+    problem = _poisson(cuda_device, grid=32)
+    failed = [1, 2]
+    op = problem.op
+
+    def apply_fn(u):
+        return op.inblock_apply(u, failed)
+
+    rhs = torch.from_numpy(rng_normal(3, 2 * op.partition.block_size)).to(
+        cuda_device)
+    plain = {}
+    want = rec._local_cg_plain(apply_fn, rhs, info=plain)
+    ops.reset_launch_counts()
+    info = {}
+    got = rec._local_cg_chunked(apply_fn, rhs, chunk=chunk, info=info)
+    counts = ops.launch_counts()
+    k = plain["iterations"]
+    assert info["graph"] and info["iterations"] == k > 0
+    assert torch.equal(got, want)
+    size = min(chunk, 10_000)
+    assert info["launches_per_chunk"]["stencil7"] == size
+    assert info["launches_per_chunk"]["det_dot"] == 2 * size
+    # rhs.rhs, the warm-up iteration, the replays, the eager rerun
+    assert counts["stencil7"] == 1 + info["chunks"] * size + \
+        info["eager_iterations"]
+    assert counts["det_dot"] == 1 + 2 + 2 * (info["chunks"] * size +
+                                             info["eager_iterations"])
+    dispatched = rec._local_cg(apply_fn, rhs)
+    assert torch.equal(dispatched, want)
+    cpu = _poisson("cpu", grid=32)
+    cpu_x = rec._local_cg_plain(lambda u: cpu.op.inblock_apply(u, failed),
+                                rhs.cpu())
+    torch.testing.assert_close(got.cpu(), cpu_x, rtol=1e-10, atol=1e-12)
+
+
+def _serve(cfg, model, dev, frames=None):
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine
+
+    prefill_fn = registry.make_prefill(cfg)
+
+    def prefill(p, t, c):
+        inputs = {"tokens": t}
+        if frames is not None:
+            inputs["frames"] = frames
+        return prefill_fn(p, inputs, c)
+
+    return prefill, ServeEngine(
+        prefill, registry.make_decode(cfg),
+        lambda b, s: registry.init_caches(cfg, b, s, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "moonshot_v1_16b_a3b",
+                                  "starcoder2_3b", "mamba2_370m",
+                                  "whisper_small"])
+def test_decode_graph_is_the_eager_decode_bitwise_on_card(cuda_device, arch):
+    """``ServeEngine.generate`` on the card (one eager decode step, then
+    replays of one capture) against a hand-written eager loop over
+    ``make_decode`` from the same prefill: every step's logits and the
+    tokens bit for bit, past starcoder2's 32-slot ring; every decode
+    step but the first a replay."""
+    from _torch_port import lm_cfg, lm_inputs
+    from repro_torch.models import registry
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    model = registry.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    b, s, steps = 2, 28, 9
+    np_in = lm_inputs(cfg, 4, b, s)
+    prompt = torch.as_tensor(np_in["tokens"]).long().to(cuda_device)
+    frames = (torch.as_tensor(np_in["frames"]).to(cuda_device)
+              if cfg.family == "encdec" else None)
+    prefill, eng = _serve(cfg, model, cuda_device, frames)
+    seen = []
+    out = eng.generate(model, prompt, steps,
+                       on_step=lambda i, logits: seen.append(logits.clone()))
+    assert eng.stats["graph"] and eng.stats["eager_steps"] == 1
+    assert eng.stats["replays"] == steps - 2 and eng.stats["capture_s"] > 0
+    with torch.inference_mode():
+        caches = registry.init_caches(cfg, b, s + steps, device=cuda_device)
+        logits, caches = prefill(model, prompt, caches)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        want = [tok]
+        assert torch.equal(logits, seen[0])
+        for i in range(1, steps):
+            pos = torch.tensor(s + i - 1, dtype=torch.int32, device=cuda_device)
+            logits, caches = registry.make_decode(cfg)(model, tok, caches, pos)
+            assert torch.equal(logits, seen[i]), (arch, i)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            want.append(tok)
+    assert torch.equal(out, torch.cat(want, dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 3, 12])
+def test_engine_replays_every_decode_step_but_one_on_card(cuda_device, steps):
+    """The engine's replay count: of ``steps - 1`` decode steps, one runs
+    eagerly on the graph's stream and the rest are replays (no capture
+    when no step would replay it)."""
+    from _torch_port import lm_cfg
+    from repro_torch.models import registry
+
+    cfg = lm_cfg(registry.get_config("gemma3_12b", smoke=True))
+    model = registry.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 14))).to(cuda_device)
+    _, eng = _serve(cfg, model, cuda_device)
+    out = eng.generate(model, prompt, steps)
+    assert out.shape == (2, steps) and out.dtype == prompt.dtype
+    assert eng.stats["graph"]
+    assert eng.stats["eager_steps"] == min(1, steps - 1)
+    assert eng.stats["replays"] == max(0, steps - 2)

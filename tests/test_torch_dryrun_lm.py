@@ -410,6 +410,7 @@ def test_lm_dry_run_cli_on_the_cpu_and_its_tables(tmp_path, capsys):
         assert row["measured"]["replica_step_s"] is None
         for var in row["measured"]["variants"].values():
             assert var["finite"] and var["step_s"] is None
+            assert var["step_mode"] == "eager"      # graphs: the card only
         if layout == "2x16x16":                  # the multi-pod pass
             assert "roofline" not in row
             assert list(row["measured"]["variants"]) == ["g1"]
@@ -447,8 +448,22 @@ def _run(arch, shape, opt=None, memory=MEMORY, multi_pod=False):
                            memory_bytes=memory, hbm_rate=H100)
 
 
+@pytest.fixture(scope="module")
+def base_row():
+    """``base_row(shape)``: llama3_8b's unlevered SMOKE row of ``shape``,
+    run once for the module (the levers and the sizing test all hold
+    their rows against the same base rows)."""
+    rows = {}
+
+    def get(shape):
+        if shape not in rows:
+            rows[shape] = _run("llama3_8b", shape)
+        return rows[shape]
+    return get
+
+
 @pytest.mark.parametrize("lever", sorted(dryrun.OPT_LEVERS))
-def test_every_lever_runs_and_moves_what_it_should(lever):
+def test_every_lever_runs_and_moves_what_it_should(base_row, lever):
     """Each ``OPT_LEVERS`` key on a SMOKE cell it acts on, against the
     same cell without it: ``logit_bf16`` writes bf16 prefill logits (fewer bytes),
     ``remat_dots`` saves products (fewer operations), ``micro2`` and
@@ -457,7 +472,7 @@ def test_every_lever_runs_and_moves_what_it_should(lever):
     gathered bytes, ``explicit_sp`` changes nothing and says so."""
     shape = {"serve_resident": "decode_32k",
              "logit_bf16": "prefill_32k"}.get(lever, "train_4k")
-    base, row = _run("llama3_8b", shape), _run("llama3_8b", shape, lever)
+    base, row = base_row(shape), _run("llama3_8b", shape, lever)
     assert row["arch"] == f"llama3_8b+{lever}@smoke" and row["ok"]
     assert row["levers"] == [lever]
     assert row["levers_inert"] == ([lever] if lever == "explicit_sp" else [])
@@ -481,7 +496,7 @@ def test_every_lever_runs_and_moves_what_it_should(lever):
         assert cr == cb and fr == fb
 
 
-def test_variants_that_do_not_fit_are_cut_refused_or_replaced():
+def test_variants_that_do_not_fit_are_cut_refused_or_replaced(base_row):
     """Sized before allocation: a batch cut scales the counts by the cut;
     g2 refused calibrates from g0 and g1; a cell whose g1 does not fit
     is refused whole."""
@@ -493,7 +508,7 @@ def test_variants_that_do_not_fit_are_cut_refused_or_replaced():
         return dryrun.variant_bytes(dryrun._depth_variant(cfg, groups),
                                     shape, b)["need"]
 
-    full = _run("llama3_8b", "train_4k")
+    full = base_row("train_4k")
     cut = _run("llama3_8b", "train_4k", memory=int(need(2, 1) / room) + 1)
     assert cut["calibration"]["batch"] == 1 and cut["calibration"][
         "batch_cut"] == 4

@@ -146,3 +146,70 @@ def test_iterate_only_recovery_matches_reference(reference_run):
             "x": np.asarray(op.partition.restrict(ref_st.x, failed))})])
     _close(got.x.numpy(), np.asarray(want.x), 0.0, "x")
     _close(got.r.numpy(), np.asarray(want.r), 1e-13, "r")
+
+
+# ----------------------------------------------------------------------
+# the local CG in chunks (the form the card captures as a CUDA graph)
+# ----------------------------------------------------------------------
+def _local_system(reference_run, failed=(1, 2)):
+    op, b, _, _ = reference_run
+    problem = port_problem(GRID, NBLOCKS, b)
+    rhs = np.random.default_rng(5).standard_normal(
+        len(failed) * op.partition.block_size)
+    failed = list(failed)
+    return (op, failed, lambda u: problem.op.inblock_apply(u, failed),
+            torch.from_numpy(rhs))
+
+
+def test_plain_local_cg_counts_its_iterations(reference_run):
+    _, _, apply_fn, rhs = _local_system(reference_run)
+    info = {}
+    x = port_rec._local_cg_plain(apply_fn, rhs, info=info)
+    assert info["iterations"] > 8
+    assert torch.equal(port_rec._local_cg(apply_fn, rhs), x)  # CPU: plain
+
+
+@pytest.mark.parametrize("where", ["inside a chunk", "on a chunk boundary",
+                                   "maxiter inside a chunk",
+                                   "maxiter on a boundary", "one chunk"])
+def test_chunked_local_cg_is_the_plain_loop_bitwise(reference_run, where):
+    """The chunked loop run eagerly on the CPU, with its rerun of the
+    chunk the stop falls in: the plain loop's ``x`` bit for bit, at the
+    same iteration, wherever the stop (the residual test or
+    ``maxiter``) falls; and within the reference's rtol 1e-8 of the
+    reference's ``while_loop``."""
+    op, failed, apply_fn, rhs = _local_system(reference_run)
+    info = {}
+    port_rec._local_cg_plain(apply_fn, rhs, info=info)
+    k = info["iterations"]
+    divisor = next(d for d in range(2, k + 1) if k % d == 0)
+    chunk, maxiter = {
+        "inside a chunk": (5 if k % 5 else 6, 10_000),
+        "on a chunk boundary": (divisor, 10_000),
+        "maxiter inside a chunk": (6, k - 3 if (k - 3) % 6 else k - 4),
+        "maxiter on a boundary": (4, 8),
+        "one chunk": (2 * k, 10_000),
+    }[where]
+    assert (min(k, maxiter) % chunk == 0) == ("boundary" in where)
+    want_info, got_info = {}, {}
+    want = port_rec._local_cg_plain(apply_fn, rhs, maxiter=maxiter,
+                                    info=want_info)
+    got = port_rec._local_cg_chunked(apply_fn, rhs, maxiter=maxiter,
+                                     chunk=chunk, info=got_info)
+    assert got_info["iterations"] == want_info["iterations"] == min(k, maxiter)
+    assert torch.equal(got, want)
+    assert not got_info["graph"] and got_info["launches_per_chunk"] is None
+    stops_inside = min(k, maxiter) % chunk != 0
+    assert (got_info["eager_iterations"] > 0) == stops_inside
+    assert got_info["chunks"] == -(-min(k, maxiter) // chunk)
+    if maxiter == 10_000:
+        ref = ref_rec._local_cg(lambda u: op.inblock_apply(u, failed),
+                                jnp.asarray(rhs.numpy()))
+        _close(got.numpy(), np.asarray(ref), 1e-8, "x_F vs reference")
+
+
+def test_chunked_local_cg_of_a_zero_rhs_is_zero(reference_run):
+    _, _, apply_fn, rhs = _local_system(reference_run)
+    info = {}
+    x = port_rec._local_cg_chunked(apply_fn, torch.zeros_like(rhs), info=info)
+    assert info["iterations"] == 0 and not x.any()
