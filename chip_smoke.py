@@ -152,7 +152,14 @@ non-zero and prints no result line):
    loss, grad norm and lr, then tokens/s, ``train_mfu`` (``model_flops``
    over the median step after the first, as a share of the bf16 peak)
    and peak memory; losses and grad norms finite, the parameters moved,
-   the first loss bitwise a plain ``remat=False`` forward's.  At the full
+   the first loss bitwise a plain ``remat=False`` forward's (each
+   attention chunk checkpointed inside each layer's checkpoint).  Then
+   the long context: ``granite_20b`` at full width (d_model 6144, 48
+   heads, one KV head) cut to one pattern group takes two AdamW steps of
+   one row of 32768 tokens: step seconds and enqueue ms, loss, grad norm
+   and the peak (``max_memory_allocated``) against the dry run's sizing
+   (``variant_bytes(...)["need"]``, the peak must not exceed it), the
+   loss bitwise a plain forward's.  At the full
    width cut to 2 layers: the gradients with remat off, full and
    ``"dots"`` bitwise equal (and whether two runs are); the reference
    test's fault-tolerance cycle (8 steps, ``save_async`` every 4 into a
@@ -195,10 +202,12 @@ kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
 
-``python3 chip_smoke.py --times-only [--src DIR]`` runs phases 1-2 and
-prints both timing columns of every kernel at the main path's shapes,
+``python3 chip_smoke.py --times-only [--src DIR]`` runs phases 1-2,
+prints both timing columns of every kernel at the main path's shapes and
+runs phase 14's starcoder2_3b steps (step seconds, peak, ``train_mfu``),
 from the ``repro_torch`` under ``DIR`` (default ``src``): two checkouts
-timed in one call compare on one card.
+timed in one call compare on one card.  It is a measurement, not the
+smoke: its output ends without the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -2599,6 +2608,11 @@ def phase_lm(torch, rate: float) -> dict:
 #: of batch 4 x seq 2048 through ``make_train_step`` (every layer
 #: checkpointed)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "starcoder2_3b", 4, 2048, 4
+#: the long-context step: granite_20b at full width cut to one pattern
+#: group (``_depth_variant(cfg, 1)``) takes two steps of one row of
+#: 32768 tokens; each attention chunk's backward holds 48 x 512 x 32768
+#: f32 scores, where the layer's whole scores would be 48 x 32768^2
+LONG_ARCH, LONG_SEQ, LONG_STEPS = "granite_20b", 32768, 2
 #: the remat, determinism and fault-tolerance parts run the full width
 #: cut to 2 layers; the cycle is the reference test's
 #: (tests/test_training_ft.py): 8 steps, a slot every 4, a host failure
@@ -2783,6 +2797,78 @@ def train_full_width(torch, cfg) -> dict:
     check(remat_bitwise, f"{cfg.name}: the step's loss {steps[0]['loss']!r} "
           f"is not the plain forward's {float(plain_ce)!r}")
     del model, opt, probe, marks, first, plain_ce
+    return rec
+
+
+def train_long_context(torch, cfg) -> dict:
+    """``cfg`` cut to one pattern group takes ``LONG_STEPS`` steps of one
+    row of ``LONG_SEQ`` tokens of the seeded corpus: each step's seconds
+    (CUDA events), enqueue ms, loss and grad norm; the peak (above what
+    earlier phases left allocated) against the dry run's sizing of the
+    same step.  The peak must not exceed the sizing, the losses
+    and grad norms must be finite and the first loss bitwise a plain
+    forward's under ``no_grad``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import (TrainConfig, make_train_step,
+                                                 token_xent)
+
+    dev = torch.device(DEVICE)
+    cut = dryrun._depth_variant(cfg, 1)
+    shape = R.Shape("train", "train", LONG_SEQ, 1)
+    sized = dryrun.variant_bytes(cut, shape, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = R.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    data = SyntheticCorpus(vocab=cut.vocab, batch=1, seq=LONG_SEQ, seed=0)
+    tcfg = TrainConfig()
+    first = to_tensors(data.batch_at(0), dev)
+    with torch.no_grad():
+        logits, _, _ = T.decoder_forward(model, first["tokens"], cut)
+        plain_ce = token_xent(logits, first["targets"], tcfg.z_weight)[1]
+        del logits
+    opt = adamw_init(model)
+    step = make_train_step(R.make_train_forward(cut), AdamWConfig(), tcfg)
+    steps = []
+    for i in range(LONG_STEPS):
+        batch = to_tensors(data.batch_at(i), dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        metrics = step(model, opt, batch)
+        end.record()
+        enqueue = 1e3 * (time.perf_counter() - t1)
+        end.synchronize()
+        steps.append(dict(step=i, seconds=start.elapsed_time(end) / 1e3,
+                          enqueue_ms=enqueue,
+                          **{k: float(v) for k, v in metrics.items()}))
+        if i == 0:
+            bitwise = bool(torch.equal(metrics["loss"], plain_ce))
+    peak = torch.cuda.max_memory_allocated() - before
+    rec = dict(arch=cut.name, layers=cut.n_layers, d_model=cut.d_model,
+               heads=cut.n_heads, kv_heads=cut.n_kv_heads, batch=1,
+               seq=LONG_SEQ, steps=steps, allocated_before_bytes=before,
+               peak_bytes=peak,
+               sized_need_bytes=sized["need"], sized_layer_bytes=sized["layer"],
+               peak_over_need=peak / sized["need"],
+               step0_loss_bitwise_plain=bitwise,
+               plain_forward_loss=float(plain_ce),
+               seconds=time.perf_counter() - t0, card=CARD)
+    say("train", long_context=rec)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in steps), f"{cut.name}: a non-finite loss or grad norm")
+    check(peak <= sized["need"], f"{cut.name} at {LONG_SEQ} tokens peaked at "
+          f"{peak} bytes, over its sizing's {sized['need']}")
+    check(bitwise, f"{cut.name}: the step's loss {steps[0]['loss']!r} is not "
+          f"the plain forward's {float(plain_ce)!r}")
+    del model, opt, first, plain_ce, metrics
     return rec
 
 
@@ -3069,8 +3155,9 @@ def train_cli(torch) -> dict:
 
 def phase_train(torch) -> dict:
     """LM training on the card: starcoder2_3b at full width and depth,
-    then remat, determinism and the fault-tolerance cycle at full width
-    cut to 2 layers, every family's SMOKE steps against the CPU and the
+    granite_20b's long-context step at full width, then remat,
+    determinism and the fault-tolerance cycle at full width cut to 2
+    layers, every family's SMOKE steps against the CPU and the
     train CLI's resume.  The path has no hand-written kernel: its launch
     counts (the CLI's counted in its processes) must be 0."""
     from repro_torch.kernels import ops
@@ -3082,6 +3169,8 @@ def phase_train(torch) -> dict:
     ops.reset_launch_counts()
     cfg = R.get_config(TRAIN_ARCH)
     train_full_width(torch, cfg)
+    torch.cuda.empty_cache()
+    train_long_context(torch, R.get_config(LONG_ARCH))
     torch.cuda.empty_cache()
     train_remat(torch, cfg)
     torch.cuda.empty_cache()
@@ -3153,7 +3242,8 @@ def phase_dryrun_lm(torch) -> dict:
             peak_bytes_estimate=row["memory"]["peak_bytes"],
             variants={g: {k: v[k] for k in (
                 "batch", "step_s", "step_q1_s", "step_q3_s", "timed_steps",
-                "step_mode", "enqueue_s", "peak_bytes", "finite")}
+                "step_mode", "enqueue_s", "peak_bytes", "peak_split",
+                "finite")}
                 for g, v in variants.items()},
             replica_step_s=row["measured"]["replica_step_s"],
             replica_step_range_s=row["measured"]["replica_step_range_s"],
@@ -3257,7 +3347,10 @@ def main() -> int:
         say("device", hbm_bytes_per_s=rate)
         phase_build()
         if times_only:
+            from repro_torch.models import registry as R
+
             kernel_times(torch, rate)
+            train_full_width(torch, R.get_config(TRAIN_ARCH))
             return 0
         records = phase_kernels(torch, rate)
         found = {"steps": {}, "reports": [], "advice": []}

@@ -41,7 +41,9 @@ shapes, and from real steps on the card.
    (``groups_eff``; every microbatch really runs and is counted, so the
    reference's microbatch factor, which makes up for a scan counted
    once, is 1 here), and scaled by the batch cut (exact in batch for
-   the counts): the full-depth step of one data replica on one card,
+   the counts; of a train step's peak only the part that grows with
+   the batch, :class:`PeakSplit`): the full-depth step of one data
+   replica on one card,
    which on the production mesh is the work of ``model`` = 16 chips;
    the extrapolation multiplies the variants' step difference by about
    ``groups_eff - 1``, so the row also gives the replica step's range
@@ -117,7 +119,7 @@ import os
 import statistics
 import time
 import traceback
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -130,6 +132,7 @@ from repro_torch.launch import DRYRUN_OUT
 from repro_torch.launch import mesh as M
 from repro_torch.launch import roofline as RL
 from repro_torch.models import registry as R
+from repro_torch.models import transformer as T
 from repro_torch.serving.engine import DecodeGraph
 from repro_torch.training.optimizer import UPDATE_CHUNK, adamw_init
 #: a PCG iteration's useful operations a grid point, counted as
@@ -341,7 +344,7 @@ INERT_LEVERS = ("explicit_sp",)
 #: a variant's fields that hold device metrics (``None`` on the CPU)
 DEVICE_FIELDS = ("first_step_s", "step_s", "step_q1_s", "step_q3_s",
                  "timed_steps", "enqueue_s", "allocated_bytes",
-                 "peak_bytes", "nonarg_peak_bytes")
+                 "peak_bytes", "nonarg_peak_bytes", "peak_split")
 
 
 def _depth_variant(cfg, groups: int):
@@ -401,6 +404,72 @@ def replica_steps(runs: Dict[int, Dict], pair: Tuple[int, int],
             [least * cut, most * cut])
 
 
+class PeakSplit:
+    """A train step's non-argument peak split at each gradient
+    accumulation (a ``register_post_accumulate_grad_hook`` on every
+    parameter): between two accumulations the gradients made before the
+    first do not grow with the batch, and the rest of the interval's
+    peak is taken to grow with it (the activations, the loss, and a
+    gradient made within the interval, which makes the split a bound);
+    after the last accumulation the step holds gradients and the
+    update's temporaries only, which do not.  ``peak()`` reads the bytes
+    held above the step's arguments at the most since ``reset()``.  Use
+    as a context around one step; :meth:`points` then gives ``[fixed,
+    batch]`` pairs, and :func:`scaled_peak` the step's peak at a
+    multiple of its rows."""
+
+    def __init__(self, params, peak: Callable[[], int],
+                 reset: Callable[[], None]):
+        self.params, self.peak, self.reset = list(params), peak, reset
+        self.made, self.seen, self.intervals = 0, set(), []
+
+    def _accumulated(self, p: torch.Tensor) -> None:
+        self.intervals.append([self.made, self.peak() - self.made])
+        if id(p) not in self.seen:
+            self.seen.add(id(p))
+            self.made += p.grad.numel() * p.grad.element_size()
+        self.reset()
+
+    def __enter__(self) -> "PeakSplit":
+        self.reset()
+        self.handles = [p.register_post_accumulate_grad_hook(
+            self._accumulated) for p in self.params]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for h in self.handles:
+            h.remove()
+        self.intervals.append([max(self.peak(), self.made), 0])
+
+    def points(self) -> List[List[int]]:
+        """The intervals' ``[fixed, batch]`` pairs that some multiple of
+        the rows makes the peak: those no other pair matches in both."""
+        keep, most = [], -1
+        for fixed, batch in sorted(self.intervals, reverse=True):
+            if batch > most:
+                keep.append([fixed, batch])
+                most = batch
+        return keep
+
+
+def scaled_peak(points: Sequence[Sequence[int]], cut: float) -> float:
+    """The non-argument peak at ``cut`` times a variant's rows from its
+    :class:`PeakSplit` points: only the part that grows with the batch
+    is multiplied."""
+    return max(fixed + cut * batch for fixed, batch in points)
+
+
+def peak_estimate(runs: Dict[int, Dict], pair: Tuple[int, int],
+                  geff: float, cut: float) -> float:
+    """The replica's non-argument peak at full depth and at its batch:
+    each variant's ``peak_split`` scaled to the batch cut
+    (:func:`scaled_peak`), extrapolated over depth, and at least the
+    deeper variant's (allocator noise in a small step cannot make it
+    shrink below that)."""
+    scaled = tuple(scaled_peak(runs[g]["peak_split"], cut) for g in pair)
+    return max(extrapolate(pair[0], scaled, geff), scaled[1])
+
+
 def keep_timing(steps: Sequence[float], window: float) -> bool:
     """Whether a variant times another step after ``steps``: until
     there are ``WARM_STEPS``, then while they add up to less than
@@ -432,19 +501,24 @@ def variant_bytes(cfg, shape, batch: int) -> Dict[str, int]:
     rows, counted from ``meta`` before anything is allocated:
 
     - ``state``: the parameters, and in training their gradients and
-      two f32 moments, with the batch and every layer's saved input
-      (each layer is checkpointed); serving: the parameters, the inputs
-      and the caches at ``shape.seq``;
+      two f32 moments, with the batch and the saved inputs of the
+      checkpoints: every layer's, or where the stack nests its remat
+      (:func:`~repro_torch.models.transformer.nests_groups`) every
+      group's, one group's other layers' and the tail's; serving: the
+      parameters, the inputs and the caches at ``shape.seq``;
     - ``logits``: ``batch x tokens x padded_vocab`` entries (``tokens``
       1 for decode) of one compute-dtype product plus its cast to the
       logit dtype (none when the two agree), or in training
       ``TRAIN_LOGIT_COPIES`` f32 copies;
-    - ``layer``: the largest layer's transient: the attention scores
-      (f32) of a query chunk, three copies; in training also every
-      chunk's softmax (f32) and probabilities (compute dtype) with the
-      f32 keys of each chunk, which one layer's recompute saves for its
-      backward, and the layer's weights in the compute dtype; decode
-      reads its cache in f32;
+    - ``layer``: the largest layer's transient.  Attention: a query
+      chunk's f32 scores, three copies, and the f32 keys it reads; in
+      training also what the chunk's recompute holds for its backward
+      (each chunk is checkpointed, so one at a time): its f32 softmax
+      and its probabilities in the compute dtype, and a banded chunk's
+      gathered K/V band.  SSD: one chunk's ``(b, Q, Q, nh)`` f32
+      segment sums, decays and scores, four copies, six in training.
+      In training also the layer's weights in the compute dtype;
+      decode reads its cache in f32;
     - ``update``: AdamW's f32 temporaries, about eight of
       ``UPDATE_CHUNK`` values (or of the largest leaf) in training.
 
@@ -462,8 +536,11 @@ def variant_bytes(cfg, shape, batch: int) -> Dict[str, int]:
     cut = dataclasses.replace(shape, batch=b)
     if kind == "train":
         inputs, _ = R.batch_structs(cfg, cut)
-        saved = cfg.n_layers * b * s * cfg.d_model * cdt
-        state = 2 * p_bytes + 8 * numel + _nbytes(inputs) + saved
+        saved = cfg.n_layers
+        if T.nests_groups(cfg):
+            saved = cfg.n_groups + len(cfg.attn_pattern) - 1 + cfg.n_tail
+        state = (2 * p_bytes + 8 * numel + _nbytes(inputs)
+                 + saved * b * s * cfg.d_model * cdt)
         vocab = params[("embed",) if cfg.tie_embeddings else ("unembed",)]
         pending = p_bytes - vocab.numel() * vocab.element_size()
     else:
@@ -489,13 +566,19 @@ def variant_bytes(cfg, shape, batch: int) -> Dict[str, int]:
         for span in spans:
             c = min(cfg.attn_chunk, span)
             kv = span
-            if lk == "local" and cfg.window > 0:
+            banded = lk == "local" and cfg.window > 0
+            if banded:
                 kv = min(span, (cfg.window // c + 2) * c)
             t = 3 * b * h * c * kv * 4 + b * kv * h * hd * 4
             if kind == "train":
-                chunks = max(span // c, 1)
-                t += b * h * span * kv * (4 + cdt) + chunks * b * kv * h * hd * 4
+                t += b * h * c * kv * (4 + cdt)
+                if banded:
+                    t += 2 * b * kv * h * hd * cdt
             layer = max(layer, t)
+    if "ssm" in kinds and kind != "decode":
+        q = min(cfg.ssm_chunk, s)
+        nh = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+        layer = max(layer, (6 if kind == "train" else 4) * b * q * q * nh * 4)
     if kind == "train":
         per_layer: Dict[Tuple[str, ...], int] = {}
         for path, t in params.items():
@@ -529,6 +612,41 @@ def plan_batch(cfg, shape, batch: int, capacity: int
         if b // 2 < max(cfg.microbatches, 1):
             return None, sized
         b //= 2
+
+
+def plan_variants(cfg, shape, rep_batch: int, capacity: int,
+                  calibrate: bool) -> Tuple[Tuple[int, ...], int, List[str]]:
+    """The depth variants a cell runs, the batch they share and the cuts
+    made (the row's ``reduced``), sized before anything is allocated
+    (:func:`plan_batch`): g1 and g2 (g1 alone without ``calibrate``);
+    g0 and g1 where g2 does not fit; the batch the smaller of the
+    variants' batches.  Raises :class:`MemoryError` when a variant does
+    not fit at its smallest batch."""
+    reduced: List[str] = []
+    pair = (1, 2) if calibrate else (1,)
+    plans = {g: plan_batch(_depth_variant(cfg, g), shape, rep_batch, capacity)
+             for g in pair}
+    room = f"the device's {capacity / 1e9:.1f} GB less {HEADROOM:.0%}"
+    if calibrate and plans[2][0] is None:
+        reduced.append(f"g2 refused: it needs {plans[2][1]['need'] / 1e9:.1f}"
+                       f" GB at {max(cfg.microbatches, 1)} row(s), over "
+                       f"{room}; calibrated from g0 and g1")
+        pair = (0, 1)
+        plans[0] = plan_batch(_depth_variant(cfg, 0), shape, rep_batch,
+                              capacity)
+    for g in pair:
+        if plans[g][0] is None:
+            raise MemoryError(
+                f"variant g{g} needs {plans[g][1]['need']} bytes at its "
+                f"smallest batch, more than {room}: it does not fit")
+    batch = min(plans[g][0] for g in pair)
+    if batch < rep_batch:
+        deep = _depth_variant(cfg, pair[-1])
+        over = variant_bytes(deep, shape, 2 * batch)["need"]
+        reduced.append(f"batch {rep_batch} -> {batch} (g{pair[-1]} at "
+                       f"{2 * batch} rows needs {over / 1e9:.1f} GB, over "
+                       f"{room})")
+    return pair, batch, reduced
 
 
 def _fill_caches(caches, index: int, gen: torch.Generator) -> None:
@@ -628,8 +746,11 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
     decode cell's timed steps are replays of one capture of its step
     (``"step_mode": "graph"``, the step the reference jits); train and
     prefill steps, the first step and the counted one run eagerly
-    (``"eager"``).  Returns the variant's measurements; raises when a
-    step's loss, gradient norm or logits are not finite."""
+    (``"eager"``).  On the card a train variant takes one more untimed
+    step under :class:`PeakSplit` (``"peak_split"``; any other step's
+    peak grows with the batch whole: ``[[0, nonarg_peak_bytes]]``).
+    Returns the variant's measurements; raises when a step's loss,
+    gradient norm or logits are not finite."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
@@ -672,6 +793,21 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else None
     finite = _finite(cell.shape.kind, out)
     del out
+    split = None
+    if cuda and cell.shape.kind == "train":
+        # what earlier steps left (the libraries' workspaces) is fixed
+        start = torch.cuda.memory_allocated(device)
+        with PeakSplit(
+                args[0].parameters(),
+                lambda: torch.cuda.max_memory_allocated(device) - start,
+                lambda: torch.cuda.reset_peak_memory_stats(device)) as ps:
+            out = cell.fn(*args)
+        finite = finite and _finite(cell.shape.kind, out)
+        del out
+        split = [[fixed + start - allocated, batch]
+                 for fixed, batch in ps.points()]
+    elif cuda:
+        split = [[0, peak - allocated]]
     q1, _, q3 = statistics.quantiles(steps, n=4, method="inclusive")
     rec = {"batch": batch, "first_step_s": first_s,
            "step_s": statistics.median(steps), "step_q1_s": q1,
@@ -680,7 +816,7 @@ def run_variant(cell, batch: int, device: torch.device, count: bool) -> Dict:
            "allocated_bytes": allocated if cuda else None,
            "peak_bytes": peak,
            "nonarg_peak_bytes": peak - allocated if cuda else None,
-           "step_mode": mode, "finite": finite}
+           "peak_split": split, "step_mode": mode, "finite": finite}
     if count:
         counter = RL.OpCounter()
         with counter:
@@ -759,32 +895,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     geff = groups_eff(cfg)
 
     # ---- size every variant before anything is allocated ---------------
-    reduced: List[str] = []
-    pair = (1, 2) if calibrate else (1,)
-    plans = {g: plan_batch(_depth_variant(cfg, g), shape, rep_batch, capacity)
-             for g in pair}
-    room = f"the device's {capacity / 1e9:.1f} GB less {HEADROOM:.0%}"
-    if calibrate and plans[2][0] is None:
-        reduced.append(f"g2 refused: it needs {plans[2][1]['need'] / 1e9:.1f}"
-                       f" GB at {max(cfg.microbatches, 1)} row(s), over "
-                       f"{room}; calibrated from g0 and g1")
-        pair = (0, 1)
-        plans[0] = plan_batch(_depth_variant(cfg, 0), shape, rep_batch,
-                              capacity)
-    for g in pair:
-        if plans[g][0] is None:
-            raise MemoryError(
-                f"{label} {shape_name} on {layout}: variant g{g} needs "
-                f"{plans[g][1]['need']} bytes at its smallest batch, more "
-                f"than {room}: it does not fit (its arguments: {arg_bytes} "
-                f"bytes a device)")
-    batch = min(plans[g][0] for g in pair)
-    if batch < rep_batch:
-        deep = _depth_variant(cfg, pair[-1])
-        over = variant_bytes(deep, shape, 2 * batch)["need"]
-        reduced.append(f"batch {rep_batch} -> {batch} (g{pair[-1]} at "
-                       f"{2 * batch} rows needs {over / 1e9:.1f} GB, over "
-                       f"{room})")
+    try:
+        pair, batch, reduced = plan_variants(cfg, shape, rep_batch, capacity,
+                                             calibrate)
+    except MemoryError as e:
+        raise MemoryError(f"{label} {shape_name} on {layout}: {e} (its "
+                          f"arguments: {arg_bytes} bytes a device)") from None
     cut = rep_batch / batch
 
     # ---- run the variants ------------------------------------------------
@@ -807,7 +923,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                    "peak_bytes_is": "an estimate: the per-device arguments "
                                     "plus the replica's non-argument peak, "
                                     "extrapolated to full depth and the "
-                                    "replica's batch, over the model extent"},
+                                    "replica's batch (a train step's "
+                                    "gradients and update unscaled), over "
+                                    "the model extent"},
         "ok": True,
         "device": {"type": dev.type, "name": card["name"] if cuda else None,
                    "power_limit": card["power_limit"] if cuda else None,
@@ -862,10 +980,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         })
         if cuda:
             step, span = replica_steps(runs, pair, geff, cut)
-            # a peak grows with depth: allocator noise in a small step
-            # cannot make it shrink below the deeper variant's
-            nonarg = max(ext("nonarg_peak_bytes"),
-                         runs[pair[1]]["nonarg_peak_bytes"]) * cut
+            nonarg = peak_estimate(runs, pair, geff, cut)
             row["memory"]["peak_bytes"] = int(arg_bytes + nonarg / model_n)
             row["measured"].update(
                 replica_step_s=step, replica_step_range_s=span,

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -186,64 +187,97 @@ def _f32_scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
 
 
+def _chunk_checkpoint(fn, *args):
+    """``fn(*args)``, one chunk of a chunked loop (an attention query
+    chunk, an SSD chunk), checkpointed with nothing saved but its inputs
+    when autograd records it: the reference's ``jax.checkpoint(...,
+    policy=nothing_saveable)`` around its scan bodies.  Without it the
+    loop saves every chunk's scores for the backward, the whole S x S
+    matrix; with it the backward recomputes one chunk at a time and the
+    live memory stays O(S * chunk).  The recompute runs the same
+    operations on the same inputs, so the values and gradients are
+    those of the plain call; with grad off (serving) it is the plain
+    call.  The bodies draw no random numbers, so no RNG state is stashed
+    for the recompute."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _chunk_scores(qc, k, v, mask: torch.Tensor) -> torch.Tensor:
+    """One query chunk's attention: fp32 scores of ``qc`` against ``k``,
+    the ``-1e30`` mask, the fp32 softmax cast to ``v``'s dtype, and the
+    product with ``v``."""
+    scores = _f32_scores(qc, k, 1.0 / math.sqrt(qc.shape[-1]))
+    p = masked_softmax(scores, mask, v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p, v)
+
+
 def _sdpa_chunked(q, k, v, *, causal: bool, window: int, chunk_q: int,
                   q_offset: int = 0) -> torch.Tensor:
     """Attention over q chunks against full K/V.
 
     Flat-head layout: q (B, S, H, hd); k/v (B, Skv, H, hd) — K/V already
     repeated to full heads.  O(S * chunk) live memory instead of
-    O(S^2).  fp32 softmax.
+    O(S^2), in the backward too: with more than one chunk each is
+    checkpointed (:func:`_chunk_checkpoint`).  fp32 softmax.
     """
     b, s, h, hd = q.shape
     skv = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
     cq = _divisor_chunk(chunk_q, s)
     kv_pos = torch.arange(skv, device=q.device)
-    outs = []
-    for i in range(s // cq):
-        qc = q[:, i * cq:(i + 1) * cq]
-        scores = _f32_scores(qc, k, scale)
-        q_pos = q_offset + i * cq + torch.arange(cq, device=q.device)
-        m = torch.ones((cq, skv), dtype=torch.bool, device=q.device)
+
+    def one_chunk(i: int, qc, k, v):
+        q_pos = q_offset + i * cq + torch.arange(cq, device=qc.device)
+        m = torch.ones((cq, skv), dtype=torch.bool, device=qc.device)
         if causal:
             m &= kv_pos[None, :] <= q_pos[:, None]
         if window > 0:
             m &= kv_pos[None, :] > q_pos[:, None] - window
-        p = masked_softmax(scores, m, v.dtype)
-        outs.append(torch.einsum("bhqs,bshd->bqhd", p, v))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        return _chunk_scores(qc, k, v, m)
+
+    if s == cq:
+        return one_chunk(0, q, k, v)
+    return torch.cat([_chunk_checkpoint(one_chunk, i, q[:, i * cq:(i + 1) * cq],
+                                        k, v)
+                      for i in range(s // cq)], dim=1)
 
 
 def _sdpa_banded(q, k, v, *, window: int, chunk: int) -> torch.Tensor:
     """Sliding-window attention with *static banded* kv access: each q
     chunk gathers only the ``band`` kv chunks that intersect its window
-    (clamped chunk ids, masked where the id was negative)."""
+    (clamped chunk ids, masked where the id was negative).  With more
+    than one chunk each is checkpointed, its gathered band and f32 keys
+    with it (:func:`_chunk_checkpoint`)."""
     b, s, h, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
     c = _divisor_chunk(chunk, s)
     n = s // c
     band = min(n, window // c + 2)
     ks_ = k.reshape(b, n, c, h, hd)
     vs = v.reshape(b, n, c, h, hd)
     ar_c = torch.arange(c, device=q.device)
-    outs = []
-    for i in range(n):
-        qc = q[:, i * c:(i + 1) * c]
+
+    def one(i: int, qc, ks_, vs):
         # gather kv chunks [i-band+1 .. i] (clamped; masked below)
-        offs = i - torch.arange(band - 1, -1, -1, device=q.device)
+        offs = i - torch.arange(band - 1, -1, -1, device=qc.device)
         offs_c = torch.clamp(offs, 0, n - 1)
         kg = ks_[:, offs_c].reshape(b, band * c, h, hd)
         vg = vs[:, offs_c].reshape(b, band * c, h, hd)
-        scores = _f32_scores(qc, kg, scale)
         q_pos = i * c + ar_c
         kv_pos = (offs_c[:, None] * c + ar_c[None, :]).reshape(-1)
         valid_chunk = torch.repeat_interleave(offs >= 0, c)
         m = ((kv_pos[None, :] <= q_pos[:, None])
              & (kv_pos[None, :] > q_pos[:, None] - window)
              & valid_chunk[None, :])
-        p = masked_softmax(scores, m, vg.dtype)
-        outs.append(torch.einsum("bhqs,bshd->bqhd", p, vg))
-    return outs[0] if n == 1 else torch.cat(outs, dim=1)
+        return _chunk_scores(qc, kg, vg, m)
+
+    if n == 1:
+        return one(0, q, ks_, vs)
+    return torch.cat([_chunk_checkpoint(one, i, q[:, i * c:(i + 1) * c],
+                                        ks_, vs)
+                      for i in range(n)], dim=1)
 
 
 def _update_slice(buf: torch.Tensor, update: torch.Tensor, start: Position,

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, Position, softplus
 
@@ -92,6 +93,32 @@ def _conv_step(window: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.silu(sum(window[:, -w + i] * kernel[i] for i in range(w)))
 
 
+def _ssd_chunk(h, xq, dtq, bq, cq_, a, causal):
+    """One SSD chunk: the intra-chunk (Q x Q decay-masked) product plus
+    the carried state's contribution; returns (the new state, the
+    chunk's y)."""
+    cdt = xq.dtype
+    dtq = dtq.float()
+    da = dtq * a                                            # (b,q,nh)
+    cum = torch.cumsum(da, dim=1)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]           # (b,qi,qj,nh)
+    # mask BEFORE exp: exp(+large) = inf
+    seg = torch.where(causal[None, :, :, None], seg,
+                      torch.full((), -1e30, device=xq.device))
+    decay = torch.exp(seg)
+    cb = torch.einsum("bqn,bkn->bqk", cq_.float(), bq.float())
+    scores = (cb[..., None] * decay * dtq[:, None, :, :]).to(cdt)
+    y_diag = torch.einsum("bqkh,bkhp->bqhp", scores, xq)
+    # carried-state contribution + state update
+    inner_decay = torch.exp(cum).to(cdt)                    # (b,q,nh)
+    y_off = torch.einsum("bqn,bhnp,bqh->bqhp", cq_, h, inner_decay)
+    decay_to_end = torch.exp(cum[:, -1:, :] - cum)
+    wx = (dtq * decay_to_end).to(cdt)
+    h = (torch.exp(cum[:, -1, :]).to(cdt)[..., None, None] * h
+         + torch.einsum("bqn,bqh,bqhp->bhnp", bq, wx, xq))
+    return h, y_diag + y_off
+
+
 def ssd_chunked(
     x: torch.Tensor,       # (B, S, nh, hp)
     dt: torch.Tensor,      # (B, S, nh)   post-softplus
@@ -101,39 +128,25 @@ def ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD. Returns (y, final_state (B, nh, N, hp))."""
+    """Chunked SSD. Returns (y, final_state (B, nh, N, hp)).  Under
+    autograd each chunk is checkpointed (``layers._chunk_checkpoint``,
+    the reference's ``nothing_saveable`` scan body): its (b, Q, Q, nh)
+    decay and score tensors are recomputed in the backward, not saved
+    a chunk."""
     b, s, nh, hp = x.shape
     n = bm.shape[-1]
     q = min(chunk, s)
     while s % q:        # odd lengths (tests): shrink to a divisor
         q -= 1
-    cdt = x.dtype
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
 
-    h = x.new_zeros((b, nh, n, hp)) if h0 is None else h0.to(cdt)
+    h = x.new_zeros((b, nh, n, hp)) if h0 is None else h0.to(x.dtype)
     ys = []
     for c0 in range(0, s, q):
-        xq = x[:, c0:c0 + q]
-        dtq = dt[:, c0:c0 + q].float()
-        bq, cq_ = bm[:, c0:c0 + q], cm[:, c0:c0 + q]
-        da = dtq * a                                            # (b,q,nh)
-        cum = torch.cumsum(da, dim=1)
-        seg = cum[:, :, None, :] - cum[:, None, :, :]           # (b,qi,qj,nh)
-        # mask BEFORE exp: exp(+large) = inf
-        seg = torch.where(causal[None, :, :, None], seg,
-                          torch.full((), -1e30, device=x.device))
-        decay = torch.exp(seg)
-        cb = torch.einsum("bqn,bkn->bqk", cq_.float(), bq.float())
-        scores = (cb[..., None] * decay * dtq[:, None, :, :]).to(cdt)
-        y_diag = torch.einsum("bqkh,bkhp->bqhp", scores, xq)
-        # carried-state contribution + state update
-        inner_decay = torch.exp(cum).to(cdt)                    # (b,q,nh)
-        y_off = torch.einsum("bqn,bhnp,bqh->bqhp", cq_, h, inner_decay)
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum)
-        wx = (dtq * decay_to_end).to(cdt)
-        h = (torch.exp(cum[:, -1, :]).to(cdt)[..., None, None] * h
-             + torch.einsum("bqn,bqh,bqhp->bhnp", bq, wx, xq))
-        ys.append(y_diag + y_off)
+        h, y = L._chunk_checkpoint(_ssd_chunk, h, x[:, c0:c0 + q],
+                                   dt[:, c0:c0 + q], bm[:, c0:c0 + q],
+                                   cm[:, c0:c0 + q], a, causal)
+        ys.append(y)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     return y, h
 

@@ -18,8 +18,14 @@ each leaf's path in the reference's tree (:func:`param_specs`,
 :func:`cache_specs`); the modules carry none.
 
 Training runs the stack with ``remat=True``: each layer is checkpointed
-on its own (:func:`remat_call`), the reference's nested per-layer
-remat, so the backward holds one layer's activations at a time.
+on its own (:func:`remat_call`), so the backward holds one layer's
+activations at a time.  Where the reference checkpoints a pattern group
+and each layer inside it (a group of several layers that is not
+gemma3's uniform local/global run: recurrentgemma's rec/rec/local), the
+port nests the same way, one checkpoint over the group around the
+per-layer ones, so the backward keeps only the groups' inputs until it
+reaches a group.  Inside a layer the attention and SSD loops checkpoint
+each chunk (``layers._chunk_checkpoint``).
 """
 from __future__ import annotations
 
@@ -282,6 +288,28 @@ def remat_call(fn: Callable, policy: str, *args, **kwargs):
     return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
+def nests_groups(cfg: ModelConfig) -> bool:
+    """Whether training checkpoints each pattern group around its
+    layers, as the reference does: a pattern of several layers that is
+    not a uniform local/global attention run without a tail (which the
+    reference flattens to one checkpoint a layer)."""
+    pattern = cfg.attn_pattern
+    uniform_attn = set(pattern) <= {"local", "global"} and cfg.n_tail == 0
+    return len(pattern) > 1 and cfg.n_groups > 0 and not uniform_attn
+
+
+def _remat_group(layers: List[Layer], policy: str, x: torch.Tensor,
+                 positions: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+    """One pattern group's layers, each under :func:`remat_call`: the
+    group's output and its layers' aux losses."""
+    auxes = []
+    for layer in layers:
+        x, _, aux = remat_call(layer, policy, x, positions=positions)
+        auxes.append(aux)
+    return x, auxes
+
+
 def decoder_forward(
     model: Decoder,
     tokens: torch.Tensor,                 # (B, S) int, or (B, S, d) embeds
@@ -299,7 +327,8 @@ def decoder_forward(
     device: then the step reads nothing back to the host).  Attention caches are written in place
     (the returned list holds the same tensors); recurrent and SSM states
     are returned anew.  ``remat=True`` without caches checkpoints each
-    layer under ``cfg.remat_policy``."""
+    layer under ``cfg.remat_policy``, and each pattern group around its
+    layers where the reference does (:func:`nests_groups`)."""
     cdt = cfg.cdt
     if tokens.dim() == 3:
         x = tokens.to(cdt)                  # stubbed modality embeddings
@@ -311,7 +340,20 @@ def decoder_forward(
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = None if caches is None else []
-    for i, layer in enumerate(model.layers):
+    layers = list(model.layers)
+    if remat and caches is None and nests_groups(cfg):
+        # the reference's checkpointed scan body over a pattern group,
+        # its layers checkpointed again inside (transformer.py:280-287)
+        period = len(cfg.attn_pattern)
+        for g in range(cfg.n_groups):
+            x, auxes = remat_call(_remat_group, cfg.remat_policy,
+                                  layers[g * period:(g + 1) * period],
+                                  cfg.remat_policy, x, positions)
+            for aux in auxes:
+                if aux is not None:
+                    aux_total = aux_total + aux
+        layers = layers[cfg.n_groups * period:]
+    for i, layer in enumerate(layers):
         c = None if caches is None else caches[i]
         if remat and c is None:
             x, nc, aux = remat_call(layer, cfg.remat_policy, x,

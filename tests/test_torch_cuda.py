@@ -724,6 +724,43 @@ def test_train_steps_on_card_match_the_cpu(cuda_device, arch):
         assert float(excess.max()) <= 0.0, (name, float(excess.max()))
 
 
+@pytest.mark.cuda
+def test_long_sequence_train_step_peaks_within_its_sizing(cuda_device):
+    """granite_20b at full width cut to one pattern group takes one train
+    step of one row of 16384 tokens.  Each attention chunk is
+    checkpointed, so the backward holds one chunk's scores: the step's
+    peak stays within the dry run's sizing of it (about 31 GB; with the
+    layer's 48 x 16384^2 scores saved whole it was sized at 112 GB, over
+    the card), and its loss and grad norm are finite."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer, train_step
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+
+    seq = 16384
+    cfg = dryrun._depth_variant(registry.get_config("granite_20b"), 1)
+    need = dryrun.variant_bytes(cfg, registry.Shape("train", "train", seq, 1),
+                                1)["need"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = registry.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    opt = optimizer.adamw_init(model)
+    corpus = SyntheticCorpus(vocab=cfg.vocab, batch=1, seq=seq, seed=0)
+    step = train_step.make_train_step(registry.make_train_forward(cfg),
+                                      optimizer.AdamWConfig())
+    metrics = step(model, opt, to_tensors(corpus.batch_at(0), cuda_device))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    assert peak <= need, (peak, need)
+    del model, opt, metrics
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------
 # the LM dry run: each kind's SMOKE cell on the card against the CPU
 # ----------------------------------------------------------------------
@@ -783,6 +820,31 @@ def test_lm_dry_run_cell_on_card_matches_the_cpu(cuda_device, shape):
         assert var["timed_steps"] >= dryrun.WARM_STEPS
     least, most = row["measured"]["replica_step_range_s"]
     assert 0 < least <= row["measured"]["replica_step_s"] <= most
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [2, 4])
+def test_train_peak_split_bounds_a_larger_batch_on_card(cuda_device, cut):
+    """llama3_8b's SMOKE train cell (128 tokens) run by ``run_variant`` on
+    the card at 1 row and at ``cut`` rows: the 1-row variant's
+    ``peak_split`` scaled by ``cut`` (:func:`scaled_peak`) bounds the
+    ``cut``-row variant's non-argument peak within 10 %."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.distributed.sharding import AxisRules, DEFAULT_RULES
+    from repro_torch.models import registry
+
+    cfg = registry.get_config("llama3_8b", smoke=True)
+    shape = dataclasses.replace(registry.SHAPES["train_4k"], seq=128, batch=4)
+    rules = AxisRules(mesh.make_production_mesh(), dict(DEFAULT_RULES))
+    cell = registry.build_cell(cfg, "llama3_8b", shape, rules)
+    one, more = (dryrun.run_variant(cell, b, cuda_device, count=False)
+                 for b in (1, cut))
+    assert one["finite"] and more["finite"]
+    est = dryrun.scaled_peak(one["peak_split"], cut)
+    assert more["nonarg_peak_bytes"] <= est <= \
+        1.1 * more["nonarg_peak_bytes"], (one["peak_split"], est, more)
 
 
 # ----------------------------------------------------------------------

@@ -26,6 +26,7 @@ import dataclasses
 import math
 import os
 import re
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from _torch_port import (LM_TOL, lm_inputs, max_abs_diff, port_lm, ref_lm,
                          to_torch, train_inputs, tree_max_abs_diff)
@@ -526,6 +529,182 @@ def test_variants_that_do_not_fit_are_cut_refused_or_replaced(base_row):
     with pytest.raises(MemoryError, match="does not fit"):
         _run("llama3_8b", "train_4k", memory=int(need(1, 1) / room) - 1,
              multi_pod=True)
+
+
+#: an NVIDIA H100 80GB HBM3's memory as the card reports it
+#: (``torch.cuda.get_device_properties(0).total_memory``): 76.5 GB of
+#: room less ``HEADROOM``
+H100_MEMORY = 85017493504
+#: each full config's train_4k plan on 16x16 on that card (replica
+#: batch 16): the variants and their batch.  With each attention and SSD
+#: chunk checkpointed the train step holds one chunk's scores, not the
+#: layer's S x S: granite_20b's g2 takes 8 rows (4 when its scores were
+#: counted whole) and qwen2_vl_72b's g2 fits at 1 row (it calibrated on
+#: g0/g1 at 2); dbrx_132b's g1 needs 80.4 GB at 1 row, and is refused
+TRAIN_4K_PLANS = {
+    "moonshot_v1_16b_a3b": ((1, 2), 2), "dbrx_132b": None,
+    "granite_20b": ((1, 2), 8), "starcoder2_3b": ((1, 2), 8),
+    "llama3_8b": ((1, 2), 4), "gemma3_12b": ((0, 1), 1),
+    "whisper_small": ((1, 2), 8), "mamba2_370m": ((1, 2), 16),
+    "recurrentgemma_9b": ((1, 2), 1), "qwen2_vl_72b": ((1, 2), 1)}
+
+
+@pytest.mark.parametrize("arch", PR.ARCH_IDS)
+def test_train_4k_plans_on_an_h100(arch):
+    """The full configs' train_4k variants sized for one H100 on 16x16:
+    the variants, their batch and the refusal of dbrx_132b."""
+    cfg = PR.get_config(arch)
+    shape = dryrun._cell_shape("train_4k", False)
+    rep_batch, _ = dryrun.replica_batch(shape, _port_rules("16x16"))
+    want = TRAIN_4K_PLANS[arch]
+    if want is None:
+        with pytest.raises(MemoryError, match="g1 needs .* does not fit"):
+            dryrun.plan_variants(cfg, shape, rep_batch, H100_MEMORY, True)
+        return
+    pair, batch, reduced = dryrun.plan_variants(cfg, shape, rep_batch,
+                                                H100_MEMORY, True)
+    assert (pair, batch) == want
+    assert any(r.startswith("g2 refused") for r in reduced) == (
+        pair == (0, 1))
+    assert any(r.startswith(f"batch {rep_batch} -> {batch} ")
+               for r in reduced) == (batch < rep_batch)
+
+
+def test_train_sizing_holds_one_chunk_not_the_whole_scores():
+    """In training the layer term holds one query chunk's recompute, so
+    it grows linearly in the tokens: granite_20b at one group and one
+    row of 32768 tokens needs 48.8 GB (its S x S scores, saved whole,
+    would need about 388 GB); its layer term at 2S is about twice that
+    at S.  mamba2's layer term counts its SSD chunk: more than its
+    weights in training, and not 0 in a prefill."""
+    room = (1 - dryrun.HEADROOM) * H100_MEMORY
+    train = dryrun._cell_shape("train_4k", False)
+    granite = dryrun._depth_variant(PR.get_config("granite_20b"), 1)
+    sized = {s: dryrun.variant_bytes(
+        granite, dataclasses.replace(train, seq=s, batch=1), 1)
+        for s in (16384, 32768)}
+    assert sized[32768]["need"] == pytest.approx(48.8e9, rel=2e-3)
+    assert sized[32768]["need"] < room
+    assert sized[32768]["layer"] < 2.1 * sized[16384]["layer"]
+    mamba = dryrun._depth_variant(PR.get_config("mamba2_370m"), 1)
+    weights = sum(t[0].numel() for path, t in
+                  PR.abstract_params(mamba)[0].items()
+                  if path[0] == "groups") * 2
+    assert dryrun.variant_bytes(mamba, train, 16)["layer"] > 10 * weights
+    prefill = dryrun._cell_shape("prefill_32k", False)
+    assert dryrun.variant_bytes(mamba, prefill, 1)["layer"] > 0
+
+
+class _HighWater(TorchDispatchMode):
+    """The bytes of storage that ops made inside the mode hold, the most
+    at once since :meth:`reset`: the CPU's stand-in for the card's
+    ``max_memory_allocated`` and ``reset_peak_memory_stats``."""
+
+    def __init__(self):
+        super().__init__()
+        self.live, self.now, self.top = {}, 0, 0
+
+    def _free(self, key):
+        self.now -= self.live.pop(key)
+
+    def peak(self):
+        return self.top
+
+    def reset(self):
+        self.top = self.now
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                key = st.data_ptr()
+                if key and key not in self.live:
+                    self.live[key] = st.nbytes()
+                    self.now += st.nbytes()
+                    self.top = max(self.top, self.now)
+                    weakref.finalize(st, self._free, key)
+        return out
+
+
+def _smoke_train_peak(batch, split):
+    """SMOKE llama3_8b's train step at ``batch`` rows of 128 tokens after
+    one warm step: its high-water mark and, with ``split``, the step's
+    :class:`PeakSplit` points."""
+    cfg = PR.get_config("llama3_8b", smoke=True)
+    shape = dataclasses.replace(PR.SHAPES["train_4k"], seq=128, batch=4)
+    cell = PR.build_cell(cfg, "llama3_8b", shape, _port_rules("16x16"))
+    args = dryrun.cell_args(cell, batch, torch.device("cpu"))
+    cell.fn(*args)                       # the AdamW moments are made once
+    with _HighWater() as hw:
+        if not split:
+            cell.fn(*args)
+            return hw.top, None
+        with dryrun.PeakSplit(args[0].parameters(), hw.peak,
+                              hw.reset) as ps:
+            cell.fn(*args)
+    grads = sum(p.numel() * p.element_size() for p in args[0].parameters())
+    assert ps.made == grads
+    return hw.top, ps.points()
+
+
+@pytest.mark.parametrize("cut", [2, 4])
+def test_a_train_peak_scales_only_its_batch_part(cut):
+    """A train step's peak at ``cut`` times its rows: :class:`PeakSplit`
+    at 1 row, scaled by :func:`scaled_peak`, bounds the peak measured at
+    ``cut`` rows within 10 %, where the whole peak times ``cut`` (the
+    update's temporaries and the gradients with it) overshoots by half
+    again."""
+    one, points = _smoke_train_peak(1, split=True)
+    more, _ = _smoke_train_peak(cut, split=False)
+    est = dryrun.scaled_peak(points, cut)
+    assert more <= est <= 1.1 * more, (points, est, more)
+    assert cut * one >= 1.5 * more
+    assert dryrun.scaled_peak(points, 1) == one
+
+
+#: qwen2_vl_72b's train_4k variants on 16x16 as ``run_variant`` measured
+#: them on an NVIDIA H100 80GB HBM3 (700 W; ``python -m
+#: repro_torch.launch.dryrun --shape train_4k --mesh single``): one row
+#: each (the replica's 16 cut 16x), the non-argument peak and its
+#: ``peak_split``.  At one row both peak in the update, on the
+#: gradients, which do not grow with the batch
+QWEN2_TRAIN_4K = {
+    "argument_bytes": 5442338820, "groups_eff": 80.0, "cut": 16.0,
+    "variants": {
+        1: {"nonarg_peak_bytes": 18526356992, "peak_split": [
+            [18526356992, 0], [8560640000, 406882816],
+            [8292204544, 671090688], [8225095680, 3143665664],
+            [6018859008, 3600893952], [5049974784, 4569778176],
+            [67108864, 15284160512]]},
+        2: {"nonarg_peak_bytes": 21969947136, "peak_split": [
+            [21969947136, 0], [12004229120, 406882816],
+            [11735793664, 671090688], [11668684800, 3143665664],
+            [9462448128, 3600893952], [8493563904, 4569778176],
+            [4982865920, 4771186688], [0, 15351302144]]}}}
+
+
+def test_qwen2_train_4k_peak_estimate_scales_only_the_batch_part():
+    """qwen2_vl_72b's train_4k estimate from its measured variants: the
+    per-device arguments plus the replica's non-argument peak over the
+    model extent is about the 28.02 GiB the dry run read for this cell
+    when it calibrated on g0/g1 at 2 rows, where the forward set the
+    peak, and fits the card; the whole 1-row peak times the batch
+    cut, gradients included, would read over 250 GiB."""
+    m = QWEN2_TRAIN_4K
+    runs, pair = m["variants"], (1, 2)
+    nonarg = dryrun.peak_estimate(runs, pair, m["groups_eff"], m["cut"])
+    est = (m["argument_bytes"] + nonarg / 16) / 2**30
+    assert 28.02 * 0.8 <= est <= 28.02 * 1.2, est
+    assert est * 2**30 <= H100_MEMORY
+    whole = {g: {"peak_split": [[0, v["nonarg_peak_bytes"]]]}
+             for g, v in runs.items()}
+    scaled_whole = dryrun.peak_estimate(whole, pair, m["groups_eff"],
+                                        m["cut"])
+    assert (m["argument_bytes"] + scaled_whole / 16) / 2**30 > 250
+    for g, v in runs.items():
+        assert dryrun.scaled_peak(v["peak_split"], 1) == \
+            v["nonarg_peak_bytes"]
 
 
 # ----------------------------------------------------------------------

@@ -14,6 +14,7 @@ import copy
 import filecmp
 import os
 import re
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -132,6 +133,46 @@ def test_save_takes_a_function_called_once_at_the_snapshot(tmp_path):
     mgr.save(state, step=5)
     assert calls == [1, 1]
     _equal_trees(mgr.restore(_tree(0))[0], _tree(4))
+
+
+def test_save_waits_for_an_async_drain_in_flight(tmp_path, monkeypatch):
+    """ROADMAP N6, the port's deliberate difference: ``save`` joins a
+    ``save_async`` drain still in flight before it writes, so the two
+    steps land in the two slots in turn (the reference's ``save`` does
+    not wait, and both would write the same slot).  The first drain is
+    held until a timer releases it, after ``save`` was called."""
+    mgr = NVMCheckpointManager(CheckpointConfig(str(tmp_path),
+                                                async_drain=True))
+    seq0 = mgr._seq
+    release = threading.Event()
+    real = NVMCheckpointManager._drain
+
+    def slow(self, flat, step, extra):
+        if step == 1:
+            assert release.wait(timeout=60)
+        return real(self, flat, step, extra)
+
+    monkeypatch.setattr(NVMCheckpointManager, "_drain", slow)
+    mgr.save_async(_tree(1), step=1)
+    assert mgr._drainer.is_alive() and mgr._seq == seq0
+    timer = threading.Timer(0.2, release.set)
+    timer.start()
+    try:
+        mgr.save(_tree(2), step=2)
+    finally:
+        timer.join(timeout=60)
+    assert release.is_set() and mgr._drainer is None
+    assert mgr._seq == seq0 + 2
+    keys = [k for k, _ in _leaves(_tree(0))]
+    for step in (1, 2):
+        slot = mgr._slot_dir(seq0 + step)
+        flat, manifest = mgr._try_load_slot(slot, keys)
+        assert (manifest["step"], manifest["seq"]) == (step, seq0 + step)
+        for key, leaf in _leaves(_tree(step)):
+            np.testing.assert_array_equal(flat[key], np.asarray(leaf))
+    got, step, _ = mgr.restore(_tree(0))
+    assert step == 2
+    _equal_trees(got, _tree(2))
 
 
 def test_snapshot_is_a_copy_of_cpu_tensors(tmp_path):
