@@ -37,8 +37,13 @@ non-zero and prints no result line):
    failure, and with blocks (1, 2) failing at iteration 20 in sync and in
    overlap mode; the recovered runs must match the failure-free run at
    rtol = atol = 1e-8 and K1, K2 and det_dot must have launched.
-   Recovery's local CG runs as a CUDA graph replayed chunk by chunk; its
-   K1 and det_dot launches (replays included) are counted apart.  The
+   Recovery's local CG runs as a CUDA graph replayed chunk by chunk on
+   the failed slabs alone (K1's halo mode with zero halo planes over the
+   64 planes of blocks (1, 2), never K1 over the whole grid); its halo
+   and det_dot launches (replays included) are counted apart.  It runs
+   again on the same right-hand side with ``A[F,F]`` applied by
+   embedding into the whole grid (the embed version): the same iteration
+   count, ``x_F`` bitwise, both seconds printed.  The
    sync recovery runs again, up to iteration
    21, with the plain loop (a host read an iteration): the recovered
    state and the local CG's ``x_F`` must be bitwise the graph's, at the
@@ -87,13 +92,23 @@ non-zero and prints no result line):
 11. mesh — the sharded main path at 256^3 float64 (``nblocks=8``):
    K1's halo mode at 2, 4 and 8 shards bitwise one full K1 launch (one
    sharded apply's device ms, every slab launch and halo copy, beside
-   the full launch's) and one slab against its plain version and a
+   the full launch's, on views of one buffer and on a sharded vector's
+   slabs with a stream a shard) and one slab against its plain version
+   and a conv3d; the halo mode at recovery's local-CG shape (64 planes,
+   zero halo planes) against its plain version and a zero-padded
    conv3d; ``det_dot``, ``det_rowdots`` and the PCG step on a 4-shard
    mesh bitwise unsharded (per-shard lane launches of det_dot and K2);
    ``api.solve`` of ``Problem.poisson(256, nblocks=8, nshards=4)`` on
    ``nvm-prd`` with ``FailureEvent(shard=1)`` at 10, 20 iterations,
-   bitwise the unsharded solve with blocks (2, 3) killed and fetching
-   one shard's slot bytes; fetch bytes halving from 2 to 4 to 8 shards
+   every vector a sharded vector (a slab a shard on the card, a stream a
+   shard), bitwise the unsharded solve with blocks (2, 3) killed and
+   fetching one shard's slot bytes, its step's device ms beside the
+   same step on views of one buffer (the one-buffer layout) and phase 4's
+   breakdown of its iteration (step, norm pull, slab-by-slab pull of
+   ``p``, backend persist); with two or more
+   cards visible the same solve with the shards on distinct cards,
+   bitwise the one-card solve (else a line ``"distinct_cards": "not
+   run: 1 card visible"``); fetch bytes halving from 2 to 4 to 8 shards
    (6-iteration runs on ``nvm-homogeneous``); the 4-shard float32
    ``make_shardmap_pcg_step`` for 10 steps within rtol 1e-4 of the
    unsharded fused step;
@@ -195,12 +210,17 @@ just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
 sharded solve of 11, in their own processes the two CLIs of 12, 13,
 14 and the dry-run processes of 15) to
 a reading just after it, graph replays included, and summed into the
-kernel summary; K1's and det_dot's entries also give the launches of
-recovery's local CG on the main path, phase 4 (``local_cg_launches``,
-``local_cg["launches"]``).  The line before the last is the
+kernel summary; the halo mode's and det_dot's entries also give the
+launches of recovery's local CG on the main path, phase 4, with its
+timings at that shape (``local_cg``).  The line before the last is the
 kernel summary ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
 neither JAX nor the reference package.
+
+``python3 chip_smoke.py --mesh-only`` runs phases 1, 2 and 11 (the
+mesh, with its distinct-card leg where two or more cards are visible:
+on a machine with four cards); like ``--times-only`` it is a measurement, and
+its output ends without the ``ok`` line.
 
 ``python3 chip_smoke.py --times-only [--src DIR]`` runs phases 1-2,
 prints both timing columns of every kernel at the main path's shapes and
@@ -836,21 +856,31 @@ def _recovery_seconds(tracer) -> float:
 
 
 def iteration_breakdown(torch, problem, p, first_run_s: float,
-                        reps: int = 3):
+                        reps: int = 3, phase: str = "main"):
     """Where a persisted iteration's wall time goes: the device step,
     timed with CUDA events once the allocator is warm, and the residual
     norm's scalar pull, against the two halves of the host persistence
     path — the device-to-host copy of ``p`` (``host_shard``) and the
     backend's persist event (slot encode, CRC, simulated store writes,
     drain).  ``first_run_s`` is the unprotected solve's wall seconds per
-    iteration, allocator warm-up included."""
+    iteration, allocator warm-up included.  A sharded problem's step and
+    norm run shard by shard, its pull slab by slab."""
+    from repro_torch.solvers.base import solver_dot
     from repro_torch.solvers.registry import make_backend
 
     solver, state, step = pcg_step(problem)
-    step_ms, step_dev_ms = both_ms(torch, lambda: step(state))
+    mesh = getattr(problem.op, "mesh", None)
+
+    def joined_step():
+        step(state)
+        if mesh is not None:
+            mesh.join()
+
+    step_ms, step_dev_ms = both_ms(torch, joined_step)
+    dot = solver_dot(problem.op)
     t0 = time.perf_counter()
     for _ in range(REPS):
-        solver.residual_norm(state)
+        solver.residual_norm(state, dot)
     norm_s = (time.perf_counter() - t0) / REPS
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -862,7 +892,7 @@ def iteration_breakdown(torch, problem, p, first_run_s: float,
         backend.persist_set(k, {"beta": 0.5}, {"p": host})
         backend.drain()
     persist_s = (time.perf_counter() - t0) / reps
-    say("main", breakdown="seconds per iteration",
+    say(phase, breakdown="seconds per iteration",
         unprotected_run_s=first_run_s, device_step_s=step_ms / 1e3,
         device_step_back_to_back_s=step_dev_ms / 1e3,
         residual_norm_pull_s=norm_s, d2h_copy_s=d2h_s,
@@ -919,6 +949,42 @@ def local_cg_plain_vs_graph(torch, problem, spec, failure, graph_run,
           "the graph's recovered state is not the plain loop's bitwise")
 
 
+def local_cg_embed_vs_slabs(torch, problem, failure, call) -> None:
+    """Phase 4's local CG once more on the same right-hand side with
+    ``A[F,F]`` applied by the embed version (the union embedded into a zero
+    grid, K1 over all of it, restrict), as a graph too: the same
+    iteration count, ``x_F`` bitwise the failed-slab run's (so the
+    recovered state is the one the embed version made), and both runs'
+    seconds and ms an iteration side by side."""
+    from repro_torch.core import reconstruction as rec
+
+    op, part = problem.op, problem.op.partition
+    failed = list(failure[0].blocks)
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = rec._local_cg(lambda u: part.restrict(op.apply(part.embed(
+        u, failed)), failed), call["rhs"], info=info)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    same = bool(torch.equal(x, call["x"]))
+    say("main", local_cg="failed slabs (K1 halo mode, zero planes) vs "
+        "embed into the whole grid, both as graphs",
+        blocks=failed, slab_shape=[len(failed) * GRID // NBLOCKS, GRID, GRID],
+        iterations=call["iterations"], embed_iterations=info["iterations"],
+        slabs_local_cg_s=call["seconds"], embed_local_cg_s=embed_s,
+        slabs_ms_per_iteration=1e3 * call["seconds"] / call["iterations"],
+        embed_ms_per_iteration=1e3 * embed_s / info["iterations"],
+        slabs_capture_s=call["capture_s"], embed_capture_s=info["capture_s"],
+        slabs_chunk_s=call["chunk_s"], embed_chunk_s=info["chunk_s"],
+        slabs_launches_per_chunk=call["launches_per_chunk"],
+        embed_launches_per_chunk=info["launches_per_chunk"],
+        x_f_bitwise_embed=same)
+    check(info["iterations"] == call["iterations"],
+          "the embed local CG stopped at another iteration")
+    check(same, "the failed-slab local CG's x_F is not the embed version's")
+
+
 def pcg_step(problem):
     """(solver, initial state, step) of PCG on ``problem`` (a sharded
     problem's step runs shard by shard)."""
@@ -961,7 +1027,7 @@ class LocalCGWatch:
             for name, n in after.items():
                 self.launches[name] = (self.launches.get(name, 0)
                                        + n - before[name])
-            self.calls.append(dict(info, seconds=seconds, x=x))
+            self.calls.append(dict(info, seconds=seconds, x=x, rhs=rhs))
             return x
 
         self.saved = self.rec._local_cg
@@ -972,7 +1038,7 @@ class LocalCGWatch:
         self.rec._local_cg = self.saved
 
     def summary(self) -> list:
-        return [{k: v for k, v in call.items() if k != "x"}
+        return [{k: v for k, v in call.items() if k not in ("x", "rhs")}
                 for call in self.calls]
 
 
@@ -1048,13 +1114,16 @@ def phase_main_path(torch, found, records):
         local_cg_calls=watch.summary())
     for name in ("stencil7", "fused_cg_update", "det_dot"):
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
-    for name in ("stencil7", "det_dot"):
+    for name in ("stencil7_halo", "det_dot"):
         check(watch.launches.get(name, 0) > 0,
               f"recovery's local CG never launched {name}")
+    check(watch.launches.get("stencil7", 0) == 0,
+          "recovery's local CG launched K1 over the whole grid")
     check(all(c["graph"] for c in watch.calls),
           "a local CG on the card did not run as a graph")
-    records["stencil7"]["local_cg_launches"] = watch.launches["stencil7"]
+    found["local_cg_halo_launches"] = watch.launches["stencil7_halo"]
     records["det_dot"]["local_cg"]["launches"] = watch.launches["det_dot"]
+    local_cg_embed_vs_slabs(torch, problem, failure, watch.calls[0])
     local_cg_plain_vs_graph(torch, problem, spec, failure, graph_run,
                             watch.calls[0])
     del graph_run
@@ -1681,19 +1750,23 @@ MESH_SCALING_MAXITER, MESH_SCALING_FAIL_AT = 6, 4
 MESH_GRID_STEPS = 10
 
 
-def mesh_kernels(torch, rate: float, records: dict) -> None:
+def mesh_kernels(torch, rate: float, records: dict, found) -> None:
     """K1's halo mode at 2, 4 and 8 shards of the 256^3 float64 grid
     (the slabs side by side bitwise one full K1 launch; one sharded
-    apply's device ms beside the full launch's), one slab launch against
-    its plain version with its timings and bound (the record of
-    ``stencil7_halo``), and the per-shard lane launches of det_dot and K2
-    at the 4-shard solve's shape, their chained sums bitwise the
-    unsharded launches'."""
+    apply's device ms beside the full launch's, on views of one buffer
+    and on a sharded vector's slabs with a stream a shard), one slab
+    launch against its plain version with its timings and bound (the
+    record of ``stencil7_halo``), the halo mode at recovery's local-CG
+    shape (64 planes, zero halo planes), and the per-shard lane launches
+    of det_dot and K2 at the 4-shard solve's shape, their chained sums
+    bitwise the unsharded launches', on plain vectors and on sharded
+    ones."""
     import torch.nn.functional as F
 
     from repro_torch.core import pcg, spmv
+    from repro_torch.core.poisson import StencilOperator
     from repro_torch.core.state import PCGState
-    from repro_torch.distributed import make_data_mesh
+    from repro_torch.distributed import make_data_mesh, sharding
     from repro_torch.kernels import fused_cg as k2
     from repro_torch.kernels import stencil7 as k1
     from repro_torch.launch import roofline as RL
@@ -1715,10 +1788,28 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
               f"stencil7_halo at {nshards} shards != one full K1 launch")
         ms = sharded_ms[nshards] = device_ms(
             torch, lambda: spmv.sharded_stencil7(u, nshards))
+        # the same apply on a sharded vector: a slab a shard, a stream a
+        # shard, the halo planes moved between the streams
+        sop = sharding.ShardedOperator(
+            StencilOperator(GRID, GRID, GRID, nblocks=NBLOCKS, device=dev),
+            sharding.ShardLayout(NBLOCKS, nshards),
+            make_data_mesh(nshards, "cuda:0"))
+        us = sop.device_put(u.view(-1))
+        check(bool(torch.equal(sharding.gather(sop.apply(us)),
+                               full.view(-1))),
+              f"the {nshards}-slab sharded apply != one full K1 launch")
+
+        def slab_apply():
+            sop.apply(us)
+            sop.mesh.join()
+
+        slab_ms = sharded_ms[f"{nshards} slabs"] = device_ms(torch, slab_apply)
         say("mesh", kernel="stencil7_halo", nshards=nshards,
             bitwise_full_launch=True, sharded_apply_device_ms=ms,
+            slabs_apply_device_ms=slab_ms, streams=nshards,
             full_launch_device_ms=full_ms, bound_ms=b_full, bound_by=by_full,
             halo_bytes=2 * (nshards - 1) * plane * 8)
+        del sop, us
 
     # one slab of the 4-shard solve: its launch, plain version, conv3d
     slab = GRID // MESH_NSHARDS
@@ -1758,19 +1849,54 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
         sharded_apply_device_ms=sharded_ms, full_launch_device_ms=full_ms)
-    del u, full, got, want, ext
+    del got, want, ext
+
+    # recovery's local CG: K1's halo mode over the failed run of two
+    # blocks (64 planes) with zero halo planes, in place of K1 over the
+    # whole grid
+    us = u[:2 * GRID // NBLOCKS].contiguous()
+    got = k1.stencil7_halo_cuda(us, None, None)
+    want = k1.stencil7_halo_plain(us, None, None)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    tol = 1e-12 * max(1.0, float(want.abs().max()))
+    check(err <= tol, f"stencil7_halo local-CG slab error {err} > {tol}")
+    check(bool(torch.equal(got, k1.stencil7_cuda(us))),
+          "the zero-plane halo launch != K1 on the sub-grid")
+    ms, dev_ms = both_ms(torch, lambda: k1.stencil7_halo_cuda(us, None, None))
+    graph_ms = in_graph_ms(torch, lambda: k1.stencil7_halo_cuda(us, None,
+                                                                None))
+    plain_ms = time_ms(torch, lambda: k1.stencil7_halo_plain(us, None, None))
+    conv = lambda: F.conv3d(us[None, None], w, padding=1)  # noqa: E731
+    conv_err = max_abs(conv()[0, 0], got)
+    lib_ms, lib_dev_ms = both_ms(torch, conv)
+    b_ms, b_by = RL.bound_ms(RL.stencil7_halo_work(us.numel(), plane, 0,
+                                                   "float64"), "float64", rate)
+    local = dict(shape=list(us.shape), halo_planes=0,
+                 launches=found.get("local_cg_halo_launches"),
+                 max_abs_err=err, ms=ms, device_ms=dev_ms,
+                 in_graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+    say("mesh", kernel="stencil7_halo", at="recovery's local CG, blocks "
+        "(1, 2)", library="conv3d float64, zero padding",
+        conv_vs_kernel_max_abs_err=conv_err, bitwise_k1_subgrid=True, **local)
+    records["stencil7_halo"]["local_cg"] = local
+    del u, full, us, got, want
 
     # per-shard block sums: det_dot's and K2's lane modes, 2 blocks a shard
     x, r, p, ap = (torch.randn(n, generator=gen, device=dev,
                                dtype=torch.float64) for _ in range(4))
     inv = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) + 0.5
     alpha = torch.tensor(0.37, dtype=torch.float64, device=dev)
-    mesh = make_data_mesh(MESH_NSHARDS, dev)
+    mesh = make_data_mesh(MESH_NSHARDS, "cuda:0")
     bps = NBLOCKS // MESH_NSHARDS
     mesh_dot = spmv.make_det_dot(NBLOCKS, mesh)
     want_dot = k2.det_dot_cuda(p, ap, NBLOCKS)
     check(bool(torch.equal(mesh_dot(p, ap), want_dot)),
           "det_dot under a 4-shard mesh != the unsharded det_dot")
+    ps_v, aps_v = mesh.place(p), mesh.place(ap)
+    check(bool(torch.equal(mesh_dot(ps_v, aps_v), want_dot)),
+          "det_dot of sharded vectors != the unsharded det_dot")
     rows = torch.randn(3, n, generator=gen, device=dev, dtype=torch.float64)
     got_rows = spmv.make_det_rowdots(NBLOCKS, mesh)(rows, ap)
     want_rows = spmv.make_det_rowdots(NBLOCKS)(rows, ap)
@@ -1791,6 +1917,8 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
     vecdot_err = max_abs(vecdot(), k2.det_dot_lanes_cuda(ps, aps))
     lib_ms, lib_dev_ms = both_ms(torch, vecdot)
     mesh_dot_ms = device_ms(torch, lambda: mesh_dot(p, ap))
+    slabs_dot_ms = device_ms(torch, lambda: mesh_dot(ps_v, aps_v))
+    del ps_v, aps_v
     dot_ms = device_ms(torch, lambda: k2.det_dot_cuda(p, ap, NBLOCKS))
     b_dot, _ = RL.bound_ms(RL.det_dot_work(n, "float64"), "float64", rate)
     say("mesh", kernel="det_dot_lanes", shard_blocks=bps,
@@ -1798,6 +1926,7 @@ def mesh_kernels(torch, rate: float, records: dict) -> None:
         library_ms=lib_ms, library_device_ms=lib_dev_ms,
         library="torch.linalg.vecdot", vecdot_vs_kernel_max_abs_err=vecdot_err,
         bound_ms=lane_b, bound_by=lane_by, mesh_dot_device_ms=mesh_dot_ms,
+        slabs_mesh_dot_device_ms=slabs_dot_ms,
         det_dot_device_ms=dot_ms, dot_bound_ms=b_dot,
         mesh_dot_bitwise_det_dot=True, rowdots_bitwise=True)
 
@@ -1843,25 +1972,39 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
     from repro_torch.core import pcg, spmv
     from repro_torch.core.state import PCG_SCHEMA, PCGState
     from repro_torch.distributed import make_data_mesh
+    from repro_torch.distributed.sharding import gather
     from repro_torch.kernels import fused_cg as k2
     from repro_torch.kernels import ops
     from repro_torch.kernels import stencil7 as k1
+    from repro_torch.obs import Tracer
 
     t_phase = time.perf_counter()
-    mesh_kernels(torch, rate, records)
+    mesh_kernels(torch, rate, records, found)
     spec = api.SolverSpec("pcg", tol=1e-10, maxiter=MESH_MAXITER)
 
-    def run(label, nshards, event, spec_=spec, backend="nvm-prd"):
-        problem = api.Problem.poisson(GRID, nblocks=NBLOCKS, device=DEVICE,
-                                      nshards=nshards)
+    walls = {}
+
+    def run(label, nshards, event, spec_=spec, backend="nvm-prd",
+            mesh=None):
+        problem = api.Problem.poisson(GRID, nblocks=NBLOCKS, device=DEVICE)
+        if nshards > 1:
+            problem = problem.with_shards(nshards, mesh=mesh)
+        tracer = Tracer()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = api.solve(problem, spec_,
                         api.ResilienceSpec(backend, nshards=nshards),
-                        failures=[api.FailureEvent(**event)])
+                        failures=[api.FailureEvent(**event)], tracer=tracer)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = walls[label] = time.perf_counter() - t0
         rep = res.report
+        # where the wall went: the set-up before the first step, each
+        # iteration's seconds (step start to step start) and the recovery
+        starts = [r["ts"] for r in tracer.records if r["type"] == "span"
+                  and r["name"] == "iteration.step"]
+        say("mesh", run=label, setup_s=starts[0] if starts else None,
+            iteration_s=[round(b - a, 4) for a, b in zip(starts, starts[1:])],
+            recovery_s=_recovery_seconds(tracer))
         say("mesh", run=label, nshards=rep.nshards,
             iterations=rep.iterations, wall_s=wall,
             s_per_iteration=wall / max(rep.iterations, 1),
@@ -1871,13 +2014,15 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
             persist_bytes_by_shard=rep.persist_bytes_by_shard,
             halo_bytes=getattr(problem.op, "halo_bytes", 0))
         check(rep.failures_recovered == 1, f"{label}: no recovery")
-        check(bool(torch.isfinite(res.state.x).all()), f"{label}: x not finite")
+        check(bool(torch.isfinite(gather(res.state.x)).all()),
+              f"{label}: x not finite")
         return res, problem
 
     ops.reset_launch_counts()
-    sharded, problem = run(f"{MESH_NSHARDS} shards, shard 1 killed",
-                           MESH_NSHARDS,
+    label = f"{MESH_NSHARDS} shards, shard 1 killed"
+    sharded, problem = run(label, MESH_NSHARDS,
                            dict(shard=1, at_iteration=MESH_FAIL_AT))
+    sharded_wall = walls[label]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     say("mesh", launches=counts)
@@ -1886,14 +2031,42 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
               f"sharded path")
     check(counts["stencil7_halo"] >= MESH_NSHARDS * MESH_MAXITER,
           f"stencil7_halo launched {counts['stencil7_halo']} times")
+    check(all(slab.device == dev for slab, dev in zip(
+        sharded.state.x.slabs, problem.op.mesh.devices)),
+        "a slab of the sharded solve is not on its shard's device")
     _, state, step = pcg_step(problem)
+
+    def slab_step():
+        step(state)
+        problem.op.mesh.join()
+
+    slab_ms = device_ms(torch, slab_step)
+    # the one-buffer layout of the same step: full-length vectors on the card,
+    # the shards views of them, every launch on the current stream
+    views = PCGState(**{f: gather(getattr(state, f)) for f in
+                        ("x", "r", "z", "p", "rz", "beta_prev")}, k=0)
+    views_step = pcg.make_step(problem.op.apply,
+                               gather(problem.precond.inv_diag), NBLOCKS,
+                               problem.op.mesh)
+    a, b_ = step(state), views_step(views)
+    check(all(bool(torch.equal(gather(getattr(a, f)), getattr(b_, f)))
+              for f in ("x", "r", "z", "p", "rz", "beta_prev")),
+          "the slab step != the step on views of one buffer")
+    views_ms = device_ms(torch, lambda: views_step(views))
+    say("mesh", step=f"{MESH_NSHARDS}-shard PCG step, 256^3 float64",
+        slabs_streams_device_ms=slab_ms, views_one_buffer_device_ms=views_ms,
+        views_layout="one buffer, views a shard, one stream",
+        bitwise=True)
     found["steps"][f"phase 11: {MESH_NSHARDS}-shard PCG step"] = dict(
-        device_ms=device_ms(torch, lambda: step(state)), grid=(GRID,) * 3,
+        device_ms=slab_ms, grid=(GRID,) * 3,
         nshards=MESH_NSHARDS, nblocks=NBLOCKS,
         timed_as="CUDA events around 25 back-to-back steps, median of 3 "
-                 "windows: the host's launch gaps included, as the sharded "
-                 "step's host work outlasts its kernels")
-    del state, step
+                 "windows, the current stream joined to every shard's: the "
+                 "host's launch gaps included, as the sharded step's host "
+                 "work outlasts its kernels")
+    iteration_breakdown(torch, problem, sharded.state.p,
+                        sharded_wall / sharded.iterations, phase="mesh")
+    del state, step, views, views_step, a, b_
     blocks = problem.op.layout.blocks_of(1)
     plain, _ = run(f"unsharded, blocks {blocks} killed", 1,
                    dict(blocks=blocks, at_iteration=MESH_FAIL_AT))
@@ -1902,8 +2075,8 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
         problem.op.partition.block_size, "float64")
     check(sharded.iterations == plain.iterations == MESH_MAXITER,
           f"iterations {sharded.iterations} vs {plain.iterations}")
-    check(bool(torch.equal(sharded.state.x, plain.state.x))
-          and bool(torch.equal(sharded.state.r, plain.state.r)),
+    check(bool(torch.equal(gather(sharded.state.x), plain.state.x))
+          and bool(torch.equal(gather(sharded.state.r), plain.state.r)),
           "the sharded solve's x, r != the unsharded solve's bitwise")
     check(rep.recovery_fetch_bytes == slot
           and rep.recovery_fetch_bytes_by_shard == {1: slot},
@@ -1911,7 +2084,35 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
           f"{slot}")
     say("mesh", check="sharded == unsharded", x_bitwise=True, r_bitwise=True,
         fetch_bytes=slot, relres=rep.final_relres)
-    del sharded, plain, problem
+    del plain, problem
+
+    # the same solve with the shards on distinct cards, where there are
+    # two or more
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        far, problem = run(f"{MESH_NSHARDS} shards on {min(cards, MESH_NSHARDS)}"
+                           f" cards, shard 1 killed", MESH_NSHARDS,
+                           dict(shard=1, at_iteration=MESH_FAIL_AT),
+                           mesh=make_data_mesh(MESH_NSHARDS))
+        devices = [str(d) for d in problem.op.mesh.devices]
+        same = (bool(torch.equal(gather(far.state.x), gather(sharded.state.x)))
+                and bool(torch.equal(gather(far.state.r),
+                                     gather(sharded.state.r))))
+        _, state, step = pcg_step(problem)
+
+        def far_step():
+            step(state)
+            problem.op.mesh.join()
+
+        say("mesh", distinct_cards=devices, x_r_bitwise_one_card=same,
+            iterations=far.iterations,
+            step_device_ms=device_ms(torch, far_step),
+            one_card_step_device_ms=slab_ms)
+        check(same, "the solve on distinct cards != the one-card solve")
+        del far, problem, state, step
+    else:
+        say("mesh", distinct_cards=f"not run: {cards} card visible")
+    del sharded
 
     # fetch bytes halve as the shard count doubles (short runs)
     short = api.SolverSpec("pcg", tol=1e-10, maxiter=MESH_SCALING_MAXITER)
@@ -1934,7 +2135,7 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
     z = b * (1.0 / 6.0)
     rz = k2.det_dot_cuda(b.view(-1), z.view(-1), 1)
     step, _ = spmv.make_shardmap_pcg_step(make_data_mesh(MESH_NSHARDS,
-                                                         DEVICE))
+                                                         "cuda:0"))
     st = dict(x=torch.zeros_like(b), r=b, z=z, p=z, rz=rz)
     inv = torch.full((b.numel(),), 1.0 / 6.0, device=DEVICE,
                      dtype=torch.float32)
@@ -2105,7 +2306,7 @@ def dryrun_kernels(torch) -> None:
     # one cell's first step, both variants, against the unsharded step
     base = GRIDS[LAUNCH_STEP_CELL]
     nshards = M.LAYOUTS[LAUNCH_STEP_LAYOUT]
-    mesh = M.make_data_mesh(nshards, dev)
+    mesh = M.make_data_mesh(nshards, "cuda:0")
     inv = torch.full((math.prod(base.grid),), 1.0 / 6.0, device=dev,
                      dtype=f32)
     ref_step = pcg.make_step(lambda v: k1.stencil7_cuda(
@@ -3322,6 +3523,7 @@ def main() -> int:
 
     args = sys.argv[1:]
     times_only = "--times-only" in args
+    mesh_only = "--mesh-only" in args
     if "--src" in args:
         SRC = os.path.abspath(args[args.index("--src") + 1])
     if not torch.cuda.is_available():
@@ -3351,6 +3553,9 @@ def main() -> int:
 
             kernel_times(torch, rate)
             train_full_width(torch, R.get_config(TRAIN_ARCH))
+            return 0
+        if mesh_only:
+            phase_mesh(torch, rate, {}, {"steps": {}})
             return 0
         records = phase_kernels(torch, rate)
         found = {"steps": {}, "reports": [], "advice": []}

@@ -26,8 +26,11 @@ which replays a request trace through a fresh one) hosts many tenants at
 once, one lane of a batched bucket each; a tenant declares its logical
 shard layout with ``nshards=``.  ``Problem.poisson(..., nshards=4)`` (or
 :meth:`Problem.with_shards`) lays a solo problem out over a data mesh of
-four shards on its device: the solve runs shard by shard, bitwise the
-unsharded one, and ``FailureEvent(shard=...)`` kills one shard's blocks.
+four shards, by default all on its device with a stream each, or with
+``with_shards(4, mesh=make_data_mesh(4))`` one card a shard: each
+shard's slab of every vector is a tensor of its own on its shard's
+device, the solve runs shard by shard, bitwise the unsharded one, and
+``FailureEvent(shard=...)`` kills one shard's blocks.
 """
 from __future__ import annotations
 
@@ -38,7 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.poisson import PRECONDITIONERS, make_poisson_problem
-from repro_torch.distributed.sharding import shard_problem
+from repro_torch.distributed.sharding import (
+    gather,
+    place_preconditioner,
+    shard_problem,
+)
 from repro_torch.nvm.backend import (
     BackendCapabilities,
     PersistenceBackend,
@@ -181,19 +188,23 @@ class Problem:
 
     def with_shards(self, nshards: int, mesh=None) -> "Problem":
         """Lay this problem out over ``nshards`` shards of a 1-D ``data``
-        mesh on its device
-        (:func:`repro_torch.distributed.sharding.shard_problem`):
-        block-rows map contiguously onto shards, the solve runs shard by
-        shard, bitwise the unsharded one, and the driver's
-        fail/persist/recover path becomes per-shard addressable
-        (``FailureEvent(shard=...)``).  Raises if the problem is already
-        sharded."""
+        mesh, every shard on the problem's device unless ``mesh`` places
+        them (``make_data_mesh(nshards)``: one card a shard where there
+        are enough) (:func:`repro_torch.distributed.sharding.shard_problem`):
+        block-rows map contiguously onto shards, ``b`` and the
+        preconditioner's vectors become sharded vectors (one slab a
+        shard, on its device), the solve runs shard by shard, bitwise the
+        unsharded one, and the driver's fail/persist/recover path becomes
+        per-shard addressable (``FailureEvent(shard=...)``).  Raises if
+        the problem is already sharded."""
         if getattr(self.op, "layout", None) is not None:
             raise ValueError(
                 "problem is already sharded; shard the unsharded "
                 "problem instead of re-sharding")
         sop, sb = shard_problem(self.op, self.b, nshards, mesh=mesh)
-        return dataclasses.replace(self, op=sop, b=sb)
+        return dataclasses.replace(
+            self, op=sop, b=sb,
+            precond=place_preconditioner(self.precond, sop))
 
     @classmethod
     def poisson(cls, nz: int, ny: Optional[int] = None,
@@ -318,8 +329,9 @@ class SolveResult:
 
     @property
     def x(self) -> np.ndarray:
-        """The solution iterate as a host array."""
-        return self.state.x.detach().cpu().numpy()
+        """The solution iterate as a host array (a sharded solve's slabs
+        gathered here, by ``sharding.gather``)."""
+        return gather(self.state.x).detach().cpu().numpy()
 
     @property
     def converged(self) -> bool:

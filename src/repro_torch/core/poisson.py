@@ -13,11 +13,17 @@ Block convention: the flat index space ``I = [0, n)`` is split into
 Vectors may carry leading batch dimensions: every partition method and
 operator ``apply`` acts on the last dimension, which is how the dense
 local solve applies ``A[F,F]`` to the columns of an identity at once.
+
+The stencil's restrictions never touch the whole grid: ``A[F,F] v``
+runs K1 over each contiguous run of failed z-slabs with zero halo
+planes, and ``A[F,~F] x[~F]`` over a zero slab with the run's two true
+neighbour planes (K1's halo mode, bitwise the full launch), so a
+recovery's local CG works on the failed slabs alone.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -90,6 +96,26 @@ class BlockPartition:
             *x.shape[:-1], len(blocks), self.block_size)
         return xb.reshape(x.shape)
 
+    def fill_blocks(self, x: torch.Tensor, blocks: Sequence[int],
+                    value: float) -> torch.Tensor:
+        """``x`` with ``x[I_F] = value`` (a new tensor)."""
+        xb = self._blocks(x).clone()
+        xb[..., self._index(blocks, x.device), :] = value
+        return xb.reshape(x.shape)
+
+    def map_blocks(self, x: torch.Tensor,
+                   fn: Callable[[torch.Tensor, Tuple[int, ...]], torch.Tensor]
+                   ) -> torch.Tensor:
+        """``fn(part, blocks)`` over the parts of ``x`` that live
+        together: here ``x`` whole with every block (a sharded partition
+        calls it once a shard)."""
+        return fn(x, tuple(range(self.nblocks)))
+
+    def device_of(self, x: torch.Tensor, blocks: Sequence[int]) -> torch.device:
+        """Where a restriction of ``x`` to ``blocks`` lands: ``x``'s
+        device (a sharded vector's is the first block's shard's)."""
+        return x.device
+
 
 class StencilOperator:
     """Matrix-free 7-point stencil operator on a 3-D grid.
@@ -120,15 +146,69 @@ class StencilOperator:
         return torch.full((self.n,), 6.0, dtype=self.dtype, device=self.device)
 
     # ------- restrictions used by exact state reconstruction -------
+    def runs(self, blocks: Sequence[int]) -> List[Tuple[int, int, int]]:
+        """The maximal runs of consecutive blocks in ``blocks`` order, as
+        ``(start, z0, z1)``: the run's first value in the union vector
+        and its planes ``[z0, z1)`` of the grid."""
+        planes = self.grid[0] // self.nblocks
+        bs = self.partition.block_size
+        out: List[Tuple[int, int, int]] = []
+        for i, blk in enumerate(blocks):
+            if i and blk == blocks[i - 1] + 1:
+                start, z0, _ = out[-1]
+                out[-1] = (start, z0, (blk + 1) * planes)
+            else:
+                out.append((i * bs, blk * planes, (blk + 1) * planes))
+        return out
+
+    def offblock_from_planes(self, blocks: Sequence[int],
+                             plane: Callable[[int], torch.Tensor],
+                             dtype: torch.dtype,
+                             device: torch.device) -> torch.Tensor:
+        """``A[F, ~F] @ x[~F]`` from the planes of ``x`` next to each run
+        of F (``plane(z)``: ``x``'s plane ``z`` on ``device``): K1's halo
+        mode over a zero slab of the run with those two planes, bitwise
+        ``restrict(apply(zero_blocks(x)))``."""
+        nz, ny, nx = self.grid
+        out = torch.empty(len(blocks) * self.partition.block_size,
+                          dtype=dtype, device=device)
+        for start, z0, z1 in self.runs(blocks):
+            zero = torch.zeros((z1 - z0, ny, nx), dtype=dtype, device=device)
+            ops.stencil7_halo(zero, plane(z0 - 1) if z0 > 0 else None,
+                              plane(z1) if z1 < nz else None,
+                              out=out[start:start + zero.numel()].view(
+                                  zero.shape))
+        return out
+
     def offblock_apply(self, x: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
-        """``A[F, ~F] @ x[~F]``: apply with x zeroed on F, restrict to F."""
-        xm = self.partition.zero_blocks(x, blocks)
-        return self.partition.restrict(self.apply(xm), blocks)
+        """``A[F, ~F] @ x[~F]`` for a vector ``x`` (one dimension): the
+        planes around each run of F, never the whole grid."""
+        if x.dim() != 1:
+            raise ValueError(f"offblock_apply takes one vector, got shape "
+                             f"{tuple(x.shape)}")
+        u = x.reshape(self.grid)
+        return self.offblock_from_planes(blocks, lambda z: u[z], x.dtype,
+                                         x.device)
 
     def inblock_apply(self, v: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
-        """``A[F, F] @ v`` for the (possibly multi-block) union F."""
-        xf = self.partition.embed(v, blocks)
-        return self.partition.restrict(self.apply(xf), blocks)
+        """``A[F, F] @ v`` for the (possibly multi-block) union F, on the
+        union alone: K1's halo mode with zero halo planes over each run
+        of consecutive blocks (K1 on the run's sub-grid for a batch of
+        vectors), bitwise ``restrict(apply(embed(v)))``."""
+        _, ny, nx = self.grid
+        lead = v.shape[:-1]
+        out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        for start, z0, z1 in self.runs(blocks):
+            shape = (z1 - z0, ny, nx)
+            m = shape[0] * ny * nx
+            seg, dst = v[..., start:start + m], out[..., start:start + m]
+            if v.dim() == 1:
+                ops.stencil7_halo(seg.reshape(shape), None, None,
+                                  out=dst.view(shape))
+            else:
+                dst.copy_(stencil7(seg.reshape(*lead, *shape)).reshape(
+                    *lead, m))
+        return out
 
     def to_dense(self) -> np.ndarray:
         eye = torch.eye(self.n, dtype=self.dtype, device=self.device)
@@ -241,10 +321,24 @@ class BlockJacobiPreconditioner:
             for b in range(op.nblocks)])
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        part = self.op.partition
-        lead = r.shape[:-1]
-        rb = r.reshape(*lead, part.nblocks, part.block_size, 1)
-        return torch.cholesky_solve(rb, self._chol).reshape(r.shape)
+        return self.op.partition.map_blocks(r, self._solve_blocks)
+
+    def _solve_blocks(self, r: torch.Tensor, blocks: Tuple[int, ...]
+                      ) -> torch.Tensor:
+        """``P r`` on the part ``r`` of a vector over the consecutive
+        ``blocks`` (leading dimensions a batch)."""
+        rb = r.reshape(*r.shape[:-1], len(blocks),
+                       self.op.partition.block_size, 1)
+        return torch.cholesky_solve(rb, self.factors(blocks)).reshape(r.shape)
+
+    def factors(self, blocks: Tuple[int, ...]) -> torch.Tensor:
+        """The Cholesky factors of the consecutive ``blocks``: those made
+        at construction, or the copy a mesh placed on their shard's
+        device (``sharding.place_preconditioner``)."""
+        placed = self.__dict__.get("placed_factors", {}).get(tuple(blocks))
+        if placed is not None:
+            return placed
+        return self._chol[blocks[0]:blocks[-1] + 1]
 
     def block_solve(self, v: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
         # P[F,F] r_F = v  =>  r_F = blockdiag(A[s,s]) v : per-block forward apply

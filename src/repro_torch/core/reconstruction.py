@@ -11,9 +11,13 @@ static data (A rows, P rows, b), the failed state is rebuilt exactly:
 
 ``A[F,F]`` is SPD, so the local solve is a dense Cholesky for small
 unions or matrix-free local CG for large ones.  Every stencil apply runs
-through ``ops.stencil7`` (K1 on CUDA).  On the card the local CG runs
-as a CUDA graph replayed chunk by chunk (:func:`_local_cg_chunked`),
-bitwise the plain loop the CPU runs.
+through K1 (``ops.stencil7``, and for the restrictions ``A[F,F]`` and
+``A[F,~F]`` its halo mode over the failed slabs alone).  On the card the
+local CG runs as a CUDA graph replayed chunk by chunk
+(:func:`_local_cg_chunked`), bitwise the plain loop the CPU runs.  On a
+sharded solve the failed union's pieces move to the device of the first
+failed shard (``op.partition.restrict``), where the local solve runs,
+and the restored blocks move back into their shards' slabs.
 """
 from __future__ import annotations
 
@@ -109,9 +113,12 @@ def _local_cg(apply_fn, rhs: torch.Tensor, tol: float = 1e-14,
               ) -> torch.Tensor:
     """The local CG, dispatched on ``rhs``'s device: chunked and captured
     as a CUDA graph on the card (the reference compiles its
-    ``while_loop``), the plain loop on the CPU."""
+    ``while_loop``), the plain loop on the CPU.  On a mesh over distinct
+    cards ``rhs`` lives on the first failed shard's card, which is made
+    current for the loop."""
     if rhs.device.type == "cuda":
-        return _local_cg_chunked(apply_fn, rhs, tol, maxiter, info=info)
+        with torch.cuda.device(rhs.device):
+            return _local_cg_chunked(apply_fn, rhs, tol, maxiter, info=info)
     return _local_cg_plain(apply_fn, rhs, tol, maxiter, info)
 
 

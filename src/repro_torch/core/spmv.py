@@ -10,27 +10,31 @@ update uses for ``rz'``.
 
 Under a data mesh (:class:`repro_torch.distributed.sharding.DataMesh`:
 the shards of a z-slab row-block distribution, each a contiguous run of
-partition blocks and so a whole-plane slab of the grid) every reduction
-runs shard by shard: each shard writes out the block sums of its own
-blocks (det_dot's and K2's lane modes with one lane a block, whose block
-sums are bitwise those the unsharded launch chains), the sums are
-gathered in block order, and one left-to-right chain over all
+partition blocks and so a whole-plane slab of the grid) a vector is a
+:class:`~repro_torch.distributed.sharding.ShardedVector`, one slab a
+shard on the shard's device, and every reduction runs shard by shard:
+each shard writes out the block sums of its own blocks on its own stream
+(det_dot's and K2's lane modes with one lane a block, whose block sums
+are bitwise those the unsharded launch chains), the sums move to shard
+0's device in block order, and one left-to-right chain over all
 ``nblocks`` sums finishes the reduction.  The stencil runs K1's halo
-mode once per shard, on its slab, with the two neighbouring planes
-copied into halo buffers first (the reference's ``ppermute``).  Vectors
-stay full-length tensors on the mesh's one device, so a sharded solve is
-bitwise the unsharded one by construction.  Sums are bitwise for float64
-and float32; bfloat16 block sums round to bfloat16 before the chain.
+mode once per slab, after moving the two neighbouring planes into its
+shard (the reference's ``ppermute``).  So a sharded solve is bitwise
+the unsharded one by construction, whether the shards share a card or
+not.  Sums are bitwise for float64 and float32; bfloat16 block sums
+round to bfloat16 before the chain.
 
 :func:`make_sharded_pcg_step` and :func:`make_shardmap_pcg_step` are the
 reference's sharded grid iterations (its dry-run and roofline path) on
-dict states of ``(nz, ny, nx)`` grids, z-sharded over the mesh: the
-local stencil is K1's halo mode and the update K2.  The reference's
+dict states of ``(nz, ny, nx)`` grids of one device, z-sharded over
+the mesh's views of them: the local stencil is K1's halo mode and the
+update K2; a mesh over distinct devices raises.  The reference's
 ``lower_pcg_step`` returns an XLA ``Lowered`` for its dry-run launcher
 and has no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -47,23 +51,33 @@ def _nshards(mesh, axes=("data",)) -> int:
     return nshards
 
 
-def _shard_views(a: torch.Tensor, nblocks: int, nshards: int
-                 ) -> List[torch.Tensor]:
-    """Shard ``s``'s blocks of the flat ``a`` as a ``(blocks_per_shard,
-    block_size)`` view."""
-    bps = nblocks // nshards
-    return list(a.reshape(nshards, bps, -1).unbind(0))
+def _slabs(t: torch.Tensor, nshards: int):
+    """``(slabs, mesh)``: a sharded vector's slabs and its mesh, or for a
+    plain tensor ``nshards`` contiguous views of it and ``None`` (every
+    shard on its one device: the grid steps)."""
+    slabs = getattr(t, "slabs", None)
+    if slabs is not None:
+        return slabs, t.mesh
+    return t.reshape(nshards, -1).unbind(0), None
 
 
-def _gather_block_sums(a: torch.Tensor, b: torch.Tensor, nblocks: int,
-                       nshards: int) -> torch.Tensor:
+def slab_block_sums(a_slabs, b_slabs, nblocks: int, mesh=None
+                    ) -> torch.Tensor:
     """Each shard's block sums of ``a * b`` (one det_dot lane-mode launch
-    a shard), gathered in block order: ``(nblocks,)``."""
-    sums = torch.empty(nblocks, dtype=a.dtype, device=a.device)
-    bps = nblocks // nshards
-    for s, (a_s, b_s) in enumerate(zip(_shard_views(a, nblocks, nshards),
-                                       _shard_views(b, nblocks, nshards))):
-        ops.det_dot_lanes(a_s, b_s, out=sums[s * bps:(s + 1) * bps])
+    a shard, on its device and stream), moved in block order to shard
+    0's device: ``(nblocks,)``.  With no mesh the slabs are views of one
+    tensor and everything runs on the current stream."""
+    bps = nblocks // len(a_slabs)
+    dev = a_slabs[0].device if mesh is None else mesh.device
+    sums = torch.empty(nblocks, dtype=a_slabs[0].dtype, device=dev)
+    for s, (a_s, b_s) in enumerate(zip(a_slabs, b_slabs)):
+        out = sums[s * bps:(s + 1) * bps]
+        if mesh is None:
+            ops.det_dot_lanes(a_s.view(bps, -1), b_s.view(bps, -1), out=out)
+            continue
+        with mesh.on(s):
+            part = ops.det_dot_lanes(a_s.view(bps, -1), b_s.view(bps, -1))
+        mesh.move(part, None, src=s, out=out)
     return sums
 
 
@@ -71,8 +85,8 @@ def make_det_dot(nblocks: int, mesh=None):
     """Build ``dot(a, b)``: per-block partials, then a left-to-right chain
     over the ``nblocks`` partials; a 0-d tensor on ``a``'s device.  With
     ``mesh`` (the 1-D ``data`` mesh of a sharded operator) each shard
-    computes its own blocks' partials; the result is bitwise the
-    unsharded one."""
+    computes its own blocks' partials from its slabs and the chain runs
+    on shard 0's device; the result is bitwise the unsharded one."""
     if mesh is None:
         def det_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             return ops.det_dot(a, b, nblocks)
@@ -81,44 +95,75 @@ def make_det_dot(nblocks: int, mesh=None):
     nshards = _nshards(mesh)
 
     def mesh_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return chain_plain(_gather_block_sums(a, b, nblocks, nshards))
+        a_slabs, on = _slabs(a, nshards)
+        return chain_plain(slab_block_sums(a_slabs, _slabs(b, nshards)[0],
+                                           nblocks, on))
 
     return mesh_dot
 
 
 def make_det_rowdots(nblocks: int, mesh=None):
-    """Row-batched :func:`make_det_dot`: ``rowdots(M, w)[i] ==
-    det_dot(M[i], w)`` bitwise for an ``(rows, n)`` matrix — the Arnoldi
+    """Row-batched :func:`make_det_dot`: ``rowdots(rows, w)[i] ==
+    det_dot(rows[i], w)`` bitwise for an ``(rows, n)`` matrix or a
+    sequence of vectors (sharded ones under ``mesh``) — the Arnoldi
     projection shape — with the order pinned within each block too (each
     row is a det_dot launch on CUDA, and its block sums gathered shard by
     shard under ``mesh``), so it does not depend on the row count or the
     sharding."""
     dot = make_det_dot(nblocks, mesh)
 
-    def det_rowdots(m_rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return torch.stack([dot(row, w) for row in m_rows.unbind(0)])
+    def det_rowdots(rows, w: torch.Tensor) -> torch.Tensor:
+        if isinstance(rows, torch.Tensor):
+            rows = rows.unbind(0)
+        return torch.stack([dot(row, w) for row in rows])
 
     return det_rowdots
 
 
 def sharded_fused_update(x, r, p, ap, alpha: torch.Tensor,
                          inv_diag: torch.Tensor, nblocks: int, nshards: int):
-    """K2 once per shard of flat vectors, one lane a partition block
-    (``alpha`` repeated per lane): ``x', r', z'`` written into
-    full-length outputs and each shard's ``r' z'`` block sums gathered in
-    block order, ``(nblocks,)``.  ``x', r', z'`` are bitwise the
-    unsharded ``nblocks`` launch's, and so is the chain of the sums."""
+    """K2 once per shard, one lane a partition block (``alpha`` moved to
+    each shard and repeated per lane): ``x', r', z'`` and each shard's
+    ``r' z'`` block sums in block order on shard 0's device,
+    ``(nblocks,)``.  Sharded vectors give sharded ``x', r', z'``, each
+    slab computed on its shard's device and stream; plain vectors (one
+    device, the grid steps) give full-length ones.  ``x', r', z'`` are
+    bitwise the unsharded ``nblocks`` launch's, and so is the chain of
+    the sums."""
+    slabs = [_slabs(t, nshards) for t in (x, r, p, ap, inv_diag)]
+    mesh = slabs[0][1]
+    if any((on is None) != (mesh is None) for _, on in slabs):
+        raise ValueError("sharded_fused_update takes sharded vectors or "
+                         "plain ones, not both")
     bps = nblocks // nshards
-    xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    sums = torch.empty(nblocks, dtype=x.dtype, device=x.device)
-    alphas = alpha.reshape(1).repeat(bps)
-    views = [_shard_views(t, nblocks, nshards)
-             for t in (x, r, p, ap, inv_diag, xo, ro, zo)]
-    for s, (xs, rs, ps, aps, invs, *out) in enumerate(zip(*views)):
-        *_, rz = ops.fused_cg_update_lanes(xs, rs, ps, aps, alphas, invs,
-                                           out=out)
-        sums[s * bps:(s + 1) * bps].copy_(rz)
-    return xo, ro, zo, sums
+    sums = torch.empty(nblocks, dtype=x.dtype,
+                       device=x.device if mesh is None else mesh.device)
+    if mesh is None:
+        xo, ro, zo = (torch.empty_like(x) for _ in range(3))
+        outs = [_slabs(t, nshards)[0] for t in (xo, ro, zo)]
+        alphas = alpha.reshape(1).repeat(bps)
+    new = ([], [], [])
+    for s in range(nshards):
+        xs, rs, ps, aps, invs = (t[s].view(bps, -1) for t, _ in slabs)
+        out = sums[s * bps:(s + 1) * bps]
+        if mesh is None:
+            *_, rz = ops.fused_cg_update_lanes(
+                xs, rs, ps, aps, alphas, invs,
+                out=[o[s].view(bps, -1) for o in outs])
+            out.copy_(rz)
+            continue
+        alpha_s = mesh.move(alpha, s)  # before the shard's stream is current
+        with mesh.on(s):
+            *vectors, rz = ops.fused_cg_update_lanes(
+                xs, rs, ps, aps, alpha_s.reshape(1).repeat(bps), invs)
+        for got, v in zip(new, vectors):
+            got.append(v.view(-1))
+        mesh.move(rz, None, src=s, out=out)
+    if mesh is None:
+        return xo, ro, zo, sums
+    from repro_torch.distributed.sharding import ShardedVector
+
+    return (*(ShardedVector(v, mesh) for v in new), sums)
 
 
 # ----------------------------------------------------------------------
@@ -133,24 +178,42 @@ def halo_nbytes(grid: Tuple[int, int, int], nshards: int,
     return 2 * (nshards - 1) * ny * nx * itemsize
 
 
+def slab_stencil7(slabs, mesh=None, out=None) -> List[torch.Tensor]:
+    """``A u`` of the grid whose z-slabs are ``slabs`` (``(nz_s, ny,
+    nx)`` each, in shard order): each slab's two halo planes are its
+    neighbours' edge planes, moved to its shard (``mesh.move``: none at
+    the domain's boundary, which reads as zero), then K1's halo mode runs
+    once per slab on its shard's device and stream, into ``out[s]`` when
+    given.  With no mesh the slabs are views of one tensor, the planes
+    are copied on the current stream.  The outputs side by side are
+    bitwise ``ops.stencil7`` of the whole grid."""
+
+    def halo(plane, dst, src):
+        return plane.clone() if mesh is None else mesh.move(plane, dst,
+                                                            src=src)
+
+    last = len(slabs) - 1
+    halos = [(None if s == 0 else halo(slabs[s - 1][-1], s, s - 1),
+              None if s == last else halo(slabs[s + 1][0], s, s + 1))
+             for s in range(last + 1)]
+    outs = []
+    for s, (slab, (lo, hi)) in enumerate(zip(slabs, halos)):
+        with contextlib.nullcontext() if mesh is None else mesh.on(s):
+            outs.append(ops.stencil7_halo(slab, lo, hi,
+                                          out=None if out is None else out[s]))
+    return outs
+
+
 def sharded_stencil7(u: torch.Tensor, nshards: int) -> torch.Tensor:
-    """``A u`` on the ``(nz, ny, nx)`` grid ``u`` split into ``nshards``
-    z-slabs: each shard's halo planes are copied into two small buffers
-    (none at the domain's boundary, which reads as zero), then K1's halo
-    mode runs once per shard, writing its slab of one output.  Bitwise
-    ``ops.stencil7(u)``."""
+    """``A u`` on the ``(nz, ny, nx)`` grid ``u`` of one device split into
+    ``nshards`` z-slabs (:func:`slab_stencil7` on its views, writing the
+    slabs of one output).  Bitwise ``ops.stencil7(u)``."""
     nz = u.shape[0]
     if nz % nshards != 0:
         raise ValueError(f"nz={nz} not divisible by nshards={nshards}")
     u = u.contiguous()
     out = torch.empty_like(u)
-    slab = nz // nshards
-    halos = [(None if s == 0 else u[s * slab - 1].clone(),
-              None if s == nshards - 1 else u[(s + 1) * slab].clone())
-             for s in range(nshards)]
-    for s, (lo, hi) in enumerate(halos):
-        z = slice(s * slab, (s + 1) * slab)
-        ops.stencil7_halo(u[z], lo, hi, out=out[z])
+    slab_stencil7(u.chunk(nshards), out=out.chunk(nshards))
     return out
 
 
@@ -167,7 +230,21 @@ def _grid_update(x, r, p, ap, alpha, inv6, nshards: int):
 
 
 def _mesh_axes(mesh, shard_axes) -> Tuple[str, ...]:
+    devices = getattr(mesh, "devices", None)
+    if devices is not None and len(set(devices)) > 1:
+        raise NotImplementedError(
+            "the sharded PCG grid steps run every shard on one device; on a "
+            "mesh over distinct devices they wait for their own slice "
+            "(ROADMAP, Queue 1)")
     return tuple(a for a in shard_axes if a in mesh.axis_names)
+
+
+def _grid_block_sums(a: torch.Tensor, b: torch.Tensor,
+                     nshards: int) -> torch.Tensor:
+    """The ``(nshards,)`` shard sums of ``a * b`` over two grids of one
+    device, one block a shard."""
+    return slab_block_sums(_slabs(a.reshape(-1), nshards)[0],
+                           _slabs(b.reshape(-1), nshards)[0], nshards)
 
 
 def _grid_spec(mesh, axes, esr_mode: str, grid_dtype: torch.dtype,
@@ -218,8 +295,7 @@ def make_sharded_pcg_step(mesh, shard_axes=("pod", "data", "model"),
     def step(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         x, r, p, rz = state["x"], state["r"], state["p"], state["rz"]
         ap = sharded_stencil7(p, nshards)                 # halo exchange on z
-        pap = chain_plain(_gather_block_sums(p.reshape(-1), ap.reshape(-1),
-                                             nshards, nshards))
+        pap = chain_plain(_grid_block_sums(p, ap, nshards))
         alpha = rz / pap
         xn, rn, zn, sums = _grid_update(x, r, p, ap, alpha, _inv6(p, cache),
                                         nshards)
@@ -257,8 +333,7 @@ def make_shardmap_pcg_step(mesh, shard_axes=("pod", "data", "model"),
     def step(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         x, r, p, rz = state["x"], state["r"], state["p"], state["rz"]
         ap = sharded_stencil7(p, nshards)
-        pap = psum(_gather_block_sums(p.reshape(-1), ap.reshape(-1),
-                                      nshards, nshards))
+        pap = psum(_grid_block_sums(p, ap, nshards))
         alpha = (rz / pap).to(p.dtype)
         xn, rn, zn, sums = _grid_update(x, r, p, ap, alpha, _inv6(p, cache),
                                         nshards)

@@ -217,17 +217,12 @@ def concat_sets(schema: RecoverySchema, per_block) -> RecoverySet:
 
 def wipe_vectors(state, partition, blocks, vector_fields, nan_scalars=()):
     """Simulate failure of ``blocks`` on any NamedTuple solver state: the
-    failed shards of every volatile vector become garbage (NaN), and the
+    failed shards of every volatile vector become garbage (NaN; on a
+    sharded vector, in copies of the dead shards' slabs), and the
     non-replicated reduction scalars are NaN'd too."""
     nan = float("nan")
-    idx = torch.as_tensor(list(blocks), dtype=torch.long)
-
-    def wipe(v):
-        vb = v.reshape(partition.nblocks, partition.block_size).clone()
-        vb[idx.to(v.device)] = nan
-        return vb.reshape(-1)
-
-    repl = {f: wipe(getattr(state, f)) for f in vector_fields}
+    repl = {f: partition.fill_blocks(getattr(state, f), list(blocks), nan)
+            for f in vector_fields}
     for f in nan_scalars:
         old = getattr(state, f)
         repl[f] = torch.full((), nan, dtype=old.dtype, device=old.device)

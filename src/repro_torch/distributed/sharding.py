@@ -9,18 +9,23 @@ and to label per-shard persist and fetch bytes — the multi-tenant
 service declares one per tenant (``nshards=``) without placing anything.
 
 A :class:`DataMesh` places the shards: an ordered tuple of
-``torch.device`` s, one a shard, like the reference's single-controller
-mesh of faked host devices.  Every shard lives on one device (the card
-repeated, or ``cpu`` repeated); vectors stay full-length flat tensors
-there and a shard is the contiguous range of its blocks — for the
-stencil, whose blocks are z-slabs, a whole-plane slab.  A
-:class:`ShardedOperator` computes shard by shard: its stencil apply runs
-K1's halo mode once per slab after copying each slab's two halo planes,
-and the solvers' reductions (:mod:`repro_torch.core.spmv`) gather
-per-shard block sums and chain them in block order, so a sharded solve
-is bitwise the unsharded one by construction.  A mesh over distinct
-cards (with a stream a shard) waits for a machine with more than one
-card (ROADMAP, Queue 1).
+``torch.device`` s, one a shard — the card repeated, distinct cards, or
+``cpu`` repeated — and on CUDA a stream a shard.  A sharded solve's
+vectors are :class:`ShardedVector` s: one slab a shard, each a tensor
+of its own on its shard's device (for the stencil, whose blocks are
+z-slabs, a whole-plane slab), their work enqueued on the shard's
+stream.  Every read of one shard's data by another is an explicit copy
+ordered by an event (:meth:`DataMesh.move`): the halo planes, the block
+sums and a recovery's failed slabs.  On repeated devices the same
+copies, streams and events run, so every sharded test on the CPU and
+every sharded phase on the one card runs the code a machine with
+several cards runs.  A :class:`ShardedOperator` computes shard by
+shard: its stencil apply runs K1's halo mode once per slab after moving
+each slab's two halo planes, and the solvers' reductions
+(:mod:`repro_torch.core.spmv`) move per-shard block sums to shard 0's
+device and chain them in block order, so a sharded solve is bitwise the
+unsharded one by construction.  Nothing gathers a sharded vector but
+:func:`gather`, where the API hands a result back.
 
 The first half of the module is the NN stack's logical-axis rules (port
 of ``repro/distributed/sharding.py:33-143``): model code names *logical*
@@ -30,23 +35,25 @@ physical axis names (or ``None``, or a tuple of names), and the mesh is
 any object with ``axis_names`` and a ``shape`` mapping (a
 :class:`LogicalMesh`, or the reference's ``jax.sharding.Mesh``), and
 :func:`shard_shape` gives a tensor's per-device shape under the rules
-(what the LM dry run sums its per-device bytes from).  On the one card
-every tensor is whole, so :func:`shard` is the identity, as the
-reference's is with no mesh; a mesh over distinct cards waits for a
-machine with more than one card (ROADMAP, Queue 1 item 4).
+(what the LM dry run sums its per-device bytes from).  The LM stack
+places nothing: every tensor is whole, so :func:`shard` is the
+identity, as the reference's is with no mesh; its mesh over distinct
+cards is queued (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.poisson import StencilOperator
-from repro_torch.core.spmv import halo_nbytes, sharded_stencil7
+from repro_torch.core.spmv import halo_nbytes, sharded_stencil7, slab_stencil7
 
 Axis = Union[str, Tuple[str, ...], None]
 #: a physical spec: one entry a tensor dimension (the reference's
@@ -243,22 +250,37 @@ class ShardLayout:
         return {b: self.shard_of_block(b) for b in range(self.nblocks)}
 
 
+#: one CUDA stream a (device, shard index): meshes over the same devices
+#: enqueue a shard's work on the same stream
+_STREAMS: Dict[Tuple[torch.device, int], "torch.cuda.Stream"] = {}
+
+
 @dataclass(frozen=True)
 class DataMesh:
-    """A 1-D ``data`` mesh: one ``torch.device`` a shard, in shard order.
-    Every shard must live on the same device."""
+    """A 1-D ``data`` mesh: one ``torch.device`` a shard, in shard order,
+    the card repeated, distinct cards, or ``cpu`` repeated.  On CUDA
+    each shard has a stream of its own (made at its first use, shared by
+    every mesh with that device at that shard index), and a shard's work
+    is enqueued there (:meth:`on`); every read of one shard's data by
+    another goes through :meth:`move`."""
 
     devices: Tuple[torch.device, ...]
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a data mesh needs at least one device")
-        if len(set(self.devices)) > 1:
-            raise NotImplementedError(
-                f"a data mesh over distinct devices {sorted(map(str, set(self.devices)))} "
-                f"waits for a machine with more than one card (ROADMAP, "
-                f"Queue 1: a mesh over distinct cards); place every shard "
-                f"on one device")
+        devices = tuple(torch.device(d) for d in self.devices)
+        if any(d.type == "cuda" and d.index is None for d in devices):
+            # "cuda" names the current card, as a tensor's device does
+            here = torch.cuda.current_device()
+            devices = tuple(torch.device("cuda", here)
+                            if d.type == "cuda" and d.index is None else d
+                            for d in devices)
+        object.__setattr__(self, "devices", devices)
+        kinds = {d.type for d in devices}
+        if len(kinds) > 1:
+            raise ValueError(f"a data mesh's devices must all be of one "
+                             f"kind, got {sorted(kinds)}")
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -269,34 +291,407 @@ class DataMesh:
         return {"data": len(self.devices)}
 
     @property
+    def nshards(self) -> int:
+        return len(self.devices)
+
+    @property
     def device(self) -> torch.device:
-        """The one device every shard lives on."""
+        """Shard 0's device, where a sharded solve's scalars live."""
         return self.devices[0]
+
+    @property
+    def distinct(self) -> bool:
+        """Whether the shards live on more than one device."""
+        return len(set(self.devices)) > 1
+
+    def stream(self, shard: int):
+        """Shard ``shard``'s stream (``None`` on the CPU)."""
+        dev = self.devices[shard]
+        if dev.type != "cuda":
+            return None
+        key = (dev, shard)
+        stream = _STREAMS.get(key)
+        if stream is None:
+            stream = _STREAMS[key] = torch.cuda.Stream(dev)
+        return stream
+
+    def on(self, shard: int):
+        """A context in which the work enqueued goes to ``shard``'s
+        stream (nothing to switch on the CPU)."""
+        stream = self.stream(shard)
+        return (contextlib.nullcontext() if stream is None
+                else torch.cuda.stream(stream))
+
+    def _queue(self, where, device: torch.device):
+        if isinstance(where, int):
+            return self.stream(where)
+        return torch.cuda.current_stream(device)
+
+    def move(self, t: torch.Tensor, dst: Union[int, torch.device, None],
+             src: Optional[int] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A copy of ``t`` for its consumer ``dst``: shard ``dst``'s
+        device and stream, or with a device (``None``: shard 0's) the
+        current stream there.  The copy waits on an event of the
+        producer's stream (shard ``src``'s, or with ``src=None`` the
+        current stream of ``t``'s device) and is enqueued on the
+        consumer's, so it sees everything the producer queued before it.
+        A peer copy across cards, a device-to-device copy on one card, a
+        clone on the CPU: always a new tensor (or ``out``), never an
+        alias.  Call it outside :meth:`on`, where the current streams are
+        the caller's."""
+        if isinstance(dst, int):
+            dev = self.devices[dst]
+        else:
+            dev = self.device if dst is None else torch.device(dst)
+        if dev.type != "cuda":
+            return t.clone() if out is None else out.copy_(t)
+        producer = (self._queue(src, t.device) if t.device.type == "cuda"
+                    else None)
+        consumer = self._queue(dst, dev)
+        if producer is not None and producer != consumer:
+            consumer.wait_stream(producer)
+        with torch.cuda.stream(producer or consumer), \
+                torch.cuda.stream(consumer):
+            if out is None:
+                out = torch.empty(t.shape, dtype=t.dtype, device=dev)
+            out.copy_(t, non_blocking=True)
+        if t.device == dev and producer != consumer:
+            # read on the consumer's stream: its memory waits for it
+            t.record_stream(consumer)
+        return out
+
+    def place(self, x: torch.Tensor) -> "ShardedVector":
+        """The vector ``x`` (of a length the shard count divides) as a
+        :class:`ShardedVector`: slab ``s`` a copy of the ``s``-th equal
+        range, moved onto shard ``s``."""
+        if x.dim() != 1 or x.shape[0] % self.nshards:
+            raise ValueError(f"cannot split a vector of shape "
+                             f"{tuple(x.shape)} into {self.nshards} slabs")
+        step = x.shape[0] // self.nshards
+        return ShardedVector([self.move(x[s * step:(s + 1) * step], s)
+                              for s in range(self.nshards)], self)
+
+    def join(self) -> None:
+        """Make the current streams wait for every shard's queued work
+        (no host wait): what runs there next sees all of it."""
+        for s, dev in enumerate(self.devices):
+            stream = self.stream(s)
+            if stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+
+    def synchronize(self) -> None:
+        """Wait for every shard's queued work."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
 
 def make_data_mesh(nshards: int,
                    device: Union[str, torch.device] = "cuda") -> DataMesh:
-    """A 1-D ``data`` mesh of ``nshards`` shards, all on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    """A 1-D ``data`` mesh of ``nshards`` shards.  With ``device="cuda"``
+    (no index) shard ``s`` lives on card ``s * c // nshards``, ``c =
+    min(nshards, torch.cuda.device_count())``: one card holds every
+    shard, four cards hold a 4-shard mesh one shard each.  A device with
+    an index (``"cuda:0"``) or ``"cpu"`` holds every shard."""
     if nshards < 1:
         raise ValueError(f"a data mesh needs nshards >= 1, got {nshards}")
-    return DataMesh((resolve_device(device),) * nshards)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        cards = min(nshards, torch.cuda.device_count())
+        return DataMesh(tuple(torch.device("cuda", s * cards // nshards)
+                              for s in range(nshards)))
+    return DataMesh((dev,) * nshards)
+
+
+# ----------------------------------------------------------------------
+# Sharded vectors
+# ----------------------------------------------------------------------
+_aten = torch.ops.aten
+#: elementwise ops a sharded vector runs slab by slab, each on its shard's
+#: stream (a 0-d operand moved to each shard first)
+_POINTWISE = {_aten.add.Tensor, _aten.sub.Tensor, _aten.mul.Tensor,
+              _aten.div.Tensor, _aten.add.Scalar, _aten.sub.Scalar,
+              _aten.mul.Scalar, _aten.div.Scalar, _aten.neg.default,
+              _aten.clone.default, _aten.detach.default,
+              _aten.zeros_like.default, _aten.empty_like.default,
+              _aten.full_like.default, _aten._to_copy.default}
+
+
+class ShardedVector(torch.Tensor):
+    """A vector of a sharded solve: one slab a shard, each a tensor of its
+    own on its shard's device (``slabs``, in shard order, and ``mesh``).
+
+    It is a wrapper tensor of the whole length (shard 0's device is its
+    ``device``), so the solvers' step bodies run on it unchanged: the
+    elementwise ops in ``_POINTWISE`` run slab by slab on each shard's
+    stream, ``copy_`` copies slab into slab, a view of the whole shape is
+    an alias, and an index range inside one shard is that slab's piece.
+    Every other op raises ``NotImplementedError`` naming it: nothing
+    gathers the slabs onto one device but :func:`gather`, called where
+    the API hands a result back."""
+
+    slabs: Tuple[torch.Tensor, ...]
+    mesh: DataMesh
+
+    @staticmethod
+    def __new__(cls, slabs: Sequence[torch.Tensor], mesh: DataMesh):
+        slabs = tuple(slabs)
+        if len(slabs) != mesh.nshards:
+            raise ValueError(f"{len(slabs)} slabs for a mesh of "
+                             f"{mesh.nshards} shards")
+        for s, slab in enumerate(slabs):
+            if (slab.dim() != 1 or slab.device != mesh.devices[s]
+                    or slab.dtype != slabs[0].dtype):
+                raise ValueError(
+                    f"slab {s} must be a 1-D {slabs[0].dtype} tensor on "
+                    f"{mesh.devices[s]}, got {slab.dtype} of shape "
+                    f"{tuple(slab.shape)} on {slab.device}")
+        n = sum(slab.numel() for slab in slabs)
+        out = torch.Tensor._make_wrapper_subclass(
+            cls, (n,), dtype=slabs[0].dtype, device=mesh.device)
+        out.slabs, out.mesh = slabs, mesh
+        return out
+
+    def __repr__(self) -> str:
+        return (f"ShardedVector(n={self.shape[0]}, dtype={self.dtype}, "
+                f"devices={[str(d) for d in self.mesh.devices]})")
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        """Each slab's first index in the whole vector."""
+        out, at = [], 0
+        for slab in self.slabs:
+            out.append(at)
+            at += slab.numel()
+        return tuple(out)
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _POINTWISE:
+            return _pointwise(func, args, kwargs)
+        if func is _aten.copy_.default:
+            return _copy_into(*args, **kwargs)
+        if func in (_aten.view.default, _aten._unsafe_view.default,
+                    _aten.alias.default):
+            return _alias(func, *args)
+        if func is _aten.slice.Tensor:
+            return _slab_piece(*args)
+        raise NotImplementedError(
+            f"{func} is not an op a ShardedVector runs: it would read "
+            f"across shards; gather explicitly "
+            f"(repro_torch.distributed.sharding.gather)")
+
+
+def _operand(a, s: int, mesh: DataMesh):
+    """Shard ``s``'s part of one operand of an elementwise op: a slab, a
+    0-d tensor moved to the shard (a host scalar as it is), a number."""
+    if isinstance(a, ShardedVector):
+        return a.slabs[s]
+    if isinstance(a, torch.Tensor):
+        if a.dim() != 0:
+            raise NotImplementedError(
+                f"an elementwise op between a ShardedVector and a plain "
+                f"tensor of shape {tuple(a.shape)}: place the tensor on the "
+                f"mesh first (ShardedOperator.device_put)")
+        if a.device.type == "cpu" and mesh.device.type == "cuda":
+            return a
+        return mesh.move(a, s)
+    return a
+
+
+def _pointwise(func, args, kwargs) -> ShardedVector:
+    if kwargs.get("device") is not None:
+        raise NotImplementedError(f"{func} with device= on a ShardedVector")
+    first = next(a for a in args if isinstance(a, ShardedVector))
+    mesh, lengths = first.mesh, [len(slab) for slab in first.slabs]
+    for a in args:
+        if isinstance(a, ShardedVector) and (
+                a.mesh != mesh or [len(x) for x in a.slabs] != lengths):
+            raise ValueError(f"{func}: sharded vectors on different meshes "
+                             f"or layouts")
+    outs = []
+    for s in range(mesh.nshards):
+        # the operands move before the shard's stream is made current: a
+        # 0-d operand's producer is the caller's stream
+        operands = [_operand(a, s, mesh) for a in args]
+        with mesh.on(s):
+            outs.append(func(*operands, **kwargs))
+    return ShardedVector(outs, mesh)
+
+
+def _copy_into(dst, src, non_blocking: bool = False) -> ShardedVector:
+    if not (isinstance(dst, ShardedVector) and isinstance(src, ShardedVector)
+            and dst.mesh == src.mesh
+            and [len(x) for x in dst.slabs] == [len(x) for x in src.slabs]):
+        raise NotImplementedError(
+            "copy_ runs between sharded vectors of one layout only")
+    for s, (d, v) in enumerate(zip(dst.slabs, src.slabs)):
+        with dst.mesh.on(s):
+            d.copy_(v)
+    return dst
+
+
+def _alias(func, x: ShardedVector, shape=None) -> ShardedVector:
+    if shape is not None and tuple(shape) not in ((x.shape[0],), (-1,)):
+        raise NotImplementedError(
+            f"{func} to shape {tuple(shape)}: a ShardedVector is one "
+            f"dimension, slab by slab")
+    return ShardedVector(x.slabs, x.mesh)
+
+
+def _slab_piece(x: ShardedVector, dim: int = 0, start=None, end=None,
+                step: int = 1) -> torch.Tensor:
+    """``x[start:end]`` where the range lies inside one shard: that slab's
+    piece, on its device."""
+    start, end, _ = slice(start, end).indices(x.shape[0])
+    for off, slab in zip(x.offsets, x.slabs):
+        if dim == 0 and step == 1 and off <= start and end <= off + len(slab):
+            return slab[start - off:end - off]
+    raise NotImplementedError(
+        f"x[{start}:{end}:{step}] spans more than one shard of a "
+        f"ShardedVector")
+
+
+def gather(t: torch.Tensor) -> torch.Tensor:
+    """The whole vector on shard 0's device (the current stream there):
+    the one function that gathers a sharded vector's slabs, called where
+    the API hands a result back.  A plain tensor comes back as it is."""
+    if not isinstance(t, ShardedVector):
+        return t
+    mesh = t.mesh
+    out = torch.empty(t.shape, dtype=t.dtype, device=mesh.device)
+    for s, (off, slab) in enumerate(zip(t.offsets, t.slabs)):
+        mesh.move(slab, None, src=s, out=out[off:off + len(slab)])
+    return out
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A vector on the host as numpy: a sharded one slab by slab, each
+    pulled on its shard's stream into one host buffer in block order."""
+    if not isinstance(t, ShardedVector):
+        return t.detach().cpu().numpy()
+    out = torch.empty(t.shape, dtype=t.dtype)
+    for s, (off, slab) in enumerate(zip(t.offsets, t.slabs)):
+        with t.mesh.on(s):
+            # straight into the host buffer, on the shard's stream
+            out[off:off + len(slab)].copy_(slab.detach())
+    return out.numpy()
+
+
+# ----------------------------------------------------------------------
+# The sharded partition and operator
+# ----------------------------------------------------------------------
+class ShardedPartition:
+    """A block partition whose vectors may be :class:`ShardedVector` s of
+    ``layout`` on ``mesh``: the restrictions read the failed blocks'
+    pieces from their shards (by :meth:`DataMesh.move`, onto the device
+    of the first block's shard, the recovery's device), the scatters and
+    fills write them into copies of the touched slabs on their shards.
+    A plain tensor goes to the base partition."""
+
+    def __init__(self, base, layout: "ShardLayout", mesh: DataMesh):
+        self.base, self.layout, self.mesh = base, layout, mesh
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def _pieces(self, blocks: Sequence[int]):
+        """``(shard, lo, hi, start)``: each run of consecutive blocks of
+        ``blocks`` inside one shard, as a range of its slab and the run's
+        first value in the union vector."""
+        bs, bps = self.base.block_size, self.layout.blocks_per_shard
+        out = []
+        for i, blk in enumerate(blocks):
+            s, lo = divmod(blk, bps)
+            if (out and out[-1][0] == s and out[-1][2] == lo * bs
+                    and blk == blocks[i - 1] + 1):
+                out[-1][2] += bs
+            else:
+                out.append([s, lo * bs, (lo + 1) * bs, i * bs])
+        return out
+
+    def device_of(self, x, blocks: Sequence[int]) -> torch.device:
+        if not isinstance(x, ShardedVector):
+            return x.device
+        return self.mesh.devices[self.layout.shard_of_block(blocks[0])]
+
+    def restrict(self, x, blocks: Sequence[int]) -> torch.Tensor:
+        if not isinstance(x, ShardedVector):
+            return self.base.restrict(x, blocks)
+        dev = self.device_of(x, blocks)
+        out = torch.empty(len(blocks) * self.base.block_size, dtype=x.dtype,
+                          device=dev)
+        for s, lo, hi, start in self._pieces(blocks):
+            self.mesh.move(x.slabs[s][lo:hi], dev, src=s,
+                           out=out[start:start + hi - lo])
+        return out
+
+    def _rewrite(self, x: ShardedVector, blocks: Sequence[int],
+                 write) -> ShardedVector:
+        slabs = list(x.slabs)
+        touched = set()
+        for s, lo, hi, start in self._pieces(blocks):
+            if s not in touched:
+                touched.add(s)
+                with self.mesh.on(s):
+                    slabs[s] = slabs[s].clone()
+            write(s, slabs[s][lo:hi], start)
+        return ShardedVector(slabs, self.mesh)
+
+    def scatter(self, x, v: torch.Tensor, blocks: Sequence[int]):
+        if not isinstance(x, ShardedVector):
+            return self.base.scatter(x, v, blocks)
+
+        def write(s, piece, start):
+            self.mesh.move(v[start:start + len(piece)], s, out=piece)
+
+        return self._rewrite(x, blocks, write)
+
+    def fill_blocks(self, x, blocks: Sequence[int], value: float):
+        if not isinstance(x, ShardedVector):
+            return self.base.fill_blocks(x, blocks, value)
+
+        def write(s, piece, start):
+            with self.mesh.on(s):
+                piece.fill_(value)
+
+        return self._rewrite(x, blocks, write)
+
+    def zero_blocks(self, x, blocks: Sequence[int]):
+        if not isinstance(x, ShardedVector):
+            return self.base.zero_blocks(x, blocks)
+        return self.fill_blocks(x, blocks, 0.0)
+
+    def map_blocks(self, x, fn):
+        if not isinstance(x, ShardedVector):
+            return self.base.map_blocks(x, fn)
+        outs = []
+        for s, slab in enumerate(x.slabs):
+            with self.mesh.on(s):
+                outs.append(fn(slab, self.layout.blocks_of(s)))
+        return ShardedVector(outs, self.mesh)
 
 
 class ShardedOperator:
     """An operator whose vectors are laid out block-sharded on a ``data``
-    mesh.
+    mesh: :class:`ShardedVector` s, one slab a shard.
 
-    Every attribute but ``apply`` (``partition``, ``nblocks``, ``n``,
-    ``diag``, ``inblock_apply``, ``offblock_apply``, ...) delegates to
-    the base operator, so preconditioners and reconstruction code run
-    unchanged.  The wrapper adds ``layout`` and ``mesh`` — the driver
-    and the solvers' order-pinned reductions key off both
-    (``getattr(op, "mesh", None)``) — and :meth:`device_put`.  ``apply``
-    on a :class:`~repro_torch.core.poisson.StencilOperator` runs K1's
-    halo mode once per shard and counts the halo bytes it moves in
-    ``halo_bytes``; on any other operator it is the base's ``apply``
-    over the whole vector, as in the reference."""
+    Every attribute but those below (``nblocks``, ``n``, ``diag``,
+    ``grid``, ...) delegates to the base operator.  The wrapper adds
+    ``layout`` and ``mesh`` — the driver and the solvers' order-pinned
+    reductions key off both (``getattr(op, "mesh", None)``) —, a
+    :class:`ShardedPartition` as ``partition`` and :meth:`device_put`.
+    ``apply`` on a :class:`~repro_torch.core.poisson.StencilOperator`
+    runs K1's halo mode once per slab, on its shard's device and stream,
+    after moving each slab's two halo planes from its neighbours, and
+    counts the halo bytes in ``halo_bytes``; ``offblock_apply`` reads
+    the planes around the failed runs from their shards.  A plain tensor
+    goes to the base operator (on a one-device mesh the stencil still
+    runs slab by slab)."""
 
     def __init__(self, base, layout: ShardLayout, mesh: DataMesh):
         if "data" not in mesh.axis_names:
@@ -312,6 +707,7 @@ class ShardedOperator:
         self.base = base
         self.layout = layout
         self.mesh = mesh
+        self.partition = ShardedPartition(base.partition, layout, mesh)
         #: bytes the sharded applies have moved between shards (halo
         #: planes), since construction
         self.halo_bytes = 0
@@ -321,15 +717,85 @@ class ShardedOperator:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         base = self.base
-        if not isinstance(base, StencilOperator) or x.dim() != 1:
+        stencil = isinstance(base, StencilOperator)
+        if isinstance(x, ShardedVector):
+            if not stencil:
+                raise NotImplementedError(
+                    f"a sharded apply of {type(base).__name__}: only the "
+                    f"stencil's z-slabs are laid out on a mesh")
+            _, ny, nx = base.grid
+            self.halo_bytes += halo_nbytes(base.grid, self.layout.nshards,
+                                           x.dtype)
+            out = slab_stencil7([slab.view(-1, ny, nx) for slab in x.slabs],
+                                self.mesh)
+            return ShardedVector([o.view(-1) for o in out], self.mesh)
+        if not stencil or x.dim() != 1:
             return base.apply(x)
         nshards = self.layout.nshards
         self.halo_bytes += halo_nbytes(base.grid, nshards, x.dtype)
         return sharded_stencil7(x.reshape(base.grid), nshards).reshape(-1)
 
-    def device_put(self, x: torch.Tensor) -> torch.Tensor:
-        """Place a full-length vector on the mesh, contiguous."""
-        return x.to(self.mesh.device).contiguous()
+    def inblock_apply(self, v: torch.Tensor, blocks: Sequence[int]):
+        """``A[F, F] v`` of the union vector ``v`` (on the recovery's
+        device): the base's."""
+        return self.base.inblock_apply(v, blocks)
+
+    def offblock_apply(self, x: torch.Tensor, blocks: Sequence[int]):
+        """``A[F, ~F] x[~F]``: for a sharded stencil vector, the planes
+        next to each failed run moved from their shards to the recovery's
+        device, and K1's halo mode there over a zero slab."""
+        if not isinstance(x, ShardedVector):
+            return self.base.offblock_apply(x, blocks)
+        if not isinstance(self.base, StencilOperator):
+            raise NotImplementedError(
+                f"offblock_apply of a sharded {type(self.base).__name__}")
+        base, mesh = self.base, self.mesh
+        dev = self.partition.device_of(x, blocks)
+        planes = base.grid[0] // self.layout.nshards
+        _, ny, nx = base.grid
+
+        def plane(z):
+            s, at = divmod(z, planes)
+            return mesh.move(x.slabs[s].view(planes, ny, nx)[at], dev, src=s)
+
+        return base.offblock_from_planes(blocks, plane, x.dtype, dev)
+
+    def device_put(self, x: torch.Tensor) -> "ShardedVector":
+        """Place a full-length vector on the mesh: slab ``s`` a copy of
+        shard ``s``'s range on its device (a sharded vector of this mesh
+        is returned as it is)."""
+        if isinstance(x, ShardedVector):
+            if x.mesh != self.mesh:
+                raise ValueError("the vector lives on another mesh")
+            return x
+        return self.mesh.place(x)
+
+
+def place_preconditioner(precond, op: ShardedOperator):
+    """``precond`` for vectors on ``op``'s mesh: a copy whose ``op`` is
+    ``op`` (so its restrictions take sharded vectors), its ``inv_diag``
+    placed as a :class:`ShardedVector` and block Jacobi's factors copied
+    onto their shards' devices; ``base`` is the original, for callers
+    that apply it to plain vectors.  One already placed on ``op`` is
+    returned as it is."""
+    if getattr(precond, "op", None) is op:
+        return precond
+    placed = copy.copy(precond)
+    placed.op, placed.base = op, precond
+    inv_diag = getattr(precond, "inv_diag", None)
+    if inv_diag is not None:
+        placed.inv_diag = op.device_put(inv_diag)
+    if hasattr(precond, "factors"):
+        placed.placed_factors = {
+            op.layout.blocks_of(s): op.mesh.move(
+                precond.factors(op.layout.blocks_of(s)), s)
+            for s in range(op.layout.nshards)}
+    return placed
+
+
+def base_preconditioner(precond):
+    """The preconditioner a placed one was made from (itself if none)."""
+    return getattr(precond, "base", precond)
 
 
 def shard_problem(op, b: torch.Tensor, nshards: int,
@@ -337,10 +803,12 @@ def shard_problem(op, b: torch.Tensor, nshards: int,
     """Shard a block-partitioned problem across ``nshards`` shards.
 
     Returns ``(sharded_op, sharded_b)``: the operator wrapped in a
-    :class:`ShardedOperator` over a 1-D ``data`` mesh on ``b``'s device
-    (or ``mesh``) and the rhs placed on it.  ``nshards`` must divide the
-    operator's block count (blocks are the failure unit; shards are whole
-    groups of them)."""
+    :class:`ShardedOperator` over a 1-D ``data`` mesh (by default every
+    shard on ``b``'s device; pass ``mesh=make_data_mesh(nshards)`` for
+    one card a shard) and the rhs placed on it as a
+    :class:`ShardedVector`.  ``nshards`` must divide the operator's block
+    count (blocks are the failure unit; shards are whole groups of
+    them)."""
     layout = ShardLayout(nblocks=op.nblocks, nshards=nshards)
     if mesh is None:
         mesh = make_data_mesh(nshards, device=b.device)
@@ -349,12 +817,15 @@ def shard_problem(op, b: torch.Tensor, nshards: int,
 
 
 def place_state(state, mesh: DataMesh, vector_fields: Sequence[str]):
-    """Re-pin a solver state NamedTuple to the mesh: every tensor field on
-    the mesh's device, contiguous (vector fields are the block-sharded
-    ones; on one device every field has one placement, so they are named
-    only for the multi-card layout to come).  The driver applies it after
+    """Re-pin a solver state NamedTuple to the mesh: every vector field a
+    :class:`ShardedVector` (a plain one placed by :meth:`DataMesh.place`),
+    every other tensor on shard 0's device.  The driver applies it after
     ``init_state`` and after ``reconstruct``."""
-    dev = mesh.device
-    return type(state)(**{
-        f: (v.to(dev).contiguous() if isinstance(v, torch.Tensor) else v)
-        for f, v in zip(state._fields, state)})
+    out = {}
+    for f, v in zip(state._fields, state):
+        if f in vector_fields and not isinstance(v, ShardedVector):
+            v = mesh.place(v)
+        elif isinstance(v, torch.Tensor) and not isinstance(v, ShardedVector):
+            v = v.to(mesh.device)
+        out[f] = v
+    return type(state)(**out)

@@ -31,6 +31,7 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "gf256.cuh"
 
 #define THREADS 256
@@ -166,9 +167,11 @@ extern "C" {
 
 // data: (k_data, length) uint8, row-major; parity: (nparity, length)
 // uint8.  1 <= k_data <= 255 and nparity in {1, 2} (the wrapper checks).
-// Any pointer alignment and any length.
+// Any pointer alignment and any length.  Launches on `device` (the
+// tensors' device) on `stream`, whatever device the caller has current.
 int gf256_rs_encode(const void* data, void* parity, int k_data, int nparity,
-                    long long length, void* stream) {
+                    long long length, int device, void* stream) {
+    DeviceGuard guard(device);
     cudaStream_t s = (cudaStream_t)stream;
     if (nparity == 2) return launch<true>(data, parity, k_data, length, s);
     return launch<false>(data, parity, k_data, length, s);

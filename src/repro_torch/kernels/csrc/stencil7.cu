@@ -21,6 +21,11 @@
 // domain's boundary (zero).  Every other operation is the full launch's,
 // in the same order (mul_rn, then six sub_rn), so the slabs' outputs put
 // side by side are bitwise one full launch's.
+//
+// Every entry point takes the tensors' device and launches there on the
+// stream it is handed (the current stream of that device: one stream a
+// shard when a mesh enqueues a slab's work), whatever device the calling
+// thread has current.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -72,8 +77,9 @@ stencil7_kernel(const T* __restrict__ u, const T* __restrict__ lo,
 
 template <typename T, bool HALO = false>
 static int launch(const void* u, void* out, long long batch, int nz, int ny,
-                  int nx, void* stream, const void* lo = nullptr,
+                  int nx, int device, void* stream, const void* lo = nullptr,
                   const void* hi = nullptr) {
+    DeviceGuard guard(device);
     const int zchunks = (nz + ZCHUNK - 1) / ZCHUNK;
     const long long max_batch = 65535 / zchunks;  // gridDim.z limit
     const dim3 block(TX, TY, 1);
@@ -94,35 +100,35 @@ static int launch(const void* u, void* out, long long batch, int nz, int ny,
 extern "C" {
 
 int stencil7_f64(const void* u, void* out, long long batch, int nz, int ny,
-                 int nx, void* stream) {
-    return launch<double>(u, out, batch, nz, ny, nx, stream);
+                 int nx, int device, void* stream) {
+    return launch<double>(u, out, batch, nz, ny, nx, device, stream);
 }
 
 int stencil7_f32(const void* u, void* out, long long batch, int nz, int ny,
-                 int nx, void* stream) {
-    return launch<float>(u, out, batch, nz, ny, nx, stream);
+                 int nx, int device, void* stream) {
+    return launch<float>(u, out, batch, nz, ny, nx, device, stream);
 }
 
 int stencil7_bf16(const void* u, void* out, long long batch, int nz, int ny,
-                  int nx, void* stream) {
-    return launch<__nv_bfloat16>(u, out, batch, nz, ny, nx, stream);
+                  int nx, int device, void* stream) {
+    return launch<__nv_bfloat16>(u, out, batch, nz, ny, nx, device, stream);
 }
 
 // Halo mode: one (nz, ny, nx) slab u with its halo planes lo and hi
 // ((ny, nx) each, or null for zero).
 int stencil7_halo_f64(const void* u, const void* lo, const void* hi, void* out,
-                      int nz, int ny, int nx, void* stream) {
-    return launch<double, true>(u, out, 1, nz, ny, nx, stream, lo, hi);
+                      int nz, int ny, int nx, int device, void* stream) {
+    return launch<double, true>(u, out, 1, nz, ny, nx, device, stream, lo, hi);
 }
 
 int stencil7_halo_f32(const void* u, const void* lo, const void* hi, void* out,
-                      int nz, int ny, int nx, void* stream) {
-    return launch<float, true>(u, out, 1, nz, ny, nx, stream, lo, hi);
+                      int nz, int ny, int nx, int device, void* stream) {
+    return launch<float, true>(u, out, 1, nz, ny, nx, device, stream, lo, hi);
 }
 
 int stencil7_halo_bf16(const void* u, const void* lo, const void* hi, void* out,
-                       int nz, int ny, int nx, void* stream) {
-    return launch<__nv_bfloat16, true>(u, out, 1, nz, ny, nx, stream, lo, hi);
+                       int nz, int ny, int nx, int device, void* stream) {
+    return launch<__nv_bfloat16, true>(u, out, 1, nz, ny, nx, device, stream, lo, hi);
 }
 
 }  // extern "C"

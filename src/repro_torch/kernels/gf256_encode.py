@@ -33,9 +33,9 @@ from repro_torch.nvm import gf256
 #: kernel launches since the last reset (the main-path proof counter)
 launches = 0
 
-#: (data, parity, k_data, nparity, length, stream)
+#: (data, parity, k_data, nparity, length, device, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_void_p)
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
 
 
 def _check(data: torch.Tensor, nparity: int) -> None:
@@ -75,8 +75,9 @@ def gf256_rs_encode_plain(data: torch.Tensor, nparity: int) -> torch.Tensor:
 
 
 def gf256_rs_encode_cuda(data: torch.Tensor, nparity: int) -> torch.Tensor:
-    """Launch K3 on a contiguous ``(K, L)`` uint8 CUDA tensor; returns the
-    ``(P, L)`` parity on the same device and stream."""
+    """Launch K3 on a contiguous ``(K, L)`` uint8 CUDA tensor, on its
+    device and that device's current stream; returns the ``(P, L)``
+    parity there."""
     global launches
     if data.device.type != "cuda":
         raise ValueError(f"gf256_rs_encode_cuda needs a CUDA tensor, got "
@@ -87,9 +88,9 @@ def gf256_rs_encode_cuda(data: torch.Tensor, nparity: int) -> torch.Tensor:
     k_data, length = data.shape
     fn = _build.function("gf256_encode", "gf256_rs_encode", _ARGTYPES)
     out = torch.empty((nparity, length), dtype=torch.uint8, device=data.device)
-    with torch.cuda.device(data.device):
-        rc = fn(data.data_ptr(), out.data_ptr(), k_data, nparity, length,
-                torch.cuda.current_stream(data.device).cuda_stream)
+    device = data.device.index
+    rc = fn(data.data_ptr(), out.data_ptr(), k_data, nparity, length, device,
+            torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"gf256_rs_encode kernel launch failed: CUDA "
                            f"error {rc}")

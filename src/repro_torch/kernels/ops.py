@@ -23,6 +23,10 @@ from repro_torch.kernels import stencil7 as _stencil7
 
 
 def _route(t: torch.Tensor) -> str:
+    if getattr(t, "slabs", None) is not None:
+        raise NotImplementedError(
+            "a kernel takes one tensor of one device, not a ShardedVector: "
+            "launch it slab by slab on each shard's stream")
     kind = t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel route for device {t.device}: tensors "

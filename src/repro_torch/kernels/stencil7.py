@@ -23,6 +23,10 @@ in as two ``(ny, nx)`` halo planes (``None`` at the domain's boundary:
 zero), as the reference's ``ppermute`` delivers them.  The same kernel
 runs with the halo planes in place of the zero fill, so the slabs'
 outputs side by side are bitwise one full launch's.
+
+Both modes launch on the tensor's own device, on that device's current
+stream (a shard's stream while a data mesh runs its slab), whatever
+device the caller has current.
 """
 from __future__ import annotations
 
@@ -42,15 +46,17 @@ halo_launches = 0
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 _SYMBOL = {torch.float64: "stencil7_f64", torch.float32: "stencil7_f32",
            torch.bfloat16: "stencil7_bf16"}
-#: (u, out, batch, nz, ny, nx, stream)
+#: (u, out, batch, nz, ny, nx, device, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
 _HALO_SYMBOL = {dtype: symbol.replace("stencil7_", "stencil7_halo_")
                 for dtype, symbol in _SYMBOL.items()}
-#: (u, lo, hi, out, nz, ny, nx, stream); a null lo / hi reads as zero
+#: (u, lo, hi, out, nz, ny, nx, device, stream); a null lo / hi reads
+#: as zero
 _HALO_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p)
+                  ctypes.c_int, ctypes.c_void_p)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -91,9 +97,9 @@ def stencil7_cuda(u: torch.Tensor) -> torch.Tensor:
     batch = math.prod(u.shape[:-3])
     if out.numel() == 0:
         return out
-    with torch.cuda.device(u.device):
-        rc = fn(u.data_ptr(), out.data_ptr(), batch, nz, ny, nx,
-                torch.cuda.current_stream(u.device).cuda_stream)
+    device = u.device.index
+    rc = fn(u.data_ptr(), out.data_ptr(), batch, nz, ny, nx, device,
+            torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"stencil7 kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -157,10 +163,10 @@ def stencil7_halo_cuda(u: torch.Tensor, lo, hi, out=None) -> torch.Tensor:
     if out is None:
         out = torch.empty_like(u)
     nz, ny, nx = u.shape
-    with torch.cuda.device(u.device):
-        rc = fn(u.data_ptr(), None if lo is None else lo.data_ptr(),
-                None if hi is None else hi.data_ptr(), out.data_ptr(),
-                nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream)
+    device = u.device.index
+    rc = fn(u.data_ptr(), None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), out.data_ptr(), nz, ny, nx,
+            device, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"stencil7_halo kernel launch failed: CUDA error "
                            f"{rc}")

@@ -215,6 +215,9 @@ def run_solver_cell(cell: Union[str, SolverConfig], multi_pod: bool = False,
     :func:`~repro_torch.launch.mesh.device_hbm_rate`)."""
     sc = GRIDS[cell] if isinstance(cell, str) else cell
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        # every shard of a grid step on the one current card
+        dev = torch.device("cuda", torch.cuda.current_device())
     layout = "2x16x16" if multi_pod else "16x16"
     if nshards is None:
         mesh = M.make_data_mesh(M.LAYOUTS[layout], dev)

@@ -1072,7 +1072,8 @@ class ErasureSession(PersistSession):
         if isinstance(v, StagedStripe):
             parity = v.parity.transpose(0, 1).reshape(be.nparity, -1)
             return torch.cat([stripe_bytes(v.chunks), parity])
-        k_data, nb, bs, chunk = be.k_data, be.nblocks, be.block_size, be.chunk
+        k_data, bs, chunk = be.k_data, be.block_size, be.chunk
+        nb = v.numel() // bs
         v = v.detach().to(_torch_dtype(be.dtype)).reshape(nb, bs)
         if k_data * chunk != bs:
             padded = torch.zeros((nb, k_data * chunk), dtype=v.dtype,
@@ -1089,7 +1090,19 @@ class ErasureSession(PersistSession):
     def _encode(self, v) -> List[np.ndarray]:
         if not self._on_device(v):
             return self._numpy_shards(v)
-        host = self._device_bytes(v).cpu().numpy()  # the one D2H copy
+        slabs = getattr(v, "slabs", None)
+        if slabs is None:
+            host = self._device_bytes(v).cpu().numpy()  # the one D2H copy
+        else:
+            # a sharded vector: each shard cuts and encodes its own
+            # blocks' columns of the stripe (K3 on its device and stream)
+            # and copies them out; parity is column by column, so the
+            # parts side by side are the whole stripe's bytes
+            parts = []
+            for s, slab in enumerate(slabs):
+                with v.mesh.on(s):
+                    parts.append(self._device_bytes(slab).cpu().numpy())
+            host = np.concatenate(parts, axis=1)
         self.device_to_host_bytes += host.nbytes
         return [row.view(self._backend.dtype) for row in host]
 

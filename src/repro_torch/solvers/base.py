@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.spmv import make_det_dot
 from repro_torch.core.state import RecoverySchema, RecoverySet, wipe_vectors
+from repro_torch.distributed.sharding import to_host
 from repro_torch.kernels import ops
 
 
@@ -38,10 +39,13 @@ def base_operator(op):
     return getattr(op, "base", op)
 
 
-def device_norm(v: torch.Tensor) -> float:
-    """``||v||`` computed on ``v``'s device (``sqrt(det_dot(v, v))``); only
-    the scalar crosses to the host."""
-    return float(torch.sqrt(ops.det_dot(v, v, 1)))
+def device_norm(v: torch.Tensor, dot=None) -> float:
+    """``||v||`` computed on ``v``'s device, ``sqrt(dot(v, v))`` (by
+    default one block's ``det_dot``; a solve passes its
+    :func:`solver_dot`, so a sharded vector's norm runs shard by shard,
+    bitwise the unsharded one); only the scalar crosses to the host."""
+    return float(torch.sqrt(ops.det_dot(v, v, 1) if dot is None
+                            else dot(v, v)))
 
 
 class RecoverableSolver(abc.ABC):
@@ -112,10 +116,11 @@ class RecoverableSolver(abc.ABC):
         return {}
 
     # ------------------------------------------------------------------
-    def residual_norm(self, state) -> float:
+    def residual_norm(self, state, dot=None) -> float:
         # One scalar crosses to the host; the reduction runs on the
-        # device in a fixed order, so repeated runs read the same bits.
-        return device_norm(state.r)
+        # device in a fixed order (``dot``: the solve's block dot), so
+        # repeated and sharded runs read the same bits.
+        return device_norm(state.r, dot)
 
     def wipe(self, state, partition, blocks):
         """Simulate failure: failed shards of every distributed vector (and
@@ -126,8 +131,9 @@ class RecoverableSolver(abc.ABC):
     # ------------------------------------------------------------------
     def host_shard(self, arr: torch.Tensor) -> np.ndarray:
         """Device -> host pull of a persisted vector: the one copy of the
-        NVM-ESR tap (no collective)."""
-        return arr.detach().cpu().numpy()
+        NVM-ESR tap (no collective); a sharded vector slab by slab, each
+        on its shard's stream, into one host buffer in block order."""
+        return to_host(arr)
 
     @classmethod
     def from_problem(cls, op=None, precond=None, **opts) -> "RecoverableSolver":
@@ -160,7 +166,7 @@ class IterateOnlyRecovery:
         part = op.partition
         failed = list(failed_blocks)
         x_f = torch.as_tensor(sets[-1].vectors["x"], dtype=b.dtype,
-                              device=b.device)
+                              device=part.device_of(b, failed))
         x = part.scatter(snapshot.x, x_f, failed)
         r = part.scatter(snapshot.r, residual_on_failed(op, b, x, failed), failed)
         return self.state_cls(x=x, r=r, k=snapshot.k)

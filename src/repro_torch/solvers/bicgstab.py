@@ -122,12 +122,13 @@ class BiCGStabSolver(RecoverableSolver):
         part = op.partition
         failed = list(failed_blocks)
         cur = sets[-1]
+        at = part.device_of(b, failed)
 
-        def device(v):
-            return torch.as_tensor(v, dtype=b.dtype, device=b.device)
+        def device(v, where=b.device):
+            return torch.as_tensor(v, dtype=b.dtype, device=where)
 
-        r_f = device(cur.vectors["r"])
-        p_f = device(cur.vectors["p"])
+        r_f = device(cur.vectors["r"], at)
+        p_f = device(cur.vectors["p"], at)
         r = part.scatter(snapshot.r, r_f, failed)
         p = part.scatter(snapshot.p, p_f, failed)
         x = solve_x_from_residual(op, b, snapshot.x, r_f, failed, local_method)

@@ -30,6 +30,7 @@ import torch
 from repro_torch.core.reconstruction import reconstruct_direction_form
 from repro_torch.core.spmv import make_det_dot
 from repro_torch.core.state import RecoverySchema, RecoverySet
+from repro_torch.distributed.sharding import base_preconditioner
 from repro_torch.solvers.base import RecoverableSolver, base_operator
 
 CHEBYSHEV_SCHEMA = RecoverySchema(
@@ -70,11 +71,13 @@ def spectral_bounds(op, precond, power_iters: int = 100,
         StencilOperator,
     )
 
-    # Bounds are placement-independent: unwrap a ShardedOperator so the
-    # closed-form stencil route still fires; the power iteration's dots
-    # keep the mesh's order, bitwise the unsharded one.
+    # Bounds are placement-independent: unwrap a ShardedOperator and a
+    # placed preconditioner, so the closed-form stencil route still fires
+    # and the other routes apply both to plain vectors; the power
+    # iteration's dots keep the mesh's order, bitwise the unsharded one.
     mesh = getattr(op, "mesh", None)
     op = base_operator(op)
+    precond = base_preconditioner(precond)
 
     if isinstance(op, StencilOperator) and isinstance(
             precond, (IdentityPreconditioner, JacobiPreconditioner)):
@@ -189,14 +192,15 @@ class ChebyshevSolver(RecoverableSolver):
     def reconstruct(self, op, precond, b, snapshot, failed_blocks,
                     sets: Sequence[RecoverySet], local_method: str = "auto"):
         prev, cur = sets[-2], sets[-1]
+        at = op.partition.device_of(b, list(failed_blocks))
 
-        def device(v):
-            return torch.as_tensor(v, dtype=b.dtype, device=b.device)
+        def device(v, where=b.device):
+            return torch.as_tensor(v, dtype=b.dtype, device=where)
 
         x, r, z, p = reconstruct_direction_form(
             op, precond, b, snapshot, list(failed_blocks),
-            p_prev_f=device(prev.vectors["p"]),
-            p_cur_f=device(cur.vectors["p"]),
+            p_prev_f=device(prev.vectors["p"], at),
+            p_cur_f=device(cur.vectors["p"], at),
             beta=cur.scalars["beta"],
             local_method=local_method,
         )

@@ -3,8 +3,9 @@
 advisor, report, persistence pipeline, solve loop and the batched lane
 step of the multi-tenant service).  A problem sharded on a data mesh
 (:class:`~repro_torch.distributed.sharding.ShardedOperator`) solves
-shard by shard, bitwise its unsharded solve, and ``FailureEvent(shard=
-...)`` kills one shard's blocks.
+shard by shard on sharded vectors, each shard's slab on its own device
+and stream, bitwise its unsharded solve, and ``FailureEvent(shard=...)``
+kills one shard's blocks.
 
 The runtime machinery of the paper:
 
@@ -48,9 +49,9 @@ from repro_torch.nvm.backend import (
     UnrecoverableFailure,
     open_persist_session,
 )
-from repro_torch.distributed.sharding import place_state
+from repro_torch.distributed.sharding import place_preconditioner, place_state
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.solvers.base import device_norm
+from repro_torch.solvers.base import device_norm, solver_dot
 
 PERSIST_MODES = ("sync", "overlap")
 
@@ -647,7 +648,8 @@ class PersistencePipeline:
     """
 
     def __init__(self, solver, op, precond, b, config: SolveConfig,
-                 backend, failures=(), *, layout=None, metrics=None):
+                 backend, failures=(), *, layout=None, metrics=None,
+                 norm_dot=None):
         if config.persist_mode not in PERSIST_MODES:
             raise ValueError(
                 f"persist_mode must be one of {PERSIST_MODES}, "
@@ -669,6 +671,8 @@ class PersistencePipeline:
         # logical layout instead.
         self.layout = getattr(op, "layout", None) if layout is None else layout
         self.mesh = getattr(op, "mesh", None)
+        #: the inner product of the residual norms (None: one block's)
+        self.norm_dot = norm_dot
         self.history = solver.schema.history
         self.metrics = (MetricsRegistry(solver=solver.name,
                                         mode=config.persist_mode)
@@ -1013,7 +1017,9 @@ class PersistencePipeline:
         self.persist_commit(0.0)
         metrics = self.metrics
         report.iterations = int(state.k)
-        report.final_relres = self.solver.residual_norm(state) / bnorm
+        report.final_relres = (self.solver.residual_norm(state,
+                                                         self.norm_dot)
+                               / bnorm)
         report.converged = (report.converged
                             or report.final_relres < self.config.tol)
         report.wasted_iterations = metrics.counter_value(
@@ -1126,7 +1132,9 @@ def solve(
 
     The persistence/recovery machinery lives in
     :class:`PersistencePipeline`; this function owns the state, the
-    step, and the loop.  Everything runs on ``b``'s device.
+    step, and the loop.  Everything runs on ``b``'s device, or on a
+    sharded operator's mesh, where ``b``, ``x0`` and the preconditioner's
+    vectors are placed first.
     """
     trace = config.tracer or None
     if trace is not config.tracer:
@@ -1134,8 +1142,16 @@ def solve(
         # `config.tracer or None` sees None — one truthiness call total
         # on a disabled tracer (the obs zero-callable guard test).
         config = dataclasses.replace(config, tracer=trace)
+    if getattr(op, "mesh", None) is not None:
+        # a sharded solve: the vectors it is handed go onto the mesh
+        precond = place_preconditioner(precond, op)
+        b = op.device_put(b)
+        x0 = None if x0 is None else op.device_put(x0)
+    # the residual norms use the solve's block dot: a sharded solve's are
+    # then bitwise the unsharded one's
+    dot = solver_dot(op)
     pipe = PersistencePipeline(solver, op, precond, b, config, backend,
-                               failures)
+                               failures, norm_dot=dot)
     session = pipe.session
 
     state = solver.init_state(op, precond, b, x0)
@@ -1153,7 +1169,13 @@ def solve(
             return persist_step(st)
         return step(st), None
 
-    bnorm = device_norm(b)
+    bnorm = device_norm(b, dot)
+    # the overlap window ends when every shard's queued work is done
+    if pipe.mesh is not None:
+        synchronize = pipe.mesh.synchronize
+    else:
+        def synchronize():
+            _synchronize(b.device)
     report = SolveReport(solver=solver.name, persist_mode=config.persist_mode,
                          metrics=pipe.metrics)
     captured: Dict[int, object] = {}
@@ -1170,7 +1192,7 @@ def solve(
         if k in capture_states_at:
             captured[k] = state
 
-        relres = solver.residual_norm(state) / bnorm
+        relres = solver.residual_norm(state, dot) / bnorm
         report.residual_history.append(relres)
         if relres < config.tol:
             report.converged = True
@@ -1194,12 +1216,12 @@ def solve(
             # Fused overlap (DESIGN.md §13): the deferred staging pass
             # (the stripe's device-to-host copy, and K3's encode unless
             # K4 staged it in the step) runs inside this window too.
-            _synchronize(b.device)
+            synchronize()
             pipe.flush_pending_stage(staged)
         if pipe.staged_state is not None:
             # Overlap window: the commit of iteration k's payload rides
             # behind iteration k+1's compute.
-            _synchronize(b.device)
+            synchronize()
             pipe.persist_commit(time.perf_counter() - t0)
         if session is not None and should_persist(
                 int(state.k), config.persistence_period, pipe.history):

@@ -12,9 +12,10 @@ recovery set ``{x^(k)}``, history 1 — the iterate-only pattern shared
 with weighted Jacobi (:class:`~repro_torch.solvers.base.IterateOnlyRecovery`);
 a mid-cycle failure costs at most one cycle of work.
 
-On the device: the ``(m+1, n)`` basis (2.8 GB at 256^3 float64, m = 20),
-the stencil applies (K1), the norms (``det_dot``) and the projections
-(``make_det_rowdots``).  The ``(m+1) x m`` least-squares solve runs in
+On the device: the basis, ``m+1`` vectors (2.8 GB at 256^3 float64, m =
+20; sharded vectors on a mesh, so each shard keeps its slab of every
+basis vector), the stencil applies (K1), the norms (``det_dot``) and the
+projections (``make_det_rowdots``).  The ``(m+1) x m`` least-squares solve runs in
 ``numpy.linalg.lstsq`` on the host on every device, one read of the
 Hessenberg matrix per cycle, so the CPU and CUDA runs of the port agree
 and match the reference's SVD-based ``jnp.linalg.lstsq``.
@@ -54,37 +55,38 @@ class RestartedGMRESSolver(IterateOnlyRecovery, RecoverableSolver):
         op_apply, precond_apply = op.apply, precond.apply
         # Order-pinned reductions: the projections are block-hierarchical
         # row-dots; the combines ``basis.T @ h`` are row-weighted sums
-        # over the small basis axis (never over the vector axis).
+        # over the small basis axis, added left to right (elementwise
+        # along the vector axis, so a slab's values never depend on
+        # another's).
         mesh = getattr(op, "mesh", None)
         dot = make_det_dot(op.nblocks, mesh)
         rowdots = make_det_rowdots(op.nblocks, mesh)
 
         def combine(rows, coeffs):
-            # sum_i coeffs[i] * rows[i] — elementwise along the vector
-            # axis, reduced over the small row axis
-            return (rows * coeffs[:, None]).sum(dim=0)
+            # sum_i coeffs[i] * rows[i], from i = 0
+            total = rows[0] * coeffs[0]
+            for row, c in zip(rows[1:], coeffs[1:]):
+                total = total + row * c
+            return total
 
         def cycle(state: GMRESState) -> GMRESState:
             x, r = state.x, state.r
             dt, dev = r.dtype, r.device
             tiny = torch.finfo(dt).tiny
             beta = torch.sqrt(dot(r, r))
-            basis = torch.zeros((m + 1, r.shape[0]), dtype=dt, device=dev)
-            basis[0] = r / torch.clamp(beta, min=tiny)
+            basis = [r / torch.clamp(beta, min=tiny)]
             hess = torch.zeros((m + 1, m), dtype=dt, device=dev)
             for j in range(m):
                 w = op_apply(precond_apply(basis[j]))
-                # CGS2: unset rows of ``basis`` are zero, so the
-                # full-matrix products only project onto the j+1 built
-                # vectors; the second pass restores MGS-grade
-                # orthogonality.
+                # CGS2 over the j+1 built vectors; the second pass
+                # restores MGS-grade orthogonality.
                 h1 = rowdots(basis, w)
                 w = w - combine(basis, h1)
                 h2 = rowdots(basis, w)
                 w = w - combine(basis, h2)
                 hnorm = torch.sqrt(dot(w, w))
-                basis[j + 1] = w / torch.clamp(hnorm, min=tiny)
-                hess[:, j] = h1 + h2
+                basis.append(w / torch.clamp(hnorm, min=tiny))
+                hess[:j + 1, j] = h1 + h2
                 hess[j + 1, j] = hnorm
             # the cycle's one host read: the Hessenberg matrix and beta
             rhs = np.zeros(m + 1)

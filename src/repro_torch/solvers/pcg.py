@@ -67,9 +67,12 @@ class PCGSolver(RecoverableSolver):
     def reconstruct(self, op, precond, b, snapshot, failed_blocks,
                     sets: Sequence[RecoverySet], local_method: str = "auto"):
         prev, cur = sets[-2], sets[-1]
+        # the payloads land where the local solve runs: the first failed
+        # block's shard's device
+        at = op.partition.device_of(b, list(failed_blocks))
 
         def device(v):
-            return torch.as_tensor(v, dtype=b.dtype, device=b.device)
+            return torch.as_tensor(v, dtype=b.dtype, device=at)
 
         return reconstruction.reconstruct(
             op, precond, b,

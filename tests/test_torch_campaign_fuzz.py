@@ -232,6 +232,7 @@ def _sharded_nshards(seed: int) -> int:
 @pytest.mark.parametrize("seed", SEEDS)
 def test_campaign_fuzz_sharded_leg(seed):
     from repro_torch.distributed import shard_problem
+    from repro_torch.distributed.sharding import gather
 
     nshards = _sharded_nshards(seed)
     ref_op, ref_b, ref_pre = ref_problem((8, 8, 8), SHARDED_NBLOCKS)
@@ -266,7 +267,7 @@ def test_campaign_fuzz_sharded_leg(seed):
             s0, problem.op, problem.b, problem.precond, config,
             backend=make_backend(spec, problem.op, solver=s0),
             failures=resolved)
-        assert torch.equal(st.x, st0.x), ctx
+        assert torch.equal(gather(st.x), st0.x), ctx
         ref_config = random_config(ref_driver, seed)
         ref_st, ref_rep, _ = ref_driver.solve(
             ref_solver, ref_op, jnp.asarray(ref_b), ref_pre, ref_config,
@@ -277,6 +278,6 @@ def test_campaign_fuzz_sharded_leg(seed):
                 assert getattr(rep, field) == getattr(ref_rep, field), \
                     (ctx, field)
         assert rep.recovery_fetch_bytes == ref_rep.recovery_fetch_bytes, ctx
-        np.testing.assert_allclose(st.x.numpy(), np.asarray(ref_st.x),
+        np.testing.assert_allclose(gather(st.x).numpy(), np.asarray(ref_st.x),
                                    rtol=1e-8, atol=1e-12, err_msg=str(ctx))
     assert "accepted" in verdicts

@@ -535,7 +535,9 @@ def test_sharded_pcg_solve_bitwise_unsharded_on_card(cuda_device, spec, mode):
             failures=[api.FailureEvent(at_iteration=10, **event)]))
         counts.append(ops.launch_counts())
     sharded, plain = res
-    assert torch.equal(sharded.state.x, plain.state.x)
+    from repro_torch.distributed.sharding import gather
+
+    assert torch.equal(gather(sharded.state.x), plain.state.x)
     assert sharded.iterations == plain.iterations
     assert sharded.report.nshards == 4
     assert sharded.report.recovery_fetch_bytes_by_shard == {
@@ -544,6 +546,191 @@ def test_sharded_pcg_solve_bitwise_unsharded_on_card(cuda_device, spec, mode):
     assert counts[0]["fused_cg_update_lanes"] > 0
     assert counts[0]["det_dot_lanes"] > 0
     assert counts[0]["fused_cg_update_persist"] == 0
+
+
+# ----------------------------------------------------------------------
+# Sharded vectors: one slab a shard, one stream a shard
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+def test_kernels_launch_on_the_current_stream_on_card(cuda_device):
+    """K1 (full and halo mode) and K3 launched inside
+    ``torch.cuda.stream(side)`` go to that stream: their outputs read on
+    the side stream alone are the default stream's bits, and captured in
+    a CUDA graph (whose capture stream a launch on any other stream
+    would break) they replay to the same bits."""
+    u = torch.from_numpy(rng_normal(5, 16, 12, 40)).to(cuda_device)
+    slab, lo, hi = u[1:-1].contiguous(), u[0].clone(), u[-1].clone()
+    data = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (4, 1000), dtype=np.uint8)).to(cuda_device)
+
+    def launches():
+        return (stencil7.stencil7_cuda(u),
+                stencil7.stencil7_halo_cuda(slab, lo, hi),
+                gf256_encode.gf256_rs_encode_cuda(data, 2))
+
+    want = launches()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = launches()
+    side.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(captured, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nshards", [2, 4, 8])
+def test_sharded_apply_one_stream_a_shard_on_card(cuda_device, nshards):
+    """On a one-card mesh every slab is a tensor of its own and every
+    shard has a stream of its own; the sharded apply (K1's halo mode a
+    slab on its stream, the halo planes moved between streams), the
+    mesh dot and a PCG step on sharded vectors are bitwise the
+    unsharded ones."""
+    from repro_torch.core import spmv
+    from repro_torch.core.poisson import JacobiPreconditioner, StencilOperator
+    from repro_torch.distributed import sharding
+    from repro_torch.solvers.pcg import PCGSolver
+
+    op = StencilOperator(16, 12, 40, nblocks=8, device=cuda_device)
+    sop = sharding.ShardedOperator(op, sharding.ShardLayout(8, nshards),
+                                   sharding.make_data_mesh(nshards, "cuda:0"))
+    mesh = sop.mesh
+    assert len({mesh.stream(s) for s in range(nshards)}) == nshards
+    x = torch.from_numpy(rng_normal(7, op.n)).to(cuda_device)
+    xs = sop.device_put(x)
+    assert len({slab.data_ptr() for slab in xs.slabs}) == nshards
+    before = stencil7.halo_launches
+    got = sop.apply(xs)
+    assert stencil7.halo_launches == before + nshards
+    want = stencil7.stencil7_cuda(x.view(op.grid)).view(-1)
+    assert torch.equal(sharding.gather(got), want)
+    assert torch.equal(spmv.make_det_dot(8, mesh)(xs, got),
+                       fused_cg.det_dot_cuda(x, want, 8))
+    pre = JacobiPreconditioner(op)
+    solver = PCGSolver()
+    b = torch.from_numpy(0.5 + rng_normal(8, op.n)).to(cuda_device)
+    plain = solver.make_step(op, pre)(solver.init_state(op, pre, b))
+    placed = sharding.place_preconditioner(pre, sop)
+    sharded = solver.make_step(sop, placed)(
+        solver.init_state(sop, placed, sop.device_put(b)))
+    for f in ("x", "r", "z", "p"):
+        assert torch.equal(sharding.gather(getattr(sharded, f)),
+                           getattr(plain, f)), f
+    assert torch.equal(sharded.rz, plain.rz)
+    assert torch.equal(sharded.beta_prev, plain.beta_prev)
+
+
+@pytest.mark.cuda
+def test_shard_streams_wait_for_the_callers_stream_on_card(cuda_device):
+    """A 0-d operand written on the caller's stream behind a long sleep
+    there reaches every shard's stream only after it is written: an
+    elementwise op and K2's lane launches (``alpha``) read the new value,
+    never the old one."""
+    from repro_torch.core import spmv
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.make_data_mesh(4, "cuda:0")
+    n = 8 * 4096
+    ones = mesh.place(torch.ones(n, dtype=torch.float64, device=cuda_device))
+    alpha = torch.zeros((), dtype=torch.float64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # the caller's stream busy for a while
+    alpha.fill_(3.0)
+    scaled = sharding.gather(alpha * ones)
+    x, r, z, _ = spmv.sharded_fused_update(ones, ones, ones, ones, alpha,
+                                           ones, 8, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(scaled, torch.full_like(scaled, 3.0))
+    assert torch.equal(sharding.gather(x), torch.full_like(scaled, 4.0))
+    assert torch.equal(sharding.gather(r), torch.full_like(scaled, -2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("blocks", [(0, 1), (6, 7), (1, 2, 5), (5, 1, 2)])
+def test_failed_slab_restrictions_bitwise_embed_on_card(cuda_device, dtype,
+                                                       blocks):
+    """``A[F,F] v`` (K1's halo mode with zero halo planes over each run of
+    failed blocks) and ``A[F,~F] x`` (a zero slab with the true
+    neighbour planes) are bitwise the versions that embed into the whole
+    grid, at the domain's ends, over two runs and in any block order."""
+    from repro_torch.core.poisson import StencilOperator
+
+    op = StencilOperator(32, 12, 40, nblocks=8, dtype=dtype,
+                         device=cuda_device)
+    part = op.partition
+    x = torch.from_numpy(rng_normal(9, op.n)).to(cuda_device, dtype)
+    v = torch.from_numpy(rng_normal(10, len(blocks) * part.block_size)).to(
+        cuda_device, dtype)
+    assert torch.equal(op.inblock_apply(v, blocks),
+                       part.restrict(op.apply(part.embed(v, blocks)), blocks))
+    assert torch.equal(op.offblock_apply(x, blocks),
+                       part.restrict(op.apply(part.zero_blocks(x, blocks)),
+                                     blocks))
+
+
+@pytest.mark.cuda
+def test_local_cg_on_the_failed_slabs_is_the_embed_loop_on_card(cuda_device):
+    """Recovery's local CG with ``A[F,F]`` on the failed slabs alone (as a
+    graph) stops at the embed version's iteration with its ``x``
+    bitwise."""
+    from repro_torch.core import reconstruction as rec
+
+    problem = _poisson(cuda_device, grid=32, nblocks=8)
+    op, part, failed = problem.op, problem.op.partition, [1, 2]
+    rhs = torch.from_numpy(rng_normal(4, 2 * part.block_size)).to(cuda_device)
+    info, embed_info = {}, {}
+    got = rec._local_cg(lambda u: op.inblock_apply(u, failed), rhs,
+                        info=info)
+    want = rec._local_cg(lambda u: part.restrict(
+        op.apply(part.embed(u, failed)), failed), rhs, info=embed_info)
+    assert info["iterations"] == embed_info["iterations"] > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcg", "bicgstab", "gmres", "chebyshev",
+                                    "jacobi"])
+def test_mesh_over_distinct_cards(cuda_device, solver):
+    """Shards on distinct cards (``make_data_mesh(4)``: card ``s * c //
+    4``), the slabs on their cards, every cross-card read a peer copy: a
+    solve with a ``shard=1`` kill is bitwise the same solve with every
+    shard on one card.  Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two visible cards")
+    from repro_torch import api
+    from repro_torch.distributed import sharding
+
+    cards = sharding.make_data_mesh(4)
+    assert cards.distinct
+    assert len(set(cards.devices)) == min(4, torch.cuda.device_count())
+    runs = []
+    for mesh in (cards, sharding.make_data_mesh(4, "cuda:0")):
+        problem = api.Problem.poisson(24, nblocks=8, device="cuda:0"
+                                      ).with_shards(4, mesh=mesh)
+        res = api.solve(problem, api.SolverSpec(
+            solver, tol=1e-10, maxiter=24,
+            options={"m": 4} if solver == "gmres" else {}),
+            api.ResilienceSpec("nvm-prd", period=2),
+            failures=[api.FailureEvent(shard=1, at_iteration=8)])
+        assert [slab.device for slab in res.state.x.slabs] == list(
+            mesh.devices)
+        runs.append(res)
+    far, near = runs
+    assert torch.equal(sharding.gather(far.state.x),
+                       sharding.gather(near.state.x))
+    assert torch.equal(sharding.gather(far.state.r),
+                       sharding.gather(near.state.r))
+    for field in ("iterations", "failures_recovered", "persist_events",
+                  "recovery_fetch_bytes", "persist_bytes"):
+        assert getattr(far.report, field) == getattr(near.report, field)
+    assert far.report.residual_history == near.report.residual_history
 
 
 @pytest.mark.cuda
@@ -610,7 +797,7 @@ def test_dry_run_first_step_matches_the_unsharded_step_on_card(
     from repro_torch.launch import dryrun
 
     sc = SolverConfig("pcg_64", (64, 64, 64), nshards, variant=variant)
-    mesh = make_data_mesh(nshards, cuda_device)
+    mesh = make_data_mesh(nshards, "cuda:0")
     step, spec = dryrun.cell_step(sc, mesh)
     _, structs = spec(*sc.grid)
     state = dryrun.cell_state(structs, mesh, torch.device(cuda_device))
@@ -856,8 +1043,9 @@ def test_train_peak_split_bounds_a_larger_batch_on_card(cuda_device, cut):
 def test_local_cg_graph_is_the_plain_loop_bitwise_on_card(cuda_device, chunk):
     """Recovery's local CG as replays of one captured chunk: ``x`` bitwise
     the plain loop's on the card at the same iteration, the launch
-    counts holding every replay (one K1 and two det_dot a captured
-    iteration), and within 1e-10 of the plain loop on the CPU."""
+    counts holding every replay (one K1 halo-mode launch over the failed
+    run and two det_dot a captured iteration), and within 1e-10 of the
+    plain loop on the CPU."""
     from repro_torch.core import reconstruction as rec
 
     problem = _poisson(cuda_device, grid=32)
@@ -879,10 +1067,11 @@ def test_local_cg_graph_is_the_plain_loop_bitwise_on_card(cuda_device, chunk):
     assert info["graph"] and info["iterations"] == k > 0
     assert torch.equal(got, want)
     size = min(chunk, 10_000)
-    assert info["launches_per_chunk"]["stencil7"] == size
+    assert info["launches_per_chunk"]["stencil7_halo"] == size
+    assert info["launches_per_chunk"]["stencil7"] == 0
     assert info["launches_per_chunk"]["det_dot"] == 2 * size
     # rhs.rhs, the warm-up iteration, the replays, the eager rerun
-    assert counts["stencil7"] == 1 + info["chunks"] * size + \
+    assert counts["stencil7_halo"] == 1 + info["chunks"] * size + \
         info["eager_iterations"]
     assert counts["det_dot"] == 1 + 2 + 2 * (info["chunks"] * size +
                                              info["eager_iterations"])

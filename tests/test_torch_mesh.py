@@ -1,17 +1,19 @@
-"""Sharded solves of the port on a one-device data mesh, against the port's
+"""Sharded solves of the port on a data mesh of repeated CPU devices
+(every vector a ``ShardedVector``, one slab a shard), against the port's
 own unsharded solves and the reference package.
 
 - K1's halo mode (plain version on the CPU): the slabs' outputs side by
   side are bitwise the full stencil, for any shard count dividing ``nz``
   (``nz_s = 1`` included) and every supported dtype.
 - The mesh reductions (``make_det_dot`` / ``make_det_rowdots`` with a
-  mesh): bitwise the unsharded ones, also where a CPU sum over the rows
-  of a matrix would split its work by the row count.
+  mesh, on sharded vectors and on plain ones): bitwise the unsharded
+  ones, also where a CPU sum over the rows of a matrix would split its
+  work by the row count.
 - The reference's sharded sweep run in the port: five solvers x two
   persist modes x four specs at 8^3 (``nblocks=4``, ``nshards=4``,
   ``maxiter=8``; GMRES restarts every 4 steps) with a ``shard=1`` kill.
-  The sharded ``x`` and ``r`` are bitwise the port's unsharded run with
-  block 1 killed; against the reference's unsharded run ``x`` agrees at
+  The sharded ``x`` and ``r`` (gathered) are bitwise the port's
+  unsharded run with block 1 killed; against the reference's unsharded run ``x`` agrees at
   rtol 1e-8 (the packages sum in different orders) with equal iteration
   counts and counters.
 - One ``multi_device`` subprocess runs the reference's sharded solves
@@ -91,6 +93,11 @@ def test_sharded_apply_counts_halo_bytes():
     eye = torch.eye(op.n, dtype=torch.float64)[:3]
     assert torch.equal(sop.apply(eye), op.apply(eye))
     assert sop.halo_bytes == 2 * 3 * 6 * 5 * 8
+    # a sharded vector: slab by slab, the halo planes moved, the same bits
+    got = sop.apply(sop.device_put(x))
+    assert isinstance(got, sharding.ShardedVector)
+    assert torch.equal(sharding.gather(got), op.apply(x))
+    assert sop.halo_bytes == 2 * 2 * 3 * 6 * 5 * 8
 
 
 # ----------------------------------------------------------------------
@@ -107,10 +114,14 @@ def test_mesh_dots_bitwise_unsharded(nshards, dtype):
     mesh = sharding.make_data_mesh(nshards, "cpu")
     want = spmv.make_det_dot(nblocks)(a, b)
     assert torch.equal(spmv.make_det_dot(nblocks, mesh)(a, b), want)
+    assert torch.equal(spmv.make_det_dot(nblocks, mesh)(mesh.place(a),
+                                                        mesh.place(b)), want)
     rows = torch.from_numpy(rng_normal(3, 5, n)).to(dtype)
     want_rows = spmv.make_det_rowdots(nblocks)(rows, b)
     assert torch.equal(spmv.make_det_rowdots(nblocks, mesh)(rows, b),
                        want_rows)
+    assert torch.equal(spmv.make_det_rowdots(nblocks, mesh)(
+        [mesh.place(row) for row in rows], mesh.place(b)), want_rows)
     for i in range(5):
         assert torch.equal(want_rows[i], spmv.make_det_dot(nblocks)(rows[i], b))
     np.testing.assert_allclose(
@@ -156,8 +167,9 @@ def test_sharded_sweep_bitwise_unsharded_and_close_to_reference(name, mode,
     got = _port_run(sharded, name, mode, spec, dict(shard=1), nshards=4)
     plain = _port_run(api.Problem.poisson(8, nblocks=4, device="cpu"),
                       name, mode, spec, dict(blocks=(1,)))
-    assert torch.equal(got.state.x, plain.state.x)
-    assert torch.equal(got.state.r, plain.state.r)
+    assert isinstance(got.state.x, sharding.ShardedVector)
+    assert torch.equal(sharding.gather(got.state.x), plain.state.x)
+    assert torch.equal(sharding.gather(got.state.r), plain.state.r)
     rep = got.report
     assert rep.nshards == 4 and rep.failures_recovered == 1
     slot = rep.recovery_fetch_bytes
@@ -181,7 +193,7 @@ def test_sharded_fused_erasure_solve_bitwise_unsharded(mode):
                     "pcg", mode, spec, dict(shard=1), **kw)
     plain = _port_run(api.Problem.poisson(8, nblocks=4, device="cpu"),
                       "pcg", mode, spec, dict(blocks=(2, 3)), **kw)
-    assert torch.equal(got.state.x, plain.state.x)
+    assert torch.equal(sharding.gather(got.state.x), plain.state.x)
     for field in COUNTERS:
         assert getattr(got.report, field) == getattr(plain.report, field)
     assert got.report.recovery_fetch_bytes_by_shard == {
@@ -195,11 +207,16 @@ def test_place_state_pins_contiguous_fields():
 
     solver = PCGSolver()
     st = solver.init_state(problem.op, problem.precond, problem.b)
-    st = st._replace(x=st.x.reshape(2, -1).t().reshape(-1))
+    # a plain, non-contiguous x (a replacement node's) is placed as slabs
+    x = sharding.gather(st.x).reshape(2, -1).t().reshape(-1)
+    st = st._replace(x=x)
     placed = sharding.place_state(st, mesh, solver.state_vector_fields)
-    assert placed.k == st.k and torch.equal(placed.x, st.x)
-    assert all(getattr(placed, f).is_contiguous()
-               for f in placed._fields if f != "k")
+    assert placed.k == st.k and torch.equal(sharding.gather(placed.x), x)
+    assert placed.r is st.r  # already on the mesh
+    assert all(slab.is_contiguous()
+               for f in solver.state_vector_fields
+               for slab in getattr(placed, f).slabs)
+    assert placed.rz.device == mesh.device
 
 
 # ----------------------------------------------------------------------
@@ -381,9 +398,16 @@ def test_sharded_operator_errors_match_reference():
         want = _error(lambda: ref_sharding.ShardedOperator(
             ref_op, ref_sharding.ShardLayout(*layout), ref_mesh))
         assert got is not None and got == want, layout
-    # shards on distinct cards wait for a machine with more than one
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        sharding.DataMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    # shards on distinct cards: the mesh takes them (streams are made at
+    # first use, on the card); the grid steps refuse them
+    cards = sharding.DataMesh((torch.device("cuda", 0),
+                               torch.device("cuda", 1)))
+    assert cards.distinct and cards.device == torch.device("cuda", 0)
+    for make in (spmv.make_sharded_pcg_step, spmv.make_shardmap_pcg_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make(cards)
+    with pytest.raises(ValueError, match="one kind"):
+        sharding.DataMesh((torch.device("cpu"), torch.device("cuda", 0)))
     with pytest.raises(ValueError):
         sharding.make_data_mesh(0, "cpu")
     # a sharded problem is refused by the service, as in the reference
