@@ -201,7 +201,25 @@ non-zero and prints no result line):
    variant's ``step_mode``); no hand-written
    kernel runs: the launch counts must read 0 (79-135 s on an H100 80GB
    HBM3 at 700 W with three timed steps a variant; each variant now
-   times at least 2 s of steps, a few seconds more).
+   times at least 2 s of steps, a few seconds more);
+16. lm-mesh — LM serving over a ``(data, model)`` device mesh
+   (``launch.mesh.make_mesh_for``: the shards span the visible cards,
+   the one card repeated, a stream a shard): (a) llama3_8b at full
+   width and depth, bf16 compute, on ``make_mesh_for(4)`` (1, 4) answers
+   4 requests of 512 tokens with 16 generated tokens through
+   ``ServeEngine.generate`` (eager prefill and decode steps), with its
+   prefill s, decode ms a token, tokens/s, every shard's parameter and
+   cache bytes against ``shard_shape``'s count and the peak bytes; (b)
+   llama3_8b at full width cut to 2 layers, f32, on (1, 4) and (2, 2):
+   prefill and decode logits against the same model's one-device run
+   within ``LM_REL_TOL``; (c) moonshot_v1_16b_a3b and dbrx_132b at full
+   width cut to one layer, f32, capacity factor 16: the same, and
+   whether the expert-parallel block at ``data = 1`` is bitwise the
+   one-device block; (d) with two or more cards, (b)'s meshes over
+   distinct cards bitwise the same meshes with every shard on the
+   first card (else a line ``"distinct_cards": "not run: 1 card
+   visible"``).  No hand-written kernel runs: the launch counts must
+   read 0.
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
@@ -221,6 +239,10 @@ neither JAX nor the reference package.
 mesh, with its distinct-card leg where two or more cards are visible:
 on a machine with four cards); like ``--times-only`` it is a measurement, and
 its output ends without the ``ok`` line.
+
+``python3 chip_smoke.py --lm-mesh-only`` runs phases 1, 2 and 16 (LM
+serving over the mesh; on a machine with several cards its
+distinct-card leg runs); its output also ends without the ``ok`` line.
 
 ``python3 chip_smoke.py --times-only [--src DIR]`` runs phases 1-2,
 prints both timing columns of every kernel at the main path's shapes and
@@ -3479,6 +3501,235 @@ def phase_dryrun_lm(torch) -> dict:
     return counts
 
 
+#: phase 16: LM serving over a (data, model) mesh.  (a) llama3_8b at its
+#: full CONFIG (bf16 compute) on make_mesh_for(4): 4 requests of 512
+#: tokens, 16 generated tokens each
+MESH_LM_BATCH, MESH_LM_PROMPT, MESH_LM_GEN = 4, 512, 16
+#: (b) and (c): full width, f32, cut in depth; batch 4 (split over
+#: data=2), a 64-token prompt and 4 decode steps
+MESH_LM_CUT = {"llama3_8b": 2, "moonshot_v1_16b_a3b": 1, "dbrx_132b": 1}
+MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, MESH_LM_CUT_STEPS = 4, 64, 4
+#: make_mesh_for's model_parallel for the two meshes of (b)-(d)
+MESH_LM_MESHES = {"1x4": None, "2x2": 2}
+
+
+def _shard_bytes(leaves, nshards: int) -> list:
+    """Every shard's bytes over placed leaves."""
+    out = [0] * nshards
+    for _, leaf in leaves:
+        for s, piece in enumerate(leaf.pieces):
+            out[s] += piece.numel() * piece.element_size()
+    return out
+
+
+def _counted_bytes(R, structs, specs, rules) -> int:
+    """One device's bytes of ``structs`` under ``rules``: each leaf's
+    ``shard_shape`` (through ``specs_to_physical``) times its item
+    size."""
+    phys = R.specs_to_physical(specs, rules, structs)
+    return sum(math.prod(ph.shape) * st.element_size()
+               for st, ph in zip(R.tree_leaves(structs), R.tree_leaves(phys)))
+
+
+def mesh_lm_serve(torch, cfg) -> dict:
+    """(a): ``cfg`` on ``make_mesh_for(4)`` serves through
+    ``ServeEngine.generate`` (a warm-up of 2 tokens, then the timed run):
+    the prefill seconds (CUDA events on the caller's stream, which waits
+    for every shard), the decode ms a token (events between consecutive
+    steps, median), the host's ms a token, the ATen ops one decode step
+    dispatches (counted apart from the timed run), tokens/s, each shard's
+    parameter and cache bytes against ``shard_shape``'s count (checked
+    equal), the peak bytes; the logits finite and the engine eager."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.serving import ServeEngine
+
+    mesh = make_mesh_for(4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=mesh.device)
+                          .manual_seed(0), mesh=mesh)
+    mesh.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab, (MESH_LM_BATCH, MESH_LM_PROMPT),
+                           device=mesh.device, generator=torch.Generator(
+                               device=mesh.device).manual_seed(1))
+    seq = MESH_LM_PROMPT + MESH_LM_GEN
+    eng = ServeEngine(R.make_prefill(cfg), R.make_decode(cfg),
+                      lambda b, s: R.init_caches(cfg, b, seq, mesh=mesh))
+    eng.generate(model, prompt, 2)
+    mesh.synchronize()
+    marks: list = []
+    start = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = eng.generate(model, prompt, MESH_LM_GEN,
+                       on_step=_step_marks(torch, marks))
+    mesh.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(bool(m[3]) for m in marks), f"{cfg.name}: non-finite logits")
+    check(tuple(out.shape) == (MESH_LM_BATCH, MESH_LM_GEN),
+          f"{cfg.name}: out {out.shape}")
+    check(not eng.stats["graph"]
+          and eng.stats["eager_steps"] == MESH_LM_GEN - 1,
+          f"{cfg.name}: the engine ran {eng.stats} over the mesh")
+    step_ms = [marks[i - 1][1].elapsed_time(marks[i][1])
+               for i in range(2, MESH_LM_GEN)]
+    host_ms = [1e3 * (marks[i][2] - marks[i - 1][2])
+               for i in range(2, MESH_LM_GEN)]
+    caches = R.init_caches(cfg, MESH_LM_BATCH, seq, mesh=mesh)
+    with torch.inference_mode():
+        _, caches = R.make_prefill(cfg)(model, prompt, caches)
+        decode_ops = _aten_ops(lambda: R.make_decode(cfg)(
+            model, out[:, :1], caches, MESH_LM_PROMPT))
+    params = _shard_bytes(R.placed_leaves(model), mesh.nshards)
+    cache = _shard_bytes(R.placed_leaves(caches), mesh.nshards)
+    want_params = _counted_bytes(R, *R.abstract_params(cfg), model.rules)
+    want_cache = _counted_bytes(R, *R.abstract_caches(cfg, MESH_LM_BATCH,
+                                                      seq), model.rules)
+    rec = dict(arch=cfg.name, mesh=mesh.shape,
+               devices=[str(d) for d in mesh.devices], layers=cfg.n_layers,
+               d_model=cfg.d_model, compute=cfg.compute_dtype,
+               batch=MESH_LM_BATCH, prompt=MESH_LM_PROMPT, gen=MESH_LM_GEN,
+               init_s=init_s, prefill_s=start.elapsed_time(marks[0][1]) / 1e3,
+               decode_ms_per_token=statistics.median(step_ms),
+               decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+               decode_host_ms_per_token=statistics.median(host_ms),
+               decode_aten_ops=decode_ops,
+               generate_s=wall, tokens_per_s=MESH_LM_BATCH * MESH_LM_GEN / wall,
+               shard_param_bytes=params, shard_cache_bytes=cache,
+               shard_shape_param_bytes=want_params,
+               shard_shape_cache_bytes=want_cache,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               tokens_row0=out[0, :8].tolist(), card=CARD)
+    say("lm-mesh", **rec)
+    check(params == [want_params] * mesh.nshards
+          and cache == [want_cache] * mesh.nshards,
+          f"{cfg.name}: a shard's bytes differ from shard_shape's count")
+    del model, caches, eng
+    return rec
+
+
+def _mesh_logits(torch, cfg, mesh, device: str) -> list:
+    """``cfg`` from seed 0 on ``mesh`` (or, with ``None``, on
+    ``device``): the prefill's logits and each teacher-forced decode
+    step's, on ``device``."""
+    from repro_torch.models import registry as R
+
+    model = R.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                          device=device, mesh=mesh)
+    b, p, steps = MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, MESH_LM_CUT_STEPS
+    caches = R.init_caches(cfg, b, p + steps, device=device, mesh=mesh)
+    tokens = torch.randint(0, cfg.vocab, (b, p + steps), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(2))
+    out = []
+    with torch.inference_mode():
+        logits, caches = R.make_prefill(cfg)(model, tokens[:, :p], caches)
+        out.append(logits)
+        for t in range(steps):
+            logits, caches = R.make_decode(cfg)(
+                model, tokens[:, p + t:p + t + 1], caches, p + t)
+            out.append(logits)
+    return out
+
+
+def _moe_block_bitwise(torch, cfg, mesh) -> bool:
+    """Whether the expert-parallel block on ``mesh`` (data = 1) gives the
+    one-device block's bits on one seeded input."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe, registry as R
+
+    dev = mesh.device
+    x = torch.randn(MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, cfg.d_model,
+                    device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(5))
+    outs = []
+    for m in (None, mesh):
+        block = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev, mesh=m).layers[0].moe
+        with torch.inference_mode():
+            y, _ = moe.moe(block, x if m is None else sharding.place(
+                x, m, (None, None, None)), cfg)
+        outs.append(y if m is None else sharding.to_whole(y))
+        del block
+    return bool(torch.equal(*outs))
+
+
+def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
+    """(b)-(d) for one config: full width, f32, cut to ``MESH_LM_CUT``
+    layers (MoE at capacity factor 16), on both meshes of the card
+    against its one-device run, relative to the largest |logit|; the MoE
+    block bitwise or not at data = 1; with two or more cards, each mesh
+    over distinct cards against the same mesh on the first card."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+
+    t0 = time.perf_counter()
+    base = R.get_config(arch)
+    kw = {"compute_dtype": "float32", "n_layers": MESH_LM_CUT[arch]}
+    if base.n_experts > 0:
+        kw["capacity_factor"] = 16.0
+    cfg = dataclasses.replace(base, **kw)
+    dev = "cuda:0"
+    want = _mesh_logits(torch, cfg, None, dev)
+    scale = max(float(w[..., :cfg.vocab].abs().max()) for w in want)
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               compute=cfg.compute_dtype, batch=MESH_LM_CUT_BATCH,
+               prompt=MESH_LM_CUT_PROMPT, steps=MESH_LM_CUT_STEPS,
+               max_abs_logit=scale, rel_tol=LM_REL_TOL)
+    for name, mp in MESH_LM_MESHES.items():
+        mesh = make_mesh_for(4, mp, device=dev)
+        got = _mesh_logits(torch, cfg, mesh, dev)
+        rec[f"rel_err_{name}"] = max(max_abs(g, w)
+                                     for g, w in zip(got, want)) / scale
+        if cfg.n_experts > 0 and mesh.shape["data"] == 1:
+            rec[f"moe_block_bitwise_{name}"] = _moe_block_bitwise(
+                torch, cfg, mesh)
+        if cards > 1:
+            far = _mesh_logits(torch, cfg, make_mesh_for(4, mp), dev)
+            rec[f"distinct_cards_bitwise_{name}"] = all(
+                bool(torch.equal(a, b)) for a, b in zip(far, got))
+        del got
+        torch.cuda.empty_cache()
+    if cards <= 1:
+        rec["distinct_cards"] = f"not run: {cards} card visible"
+    rec["seconds"] = time.perf_counter() - t0
+    say("lm-mesh", **rec)
+    for name in MESH_LM_MESHES:
+        check(rec[f"rel_err_{name}"] <= LM_REL_TOL,
+              f"{cfg.name} on the {name} mesh: logits off the one-device "
+              f"run by {rec[f'rel_err_{name}']:.3g} of the largest logit")
+        check(rec.get(f"distinct_cards_bitwise_{name}", True),
+              f"{cfg.name} on the {name} mesh over distinct cards is not "
+              f"the one-card mesh bit for bit")
+    return rec
+
+
+def phase_lm_mesh(torch) -> dict:
+    """LM serving over a (data, model) device mesh: (a) llama3_8b at full
+    width and depth, then (b)-(d).  The path has no hand-written kernel:
+    its launch counts are read and shown, and must be 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry as R
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    ops.reset_launch_counts()
+    mesh_lm_serve(torch, R.get_config(LM_ARCH))
+    torch.cuda.empty_cache()
+    for arch in MESH_LM_CUT:
+        mesh_lm_consistency(torch, arch, cards)
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    say("lm-mesh", launches=counts,
+        phase_seconds=time.perf_counter() - t_phase,
+        note="the LM path runs no hand-written kernel")
+    check(not any(counts.values()), f"the LM mesh path launched {counts}")
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -3524,6 +3775,7 @@ def main() -> int:
     args = sys.argv[1:]
     times_only = "--times-only" in args
     mesh_only = "--mesh-only" in args
+    lm_mesh_only = "--lm-mesh-only" in args
     if "--src" in args:
         SRC = os.path.abspath(args[args.index("--src") + 1])
     if not torch.cuda.is_available():
@@ -3557,6 +3809,9 @@ def main() -> int:
         if mesh_only:
             phase_mesh(torch, rate, {}, {"steps": {}})
             return 0
+        if lm_mesh_only:
+            phase_lm_mesh(torch)
+            return 0
         records = phase_kernels(torch, rate)
         found = {"steps": {}, "reports": [], "advice": []}
         counts, problem, recovered = phase_main_path(torch, found, records)
@@ -3573,6 +3828,7 @@ def main() -> int:
         paths.append(phase_lm(torch, rate))
         paths.append(phase_train(torch))
         paths.append(phase_dryrun_lm(torch))
+        paths.append(phase_lm_mesh(torch))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:

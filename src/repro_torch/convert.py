@@ -15,7 +15,10 @@ layers along a leading axis (``groups/{j}/...`` of shape ``(n_groups,
 ``cross`` of shape ``(n_layers, ...)``); the port keeps one module, and
 one cache, a layer, so layer ``g * period + j`` is row ``g`` of slot
 ``j``.  numpy has no bfloat16: a bfloat16 array crosses as its float32
-values (exact both ways).
+values (exact both ways).  With ``mesh=`` the parameters and caches are
+placed on a :class:`~repro_torch.distributed.sharding.DeviceMesh` leaf
+by leaf (each crosses whole to the mesh's first device, then is split
+onto the shards), and placed caches are gathered whole on the way back.
 """
 from __future__ import annotations
 
@@ -28,10 +31,15 @@ from repro_torch._device import resolve_device
 from repro_torch.api import Problem, _preconditioner
 from repro_torch.core.poisson import StencilOperator
 from repro_torch.core.state import PCGState
+from repro_torch.distributed.sharding import (DeviceMesh, Placed,
+                                              physical_spec, place, to_whole)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
-from repro_torch.models.registry import (build_model, reference_cache_path,
-                                         reference_path)
+from repro_torch.models import transformer as T
+from repro_torch.models.registry import (build_model, check_mesh_config,
+                                         place_parameters,
+                                         reference_cache_path,
+                                         reference_path, serving_rules)
 from repro_torch.solvers.bicgstab import BiCGStabState
 from repro_torch.solvers.chebyshev import ChebyshevState
 from repro_torch.solvers.gmres import GMRESState
@@ -121,9 +129,11 @@ def _tensor(arr, device: torch.device,
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
+def _numpy(t: Union[torch.Tensor, Placed]) -> np.ndarray:
     """A host copy of ``t`` (never a view of a CPU tensor, which a train
-    step goes on updating in place)."""
+    step goes on updating in place); a placed tensor gathered whole."""
+    if isinstance(t, Placed):
+        t = to_whole(t)
     t = t.detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -135,15 +145,18 @@ def _get(tree: Mapping[str, Any], path: Sequence[str]):
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
-                         device: Union[str, torch.device] = "cuda"
+                         device: Union[str, torch.device] = "cuda",
+                         mesh: Optional[DeviceMesh] = None
                          ) -> torch.nn.Module:
     """The port's model of ``cfg`` holding the reference's parameters
     ``tree`` (the pytree of ``repro.models.registry.init_params``, as
-    numpy arrays), placed on ``device``."""
-    dev = resolve_device(device)
-    model = build_model(cfg, Init(torch.device("meta"))).to_empty(device=dev)
-    with torch.no_grad():
-        for name, param in model.named_parameters():
+    numpy arrays), on ``device``, or with ``mesh`` placed on it by the
+    serving rules (``registry.place_parameters``)."""
+    dev = resolve_device(device if mesh is None else mesh.device)
+    model = build_model(cfg, Init(torch.device("meta")))
+
+    def values():
+        for name, param in list(model.named_parameters()):
             path, row = reference_path(cfg, name)
             arr = _get(tree, path)
             val = _tensor(arr if row is None else np.asarray(arr)[row], dev,
@@ -151,7 +164,14 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
             if val.shape != param.shape:
                 raise ValueError(f"{'/'.join(path)}: shape {tuple(val.shape)}, "
                                  f"the port's {name} is {tuple(param.shape)}")
-            param.copy_(val)
+            yield name, val
+
+    if mesh is not None:
+        return place_parameters(model, mesh, values())
+    model = model.to_empty(device=dev)
+    with torch.no_grad():
+        for name, val in values():
+            model.get_parameter(name).copy_(val)
     return model
 
 
@@ -248,13 +268,16 @@ def train_state_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
 
 
 def lm_caches_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
-                         device: Union[str, torch.device] = "cuda"
+                         device: Union[str, torch.device] = "cuda",
+                         mesh: Optional[DeviceMesh] = None
                          ) -> List[Dict[str, Any]]:
     """The port's per-layer caches from the reference's cache pytree
     (``repro.models.registry.init_caches``' first half, or a step's
-    returned caches), as numpy arrays, placed on ``device`` in the
-    compute dtype (ring positions stay int32)."""
-    dev = resolve_device(device)
+    returned caches), as numpy arrays, on ``device`` in the compute
+    dtype (ring positions stay int32), or with ``mesh`` placed on it by
+    the caches' logical specs under the serving rules, layer by
+    layer."""
+    dev = resolve_device(device if mesh is None else mesh.device)
 
     def conv(a):
         a = np.asarray(a)
@@ -265,12 +288,20 @@ def lm_caches_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                         for n, a in tree[part].items()}
                  for part in ("self", "cross")}
                 for i in range(cfg.n_layers)]
+    if mesh is not None:
+        check_mesh_config(cfg, mesh)
+        rules = serving_rules(cfg, mesh)
     caches = []
-    for layer in range(cfg.n_layers):
+    for layer, kind in enumerate(T.layer_kinds(cfg)):
         path, row = reference_cache_path(cfg, layer)
         entry = _get(tree, path)
-        caches.append({n: conv(a if row is None else np.asarray(a)[row])
-                       for n, a in entry.items()})
+        cache = {n: conv(a if row is None else np.asarray(a)[row])
+                 for n, a in entry.items()}
+        if mesh is not None:
+            specs = T.layer_cache_specs(kind)
+            cache = {n: place(t, mesh, physical_spec(rules, t.shape, specs[n]))
+                     for n, t in cache.items()}
+        caches.append(cache)
     return caches
 
 

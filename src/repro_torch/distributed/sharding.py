@@ -35,10 +35,18 @@ physical axis names (or ``None``, or a tuple of names), and the mesh is
 any object with ``axis_names`` and a ``shape`` mapping (a
 :class:`LogicalMesh`, or the reference's ``jax.sharding.Mesh``), and
 :func:`shard_shape` gives a tensor's per-device shape under the rules
-(what the LM dry run sums its per-device bytes from).  The LM stack
-places nothing: every tensor is whole, so :func:`shard` is the
-identity, as the reference's is with no mesh; its mesh over distinct
-cards is queued (ROADMAP, Queue 1).
+(what the LM dry run sums its per-device bytes from).
+
+The LM stack serves over a :class:`DeviceMesh`: a :class:`DataMesh`
+whose shards are the coordinates of a ``(data, model)`` mesh.  Its
+tensors are :class:`Placed`: one piece a coordinate, laid out by the
+physical spec :func:`spec_for_shape` gives under the rules.  The model
+code runs shard by shard (:func:`each`) and writes each collective out:
+:func:`reshard` (the all-gather of :func:`gather_axis` among its
+cases), :func:`reduce_sum` in rank order, :func:`heads_to_seq` and
+:func:`to_whole`, every one of them built on :meth:`DataMesh.move`.
+:func:`shard` stays the identity: where the reference constrains a
+layout, the port's mesh code lays the tensor out explicitly.
 """
 from __future__ import annotations
 
@@ -396,12 +404,349 @@ def make_data_mesh(nshards: int,
     an index (``"cuda:0"``) or ``"cpu"`` holds every shard."""
     if nshards < 1:
         raise ValueError(f"a data mesh needs nshards >= 1, got {nshards}")
+    return DataMesh(_mesh_devices(nshards, device))
+
+
+def _mesh_devices(nshards: int, device: Union[str, torch.device]
+                  ) -> Tuple[torch.device, ...]:
+    """Shard ``s``'s device: card ``s * c // nshards`` of the ``c =
+    min(nshards, device_count)`` visible cards for ``"cuda"`` without an
+    index, else ``device`` repeated."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         cards = min(nshards, torch.cuda.device_count())
-        return DataMesh(tuple(torch.device("cuda", s * cards // nshards)
-                              for s in range(nshards)))
-    return DataMesh((dev,) * nshards)
+        return tuple(torch.device("cuda", s * cards // nshards)
+                     for s in range(nshards))
+    return (dev,) * nshards
+
+
+# ----------------------------------------------------------------------
+# The LM stack's (data, model) device mesh and its placed tensors
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class DeviceMesh(DataMesh):
+    """The ``(data, model)`` mesh of the LM axis rules over a
+    :class:`DataMesh`'s shards: coordinate ``(d, m)`` is shard ``d *
+    model + m``, with that shard's device and stream.  ``AxisRules``
+    read its ``axis_names`` and ``shape`` as they read a
+    :class:`LogicalMesh`'s; its tensors are :class:`Placed`."""
+
+    model: int = 1
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.model < 1 or len(self.devices) % self.model:
+            raise ValueError(f"a model axis of {self.model} does not divide "
+                             f"{len(self.devices)} shards")
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.devices) // self.model, "model": self.model}
+
+    def coords(self, shard: int) -> Dict[str, int]:
+        """Shard ``shard``'s coordinate on each axis."""
+        d, m = divmod(shard, self.model)
+        return {"data": d, "model": m}
+
+    def group(self, axis: str, shard: int) -> Tuple[int, ...]:
+        """The shards that differ from ``shard`` on ``axis`` alone, in
+        rank order along it (``shard`` among them)."""
+        d, m = divmod(shard, self.model)
+        if axis == "model":
+            return tuple(d * self.model + r for r in range(self.model))
+        return tuple(r * self.model + m for r in range(self.shape["data"]))
+
+    def ranks(self, axis: str) -> "PerShard":
+        """Every shard's rank along ``axis``, in shard order."""
+        return PerShard(self.coords(s)[axis] for s in range(self.nshards))
+
+
+def make_device_mesh(data: int, model: int,
+                     device: Union[str, torch.device] = "cuda") -> DeviceMesh:
+    """The ``(data, model)`` mesh of ``data * model`` shards, shard ``s``
+    on card ``s * c // (data * model)`` as :func:`make_data_mesh` places
+    them (one card repeated, or the cards spanned), or all on an indexed
+    device or the CPU."""
+    if data < 1 or model < 1:
+        raise ValueError(f"a ({data}, {model}) mesh has an empty axis")
+    return DeviceMesh(_mesh_devices(data * model, device), model)
+
+
+class PerShard(tuple):
+    """One value a shard, in shard order: :func:`each` hands shard ``s``
+    its ``s``-th entry."""
+
+
+class Placed:
+    """A tensor laid out on a :class:`DeviceMesh`: one piece a mesh
+    coordinate, in shard order, each a tensor of its own on its shard's
+    device, and the physical ``spec`` (one axis name or ``None`` a
+    dimension) that says which part of the whole each piece is: a
+    dimension on an axis is cut into that axis' extent of equal parts,
+    rank ``r`` holding part ``r``; a dimension on no axis is whole in
+    every piece.  Along an axis on no dimension a parameter's pieces are
+    copies; a value computed per data shard (the expert outputs of its
+    own tokens) differs between data ranks, as a ``shard_map`` body's
+    local values do, and is only ever gathered within its group.  Its
+    work runs on each shard's stream (:func:`each`); every read of one
+    shard's piece by another is a :meth:`DataMesh.move`."""
+
+    __slots__ = ("pieces", "mesh", "spec")
+
+    def __init__(self, pieces: Sequence[torch.Tensor], mesh: DeviceMesh,
+                 spec: Spec):
+        self.pieces = tuple(pieces)
+        self.mesh = mesh
+        self.spec = tuple(spec)
+        if len(self.pieces) != mesh.nshards:
+            raise ValueError(f"{len(self.pieces)} pieces for a mesh of "
+                             f"{mesh.nshards} shards")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The whole tensor's shape."""
+        ext = self.mesh.shape
+        return tuple(n * (ext[a] if a else 1)
+                     for n, a in zip(self.pieces[0].shape, self.spec))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    def __repr__(self) -> str:
+        return (f"Placed(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.spec}, mesh={self.mesh.shape})")
+
+
+def physical_spec(rules: AxisRules, shape: Sequence[int],
+                  logical: Sequence[Optional[str]]) -> Spec:
+    """:func:`spec_for_shape` on a :class:`DeviceMesh`, an axis of
+    extent 1 written as ``None`` (its one part is the whole)."""
+    spec = spec_for_shape(rules, shape, logical)
+    ext = rules.mesh.shape
+    out = []
+    for ax in spec:
+        if isinstance(ax, tuple):
+            raise NotImplementedError(f"a dimension on the axes {ax}: a "
+                                      f"DeviceMesh puts one axis on a "
+                                      f"dimension")
+        out.append(ax if ax is not None and ext[ax] > 1 else None)
+    return tuple(out) + (None,) * (len(shape) - len(out))
+
+
+def _part(n: int, ax: Axis, coords: Dict[str, int],
+          ext: Dict[str, int]) -> Tuple[int, int]:
+    """The ``[lo, hi)`` range of a dimension of ``n`` that coordinate
+    ``coords`` holds when the dimension is on axis ``ax``."""
+    if ax is None:
+        return 0, n
+    step = n // ext[ax]
+    return coords[ax] * step, (coords[ax] + 1) * step
+
+
+def ranges(x: Placed, dim: int) -> "PerShard":
+    """Each shard's ``(lo, hi)`` of ``x``'s dimension ``dim`` in the
+    whole tensor."""
+    n, ax = x.shape[dim], x.spec[dim]
+    return PerShard(_part(n, ax, x.mesh.coords(s), x.mesh.shape)
+                    for s in range(x.mesh.nshards))
+
+
+def place(t: torch.Tensor, mesh: DeviceMesh, spec: Spec) -> Placed:
+    """The whole tensor ``t`` placed on ``mesh`` by ``spec``: each
+    piece a copy of its part, moved onto its shard (from the current
+    stream of ``t``'s device)."""
+    ext = mesh.shape
+    pieces = []
+    for s in range(mesh.nshards):
+        c = mesh.coords(s)
+        part = t
+        for dim, ax in enumerate(spec):
+            lo, hi = _part(t.shape[dim], ax, c, ext)
+            if (lo, hi) != (0, t.shape[dim]):
+                part = part.narrow(dim, lo, hi - lo)
+        pieces.append(mesh.move(part, s))
+    return Placed(pieces, mesh, spec)
+
+
+def placed_full(shape: Sequence[int], spec: Spec, mesh: DeviceMesh,
+                value: float, dtype: torch.dtype) -> Placed:
+    """A placed tensor of ``shape`` filled with ``value``, each piece
+    made on its shard's device and stream: nothing is made whole."""
+    ext = mesh.shape
+    pieces = []
+    for s in range(mesh.nshards):
+        c = mesh.coords(s)
+        piece = tuple(hi - lo for lo, hi in
+                      (_part(n, ax, c, ext) for n, ax in zip(shape, spec)))
+        with mesh.on(s):
+            pieces.append(torch.full(piece, value, dtype=dtype,
+                                     device=mesh.devices[s]))
+    return Placed(pieces, mesh, spec)
+
+
+def each(fn, *args, spec, mesh: Optional[DeviceMesh] = None):
+    """``fn`` shard by shard on each shard's stream: a :class:`Placed`
+    argument as its piece, a :class:`PerShard` as its entry, anything
+    else as it is (never a tensor of another shard: move it first).
+    ``spec`` is the output's physical spec, a list of them when ``fn``
+    returns a tuple (one :class:`Placed` an entry), or ``None`` for
+    values that are no part of one whole tensor (a :class:`PerShard`).
+    ``mesh`` is the first placed argument's unless given."""
+    if mesh is None:
+        mesh = next(a.mesh for a in args if isinstance(a, Placed))
+    outs = []
+    for s in range(mesh.nshards):
+        local = [a.pieces[s] if isinstance(a, Placed)
+                 else a[s] if isinstance(a, PerShard) else a for a in args]
+        with mesh.on(s):
+            outs.append(fn(*local))
+    if spec is None:
+        return PerShard(outs)
+    if isinstance(spec, list):
+        return tuple(Placed([o[i] for o in outs], mesh, sp)
+                     for i, sp in enumerate(spec))
+    return Placed(outs, mesh, spec)
+
+
+def reshard(x: Placed, spec: Spec) -> Placed:
+    """``x`` laid out by ``spec``: each shard's new piece assembled from
+    the pieces that hold its parts (for an axis the old spec does not
+    use, the replica at the shard's own rank), each part moved from its
+    shard and written into place.  A piece that is already the new one
+    is kept as it is.  Gathering a dimension over an axis (the
+    all-gather) is a reshard to ``None`` on it."""
+    spec = tuple(spec)
+    if spec == x.spec:
+        return x
+    mesh, ext, shape = x.mesh, x.mesh.shape, x.shape
+    pieces = []
+    for s in range(mesh.nshards):
+        c = mesh.coords(s)
+        want = [_part(n, ax, c, ext) for n, ax in zip(shape, spec)]
+        # the source shards: every rank of an axis the old spec uses
+        # whose part meets the wanted range, the own rank of any other
+        options = []
+        for axis in mesh.axis_names:
+            if axis not in x.spec:
+                options.append([c[axis]])
+                continue
+            dim = x.spec.index(axis)
+            step = shape[dim] // ext[axis]
+            lo, hi = want[dim]
+            options.append([r for r in range(ext[axis])
+                            if r * step < hi and lo < (r + 1) * step])
+        sources = [d * mesh.model + m for d in options[0] for m in options[1]]
+        have = [_part(n, ax, c, ext) for n, ax in zip(shape, x.spec)]
+        if sources == [s] and have == want:
+            pieces.append(x.pieces[s])
+            continue
+        with mesh.on(s):
+            out = torch.empty(tuple(hi - lo for lo, hi in want),
+                              dtype=x.dtype, device=mesh.devices[s])
+        for r in sources:
+            src, dst = x.pieces[r], out
+            rc = mesh.coords(r)
+            for dim, (n, ax) in enumerate(zip(shape, x.spec)):
+                slo, shi = _part(n, ax, rc, ext)
+                lo, hi = max(slo, want[dim][0]), min(shi, want[dim][1])
+                src = src.narrow(dim, lo - slo, hi - lo)
+                dst = dst.narrow(dim, lo - want[dim][0], hi - lo)
+            mesh.move(src, s, src=r, out=dst)
+        pieces.append(out)
+    return Placed(pieces, mesh, spec)
+
+
+def gather_axis(x: Placed, axis: str) -> Placed:
+    """``x`` with every dimension on ``axis`` gathered whole (the
+    all-gather over ``axis``, parts in rank order)."""
+    return reshard(x, tuple(None if ax == axis else ax for ax in x.spec))
+
+
+def group_pieces(x: Union[Placed, PerShard], axis: str,
+                 mesh: Optional[DeviceMesh] = None) -> PerShard:
+    """Each shard's group along ``axis``: the group's pieces (or
+    per-shard values) in rank order, each moved to the shard (its own
+    as it is)."""
+    mesh = x.mesh if mesh is None else mesh
+    pieces = x.pieces if isinstance(x, Placed) else x
+    return PerShard(
+        tuple(pieces[r] if r == s else mesh.move(pieces[r], s, src=r)
+              for r in mesh.group(axis, s))
+        for s in range(mesh.nshards))
+
+
+def reduce_sum(x: Placed, axis: str) -> Placed:
+    """The sum over ``axis`` (the reference's ``psum``): every shard
+    gets its group's pieces moved to it and added in rank order, from
+    rank 0's, so every shard of a group holds the same bits."""
+    if x.mesh.shape[axis] == 1:
+        return x
+
+    def total(parts):
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc
+
+    return each(total, group_pieces(x, axis), spec=x.spec, mesh=x.mesh)
+
+
+def heads_to_seq(x: Placed, ranges: Sequence[Tuple[int, int]],
+                 seq_dim: int = 1, head_dim: int = 2) -> PerShard:
+    """The head-to-sequence relayout of a prefill's keys or values: from
+    ``x``, its heads on the model axis (or whole) and its positions
+    whole, to each shard holding positions ``ranges[s] = (lo, hi)`` of
+    every head, its model group's head pieces of those positions moved
+    to it and joined in rank order (the all-to-all).  With the heads
+    whole each shard slices its own piece.  The ranges need not split
+    the positions evenly, so the result is one tensor a shard."""
+    mesh = x.mesh
+    pieces = []
+    for s, (lo, hi) in enumerate(ranges):
+        if x.spec[head_dim] is None:
+            pieces.append(x.pieces[s].narrow(seq_dim, lo, hi - lo))
+            continue
+        parts = []
+        for r in mesh.group("model", s):
+            part = x.pieces[r].narrow(seq_dim, lo, hi - lo)
+            parts.append(part if r == s else mesh.move(part, s, src=r))
+        with mesh.on(s):
+            pieces.append(torch.cat(parts, dim=head_dim))
+    return PerShard(pieces)
+
+
+def to_whole(x: Placed) -> torch.Tensor:
+    """The whole tensor on shard 0's device (the current stream there),
+    each part moved from the first shard that holds it."""
+    mesh, ext, shape = x.mesh, x.mesh.shape, x.shape
+    out = torch.empty(shape, dtype=x.dtype, device=mesh.device)
+    for s in range(mesh.nshards):
+        c = mesh.coords(s)
+        if any(c[a] for a in mesh.axis_names if a not in x.spec):
+            continue            # a replica: rank 0 of that axis gives it
+        dst = out
+        for dim, (n, ax) in enumerate(zip(shape, x.spec)):
+            lo, hi = _part(n, ax, c, ext)
+            dst = dst.narrow(dim, lo, hi - lo)
+        mesh.move(x.pieces[s], None, src=s, out=dst)
+    return out
+
+
+def mean_over_mesh(x: Placed) -> torch.Tensor:
+    """The mean of a 0-d placed value over every shard (the reference's
+    ``pmean`` over all axes), summed in shard order on shard 0's
+    device."""
+    mesh = x.mesh
+    parts = [mesh.move(p, None, src=s) for s, p in enumerate(x.pieces)]
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc / mesh.nshards
 
 
 # ----------------------------------------------------------------------

@@ -16,9 +16,9 @@ shard's z-slab lives on the card; for the LM dry run they are
 and extents (:func:`make_production_mesh`), whose collectives cross the
 network at :data:`NETWORK_RATE`.  The reference's elastic ``make_mesh_for`` (the
 ``(data, model)`` mesh of the LM axis rules) keeps its arithmetic
-(:func:`mesh_shape_for`); on the one card it is the ``(1, 1)``
-:class:`~repro_torch.distributed.sharding.LogicalMesh`, and a mesh over
-distinct cards raises (ROADMAP, Queue 1 item 4).
+(:func:`mesh_shape_for`); for more than one device it is a
+:class:`~repro_torch.distributed.sharding.DeviceMesh` the LM stack
+serves over, its shards spanning the visible cards or repeating one.
 """
 from __future__ import annotations
 
@@ -147,16 +147,19 @@ def mesh_shape_for(devices: int, model_parallel: Optional[int] = None
     return devices // model, model
 
 
-def make_mesh_for(devices: int, model_parallel: Optional[int] = None
-                  ) -> sharding.LogicalMesh:
-    """The ``(data, model)`` mesh for ``devices`` devices: on one card
-    the ``(1, 1)`` mesh, under which the axis rules map every tensor
-    whole.  More devices raise: a mesh over distinct cards waits for a
-    machine with more than one card (ROADMAP, Queue 1 item 4)."""
+def make_mesh_for(devices: int, model_parallel: Optional[int] = None,
+                  device: Union[str, torch.device] = "cuda"):
+    """The ``(data, model)`` mesh for ``devices`` devices, with the
+    reference's arithmetic (:func:`mesh_shape_for`).  One device is the
+    ``(1, 1)`` :class:`~repro_torch.distributed.sharding.LogicalMesh`,
+    under which the axis rules map every tensor whole and the LM stack
+    runs mesh-less.  More are a :class:`~repro_torch.distributed.
+    sharding.DeviceMesh` of ``devices`` shards on ``device``: with
+    ``"cuda"`` (no index) they span the visible cards, shard ``s`` on
+    card ``s * c // devices``, the one card repeated when there is one;
+    an indexed card or ``"cpu"`` holds every shard."""
     data, model = mesh_shape_for(devices, model_parallel)
-    if devices > 1:
-        raise NotImplementedError(
-            f"a ({data}, {model}) mesh over {devices} cards waits for a "
-            f"machine with more than one card (ROADMAP, Queue 1 item 4)")
-    return sharding.LogicalMesh(("data", "model"),
-                                {"data": data, "model": model})
+    if devices == 1:
+        return sharding.LogicalMesh(("data", "model"),
+                                    {"data": data, "model": model})
+    return sharding.make_device_mesh(data, model, device)

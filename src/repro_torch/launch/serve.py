@@ -23,6 +23,16 @@ versions of the kernels); the default is the card, and with no card
 visible the run raises.  A vision arch (``qwen2_vl_72b``) takes patch
 embeddings, not token prompts, and is refused, as the reference refuses
 it.
+
+As the reference does, the LM path serves over ``make_mesh_for(n)``
+(tensor, expert and data parallel) when ``n > 1`` cards are visible;
+``--mesh N`` asks for ``N`` shards over the visible cards (or, with
+``--device cpu``, on the CPU).  The hybrid, ssm and encoder-decoder
+families and the vision frontend raise over a mesh (ROADMAP, Queue 1
+item 2)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+        --smoke --mesh 4 --device cpu
 """
 from __future__ import annotations
 
@@ -53,16 +63,24 @@ def _serve_lm(args) -> None:
     import torch
 
     from repro_torch._device import resolve_device
+    from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry as R
     from repro_torch.serving.engine import ServeEngine
 
     cfg = R.get_config(args.arch, smoke=args.smoke)
-    if cfg.frontend == "vision":
+    dev = resolve_device(args.device)
+    shards = args.mesh
+    if shards is None:
+        shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    mesh = make_mesh_for(shards, device=dev) if shards > 1 else None
+    if cfg.frontend == "vision" and mesh is None:
         raise SystemExit(f"--arch {args.arch}: vision serving takes patch "
                          f"embeddings, not token prompts")
-    dev = resolve_device(args.device)
+    if mesh is not None:
+        dev = mesh.device
+    # over a mesh this raises for the families it does not serve
     model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                          device=dev)
+                          device=dev, mesh=mesh)
     prefill_fn = R.make_prefill(cfg)
 
     def prefill(p, t, c):
@@ -73,15 +91,19 @@ def _serve_lm(args) -> None:
         return prefill_fn(p, inputs, c)
 
     eng = ServeEngine(prefill_fn=prefill, decode_fn=R.make_decode(cfg),
-                      cache_init=lambda b, s: R.init_caches(cfg, b, s, device=dev))
+                      cache_init=lambda b, s: R.init_caches(cfg, b, s,
+                                                            device=dev,
+                                                            mesh=mesh))
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator(device=dev).manual_seed(1),
                            device=dev)
     t0 = time.perf_counter()
     out = eng.generate(model, prompt, steps=args.gen).cpu()
     wall = time.perf_counter() - t0
+    where = "" if mesh is None else \
+        f" on a ({mesh.shape['data']}, {mesh.shape['model']}) mesh"
     print(f"{cfg.name}: {tuple(out.shape)} tokens in {wall:.2f}s "
-          f"({args.batch*args.gen/wall:.1f} tok/s incl. compile)")
+          f"({args.batch*args.gen/wall:.1f} tok/s incl. compile){where}")
 
 
 def _serve_solves(args) -> None:
@@ -117,6 +139,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="serve over a (data, model) mesh of this many "
+                         "shards (default: one a visible card)")
     # solve-service path
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=6)

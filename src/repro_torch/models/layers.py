@@ -36,6 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (Placed, each, gather_axis,
+                                              group_pieces, heads_to_seq,
+                                              ranges, reduce_sum)
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, torch.Tensor]
@@ -79,9 +82,15 @@ class Init:
                                        device=self.device))
 
 
-def use_param(param: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def use_param(param: Union[torch.Tensor, Placed], cfg: ModelConfig):
     """Bring a parameter to the compute dtype at its point of use (no
-    copy when the two dtypes agree)."""
+    copy when the two dtypes agree).  A placed parameter is cast piece by
+    piece and then has its fsdp parts gathered over ``data``: the
+    reference's cast-then-gather order (``layers.py:41-52``), which moves
+    compute-dtype bytes."""
+    if isinstance(param, Placed):
+        cast = each(lambda t: t.to(cfg.cdt), param, spec=param.spec)
+        return gather_axis(cast, "data")
     return param.to(cfg.cdt)
 
 
@@ -102,7 +111,10 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.scale = init.full((d,), 1.0, dtype)
 
-    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+    def forward(self, x, eps: float):
+        if isinstance(x, Placed):
+            return each(lambda sc, t: rmsnorm(sc, t, eps), self.scale, x,
+                        spec=x.spec)
         return rmsnorm(self.scale, x, eps)
 
 
@@ -357,6 +369,12 @@ class Attention(nn.Module):
         The cache's tensors are updated in place and returned in a new
         dict (the reference returns new arrays).
         """
+        if isinstance(x, Placed):
+            if kv_source is not None or positions is not None or not causal:
+                raise NotImplementedError(
+                    "cross-attention and M-RoPE positions over a device "
+                    "mesh (ROADMAP, Queue 1 item 2)")
+            return self._forward_mesh(x, kind, cache, cache_index)
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -419,18 +437,8 @@ class Attention(nn.Module):
                 kv_pos = torch.arange(ck.shape[1], device=dev)[None, :]
 
             if s == 1:
-                # decode: GROUPED einsums over (kv_heads, g) against the
-                # cache, the reference's layout
-                valid = (kv_pos <= cache_index) & (kv_pos >= 0)
-                if kind == "local" and cfg.window > 0:
-                    valid &= kv_pos > cache_index - cfg.window
-                qg = q.reshape(b, 1, kh, g, hd)
-                scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
-                                      ck.to(cdt).float())
-                scores = scores / math.sqrt(hd)
-                pr = masked_softmax(scores, valid[:, None, None, None], cdt)
-                out = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.to(cdt))
-                out = out.reshape(b, 1, h, hd)
+                valid = _decode_valid(kv_pos, cache_index, kind, cfg)
+                out = _decode_attend(q, ck, cv, valid, cfg)
                 return merge_heads(out, use_param(self.wo, cfg)), new_cache
 
         # train / prefill path (flat heads: K/V repeated to all H)
@@ -445,6 +453,224 @@ class Attention(nn.Module):
             out = _sdpa_chunked(q, kf, vf, causal=True, window=0,
                                 chunk_q=cfg.attn_chunk)
         return merge_heads(out, use_param(self.wo, cfg)), new_cache
+
+    # ------------------------------------------------------------------
+    # over a device mesh
+    # ------------------------------------------------------------------
+    def _forward_mesh(self, x: Placed, kind: str, cache: Optional[Dict],
+                      cache_index: Optional[int]):
+        """Tensor-parallel attention over a :class:`DeviceMesh` (the
+        reference's GSPMD layout of ``layers.py:250-271``): q, k and v
+        column-parallel over ``heads`` and ``kv_heads`` (whole where the
+        model extent does not divide them), K/V repeated to the shard's
+        query heads, ``wo`` row-parallel with its partials summed over
+        ``model`` in rank order.  A prefill writes its keys and values
+        into the ``kv_seq``-sharded cache through the head-to-sequence
+        relayout; a decode step attends with :meth:`_decode_mesh`.
+        ``cache_index`` is an int (the mesh path runs eagerly)."""
+        cfg = self.cfg
+        mesh = x.mesh
+        b, s, _ = x.shape
+        h, kh = cfg.n_heads, cfg.n_kv_heads
+        g = h // kh
+        bspec = x.spec[0]
+        wq, wk, wv = (use_param(w, cfg) for w in (self.wq, self.wk, self.wv))
+        hspec, kvspec = wq.spec[1], wk.spec[1]
+        q = each(project_heads, x, wq, spec=(bspec, None, hspec, None))
+        k = each(project_heads, x, wk, spec=(bspec, None, kvspec, None))
+        v = each(project_heads, x, wv, spec=k.spec)
+        if cfg.use_rope:
+            start = 0 if cache_index is None else cache_index
+
+            def rope(t):
+                pos = torch.arange(s, device=t.device)[None] + start
+                return apply_rope(t, pos, cfg.rope_theta)
+
+            q = each(rope, q, spec=q.spec)
+            k = each(rope, k, spec=k.spec)
+        if cache is not None and s == 1:
+            return self._decode_mesh(q, k, v, kind, cache, cache_index)
+        new_cache = None if cache is None else _prefill_cache(k, v, cache, s)
+
+        hl = h // mesh.shape["model"] if hspec else h
+
+        def full(t, m):
+            # K/V repeated to all heads, the shard's query heads kept
+            rep = torch.repeat_interleave(t, g, dim=2)
+            return rep if hspec is None or kvspec else rep[:, :, m * hl:(m + 1) * hl]
+
+        ranks = mesh.ranks("model")
+        kf = each(full, k, ranks, spec=q.spec)
+        vf = each(full, v, ranks, spec=q.spec)
+        if kind == "local" and cfg.window > 0:
+            def attend(q, k, v):
+                return _sdpa_banded(q, k, v, window=cfg.window,
+                                    chunk=cfg.attn_chunk)
+        else:
+            def attend(q, k, v):
+                return _sdpa_chunked(q, k, v, causal=True, window=0,
+                                     chunk_q=cfg.attn_chunk)
+        out = each(attend, q, kf, vf, spec=q.spec)
+        return _row_parallel(out, use_param(self.wo, cfg), merge_heads), \
+            new_cache
+
+    def _decode_mesh(self, q: Placed, k: Placed, v: Placed, kind: str,
+                     cache: Dict, cache_index: int):
+        """One decode step against the ``kv_seq``-sharded cache (the
+        reference's flash-decode layout, ``transformer.py:95-115``): the
+        new row, every kv head, written by the shard whose part of the
+        cache holds its slot (a ring's ``pos`` with it); every shard
+        scores the whole query against its part and keeps a partial
+        softmax (running max, sum and weighted values, f32), and the
+        partials combine in rank order on each shard of the group.  A
+        cache whose positions the model extent does not divide is whole
+        on every shard, which attends as the one-device step does."""
+        cfg = self.cfg
+        mesh = q.mesh
+        b = q.pieces[0].shape[0]
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        g = h // kh
+        ck, cv = cache["k"], cache["v"]
+        ring = "pos" in cache
+        n = ck.shape[1]
+        slot = min(max(cache_index % n if ring else cache_index, 0), n - 1)
+        spans = ranges(ck, 1)
+        k_all, v_all = gather_axis(k, "model"), gather_axis(v, "model")
+
+        def write(ck, cv, k, v, span, cpos=None):
+            lo, hi = span
+            if lo <= slot < hi:
+                ck.narrow(1, slot - lo, 1).copy_(k.to(ck.dtype))
+                cv.narrow(1, slot - lo, 1).copy_(v.to(cv.dtype))
+                if cpos is not None:
+                    cpos[slot - lo] = cache_index
+
+        pos = [cache["pos"]] if ring else []
+        each(write, ck, cv, k_all, v_all, spans, *pos, spec=None)
+        q_all = gather_axis(q, "model")
+        cdt = cfg.cdt
+
+        def kv_positions(span, cpos, device):
+            if cpos is not None:
+                return cpos[None, :]
+            return torch.arange(span[0], span[1], device=device)[None, :]
+
+        if ck.spec[1] is None:
+            def attend(q, ck, cv, span, cpos=None):
+                kv_pos = kv_positions(span, cpos, ck.device)
+                return _decode_attend(
+                    q, ck, cv, _decode_valid(kv_pos, cache_index, kind, cfg), cfg)
+            out = each(attend, q_all, ck, cv, spans, *pos, spec=q_all.spec)
+        else:
+            def partial(q, ck, cv, span, cpos=None):
+                kv_pos = kv_positions(span, cpos, ck.device)
+                valid = _decode_valid(kv_pos, cache_index, kind, cfg)
+                qg = q.reshape(b, 1, kh, g, hd)
+                scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                                      ck.to(cdt).float()) / math.sqrt(hd)
+                scores = torch.where(valid[:, None, None, None], scores,
+                                     torch.full((), -1e30, device=ck.device))
+                top = scores.amax(dim=-1, keepdim=True)
+                e = torch.exp(scores - top)
+                o = torch.einsum("bkgqs,bskh->bkgqh", e, cv.to(cdt).float())
+                return torch.cat([top, e.sum(dim=-1, keepdim=True), o], dim=-1)
+
+            parts = each(partial, q_all, ck, cv, spans, *pos, spec=None)
+
+            def combine(group):
+                top = group[0][..., :1]
+                for p in group[1:]:
+                    top = torch.maximum(top, p[..., :1])
+                acc = None
+                for p in group:
+                    term = torch.exp(p[..., :1] - top) * p[..., 1:]
+                    acc = term if acc is None else acc + term
+                o = acc[..., 1:] / acc[..., :1]            # (b, kh, g, 1, hd)
+                return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(cdt)
+
+            out = each(combine, group_pieces(parts, "model", mesh),
+                       spec=q_all.spec, mesh=mesh)
+        wo = use_param(self.wo, cfg)
+        if wo.spec[0] is not None:
+            hl = h // mesh.shape["model"]
+            out = each(lambda o, m: o[:, :, m * hl:(m + 1) * hl], out,
+                       mesh.ranks("model"), spec=q.spec)
+        return _row_parallel(out, wo, merge_heads), cache
+
+
+def _prefill_cache(k: Placed, v: Placed, cache: Dict, s: int) -> Dict:
+    """A prefill's keys and values written into a ``kv_seq``-sharded
+    cache, as the one-device prefill writes them (a full cache from
+    position 0; a ring keeps the last ``w`` positions rolled into their
+    slots, or the first ``s`` from slot 0), each shard taking the
+    positions its part holds through :func:`heads_to_seq`."""
+    ck, cv = cache["k"], cache["v"]
+    ring = "pos" in cache
+    w = ck.shape[1]
+    if ring and s >= w:
+        shift = (s - w) % w
+        k = each(lambda t: torch.roll(t[:, -w:], shift, dims=1), k, spec=k.spec)
+        v = each(lambda t: torch.roll(t[:, -w:], shift, dims=1), v, spec=v.spec)
+        n = w
+    else:
+        n = s
+    spans = ranges(ck, 1)
+    written = [(min(lo, n), min(hi, n)) for lo, hi in spans]
+    ks, vs = heads_to_seq(k, written), heads_to_seq(v, written)
+
+    def write(ck, cv, kr, vr, span, cpos=None):
+        lo, hi = span
+        m = min(hi, n) - lo
+        if m > 0:
+            ck.narrow(1, 0, m).copy_(kr.to(ck.dtype))
+            cv.narrow(1, 0, m).copy_(vr.to(cv.dtype))
+        if cpos is not None:
+            if s >= w:
+                ring_pos = torch.roll(torch.arange(s - w, s, dtype=cpos.dtype,
+                                                   device=cpos.device), shift)
+                cpos.copy_(ring_pos[lo:hi])
+            elif m > 0:
+                cpos[:m] = torch.arange(lo, lo + m, dtype=cpos.dtype,
+                                        device=cpos.device)
+
+    each(write, ck, cv, ks, vs, spans, *([cache["pos"]] if ring else []),
+         spec=None)
+    return cache
+
+
+def _row_parallel(x: Placed, w: Placed, product) -> Placed:
+    """``product(x, w)`` shard by shard, its partials summed over
+    ``model`` in rank order when ``w``'s contracted (first) dimension is
+    on ``model``; whole otherwise."""
+    y = each(product, x, w, spec=(x.spec[0], None, None))
+    return reduce_sum(y, "model") if w.spec[0] is not None else y
+
+
+def _decode_valid(kv_pos: torch.Tensor, cache_index: Position, kind: str,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The cache positions a decode step at ``cache_index`` attends:
+    written, not in the future, and for a local layer inside the
+    window."""
+    valid = (kv_pos <= cache_index) & (kv_pos >= 0)
+    if kind == "local" and cfg.window > 0:
+        valid &= kv_pos > cache_index - cfg.window
+    return valid
+
+
+def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A decode step's attention over a whole cache: GROUPED einsums over
+    (kv_heads, g), the reference's layout; ``(b, 1, h, hd)``."""
+    b = q.shape[0]
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kh
+    cdt = cfg.cdt
+    qg = q.reshape(b, 1, kh, g, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), ck.to(cdt).float())
+    scores = scores / math.sqrt(hd)
+    pr = masked_softmax(scores, valid[:, None, None, None], cdt)
+    out = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.to(cdt))
+    return out.reshape(b, 1, h, hd)
 
 
 # ----------------------------------------------------------------------
@@ -477,8 +703,25 @@ class MLP(nn.Module):
                        else None)
         self.w_out = init.dense((f, d), cfg.pdt, fan_in=f)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         cfg = self.cfg
+        if isinstance(x, Placed):
+            return self._forward_mesh(x)
         h = x @ use_param(self.w_in, cfg)
         g = None if self.w_gate is None else x @ use_param(self.w_gate, cfg)
         return _act(cfg.mlp_act, h, g) @ use_param(self.w_out, cfg)
+
+    def _forward_mesh(self, x: Placed) -> Placed:
+        """Column-parallel ``w_in``/``w_gate`` over ``mlp``, then
+        row-parallel ``w_out``, its partials summed over ``model`` in
+        rank order."""
+        cfg = self.cfg
+        w_in = use_param(self.w_in, cfg)
+        spec = (x.spec[0], None, w_in.spec[1])
+        h = each(torch.matmul, x, w_in, spec=spec)
+        if self.w_gate is None:
+            a = each(lambda h: _act(cfg.mlp_act, h, None), h, spec=spec)
+        else:
+            g = each(torch.matmul, x, use_param(self.w_gate, cfg), spec=spec)
+            a = each(lambda h, g: _act(cfg.mlp_act, h, g), h, g, spec=spec)
+        return _row_parallel(a, use_param(self.w_out, cfg), torch.matmul)

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts layer (port of ``repro/models/moe.py``, the
-mesh-less path).
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``).
 
 Dispatch is sort-based, as in the reference's ``_moe_local`` with no
 tensor- or data-parallel axis: tokens are ordered by expert id
@@ -15,9 +14,17 @@ in the compute dtype, the order the reference's ``.at[tok_table].add``
 takes, with no atomics (``index_add_`` on the card is not
 deterministic).
 
-The reference's expert-parallel ``shard_map`` path needs distinct cards
-(ROADMAP, Queue 1 item 4): under axis rules whose mesh has an axis
-longer than 1, :func:`moe` raises.
+Over a :class:`~repro_torch.distributed.sharding.DeviceMesh` the block
+is the reference's expert-parallel ``_moe_local`` (``moe.py:56-154``):
+the router replicated, each model shard holding ``e / model`` experts,
+routing and capacity computed per data shard from its local tokens (so
+a ``data`` axis longer than 1 drops other tokens than one device
+does), ``aux`` averaged over every shard.  The combine gathers the
+experts' outputs over ``model`` and runs the one-device gather in its
+slot order, so at ``data = 1`` the block is the one-device block.
+Under axis rules over a :class:`~repro_torch.distributed.sharding.
+LogicalMesh` with an axis longer than 1 nothing is placed, and
+:func:`moe` raises.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import current_rules
+from repro_torch.distributed.sharding import (Placed, current_rules, each,
+                                              gather_axis)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, gelu, use_param
 
@@ -144,12 +152,14 @@ def combine(y: torch.Tensor, tok_table: torch.Tensor, t: int, k: int
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE block. x: (B, S, d). Returns (y, aux_loss)."""
+    if isinstance(x, Placed):
+        return _moe_mesh(p, x, cfg)
     mesh = current_rules().mesh
     if mesh is not None and any(int(n) > 1 for n in dict(mesh.shape).values()):
         raise NotImplementedError(
-            "the expert-parallel MoE over a mesh waits for a machine with "
-            "more than one card (ROADMAP, Queue 1 item 4); the one card "
-            "runs the mesh-less path")
+            "the expert-parallel MoE runs on tensors placed on a "
+            "DeviceMesh (registry.init_params(cfg, ..., mesh=)); a "
+            "LogicalMesh places nothing")
     b, s, d = x.shape
     t = b * s
     cdt = cfg.cdt
@@ -168,3 +178,51 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
     y = y * w_table[..., None].to(cdt)
     out = combine(y.reshape(-1, d), tok_table, t, cfg.top_k)
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_mesh(p: MoE, x: Placed, cfg: ModelConfig):
+    """The expert-parallel block over ``x``'s device mesh: each shard
+    routes its data shard's ``t`` local tokens with the replicated
+    router (capacity from ``t``), runs its ``e / model`` experts on the
+    slots it owns, and every shard of a data group gathers the group's
+    expert outputs over ``model`` and combines them in the one-device
+    slot order.  Returns the output and each shard's aux loss."""
+    mesh = x.mesh
+    if mesh.shape["data"] > 1 and x.spec[0] is None:
+        raise ValueError(f"the expert-parallel MoE splits the batch over "
+                         f"data={mesh.shape['data']}, which does not divide "
+                         f"a batch of {x.shape[0]}")
+    d, k, cdt = cfg.d_model, cfg.top_k, cfg.cdt
+    routed = each(lambda xp, r: route(xp.reshape(-1, d), r, cfg), x, p.router,
+                  spec=None)
+    w_in = use_param(p.w_in, cfg)
+    w_gate = None if p.w_gate is None else use_param(p.w_gate, cfg)
+    w_out = use_param(p.w_out, cfg)
+    espec = w_in.spec[0]
+    local = w_in.pieces[0].shape[0]
+
+    def experts(xp, tables, wi, wo, m, wg=None):
+        tok_table, w_table, _ = tables
+        lo = m * local if espec else 0
+        tok, wt = tok_table[lo:lo + local], w_table[lo:lo + local]
+        xt = xp.reshape(-1, d)
+        xg = torch.cat([xt, xt.new_zeros((1, d))], dim=0)[tok].to(cdt)
+        h = torch.bmm(xg, wi)
+        if wg is not None:
+            g = torch.bmm(xg, wg)
+            h = F.silu(g) * h if cfg.mlp_act == "silu_gated" else gelu(g) * h
+        else:
+            h = gelu(h)
+        return torch.bmm(h, wo) * wt[..., None].to(cdt)
+
+    y = each(experts, x, routed, w_in, w_out, mesh.ranks("model"),
+             *([] if w_gate is None else [w_gate]), spec=(espec, None, None))
+    y = gather_axis(y, "model")
+
+    def out(xp, y, tables):
+        t = xp.shape[0] * xp.shape[1]
+        return combine(y.reshape(-1, d), tables[0], t, k).reshape(
+            xp.shape).to(xp.dtype)
+
+    aux = each(lambda tables: tables[2], routed, spec=(), mesh=mesh)
+    return each(out, x, y, routed, spec=x.spec), aux

@@ -12,6 +12,14 @@ distributed.sharding.AxisRules`, each leaf's physical spec and
 per-device shape (``build_cell``, ``abstract_*``, ``batch_structs``,
 ``specs_to_physical``, ``Cell``): nothing is allocated.
 
+Over a :class:`~repro_torch.distributed.sharding.DeviceMesh` (``mesh=``)
+the decoder families with token prompts serve tensor-, expert- and
+data-parallel: :func:`init_params` and :func:`init_caches` place every
+leaf by its logical spec under :func:`serving_rules` (one
+:class:`~repro_torch.distributed.sharding.Placed` a leaf, made leaf by
+leaf, never the whole model on one device), and the step functions run
+under those rules.
+
 The reference keeps parameters in a pytree with a pattern group's layers
 stacked along a leading axis; :func:`reference_path` says where each of
 the port's parameters lives in it, and :func:`reference_leaf_order`
@@ -19,6 +27,7 @@ lists them in that tree's flatten order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -29,8 +38,11 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
-from repro_torch.distributed.sharding import (AxisRules, Spec,
-                                              shard_shape, spec_for_shape)
+from repro_torch.distributed.sharding import (DEFAULT_RULES, AxisRules,
+                                              DeviceMesh, Placed, Spec,
+                                              physical_spec, place,
+                                              placed_full, shard_shape,
+                                              spec_for_shape, use_rules)
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -91,25 +103,136 @@ def build_model(cfg: ModelConfig, init: Init) -> nn.Module:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: Union[str, torch.device] = "cuda") -> nn.Module:
+                device: Union[str, torch.device] = "cuda",
+                mesh: Optional[DeviceMesh] = None) -> nn.Module:
     """The model of ``cfg`` with random parameters, made on ``device``
     (the card unless the caller asks for the CPU) and drawn from
     ``generator`` (a ``torch.Generator`` on that device; seed 0 when
     none is given).  There are no pretrained weights: the reference
-    initialises from ``jax.random`` the same way."""
-    dev = resolve_device(device)
+    initialises from ``jax.random`` the same way.
+
+    With ``mesh`` every parameter is drawn whole on the mesh's first
+    device, in the order the one-device model draws them (so the values
+    are that model's), placed by :func:`place_parameters` and dropped
+    before the next is drawn."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
                          f"parameters on {dev}")
-    return build_model(cfg, Init(dev, generator))
+    if mesh is None:
+        return build_model(cfg, Init(dev, generator))
+    check_mesh_config(cfg, mesh)
+    recorder = _Recorder()
+    model = build_model(cfg, recorder)
+    names = {id(p): name for name, p in model.named_parameters()}
+    init = Init(dev, generator)
+    values = ((names[id(p)], getattr(init, kind)(*args))
+              for p, kind, args in recorder.made)
+    return place_parameters(model, mesh, values)
+
+
+class _Recorder(Init):
+    """An :class:`Init` on the meta device that records, in construction
+    order, each parameter it makes with the call that made it."""
+
+    def __init__(self):
+        super().__init__(META)
+        self.made: list = []
+
+    def dense(self, shape, dtype, fan_in=None):
+        p = super().dense(shape, dtype, fan_in)
+        self.made.append((p, "dense", (shape, dtype, fan_in)))
+        return p
+
+    def full(self, shape, value, dtype):
+        p = super().full(shape, value, dtype)
+        self.made.append((p, "full", (shape, value, dtype)))
+        return p
+
+
+def serving_rules(cfg: ModelConfig, mesh) -> AxisRules:
+    """The reference's axis rules over ``mesh`` as it serves: the
+    default rules, without the fsdp axis when ``cfg.serve_resident``
+    keeps the weights resident (``registry.py:219-226``; no config sets
+    it, so fsdp stays on ``data``)."""
+    rules = dict(DEFAULT_RULES)
+    if cfg.serve_resident:
+        rules["fsdp"] = None
+    return AxisRules(mesh, rules)
+
+
+def check_mesh_config(cfg: ModelConfig, mesh) -> None:
+    """Raise for what does not serve over a mesh with an axis longer
+    than 1: the hybrid, ssm and encoder-decoder families, the vision
+    frontend, learned positions and tied embeddings (ROADMAP, Queue 1
+    item 2)."""
+    if all(int(n) == 1 for n in dict(mesh.shape).values()):
+        return
+    if (cfg.family != "lm" or cfg.frontend != "none" or not cfg.use_rope
+            or cfg.tie_embeddings):
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}, frontend {cfg.frontend!r}) "
+            f"over a device mesh: only the decoder LMs with token prompts "
+            f"serve over one yet (ROADMAP, Queue 1 item 2)")
+
+
+def place_parameters(model: nn.Module, mesh: DeviceMesh, values
+                     ) -> nn.Module:
+    """``model`` (built on ``meta``) with its parameters placed on
+    ``mesh``: ``values`` yields ``(name, whole tensor)`` pairs, one at a
+    time, and each is placed by its logical spec under
+    :func:`serving_rules` and set on its module as a :class:`Placed` in
+    place of the parameter.  The model gets ``mesh`` and ``rules``."""
+    cfg = model.cfg
+    check_mesh_config(cfg, mesh)
+    rules = serving_rules(cfg, mesh)
+    specs = param_specs(cfg)
+    for name, value in values:
+        path, row = reference_path(cfg, name)
+        logical = specs[path][1:] if row is not None else specs[path]
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        value = value.detach().to(module._parameters[leaf].dtype)
+        del module._parameters[leaf]
+        setattr(module, leaf, place(value, mesh, physical_spec(
+            rules, value.shape, logical)))
+    model.mesh, model.rules = mesh, rules
+    return model
+
+
+def placed_leaves(tree) -> List[Tuple[str, Placed]]:
+    """Every :class:`Placed` of a placed model (its parameters, by
+    name) or of placed caches (by layer and entry)."""
+    if isinstance(tree, nn.Module):
+        return [((f"{prefix}." if prefix else "") + key, val)
+                for prefix, module in tree.named_modules()
+                for key, val in vars(module).items()
+                if isinstance(val, Placed)]
+    return [(f"{i}.{key}", val) for i, cache in enumerate(tree)
+            for key, val in cache.items()]
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                device: Union[str, torch.device] = "cuda") -> list:
+                device: Union[str, torch.device] = "cuda",
+                mesh: Optional[DeviceMesh] = None) -> list:
     """Zeroed decode caches in the compute dtype on ``device``: one entry
-    a layer."""
+    a layer.  With ``mesh`` each entry is placed from its logical spec
+    (``kv_seq`` on ``model``, ``batch`` on ``data``) under
+    :func:`serving_rules`, each piece made on its shard."""
+    if mesh is not None:
+        check_mesh_config(cfg, mesh)
+        rules = serving_rules(cfg, mesh)
+        out = []
+        for kind, layer in zip(T.layer_kinds(cfg), T.init_decoder_cache(
+                cfg, batch, max_seq, cfg.cdt, META)):
+            specs = T.layer_cache_specs(kind)
+            out.append({key: placed_full(
+                t.shape, physical_spec(rules, t.shape, specs[key]), mesh,
+                -1 if key == "pos" else 0, t.dtype)
+                for key, t in layer.items()})
+        return out
     dev = resolve_device(device)
     if cfg.family == "encdec":
         return E.init_encdec_cache(cfg, batch, max_seq, cfg.cdt, dev)
@@ -183,8 +306,18 @@ def make_train_forward(cfg: ModelConfig) -> Callable:
     return forward
 
 
+def _rules_of(model):
+    """The axis rules a placed model runs under (a no-op context for a
+    one-device model)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return contextlib.nullcontext()
+    return use_rules(mesh, model.rules.rules)
+
+
 def make_prefill(cfg: ModelConfig) -> Callable:
-    """prefill(model, inputs, caches) -> (logits, caches)."""
+    """prefill(model, inputs, caches) -> (logits, caches), under the
+    model's mesh rules when it is placed."""
     if cfg.family == "encdec":
         def prefill(model, inputs, caches):
             enc_out = E.encode(model, inputs["frames"], cfg)
@@ -195,14 +328,17 @@ def make_prefill(cfg: ModelConfig) -> Callable:
     def prefill(model, inputs, caches):
         tokens = inputs["tokens"] if isinstance(inputs, dict) else inputs
         pos = inputs.get("positions") if isinstance(inputs, dict) else None
-        logits, caches, _ = T.decoder_forward(
-            model, tokens, cfg, caches=caches, cache_index=0, positions=pos)
+        with _rules_of(model):
+            logits, caches, _ = T.decoder_forward(
+                model, tokens, cfg, caches=caches, cache_index=0,
+                positions=pos)
         return logits, caches
     return prefill
 
 
 def make_decode(cfg: ModelConfig) -> Callable:
-    """decode(model, tok (B,1), caches, index) -> (logits, caches)."""
+    """decode(model, tok (B,1), caches, index) -> (logits, caches), under
+    the model's mesh rules when it is placed."""
     if cfg.family == "encdec":
         def decode(model, tok, caches, index):
             return E.decode(model, tok, None, cfg, caches=caches,
@@ -210,8 +346,9 @@ def make_decode(cfg: ModelConfig) -> Callable:
         return decode
 
     def decode(model, tok, caches, index):
-        logits, caches, _ = T.decoder_forward(model, tok, cfg, caches=caches,
-                                              cache_index=index)
+        with _rules_of(model):
+            logits, caches, _ = T.decoder_forward(
+                model, tok, cfg, caches=caches, cache_index=index)
         return logits, caches
     return decode
 

@@ -37,6 +37,9 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import (Placed, each, gather_axis,
+                                              mean_over_mesh, physical_spec,
+                                              place, reduce_sum, to_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
@@ -91,7 +94,7 @@ class Layer(nn.Module):
             mix, new_cache = self.rec(h, cache, cache_index)
         else:
             mix, new_cache = self.ssm(h, cache, cache_index)
-        x = x + mix
+        x = _residual(x, mix)
         aux = None
         if cfg.d_ff > 0:
             h2 = self.ln2(x, cfg.norm_eps)
@@ -99,8 +102,16 @@ class Layer(nn.Module):
                 y, aux = self.moe(h2)
             else:
                 y = self.mlp(h2)
-            x = x + y
+            x = _residual(x, y)
         return x, new_cache, aux
+
+
+def _residual(x, y):
+    """``x + y``, shard by shard for a placed residual stream (whole on
+    each model shard of its data group)."""
+    if isinstance(x, Placed):
+        return each(torch.add, x, y, spec=x.spec)
+    return x + y
 
 
 Spec = Tuple[Optional[str], ...]
@@ -258,12 +269,14 @@ def _slice_clamped(table: torch.Tensor, start: L.Position,
 
 
 def unembed_logits(x: torch.Tensor, unembed: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, first: int = 0) -> torch.Tensor:
     """``x @ unembed`` in the compute dtype, cast to ``logit_dtype``, with
-    the padded vocabulary's columns masked to ``-1e30``."""
+    the padded vocabulary's columns masked to ``-1e30``; ``first`` is the
+    vocabulary index of ``unembed``'s first column (a vocab-parallel
+    piece's)."""
     logits = (x @ unembed.to(cfg.cdt)).to(getattr(torch, cfg.logit_dtype))
-    if cfg.padded_vocab != cfg.vocab:
-        logits[..., cfg.vocab:] = -1e30
+    if first + logits.shape[-1] > cfg.vocab:
+        logits[..., max(cfg.vocab - first, 0):] = -1e30
     return logits
 
 
@@ -328,7 +341,11 @@ def decoder_forward(
     (the returned list holds the same tensors); recurrent and SSM states
     are returned anew.  ``remat=True`` without caches checkpoints each
     layer under ``cfg.remat_policy``, and each pattern group around its
-    layers where the reference does (:func:`nests_groups`)."""
+    layers where the reference does (:func:`nests_groups`).  A model
+    placed on a device mesh runs :func:`_decoder_forward_mesh`."""
+    if isinstance(model.embed, Placed):
+        return _decoder_forward_mesh(model, tokens, cfg, caches, cache_index,
+                                     positions, remat)
     cdt = cfg.cdt
     if tokens.dim() == 3:
         x = tokens.to(cdt)                  # stubbed modality embeddings
@@ -369,3 +386,78 @@ def decoder_forward(
     x = model.final_norm(x, cfg.norm_eps)
     unembed = model.embed.T if cfg.tie_embeddings else model.unembed
     return unembed_logits(x, unembed, cfg), new_caches, aux_total
+
+
+# ----------------------------------------------------------------------
+# over a device mesh
+# ----------------------------------------------------------------------
+def _embed_mesh(embed: Placed, tokens: Placed, cfg: ModelConfig) -> Placed:
+    """The embedding looked up from the vocab-sharded table: the table's
+    fsdp parts gathered over ``data``, each model shard's rows of the
+    tokens in its vocabulary range (zero elsewhere), summed over
+    ``model`` in rank order (one term is the row, the rest exact zeros),
+    then cast to the compute dtype."""
+    table = gather_axis(embed, "data")
+    spec = (tokens.spec[0], None, None)
+    if table.spec[0] is None:
+        return each(lambda t, i: t[i].to(cfg.cdt), table, tokens, spec=spec)
+    rows = table.pieces[0].shape[0]
+
+    def look(t, i, m):
+        local = i - m * rows
+        hit = (local >= 0) & (local < rows)
+        return torch.where(hit[..., None], t[local.clamp(0, rows - 1)], 0)
+
+    x = each(look, table, tokens, tokens.mesh.ranks("model"), spec=spec)
+    return each(lambda t: t.to(cfg.cdt), reduce_sum(x, "model"), spec=spec)
+
+
+def _unembed_mesh(x: Placed, model: Decoder, cfg: ModelConfig) -> Placed:
+    """Vocab-parallel logits (``transformer.py:260-267``): each model
+    shard's columns of ``unembed`` (its fsdp parts gathered), the padded
+    vocabulary masked in each piece."""
+    w = L.use_param(model.unembed, cfg)
+    vspec = w.spec[1]
+    cols = w.pieces[0].shape[1]
+
+    def logits(x, w, m):
+        return unembed_logits(x, w, cfg, first=m * cols if vspec else 0)
+
+    return each(logits, x, w, x.mesh.ranks("model"),
+                spec=(x.spec[0], None, vspec))
+
+
+def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
+                          cfg: ModelConfig, caches, cache_index, positions,
+                          remat: bool):
+    """:func:`decoder_forward` over the model's device mesh, eagerly: the
+    batch split over ``data`` (whole where the extent does not divide
+    it), the residual stream whole on each model shard of a data group,
+    every layer tensor- and expert-parallel over ``model``.  The logits
+    come back whole on the mesh's first device; the caches are placed
+    and written in place; the aux loss is averaged over the shards.
+    The position is read to the host: a mesh step is not captured."""
+    if tokens.dim() == 3 or positions is not None or remat:
+        raise NotImplementedError(
+            "embeddings, M-RoPE positions and training over a device mesh "
+            "(ROADMAP, Queue 1 item 2)")
+    mesh, rules = model.mesh, model.rules
+    if isinstance(cache_index, torch.Tensor):
+        cache_index = int(cache_index)
+    bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
+    x = _embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
+    aux_total = None
+    new_caches = None if caches is None else []
+    for i, layer in enumerate(model.layers):
+        x, nc, aux = layer(x, cache=None if caches is None else caches[i],
+                           cache_index=cache_index)
+        if aux is not None:
+            aux_total = aux if aux_total is None else \
+                each(torch.add, aux_total, aux, spec=())
+        if new_caches is not None:
+            new_caches.append(nc)
+    x = model.final_norm(x, cfg.norm_eps)
+    logits = to_whole(_unembed_mesh(x, model, cfg))
+    aux_total = (torch.zeros((), dtype=torch.float32, device=mesh.device)
+                 if aux_total is None else mean_over_mesh(aux_total))
+    return logits, new_caches, aux_total

@@ -14,7 +14,10 @@ host.  The prefill runs eagerly (one call a request).  On the card the
 decode step is captured once a :meth:`ServeEngine.generate` as a CUDA
 graph (:class:`DecodeGraph`), after one eager step on the graph's
 stream, and replayed for every later token; on the CPU every step runs
-eagerly.  The choice follows the prompt's device alone.
+eagerly.  The choice follows the prompt's device, and a model placed
+on a device mesh (:func:`repro_torch.models.registry.init_params` with
+``mesh=``) runs its prefill and every decode step eagerly on the card
+too: a decode step over a mesh is not captured.
 """
 from __future__ import annotations
 
@@ -56,6 +59,10 @@ class DecodeGraph:
 
     def __init__(self, decode_fn: Callable, params, tok: torch.Tensor,
                  caches, stream: torch.cuda.Stream):
+        if getattr(params, "mesh", None) is not None:
+            raise NotImplementedError(
+                "a decode step over a device mesh runs eagerly: its capture "
+                "as a CUDA graph is not ported (ROADMAP, Queue 1 item 2)")
         t0 = time.perf_counter()
         self.caches = caches
         self.replays = 0
@@ -105,8 +112,9 @@ class ServeEngine:
         the card, the graph's static output)."""
         b, s = prompt.shape[0], prompt.shape[1]
         max_seq = max_seq if max_seq is not None else s + steps
-        on_card = prompt.device.type == "cuda"
-        self.stats = {"graph": on_card, "eager_steps": 0, "replays": 0,
+        graph = (prompt.device.type == "cuda"
+                 and getattr(params, "mesh", None) is None)
+        self.stats = {"graph": graph, "eager_steps": 0, "replays": 0,
                       "capture_s": 0.0}
         with torch.inference_mode():
             caches = self._cache_init(b, max_seq)
@@ -114,7 +122,7 @@ class ServeEngine:
             tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
             if on_step is not None:
                 on_step(0, logits)
-            if not on_card:
+            if not graph:
                 out = [tok]
                 idx = torch.tensor(s, dtype=torch.int32)
                 for i in range(1, steps):

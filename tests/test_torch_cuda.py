@@ -1164,3 +1164,117 @@ def test_engine_replays_every_decode_step_but_one_on_card(cuda_device, steps):
     assert eng.stats["graph"]
     assert eng.stats["eager_steps"] == min(1, steps - 1)
     assert eng.stats["replays"] == max(0, steps - 2)
+
+
+# ----------------------------------------------------------------------
+# LM serving over a (data, model) device mesh
+# ----------------------------------------------------------------------
+def _mesh_serve(cfg, model, caches, tokens, prompt, steps):
+    """The prefill's logits and each of ``steps`` teacher-forced decode
+    steps', on the tokens' device."""
+    from repro_torch.models import registry
+
+    out = []
+    with torch.inference_mode():
+        logits, caches = registry.make_prefill(cfg)(model, tokens[:, :prompt],
+                                                    caches)
+        out.append(logits)
+        for t in range(steps):
+            logits, caches = registry.make_decode(cfg)(
+                model, tokens[:, prompt + t:prompt + t + 1], caches, prompt + t)
+            out.append(logits)
+    return out
+
+
+def _mesh_run(cfg, mesh, device, b=4, prompt=14, steps=3, max_seq=20):
+    from repro_torch.models import registry
+
+    model = registry.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device,
+        mesh=mesh)
+    caches = registry.init_caches(cfg, b, max_seq, device=device, mesh=mesh)
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (b, prompt + steps))).to(device)
+    return _mesh_serve(cfg, model, caches, tokens, prompt, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_parallel", [None, 2])
+@pytest.mark.parametrize("arch", ["llama3_8b", "gemma3_12b", "starcoder2_3b",
+                                  "granite_20b", "dbrx_132b",
+                                  "moonshot_v1_16b_a3b"])
+def test_lm_mesh_serving_on_card_matches_one_device(cuda_device, arch,
+                                                    model_parallel):
+    """A SMOKE config on ``make_mesh_for(4)`` (the one card repeated, a
+    stream a shard) and on the (2, 2) mesh: prefill and three decode
+    steps within the reference's tolerance of the one-device run on the
+    card (f32, MoE at capacity factor 16)."""
+    from _torch_port import LM_TOL, lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    mesh = make_mesh_for(4, model_parallel, device="cuda:0")
+    want = _mesh_run(cfg, None, "cuda:0")
+    got = _mesh_run(cfg, mesh, "cuda:0")
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert g.device == w.device
+        assert float((g - w).abs().max()) < LM_TOL, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_parallel", [None, 2])
+def test_lm_mesh_over_distinct_cards(cuda_device, model_parallel):
+    """The (1, 4) and (2, 2) meshes with the shards on distinct cards
+    (``make_mesh_for(4)``: card ``s * c // 4``): the logits bitwise the
+    same mesh with every shard on one card.  Skips with fewer than two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two visible cards")
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    for arch in ("llama3_8b", "moonshot_v1_16b_a3b"):
+        cfg = lm_cfg(registry.get_config(arch, smoke=True))
+        cards = make_mesh_for(4, model_parallel)
+        assert cards.distinct
+        far = _mesh_run(cfg, cards, "cuda:0")
+        near = _mesh_run(cfg, make_mesh_for(4, model_parallel,
+                                            device="cuda:0"), "cuda:0")
+        assert all(torch.equal(a, b) for a, b in zip(far, near)), arch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx_132b", "moonshot_v1_16b_a3b"])
+def test_moe_block_over_a_mesh_on_card(cuda_device, arch):
+    """The expert-parallel block on a (1, 4) mesh of the card against the
+    one-device block (f32, default capacity): within the reference's
+    tolerance, and its aux loss the same on every shard."""
+    import dataclasses
+
+    from _torch_port import LM_TOL
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import moe, registry
+
+    cfg = dataclasses.replace(registry.get_config(arch, smoke=True),
+                              compute_dtype="float32")
+    mesh = make_mesh_for(4, device="cuda:0")
+
+    def block(m):
+        return registry.init_params(
+            cfg, torch.Generator(device=cuda_device).manual_seed(0),
+            device=cuda_device, mesh=m).layers[0].moe
+
+    x = torch.randn(4, 12, cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(5))
+    with torch.inference_mode():
+        want, aux = moe.moe(block(None), x, cfg)
+        got, got_aux = moe.moe(block(mesh), sharding.place(
+            x, mesh, (None, None, None)), cfg)
+        got = sharding.to_whole(got)
+    assert float((got - want).abs().max()) < LM_TOL
+    assert all(torch.equal(a.to(cuda_device), got_aux.pieces[0])
+               for a in got_aux.pieces)
+    assert abs(float(got_aux.pieces[0]) - float(aux)) < 1e-6

@@ -335,17 +335,30 @@ def test_moe_combine_sums_in_ascending_slot_order():
 
 
 def test_moe_over_a_mesh_raises():
-    from repro_torch.distributed.sharding import LogicalMesh, use_rules
+    """Under a logical mesh nothing is placed: the (1, 1) mesh runs the
+    mesh-less block and a longer axis raises.  Over a device mesh the
+    expert-parallel block runs (tests/test_torch_lm_mesh.py holds it)."""
+    from repro_torch.distributed.sharding import (LogicalMesh, make_device_mesh,
+                                                  place, to_whole, use_rules)
 
     _, pcfg = _moe_cfgs()
     blk = PM.MoE(pcfg, PL.Init(torch.device("cpu"),
                                torch.Generator().manual_seed(0)))
     x = torch.zeros(1, 2, 8)
     with use_rules(LogicalMesh(("data", "model"), {"data": 1, "model": 1})):
-        PM.moe(blk, x, pcfg)        # the one card: the mesh-less path
+        want, _ = PM.moe(blk, x, pcfg)   # the one card: the mesh-less path
     with use_rules(LogicalMesh(("data", "model"), {"data": 1, "model": 2})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="DeviceMesh"):
             PM.moe(blk, x, pcfg)
+    mesh = make_device_mesh(1, 2, device="cpu")
+    placed = PM.MoE(pcfg, PL.Init(torch.device("meta")))
+    for name, p in blk.named_parameters():
+        del placed._parameters[name]
+        spec = ("model", None, None) if p.dim() == 3 else (None, None)
+        setattr(placed, name, place(p.detach(), mesh, spec))
+    with torch.no_grad():
+        got, _ = PM.moe(placed, place(x, mesh, (None, None, None)), pcfg)
+    assert torch.equal(to_whole(got), want)
 
 
 @pytest.mark.parametrize("arch", PR.ARCH_IDS)

@@ -169,8 +169,15 @@ def test_make_mesh_for_keeps_the_references_arithmetic():
     assert PM.mesh_shape_for(256) == (16, 16)
     assert PM.mesh_shape_for(512, model_parallel=16) == (32, 16)
     assert PM.mesh_shape_for(24, model_parallel=7) == (4, 6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        PM.make_mesh_for(8)
+    # more devices: the device mesh, the reference's (data, model)
+    mesh = PM.make_mesh_for(8, device="cpu")
+    assert mesh.axis_names == tuple(ref.axis_names)
+    assert dict(mesh.shape) == dict(zip(("data", "model"),
+                                        PM.mesh_shape_for(8))) == \
+        {"data": 1, "model": 8}
+    assert len(mesh.devices) == 8
+    assert dict(PM.make_mesh_for(8, 2, device="cpu").shape) == \
+        {"data": 4, "model": 2}
 
 
 def test_bf16_peak_is_the_data_sheets():
