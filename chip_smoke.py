@@ -218,8 +218,13 @@ non-zero and prints no result line):
    one-device block; (d) with two or more cards, (b)'s meshes over
    distinct cards bitwise the same meshes with every shard on the
    first card (else a line ``"distinct_cards": "not run: 1 card
-   visible"``).  No hand-written kernel runs: the launch counts must
-   read 0.
+   visible"``); (e) mamba2_370m at its full config (48 layers), bf16,
+   served as (a) is on ``make_mesh_for(4)``; (f) recurrentgemma_9b cut
+   to 4 layers, whisper_small whole and qwen2_vl_72b cut to one layer,
+   full width, f32, as (b) is on both meshes (whisper with its frames,
+   qwen2_vl prefilled on patch embeddings with three M-RoPE position
+   streams), with (d)'s distinct-card leg.  No hand-written kernel
+   runs: the launch counts must read 0.
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
@@ -3505,9 +3510,13 @@ def phase_dryrun_lm(torch) -> dict:
 #: full CONFIG (bf16 compute) on make_mesh_for(4): 4 requests of 512
 #: tokens, 16 generated tokens each
 MESH_LM_BATCH, MESH_LM_PROMPT, MESH_LM_GEN = 4, 512, 16
-#: (b) and (c): full width, f32, cut in depth; batch 4 (split over
-#: data=2), a 64-token prompt and 4 decode steps
-MESH_LM_CUT = {"llama3_8b": 2, "moonshot_v1_16b_a3b": 1, "dbrx_132b": 1}
+#: (e): mamba2_370m's full CONFIG (bf16 compute), served as (a)
+MESH_LM_SSM_ARCH = "mamba2_370m"
+#: (b), (c) and (f): full width, f32, cut in depth (None: whole); batch
+#: 4 (split over data=2), a 64-token prompt and 4 decode steps
+MESH_LM_CUT = {"llama3_8b": 2, "moonshot_v1_16b_a3b": 1, "dbrx_132b": 1,
+               "recurrentgemma_9b": 4, "whisper_small": None,
+               "qwen2_vl_72b": 1}
 MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, MESH_LM_CUT_STEPS = 4, 64, 4
 #: make_mesh_for's model_parallel for the two meshes of (b)-(d)
 MESH_LM_MESHES = {"1x4": None, "2x2": 2}
@@ -3532,7 +3541,7 @@ def _counted_bytes(R, structs, specs, rules) -> int:
 
 
 def mesh_lm_serve(torch, cfg) -> dict:
-    """(a): ``cfg`` on ``make_mesh_for(4)`` serves through
+    """(a) and (e): ``cfg`` on ``make_mesh_for(4)`` serves through
     ``ServeEngine.generate`` (a warm-up of 2 tokens, then the timed run):
     the prefill seconds (CUDA events on the caller's stream, which waits
     for every shard), the decode ms a token (events between consecutive
@@ -3613,19 +3622,28 @@ def mesh_lm_serve(torch, cfg) -> dict:
 def _mesh_logits(torch, cfg, mesh, device: str) -> list:
     """``cfg`` from seed 0 on ``mesh`` (or, with ``None``, on
     ``device``): the prefill's logits and each teacher-forced decode
-    step's, on ``device``."""
+    step's, on ``device``.  The inputs are ``_lm_inputs``': the
+    encoder-decoder's prefill takes frames, the vision frontend's patch
+    embeddings and three M-RoPE streams, its decode steps token ids
+    (seed 3)."""
     from repro_torch.models import registry as R
 
     model = R.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                           device=device, mesh=mesh)
     b, p, steps = MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, MESH_LM_CUT_STEPS
     caches = R.init_caches(cfg, b, p + steps, device=device, mesh=mesh)
-    tokens = torch.randint(0, cfg.vocab, (b, p + steps), device=device,
-                           generator=torch.Generator(device=device)
-                           .manual_seed(2))
+    if cfg.frontend == "vision":
+        inputs = _lm_inputs(torch, cfg, b, p, device)
+        tokens = torch.randint(0, cfg.vocab, (b, p + steps), device=device,
+                               generator=torch.Generator(device=device)
+                               .manual_seed(3))
+    else:
+        inputs = _lm_inputs(torch, cfg, b, p + steps, device)
+        tokens = inputs["tokens"]
+        inputs["tokens"] = tokens[:, :p]
     out = []
     with torch.inference_mode():
-        logits, caches = R.make_prefill(cfg)(model, tokens[:, :p], caches)
+        logits, caches = R.make_prefill(cfg)(model, inputs, caches)
         out.append(logits)
         for t in range(steps):
             logits, caches = R.make_decode(cfg)(
@@ -3657,24 +3675,28 @@ def _moe_block_bitwise(torch, cfg, mesh) -> bool:
 
 
 def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
-    """(b)-(d) for one config: full width, f32, cut to ``MESH_LM_CUT``
-    layers (MoE at capacity factor 16), on both meshes of the card
-    against its one-device run, relative to the largest |logit|; the MoE
-    block bitwise or not at data = 1; with two or more cards, each mesh
-    over distinct cards against the same mesh on the first card."""
+    """(b)-(d) and (f) for one config: full width, f32, cut to
+    ``MESH_LM_CUT`` layers (MoE at capacity factor 16), on both meshes
+    of the card against its one-device run, relative to the largest
+    |logit|; the MoE block bitwise or not at data = 1; with two or more
+    cards, each mesh over distinct cards against the same mesh on the
+    first card."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry as R
 
     t0 = time.perf_counter()
     base = R.get_config(arch)
-    kw = {"compute_dtype": "float32", "n_layers": MESH_LM_CUT[arch]}
+    kw = {"compute_dtype": "float32"}
+    if MESH_LM_CUT[arch] is not None:
+        kw["n_layers"] = MESH_LM_CUT[arch]
     if base.n_experts > 0:
         kw["capacity_factor"] = 16.0
     cfg = dataclasses.replace(base, **kw)
     dev = "cuda:0"
     want = _mesh_logits(torch, cfg, None, dev)
     scale = max(float(w[..., :cfg.vocab].abs().max()) for w in want)
-    rec = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    rec = dict(arch=cfg.name, family=cfg.family, frontend=cfg.frontend,
+               layers=cfg.n_layers, d_model=cfg.d_model,
                compute=cfg.compute_dtype, batch=MESH_LM_CUT_BATCH,
                prompt=MESH_LM_CUT_PROMPT, steps=MESH_LM_CUT_STEPS,
                max_abs_logit=scale, rel_tol=LM_REL_TOL)
@@ -3708,8 +3730,10 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
 
 def phase_lm_mesh(torch) -> dict:
     """LM serving over a (data, model) device mesh: (a) llama3_8b at full
-    width and depth, then (b)-(d).  The path has no hand-written kernel:
-    its launch counts are read and shown, and must be 0."""
+    width and depth, then (b)-(d), (e) mamba2_370m at full width and
+    depth, and (f) the other three families cut in depth.  The path has
+    no hand-written kernel: its launch counts are read and shown, and
+    must be 0."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry as R
 
@@ -3717,8 +3741,9 @@ def phase_lm_mesh(torch) -> dict:
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     ops.reset_launch_counts()
-    mesh_lm_serve(torch, R.get_config(LM_ARCH))
-    torch.cuda.empty_cache()
+    for arch in (LM_ARCH, MESH_LM_SSM_ARCH):
+        mesh_lm_serve(torch, R.get_config(arch))
+        torch.cuda.empty_cache()
     for arch in MESH_LM_CUT:
         mesh_lm_consistency(torch, arch, cards)
         torch.cuda.empty_cache()

@@ -36,8 +36,7 @@ from repro_torch.distributed.sharding import (DeviceMesh, Placed,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
 from repro_torch.models import transformer as T
-from repro_torch.models.registry import (build_model, check_mesh_config,
-                                         place_parameters,
+from repro_torch.models.registry import (build_model, place_parameters,
                                          reference_cache_path,
                                          reference_path, serving_rules)
 from repro_torch.solvers.bicgstab import BiCGStabState
@@ -283,25 +282,28 @@ def lm_caches_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
         a = np.asarray(a)
         return _tensor(a, dev, None if a.dtype.kind in "iu" else cfg.cdt)
 
+    if mesh is not None:
+        rules = serving_rules(cfg, mesh)
+
+    def placed(entry, specs):
+        if mesh is None:
+            return entry
+        return {n: place(t, mesh, physical_spec(rules, t.shape, specs[n]))
+                for n, t in entry.items()}
+
     if cfg.family == "encdec":
-        return [{part: {n: conv(np.asarray(a)[i])
-                        for n, a in tree[part].items()}
+        kv = T.layer_cache_specs("global")
+        return [{part: placed({n: conv(np.asarray(a)[i])
+                               for n, a in tree[part].items()}, kv)
                  for part in ("self", "cross")}
                 for i in range(cfg.n_layers)]
-    if mesh is not None:
-        check_mesh_config(cfg, mesh)
-        rules = serving_rules(cfg, mesh)
     caches = []
     for layer, kind in enumerate(T.layer_kinds(cfg)):
         path, row = reference_cache_path(cfg, layer)
         entry = _get(tree, path)
-        cache = {n: conv(a if row is None else np.asarray(a)[row])
-                 for n, a in entry.items()}
-        if mesh is not None:
-            specs = T.layer_cache_specs(kind)
-            cache = {n: place(t, mesh, physical_spec(rules, t.shape, specs[n]))
-                     for n, t in cache.items()}
-        caches.append(cache)
+        caches.append(placed({n: conv(a if row is None else np.asarray(a)[row])
+                              for n, a in entry.items()},
+                             T.layer_cache_specs(kind)))
     return caches
 
 

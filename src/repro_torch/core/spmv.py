@@ -235,7 +235,7 @@ def _mesh_axes(mesh, shard_axes) -> Tuple[str, ...]:
         raise NotImplementedError(
             "the sharded PCG grid steps run every shard on one device; on a "
             "mesh over distinct devices they wait for their own slice "
-            "(ROADMAP, Queue 1)")
+            "(ROADMAP, Queue 1 item 5)")
     return tuple(a for a in shard_axes if a in mesh.axis_names)
 
 

@@ -27,11 +27,12 @@ it.
 As the reference does, the LM path serves over ``make_mesh_for(n)``
 (tensor, expert and data parallel) when ``n > 1`` cards are visible;
 ``--mesh N`` asks for ``N`` shards over the visible cards (or, with
-``--device cpu``, on the CPU).  The hybrid, ssm and encoder-decoder
-families and the vision frontend raise over a mesh (ROADMAP, Queue 1
-item 2)::
+``--device cpu``, on the CPU).  Every family with token prompts serves
+there: the decoder LMs, recurrentgemma's RG-LRU hybrid, mamba2's SSD
+stack and whisper's encoder-decoder (its frames zeros, as on one
+device); the vision arch is refused with or without a mesh::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
         --smoke --mesh 4 --device cpu
 """
 from __future__ import annotations
@@ -68,17 +69,16 @@ def _serve_lm(args) -> None:
     from repro_torch.serving.engine import ServeEngine
 
     cfg = R.get_config(args.arch, smoke=args.smoke)
+    if cfg.frontend == "vision":
+        raise SystemExit(f"--arch {args.arch}: vision serving takes patch "
+                         f"embeddings, not token prompts")
     dev = resolve_device(args.device)
     shards = args.mesh
     if shards is None:
         shards = torch.cuda.device_count() if dev.type == "cuda" else 1
     mesh = make_mesh_for(shards, device=dev) if shards > 1 else None
-    if cfg.frontend == "vision" and mesh is None:
-        raise SystemExit(f"--arch {args.arch}: vision serving takes patch "
-                         f"embeddings, not token prompts")
     if mesh is not None:
         dev = mesh.device
-    # over a mesh this raises for the families it does not serve
     model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                           device=dev, mesh=mesh)
     prefill_fn = R.make_prefill(cfg)

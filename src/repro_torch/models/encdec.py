@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (Placed, each, gather_axis,
+                                              physical_spec, place, to_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -114,14 +116,33 @@ def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig
                ) -> torch.Tensor:
     h = lp.ln1(x, cfg.norm_eps)
     mix, _ = lp.attn(h, causal=False)
-    x = x + mix
-    return x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+    x = T._residual(x, mix)
+    return T._residual(x, lp.mlp(lp.ln2(x, cfg.norm_eps)))
+
+
+def _check_serving(model: EncDec, remat: bool) -> bool:
+    """Whether ``model`` is placed on a device mesh; raises for training
+    over one."""
+    placed = isinstance(model.embed, Placed)
+    if placed and remat:
+        raise NotImplementedError(
+            "training over a device mesh (ROADMAP, Queue 1 item 2)")
+    return placed
 
 
 def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
-           remat: bool = False) -> torch.Tensor:
-    """frames: (B, enc_seq, d) precomputed embeddings (stub frontend)."""
+           remat: bool = False):
+    """frames: (B, enc_seq, d) precomputed embeddings (stub frontend).
+    A placed model places them ``(batch, None, None)`` and returns the
+    encoder output placed so (each model shard of a data group holding
+    it whole), its attention non-causal and tensor-parallel."""
     cdt = cfg.cdt
+    if _check_serving(model, remat):
+        x = T.place_inputs(frames, model.mesh, model.rules, cfg)
+        x = T.add_positions_mesh(x, model.enc_pos, 0, cfg)
+        for lp in model.enc:
+            x = _enc_layer(lp, x, cfg)
+        return model.enc_norm(x, cfg.norm_eps)
     x = frames.to(cdt) + model.enc_pos.to(cdt)[None]
     for lp in model.enc:
         x = (remat_call(_enc_layer, "none", lp, x, cfg) if remat
@@ -135,27 +156,31 @@ def _dec_layer(lp: DecLayer, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """One decoder layer; returns (x, its new cache entry or None)."""
     cdt = cfg.cdt
+    placed = isinstance(x, Placed)
     h = lp.ln1(x, cfg.norm_eps)
     mix, nself = lp.attn(h, cache=None if lc is None else lc["self"],
                          cache_index=cache_index)
-    x = x + mix
+    x = T._residual(x, mix)
     hx = lp.ln_x(x, cfg.norm_eps)
     if lc is not None and enc_out is None:
         # cross K/V already cached at prefill: score against them
-        mixx = _cross_from_cache(lp.xattn, hx, lc["cross"], cfg)
+        mixx = (_cross_from_cache_mesh if placed else _cross_from_cache)(
+            lp.xattn, hx, lc["cross"], cfg)
         ncross = lc["cross"]
     else:
         mixx, _ = lp.xattn(hx, kv_source=enc_out, causal=False)
         ncross = None
-        if lc is not None:
+        if lc is not None and placed:
+            ncross = _cache_cross_mesh(lp.xattn, enc_out, lc["cross"], cfg)
+        elif lc is not None:
             # cache cross K/V for subsequent decode steps
             e = enc_out.to(cdt)
             k = L.project_heads(e, lp.xattn.wk.to(cdt))
             v = L.project_heads(e, lp.xattn.wv.to(cdt))
             ncross = {"k": k.to(lc["cross"]["k"].dtype),
                       "v": v.to(lc["cross"]["v"].dtype)}
-    x = x + mixx
-    x = x + lp.mlp(lp.ln2(x, cfg.norm_eps))
+    x = T._residual(x, mixx)
+    x = T._residual(x, lp.mlp(lp.ln2(x, cfg.norm_eps)))
     return x, None if lc is None else {"self": nself, "cross": ncross}
 
 
@@ -168,6 +193,8 @@ def decode(
     cache_index: Optional[L.Position] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
+    if _check_serving(model, remat):
+        return _decode_mesh(model, tokens, enc_out, cfg, caches, cache_index)
     cdt = cfg.cdt
     s = tokens.shape[1]
     x = model.embed[tokens].to(cdt)
@@ -202,3 +229,68 @@ def _cross_from_cache(pa: L.Attention, hx: torch.Tensor,
     pr = torch.softmax(scores, dim=-1).to(cdt)
     out = torch.einsum("bhqs,bshd->bqhd", pr, vf)
     return L.merge_heads(out, pa.wo.to(cdt))
+
+
+# ----------------------------------------------------------------------
+# over a device mesh
+# ----------------------------------------------------------------------
+def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
+                 cfg: ModelConfig, caches: Optional[List[Cache]],
+                 cache_index: Optional[L.Position]
+                 ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
+    """:func:`decode` over the model's device mesh, eagerly: the tokens
+    looked up in the vocab-sharded table with the batch on ``data``, the
+    learned positions added (``dec_pos``'s fsdp parts gathered), each
+    layer's self-attention, cross-attention and MLP tensor-parallel, the
+    tied logits vocab-parallel and gathered whole on the mesh's first
+    device.  The caches are placed: self K/V written in place, the
+    cross K/V projected at prefill into the ``kv_seq``-sharded cache."""
+    mesh, rules = model.mesh, model.rules
+    if isinstance(cache_index, torch.Tensor):
+        cache_index = int(cache_index)
+    bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
+    x = T._embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
+    x = T.add_positions_mesh(x, model.dec_pos,
+                             0 if cache_index is None else cache_index, cfg)
+    new_caches = None if caches is None else []
+    for i, lp in enumerate(model.dec):
+        x, nc = _dec_layer(lp, x, enc_out, None if caches is None
+                           else caches[i], cfg, cache_index)
+        if new_caches is not None:
+            new_caches.append(nc)
+    x = model.final_norm(x, cfg.norm_eps)
+    return to_whole(T._unembed_mesh(x, model, cfg)), new_caches
+
+
+def _cache_cross_mesh(pa: L.Attention, enc_out: Placed,
+                      cross: Dict[str, Placed], cfg: ModelConfig
+                      ) -> Dict[str, Placed]:
+    """The prefill's cross K/V: projected from the encoder output per
+    ``kv_heads`` shard and written into the ``kv_seq``-sharded ``cross``
+    cache through the head-to-sequence relayout, as a self-attention
+    prefill writes its keys and values (``layers._prefill_cache``)."""
+    wk, wv = L.use_param(pa.wk, cfg), L.use_param(pa.wv, cfg)
+    spec = (enc_out.spec[0], None, wk.spec[1], None)
+    k = each(L.project_heads, enc_out, wk, spec=spec)
+    v = each(L.project_heads, enc_out, wv, spec=spec)
+    return L._prefill_cache(k, v, cross, k.shape[1])
+
+
+def _cross_from_cache_mesh(pa: L.Attention, hx: Placed,
+                           cross: Dict[str, Placed], cfg: ModelConfig
+                           ) -> Placed:
+    """Cross-attention against the ``kv_seq``-sharded encoder K/V (decode
+    steps): q column-parallel over ``heads``, gathered over ``model``;
+    every query head against each shard's part of the encoder positions
+    (all valid), the partial softmaxes combined in rank order
+    (``layers.attend_kv_seq``); ``wo`` row-parallel."""
+    wq = L.use_param(pa.wq, cfg)
+    q = each(L.project_heads, hx, wq, spec=(hx.spec[0], None, wq.spec[1], None))
+
+    def valid(span, device):
+        return torch.ones((1, span[1] - span[0]), dtype=torch.bool,
+                          device=device)
+
+    out = L.attend_kv_seq(gather_axis(q, "model"), cross["k"], cross["v"],
+                          valid, cfg)
+    return L.heads_out(out, q, L.use_param(pa.wo, cfg))

@@ -370,11 +370,8 @@ class Attention(nn.Module):
         dict (the reference returns new arrays).
         """
         if isinstance(x, Placed):
-            if kv_source is not None or positions is not None or not causal:
-                raise NotImplementedError(
-                    "cross-attention and M-RoPE positions over a device "
-                    "mesh (ROADMAP, Queue 1 item 2)")
-            return self._forward_mesh(x, kind, cache, cache_index)
+            return self._forward_mesh(x, kind, cache, cache_index, positions,
+                                      kv_source, causal)
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -458,37 +455,54 @@ class Attention(nn.Module):
     # over a device mesh
     # ------------------------------------------------------------------
     def _forward_mesh(self, x: Placed, kind: str, cache: Optional[Dict],
-                      cache_index: Optional[int]):
+                      cache_index: Optional[int],
+                      positions: Optional[Placed] = None,
+                      kv_source: Optional[Placed] = None,
+                      causal: bool = True):
         """Tensor-parallel attention over a :class:`DeviceMesh` (the
         reference's GSPMD layout of ``layers.py:250-271``): q, k and v
         column-parallel over ``heads`` and ``kv_heads`` (whole where the
         model extent does not divide them), K/V repeated to the shard's
         query heads, ``wo`` row-parallel with its partials summed over
-        ``model`` in rank order.  A prefill writes its keys and values
-        into the ``kv_seq``-sharded cache through the head-to-sequence
-        relayout; a decode step attends with :meth:`_decode_mesh`.
-        ``cache_index`` is an int (the mesh path runs eagerly)."""
+        ``model`` in rank order.  Placed ``positions`` (M-RoPE's three
+        streams, or plain RoPE positions) rotate each shard's heads;
+        cross-attention takes k and v from the placed ``kv_source`` and
+        attends without a mask, as ``causal=False`` does.  A prefill
+        writes its keys and values into the ``kv_seq``-sharded cache
+        through the head-to-sequence relayout; a decode step attends with
+        :meth:`_decode_mesh`.  ``cache_index`` is an int (the mesh path
+        runs eagerly)."""
         cfg = self.cfg
         mesh = x.mesh
         b, s, _ = x.shape
         h, kh = cfg.n_heads, cfg.n_kv_heads
         g = h // kh
         bspec = x.spec[0]
+        kv_in = x if kv_source is None else kv_source
         wq, wk, wv = (use_param(w, cfg) for w in (self.wq, self.wk, self.wv))
         hspec, kvspec = wq.spec[1], wk.spec[1]
         q = each(project_heads, x, wq, spec=(bspec, None, hspec, None))
-        k = each(project_heads, x, wk, spec=(bspec, None, kvspec, None))
-        v = each(project_heads, x, wv, spec=k.spec)
-        if cfg.use_rope:
-            start = 0 if cache_index is None else cache_index
+        k = each(project_heads, kv_in, wk, spec=(bspec, None, kvspec, None))
+        v = each(project_heads, kv_in, wv, spec=k.spec)
+        if kv_source is None and cfg.use_rope:
+            if positions is None:
+                start = 0 if cache_index is None else cache_index
 
-            def rope(t):
-                pos = torch.arange(s, device=t.device)[None] + start
-                return apply_rope(t, pos, cfg.rope_theta)
+                def rope(t):
+                    pos = torch.arange(s, device=t.device)[None] + start
+                    return apply_rope(t, pos, cfg.rope_theta)
+            elif cfg.mrope:
+                def rope(t, pos):
+                    return apply_mrope(t, pos, cfg.rope_theta,
+                                       cfg.mrope_sections)
+            else:
+                def rope(t, pos):
+                    return apply_rope(t, pos, cfg.rope_theta)
 
-            q = each(rope, q, spec=q.spec)
-            k = each(rope, k, spec=k.spec)
-        if cache is not None and s == 1:
+            pos = () if positions is None else (positions,)
+            q = each(rope, q, *pos, spec=q.spec)
+            k = each(rope, k, *pos, spec=k.spec)
+        if cache is not None and s == 1 and kv_source is None:
             return self._decode_mesh(q, k, v, kind, cache, cache_index)
         new_cache = None if cache is None else _prefill_cache(k, v, cache, s)
 
@@ -502,7 +516,11 @@ class Attention(nn.Module):
         ranks = mesh.ranks("model")
         kf = each(full, k, ranks, spec=q.spec)
         vf = each(full, v, ranks, spec=q.spec)
-        if kind == "local" and cfg.window > 0:
+        if kv_source is not None or not causal:
+            def attend(q, k, v):
+                return _sdpa_chunked(q, k, v, causal=False, window=0,
+                                     chunk_q=cfg.attn_chunk)
+        elif kind == "local" and cfg.window > 0:
             def attend(q, k, v):
                 return _sdpa_banded(q, k, v, window=cfg.window,
                                     chunk=cfg.attn_chunk)
@@ -519,17 +537,9 @@ class Attention(nn.Module):
         """One decode step against the ``kv_seq``-sharded cache (the
         reference's flash-decode layout, ``transformer.py:95-115``): the
         new row, every kv head, written by the shard whose part of the
-        cache holds its slot (a ring's ``pos`` with it); every shard
-        scores the whole query against its part and keeps a partial
-        softmax (running max, sum and weighted values, f32), and the
-        partials combine in rank order on each shard of the group.  A
-        cache whose positions the model extent does not divide is whole
-        on every shard, which attends as the one-device step does."""
+        cache holds its slot (a ring's ``pos`` with it), then every query
+        head against the cache through :func:`attend_kv_seq`."""
         cfg = self.cfg
-        mesh = q.mesh
-        b = q.pieces[0].shape[0]
-        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        g = h // kh
         ck, cv = cache["k"], cache["v"]
         ring = "pos" in cache
         n = ck.shape[1]
@@ -547,55 +557,80 @@ class Attention(nn.Module):
 
         pos = [cache["pos"]] if ring else []
         each(write, ck, cv, k_all, v_all, spans, *pos, spec=None)
-        q_all = gather_axis(q, "model")
-        cdt = cfg.cdt
 
-        def kv_positions(span, cpos, device):
-            if cpos is not None:
-                return cpos[None, :]
-            return torch.arange(span[0], span[1], device=device)[None, :]
+        def valid(span, device, cpos=None):
+            kv_pos = (cpos[None, :] if cpos is not None else
+                      torch.arange(span[0], span[1], device=device)[None, :])
+            return _decode_valid(kv_pos, cache_index, kind, cfg)
 
-        if ck.spec[1] is None:
-            def attend(q, ck, cv, span, cpos=None):
-                kv_pos = kv_positions(span, cpos, ck.device)
-                return _decode_attend(
-                    q, ck, cv, _decode_valid(kv_pos, cache_index, kind, cfg), cfg)
-            out = each(attend, q_all, ck, cv, spans, *pos, spec=q_all.spec)
-        else:
-            def partial(q, ck, cv, span, cpos=None):
-                kv_pos = kv_positions(span, cpos, ck.device)
-                valid = _decode_valid(kv_pos, cache_index, kind, cfg)
-                qg = q.reshape(b, 1, kh, g, hd)
-                scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
-                                      ck.to(cdt).float()) / math.sqrt(hd)
-                scores = torch.where(valid[:, None, None, None], scores,
-                                     torch.full((), -1e30, device=ck.device))
-                top = scores.amax(dim=-1, keepdim=True)
-                e = torch.exp(scores - top)
-                o = torch.einsum("bkgqs,bskh->bkgqh", e, cv.to(cdt).float())
-                return torch.cat([top, e.sum(dim=-1, keepdim=True), o], dim=-1)
+        out = attend_kv_seq(gather_axis(q, "model"), ck, cv, valid, cfg,
+                            pos)
+        return heads_out(out, q, use_param(self.wo, cfg)), cache
 
-            parts = each(partial, q_all, ck, cv, spans, *pos, spec=None)
 
-            def combine(group):
-                top = group[0][..., :1]
-                for p in group[1:]:
-                    top = torch.maximum(top, p[..., :1])
-                acc = None
-                for p in group:
-                    term = torch.exp(p[..., :1] - top) * p[..., 1:]
-                    acc = term if acc is None else acc + term
-                o = acc[..., 1:] / acc[..., :1]            # (b, kh, g, 1, hd)
-                return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(cdt)
+def attend_kv_seq(q_all: Placed, ck: Placed, cv: Placed, valid,
+                  cfg: ModelConfig, extra=()) -> Placed:
+    """Every query head of ``q_all (b, sq, h, hd)`` (whole on each model
+    shard) against a ``kv_seq``-sharded K/V cache (the reference's
+    flash-decode layout, ``transformer.py:95-115``): each shard scores
+    the queries against its part of the positions and keeps a partial
+    softmax (running max, sum and weighted values, f32), and the
+    partials combine in rank order on each shard of the group.
+    ``valid(span, device, *extra)`` is the ``(1, n)`` mask of the
+    positions ``span`` of a shard's part (``extra``: placed per-position
+    entries, a ring's ``pos``).  A cache whose positions the model
+    extent does not divide is whole on every shard, which attends as
+    one device does (:func:`_decode_attend`)."""
+    mesh = q_all.mesh
+    b, sq = q_all.pieces[0].shape[:2]
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kh
+    cdt = cfg.cdt
+    spans = ranges(ck, 1)
+    if ck.spec[1] is None:
+        def attend(q, ck, cv, span, *extra):
+            return _decode_attend(q, ck, cv, valid(span, ck.device, *extra),
+                                  cfg)
+        return each(attend, q_all, ck, cv, spans, *extra, spec=q_all.spec)
 
-            out = each(combine, group_pieces(parts, "model", mesh),
-                       spec=q_all.spec, mesh=mesh)
-        wo = use_param(self.wo, cfg)
-        if wo.spec[0] is not None:
-            hl = h // mesh.shape["model"]
-            out = each(lambda o, m: o[:, :, m * hl:(m + 1) * hl], out,
-                       mesh.ranks("model"), spec=q.spec)
-        return _row_parallel(out, wo, merge_heads), cache
+    def partial(q, ck, cv, span, *extra):
+        qg = q.reshape(b, sq, kh, g, hd)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                              ck.to(cdt).float()) / math.sqrt(hd)
+        scores = torch.where(valid(span, ck.device, *extra)[:, None, None, None],
+                             scores, torch.full((), -1e30, device=ck.device))
+        top = scores.amax(dim=-1, keepdim=True)
+        e = torch.exp(scores - top)
+        o = torch.einsum("bkgqs,bskh->bkgqh", e, cv.to(cdt).float())
+        return torch.cat([top, e.sum(dim=-1, keepdim=True), o], dim=-1)
+
+    parts = each(partial, q_all, ck, cv, spans, *extra, spec=None)
+
+    def combine(group):
+        top = group[0][..., :1]
+        for p in group[1:]:
+            top = torch.maximum(top, p[..., :1])
+        acc = None
+        for p in group:
+            term = torch.exp(p[..., :1] - top) * p[..., 1:]
+            acc = term if acc is None else acc + term
+        o = acc[..., 1:] / acc[..., :1]                  # (b, kh, g, sq, hd)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(cdt)
+
+    return each(combine, group_pieces(parts, "model", mesh),
+                spec=q_all.spec, mesh=mesh)
+
+
+def heads_out(out: Placed, q: Placed, wo: Placed) -> Placed:
+    """The output projection of attention computed with every head on
+    each shard (``out``): each shard keeps the query heads of its ``q``
+    piece where ``wo`` is sharded over ``heads``, then ``wo``
+    row-parallel."""
+    if wo.spec[0] is not None:
+        hl = q.pieces[0].shape[2]
+        out = each(lambda o, m: o[:, :, m * hl:(m + 1) * hl], out,
+                   out.mesh.ranks("model"), spec=q.spec)
+    return _row_parallel(out, wo, merge_heads)
 
 
 def _prefill_cache(k: Placed, v: Placed, cache: Dict, s: int) -> Dict:
@@ -660,17 +695,17 @@ def _decode_valid(kv_pos: torch.Tensor, cache_index: Position, kind: str,
 def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                    valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """A decode step's attention over a whole cache: GROUPED einsums over
-    (kv_heads, g), the reference's layout; ``(b, 1, h, hd)``."""
-    b = q.shape[0]
+    (kv_heads, g), the reference's layout; ``(b, sq, h, hd)``."""
+    b, sq = q.shape[:2]
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kh
     cdt = cfg.cdt
-    qg = q.reshape(b, 1, kh, g, hd)
+    qg = q.reshape(b, sq, kh, g, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), ck.to(cdt).float())
     scores = scores / math.sqrt(hd)
     pr = masked_softmax(scores, valid[:, None, None, None], cdt)
     out = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.to(cdt))
-    return out.reshape(b, 1, h, hd)
+    return out.reshape(b, sq, h, hd)
 
 
 # ----------------------------------------------------------------------

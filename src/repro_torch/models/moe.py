@@ -21,7 +21,10 @@ routing and capacity computed per data shard from its local tokens (so
 a ``data`` axis longer than 1 drops other tokens than one device
 does), ``aux`` averaged over every shard.  The combine gathers the
 experts' outputs over ``model`` and runs the one-device gather in its
-slot order, so at ``data = 1`` the block is the one-device block.
+slot order, so at ``data = 1`` the block is the one-device block.  A
+``model`` extent longer than 1 that does not divide the expert count is
+refused with ``ValueError`` (:func:`check_expert_split`), as the
+reference's ``shard_map`` refuses it (``moe.py:147``).
 Under axis rules over a :class:`~repro_torch.distributed.sharding.
 LogicalMesh` with an axis longer than 1 nothing is placed, and
 :func:`moe` raises.
@@ -49,6 +52,19 @@ def moe_specs(cfg: ModelConfig) -> dict:
     if "gated" in cfg.mlp_act:
         specs["w_gate"] = ("experts", "fsdp", None)
     return specs
+
+
+def check_expert_split(cfg: ModelConfig, mesh) -> None:
+    """Raise ``ValueError`` where the reference's expert-parallel
+    ``shard_map`` refuses ``cfg`` on ``mesh`` (its in_specs put the
+    experts on ``model``, ``moe.py:147``): an MoE whose expert count a
+    ``model`` extent longer than 1 does not divide."""
+    model = int(dict(mesh.shape).get("model", 1))
+    if cfg.n_experts > 0 and model > 1 and cfg.n_experts % model:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts over a model "
+                         f"axis of {model}, which does not divide them: the "
+                         f"expert-parallel block holds n_experts / model "
+                         f"experts a shard")
 
 
 class MoE(nn.Module):
@@ -188,6 +204,7 @@ def _moe_mesh(p: MoE, x: Placed, cfg: ModelConfig):
     expert outputs over ``model`` and combines them in the one-device
     slot order.  Returns the output and each shard's aux loss."""
     mesh = x.mesh
+    check_expert_split(cfg, mesh)
     if mesh.shape["data"] > 1 and x.spec[0] is None:
         raise ValueError(f"the expert-parallel MoE splits the batch over "
                          f"data={mesh.shape['data']}, which does not divide "
@@ -203,7 +220,7 @@ def _moe_mesh(p: MoE, x: Placed, cfg: ModelConfig):
 
     def experts(xp, tables, wi, wo, m, wg=None):
         tok_table, w_table, _ = tables
-        lo = m * local if espec else 0
+        lo = m * local
         tok, wt = tok_table[lo:lo + local], w_table[lo:lo + local]
         xt = xp.reshape(-1, d)
         xg = torch.cat([xt, xt.new_zeros((1, d))], dim=0)[tok].to(cdt)

@@ -18,13 +18,16 @@ RG-LRU, gated by a parallel GeLU branch, then linear out.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (Placed, each, gather_axis,
+                                              ranges)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Init, Position, gelu, softplus
+from repro_torch.models.layers import (Init, Position, _row_parallel, gelu,
+                                       softplus, use_param)
 from repro_torch.models.ssm import _causal_conv, _conv_step
 
 Cache = Dict[str, torch.Tensor]
@@ -41,6 +44,16 @@ RGLRU_SPECS = {
     "w_i": ("fsdp", "mlp"), "b_i": (None,), "lam": (None,),
     "w_out": ("mlp", "fsdp"),
 }
+
+
+class Gates(NamedTuple):
+    """The RG-LRU gates' parameters for the channels a block computes."""
+
+    w_a: torch.Tensor
+    b_a: torch.Tensor
+    w_i: torch.Tensor
+    b_i: torch.Tensor
+    lam: torch.Tensor
 
 
 class RGLRUBlock(nn.Module):
@@ -118,18 +131,27 @@ def _combine(c1: Pair, c2: Pair) -> Pair:
     return a1 * a2, a2 * b1 + b2
 
 
-def _gates(xf: torch.Tensor, p: RGLRUBlock) -> Pair:
-    """``a`` and ``sqrt(1 - a^2) * i`` of the fp32 conv output ``xf``."""
+def _gates(xf: torch.Tensor, p: Gates,
+           own: Optional[torch.Tensor] = None) -> Pair:
+    """``a`` and ``sqrt(1 - a^2) * i`` of the fp32 conv output ``xf``:
+    ``p`` holds ``w_a``, ``b_a``, ``w_i``, ``b_i`` and ``lam`` for the
+    channels computed, ``own`` the conv output of those channels where
+    ``xf`` holds more (a model shard's, with ``xf`` whole)."""
     r = torch.sigmoid(xf @ p.w_a.float() + p.b_a)
     i = torch.sigmoid(xf @ p.w_i.float() + p.b_i)
     a = torch.exp(-_C * softplus(p.lam) * r)
-    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    own = xf if own is None else own
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * own)
 
 
-def _rg_lru(x: torch.Tensor, p: RGLRUBlock, h0: Optional[torch.Tensor]
+def _rg_lru(x: torch.Tensor, p: Gates, h0: Optional[torch.Tensor],
+            x_all: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, w). Returns (h_seq, h_final). fp32 recurrence."""
-    a, gated = _gates(x.float(), p)
+    """x: (B, S, w). Returns (h_seq, h_final). fp32 recurrence.  With
+    ``x_all`` (every channel's conv output) the gates of ``x``'s
+    channels read it."""
+    a, gated = (_gates(x.float(), p) if x_all is None
+                else _gates(x_all.float(), p, x.float()))
     if h0 is not None:
         # fold the carried state in as a virtual step at t = -1
         a = torch.cat([torch.zeros_like(a[:, :1]), a], dim=1)
@@ -147,6 +169,8 @@ def rglru_block(
     cache: Optional[Cache] = None,
     cache_index: Optional[Position] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    if isinstance(u, Placed):
+        return _rglru_block_mesh(p, u, cfg, cache)
     cdt = cfg.cdt
     gate = gelu(u @ p.w_gate.to(cdt))
     x = u @ p.w_lin.to(cdt)
@@ -169,6 +193,66 @@ def rglru_block(
         if cache is not None:
             new_cache = {"h": h_final.to(cdt), "conv": ntail}
     return y @ p.w_out.to(cdt), new_cache
+
+
+def _rglru_block_mesh(p: RGLRUBlock, u: Placed, cfg: ModelConfig,
+                      cache: Optional[Dict[str, Placed]]
+                      ) -> Tuple[Placed, Optional[Dict[str, Placed]]]:
+    """The recurrent block over ``u``'s device mesh (``recurrent.py:94-95,
+    :123``'s ``mlp`` layout): ``w_gate``, ``w_lin`` and the conv
+    column-parallel over the LRU channels, each shard's conv local; its
+    output gathered over ``model`` (``x @ w_a`` and ``x @ w_i`` contract
+    over every channel) for each shard's columns of ``w_a`` and ``w_i``
+    (their fsdp rows gathered over ``data``, used in fp32 as stored);
+    ``b_a``, ``b_i`` and ``lam`` sliced to the shard's channels; the
+    scan or the decode step local per channel, the caches' ``h`` and
+    ``conv`` the shard's channels; ``w_out`` row-parallel.  Channels the
+    model extent does not divide are whole on every shard."""
+    cdt = cfg.cdt
+    w_gate, w_lin = use_param(p.w_gate, cfg), use_param(p.w_lin, cfg)
+    conv = use_param(p.conv, cfg)
+    w_a, w_i = gather_axis(p.w_a, "data"), gather_axis(p.w_i, "data")
+    spec = (u.spec[0], None, w_gate.spec[1])
+    cols = ranges(w_gate, 1)
+
+    def gates(w_a, b_a, w_i, b_i, lam, span):
+        lo, hi = span
+        return Gates(w_a, b_a[lo:hi], w_i, b_i[lo:hi], lam[lo:hi])
+
+    g = each(gates, w_a, p.b_a, w_i, p.b_i, p.lam, cols, spec=None)
+    gate = each(lambda u, w: gelu(u @ w), u, w_gate, spec=spec)
+    x = each(torch.matmul, u, w_lin, spec=spec)
+
+    if cache is not None and u.shape[1] == 1:
+        cx = each(lambda c, x: torch.cat([c, x], dim=1), cache["conv"], x,
+                  spec=cache["conv"].spec)
+        xf = each(lambda cx, k: _conv_step(cx, k).float(), cx, conv,
+                  spec=spec[::2])
+        xf_all = gather_axis(xf, "model")
+
+        def step(xf, xf_all, g, h, gate):
+            a, gated = _gates(xf_all, g, xf)
+            h = (a * h.float() + gated).to(cdt)
+            return (h * gate[:, 0])[:, None], h
+
+        y, h = each(step, xf, xf_all, g, cache["h"], gate,
+                    spec=[spec, cache["h"].spec])
+        new_cache = {"h": h, "conv": each(lambda cx: cx[:, 1:], cx,
+                                          spec=cx.spec)}
+    else:
+        tail = () if cache is None else (cache["conv"],)
+        xc, ntail = each(_causal_conv, x, conv, *tail, spec=[spec, spec])
+        xc_all = gather_axis(xc, "model")
+
+        def scan(xc, xc_all, g, gate, *h0):
+            h, h_final = _rg_lru(xc, g, h0[0] if h0 else None, xc_all)
+            return h * gate, h_final.to(cdt)
+
+        h0 = () if cache is None else (cache["h"],)
+        y, h_final = each(scan, xc, xc_all, g, gate, *h0,
+                          spec=[spec, spec[::2]])
+        new_cache = None if cache is None else {"h": h_final, "conv": ntail}
+    return _row_parallel(y, use_param(p.w_out, cfg), torch.matmul), new_cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

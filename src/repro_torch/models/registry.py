@@ -13,12 +13,15 @@ per-device shape (``build_cell``, ``abstract_*``, ``batch_structs``,
 ``specs_to_physical``, ``Cell``): nothing is allocated.
 
 Over a :class:`~repro_torch.distributed.sharding.DeviceMesh` (``mesh=``)
-the decoder families with token prompts serve tensor-, expert- and
-data-parallel: :func:`init_params` and :func:`init_caches` place every
-leaf by its logical spec under :func:`serving_rules` (one
+every family serves tensor-, expert- and data-parallel: the decoder LMs
+with token prompts or the vision frontend's patch embeddings and M-RoPE
+positions, the hybrid RG-LRU and SSD stacks and the encoder-decoder.
+:func:`init_params` and :func:`init_caches` place every leaf by its
+logical spec under :func:`serving_rules` (one
 :class:`~repro_torch.distributed.sharding.Placed` a leaf, made leaf by
 leaf, never the whole model on one device), and the step functions run
-under those rules.
+under those rules.  Training over a mesh raises (ROADMAP, Queue 1 item
+2).
 
 The reference keeps parameters in a pytree with a pattern group's layers
 stacked along a leading axis; :func:`reference_path` says where each of
@@ -44,6 +47,7 @@ from repro_torch.distributed.sharding import (DEFAULT_RULES, AxisRules,
                                               placed_full, shard_shape,
                                               spec_for_shape, use_rules)
 from repro_torch.models import encdec as E
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -123,7 +127,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                          f"parameters on {dev}")
     if mesh is None:
         return build_model(cfg, Init(dev, generator))
-    check_mesh_config(cfg, mesh)
     recorder = _Recorder()
     model = build_model(cfg, recorder)
     names = {id(p): name for name, p in model.named_parameters()}
@@ -151,6 +154,11 @@ class _Recorder(Init):
         self.made.append((p, "full", (shape, value, dtype)))
         return p
 
+    def const(self, values):
+        p = super().const(values)
+        self.made.append((p, "const", (values,)))
+        return p
+
 
 def serving_rules(cfg: ModelConfig, mesh) -> AxisRules:
     """The reference's axis rules over ``mesh`` as it serves: the
@@ -164,18 +172,11 @@ def serving_rules(cfg: ModelConfig, mesh) -> AxisRules:
 
 
 def check_mesh_config(cfg: ModelConfig, mesh) -> None:
-    """Raise for what does not serve over a mesh with an axis longer
-    than 1: the hybrid, ssm and encoder-decoder families, the vision
-    frontend, learned positions and tied embeddings (ROADMAP, Queue 1
-    item 2)."""
-    if all(int(n) == 1 for n in dict(mesh.shape).values()):
-        return
-    if (cfg.family != "lm" or cfg.frontend != "none" or not cfg.use_rope
-            or cfg.tie_embeddings):
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}, frontend {cfg.frontend!r}) "
-            f"over a device mesh: only the decoder LMs with token prompts "
-            f"serve over one yet (ROADMAP, Queue 1 item 2)")
+    """Raise ``ValueError`` for what the reference refuses to serve over
+    ``mesh``: an MoE whose expert count the ``model`` extent does not
+    divide (:func:`~repro_torch.models.moe.check_expert_split`).  Every
+    family serves over a mesh."""
+    M.check_expert_split(cfg, mesh)
 
 
 def place_parameters(model: nn.Module, mesh: DeviceMesh, values
@@ -204,14 +205,17 @@ def place_parameters(model: nn.Module, mesh: DeviceMesh, values
 
 def placed_leaves(tree) -> List[Tuple[str, Placed]]:
     """Every :class:`Placed` of a placed model (its parameters, by
-    name) or of placed caches (by layer and entry)."""
+    name) or of placed caches (by layer and entry, an encoder-decoder's
+    ``self`` and ``cross`` entries by part)."""
     if isinstance(tree, nn.Module):
         return [((f"{prefix}." if prefix else "") + key, val)
                 for prefix, module in tree.named_modules()
                 for key, val in vars(module).items()
                 if isinstance(val, Placed)]
-    return [(f"{i}.{key}", val) for i, cache in enumerate(tree)
-            for key, val in cache.items()]
+    return [(f"{i}.{key}" + ("" if sub is None else f".{sub}"), leaf)
+            for i, cache in enumerate(tree) for key, val in cache.items()
+            for sub, leaf in (val.items() if isinstance(val, dict)
+                              else [(None, val)])]
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
@@ -219,20 +223,28 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 mesh: Optional[DeviceMesh] = None) -> list:
     """Zeroed decode caches in the compute dtype on ``device``: one entry
     a layer.  With ``mesh`` each entry is placed from its logical spec
-    (``kv_seq`` on ``model``, ``batch`` on ``data``) under
+    (``kv_seq`` on ``model``, ``batch`` on ``data``, the recurrent and
+    SSD states' channels and heads on ``model``; an encoder-decoder's
+    ``self`` and ``cross`` K/V as a global layer's) under
     :func:`serving_rules`, each piece made on its shard."""
     if mesh is not None:
-        check_mesh_config(cfg, mesh)
         rules = serving_rules(cfg, mesh)
-        out = []
-        for kind, layer in zip(T.layer_kinds(cfg), T.init_decoder_cache(
-                cfg, batch, max_seq, cfg.cdt, META)):
-            specs = T.layer_cache_specs(kind)
-            out.append({key: placed_full(
-                t.shape, physical_spec(rules, t.shape, specs[key]), mesh,
-                -1 if key == "pos" else 0, t.dtype)
-                for key, t in layer.items()})
-        return out
+
+        def placed(layer, specs):
+            return {key: placed(t, specs[key]) if isinstance(t, dict)
+                    else placed_full(t.shape, physical_spec(
+                        rules, t.shape, specs[key]), mesh,
+                        -1 if key == "pos" else 0, t.dtype)
+                    for key, t in layer.items()}
+
+        if cfg.family == "encdec":
+            kv = T.layer_cache_specs("global")
+            return [placed(layer, {"self": kv, "cross": kv})
+                    for layer in E.init_encdec_cache(cfg, batch, max_seq,
+                                                     cfg.cdt, META)]
+        return [placed(layer, T.layer_cache_specs(kind))
+                for kind, layer in zip(T.layer_kinds(cfg), T.init_decoder_cache(
+                    cfg, batch, max_seq, cfg.cdt, META))]
     dev = resolve_device(device)
     if cfg.family == "encdec":
         return E.init_encdec_cache(cfg, batch, max_seq, cfg.cdt, dev)
@@ -320,9 +332,10 @@ def make_prefill(cfg: ModelConfig) -> Callable:
     model's mesh rules when it is placed."""
     if cfg.family == "encdec":
         def prefill(model, inputs, caches):
-            enc_out = E.encode(model, inputs["frames"], cfg)
-            return E.decode(model, inputs["tokens"], enc_out, cfg,
-                            caches=caches, cache_index=0)
+            with _rules_of(model):
+                enc_out = E.encode(model, inputs["frames"], cfg)
+                return E.decode(model, inputs["tokens"], enc_out, cfg,
+                                caches=caches, cache_index=0)
         return prefill
 
     def prefill(model, inputs, caches):
@@ -341,8 +354,9 @@ def make_decode(cfg: ModelConfig) -> Callable:
     the model's mesh rules when it is placed."""
     if cfg.family == "encdec":
         def decode(model, tok, caches, index):
-            return E.decode(model, tok, None, cfg, caches=caches,
-                            cache_index=index)
+            with _rules_of(model):
+                return E.decode(model, tok, None, cfg, caches=caches,
+                                cache_index=index)
         return decode
 
     def decode(model, tok, caches, index):

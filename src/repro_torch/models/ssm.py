@@ -19,9 +19,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (Placed, PerShard, each,
+                                              gather_axis, reduce_sum,
+                                              reshard)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Init, Position, softplus
+from repro_torch.models.layers import (Init, Position, _row_parallel,
+                                       softplus, use_param)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -159,35 +163,69 @@ def ssm_block(
     cache_index: Optional[Position] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Full Mamba-2 mixer. Train/prefill when cache is None or s>1;
-    single-token recurrent decode when s == 1 with a cache."""
-    b, s, d = u.shape
-    di = cfg.expand * d
+    single-token recurrent decode when s == 1 with a cache.  A placed
+    ``u`` runs :func:`_ssm_block_mesh`."""
+    if isinstance(u, Placed):
+        return _ssm_block_mesh(p, u, cfg, cache)
+    cdt = cfg.cdt
+    w = {name: getattr(p, name).to(cdt) for name in _CAST}
+    w.update({name: getattr(p, name) for name in _WHOLE_F32})
+    nh = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+    y, new_cache = _ssm_mix(u, w, cfg, cache, (0, nh))
+    # gated RMSNorm (mamba2) + output projection
+    yf = y.float()
+    y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + cfg.norm_eps)
+         ).to(cdt) * p.norm.to(cdt)
+    return y @ p.w_out.to(cdt), new_cache
+
+
+#: the block's parameters used in the compute dtype, and the fp32 ones
+#: used as they are stored (``w_dt`` whole in fp32, as the reference
+#: casts it)
+_CAST = ("w_z", "w_x", "w_b", "w_c", "conv_x", "conv_b", "conv_c")
+_PER_HEAD = ("dt_bias", "a_log", "d_skip")
+_WHOLE_F32 = ("w_dt",) + _PER_HEAD
+
+
+def _ssm_mix(u: torch.Tensor, w: Dict[str, torch.Tensor], cfg: ModelConfig,
+             cache: Optional[Cache], heads: Tuple[int, int]
+             ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The mixer up to its gated RMSNorm: ``y * silu(z)`` and the new
+    cache, for the SSD heads ``heads = (lo, hi)`` whose ``d_inner``
+    columns ``w_z``, ``w_x``, ``conv_x`` and the cache's ``conv_x`` and
+    ``ssm`` hold (all of them on one device); ``w_dt``, ``dt_bias``,
+    ``a_log`` and ``d_skip`` are whole and sliced to those heads."""
+    b, s, _ = u.shape
     hp = cfg.ssm_head_dim
-    nh = di // hp
+    lo, hi = heads
+    nh = hi - lo
+    di = nh * hp
     cdt = cfg.cdt
 
-    z = u @ p.w_z.to(cdt)
-    x = u @ p.w_x.to(cdt)
-    bm = u @ p.w_b.to(cdt)
-    cm = u @ p.w_c.to(cdt)
-    dt = softplus((u.float() @ p.w_dt.float()) + p.dt_bias)
-    a = -torch.exp(p.a_log)  # (nh,)
+    z = u @ w["w_z"]
+    x = u @ w["w_x"]
+    bm = u @ w["w_b"]
+    cm = u @ w["w_c"]
+    dt = softplus((u.float() @ w["w_dt"].float())[..., lo:hi]
+                  + w["dt_bias"][lo:hi])
+    a = -torch.exp(w["a_log"][lo:hi])  # (nh,)
+    d_skip = w["d_skip"][lo:hi].to(cdt)
 
     if cache is not None and s == 1:
         # ---- decode: recurrent update ----
         cx = torch.cat([cache["conv_x"], x], dim=1)
         xb = torch.cat([cache["conv_b"], bm], dim=1)
         xcn = torch.cat([cache["conv_c"], cm], dim=1)
-        xcv = _conv_step(cx, p.conv_x.to(cdt))
-        bcv = _conv_step(xb, p.conv_b.to(cdt))
-        ccv = _conv_step(xcn, p.conv_c.to(cdt))
+        xcv = _conv_step(cx, w["conv_x"])
+        bcv = _conv_step(xb, w["conv_b"])
+        ccv = _conv_step(xcn, w["conv_c"])
         xh = xcv.reshape(b, nh, hp)
         dt1 = dt[:, 0]                                         # (b, nh)
         decay = torch.exp(dt1 * a).to(cdt)                     # (b, nh)
         upd = torch.einsum("bn,bh,bhp->bhnp", bcv, dt1.to(cdt), xh)
         h = decay[..., None, None] * cache["ssm"] + upd
         y = torch.einsum("bn,bhnp->bhp", ccv, h)
-        y = y + p.d_skip.to(cdt)[None, :, None] * xh
+        y = y + d_skip[None, :, None] * xh
         y = y.reshape(b, 1, di)
         new_cache = {"ssm": h, "conv_x": cx[:, 1:], "conv_b": xb[:, 1:],
                      "conv_c": xcn[:, 1:]}
@@ -196,25 +234,106 @@ def ssm_block(
         tail_x = cache["conv_x"] if cache is not None else None
         tail_b = cache["conv_b"] if cache is not None else None
         tail_c = cache["conv_c"] if cache is not None else None
-        xcv, ntx = _causal_conv(x, p.conv_x.to(cdt), tail_x)
-        bcv, ntb = _causal_conv(bm, p.conv_b.to(cdt), tail_b)
-        ccv, ntc = _causal_conv(cm, p.conv_c.to(cdt), tail_c)
+        xcv, ntx = _causal_conv(x, w["conv_x"], tail_x)
+        bcv, ntb = _causal_conv(bm, w["conv_b"], tail_b)
+        ccv, ntc = _causal_conv(cm, w["conv_c"], tail_c)
         xh = xcv.reshape(b, s, nh, hp)
         h0 = cache["ssm"] if cache is not None else None
         y, h_final = ssd_chunked(xh, dt, a, bcv, ccv, cfg.ssm_chunk, h0)
-        y = y + p.d_skip.to(cdt)[None, None, :, None] * xh
+        y = y + d_skip[None, None, :, None] * xh
         y = y.reshape(b, s, di)
         new_cache = None
         if cache is not None:
             new_cache = {"ssm": h_final, "conv_x": ntx, "conv_b": ntb,
                          "conv_c": ntc}
+    return y * F.silu(z), new_cache
 
-    # gated RMSNorm (mamba2) + output projection
-    y = y * F.silu(z)
-    yf = y.float()
-    y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + cfg.norm_eps)
-         ).to(cdt) * p.norm.to(cdt)
-    return y @ p.w_out.to(cdt), new_cache
+
+# ----------------------------------------------------------------------
+# over a device mesh
+# ----------------------------------------------------------------------
+def heads_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the block runs head-parallel over ``mesh``'s ``model``
+    axis: its extent (longer than 1) divides the SSD heads, and so
+    ``d_inner``, whose ``mlp`` columns are whole heads.  Otherwise every
+    model shard runs the block whole: ``conv_x`` and ``d_inner``'s
+    leaves may still be split (an extent that divides ``d_inner`` and
+    not the heads), and are gathered over ``model`` first."""
+    model = mesh.shape["model"]
+    nh = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+    return model > 1 and nh % model == 0
+
+
+def gated_rmsnorm_mesh(y: Placed, scale: Placed, cfg: ModelConfig) -> Placed:
+    """The gated RMSNorm over ``d_inner`` of a placed ``y`` (already
+    gated, its ``d_inner`` on ``model`` or whole) with ``scale`` laid out
+    like it: each shard's fp32 sum of squares, summed over ``model`` in
+    rank order when ``d_inner`` is split, over the whole ``d_inner``
+    before the ``rsqrt``."""
+    di = cfg.expand * cfg.d_model
+    cdt = cfg.cdt
+    ss = each(lambda y: (y.float() * y.float()).sum(-1, keepdim=True), y,
+              spec=y.spec[:2] + (None,))
+    if y.spec[2] is not None:
+        ss = reduce_sum(ss, y.spec[2])
+
+    def norm(y, ss, sc):
+        return (y.float() * torch.rsqrt(ss / di + cfg.norm_eps)).to(cdt) * sc
+
+    return each(norm, y, ss, scale, spec=y.spec)
+
+
+def _ssm_block_mesh(p: SSMBlock, u: Placed, cfg: ModelConfig,
+                    cache: Optional[Dict[str, Placed]]
+                    ) -> Tuple[Placed, Optional[Dict[str, Placed]]]:
+    """The mixer over ``u``'s device mesh (``ssm.py:153``'s ``mlp``
+    layout): with :func:`heads_split`, ``w_z``, ``w_x``, ``conv_x``,
+    ``norm`` and the caches' ``conv_x`` and ``ssm`` are each shard's
+    ``nh / model`` whole heads, the SSD chunk scan or the one-token
+    decode runs on them, the gated RMSNorm sums its squares over
+    ``model`` (:func:`gated_rmsnorm_mesh`) and ``w_out`` is
+    row-parallel; ``w_b``, ``w_c``, ``w_dt`` and the B/C convolutions
+    are whole on every model shard (their fsdp parts gathered over
+    ``data``).  Without the split each model shard runs the block
+    whole, its split leaves gathered, and keeps its part of the new
+    ``conv_x``."""
+    mesh = u.mesh
+    split = heads_split(cfg, mesh)
+
+    def shard_local(t: Placed) -> Placed:
+        return t if split else gather_axis(t, "model")
+
+    w = {name: shard_local(use_param(getattr(p, name), cfg))
+         for name in _CAST}
+    w["w_dt"] = gather_axis(p.w_dt, "data")
+    w.update({name: getattr(p, name) for name in _PER_HEAD})
+    names = list(w)
+    c = None if cache is None else {k: shard_local(t) for k, t in cache.items()}
+    nh = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+    nl = nh // mesh.shape["model"] if split else nh
+    heads = PerShard((m * nl, (m + 1) * nl) if split else (0, nh)
+                     for m in mesh.ranks("model"))
+
+    def mix(u, span, *args):
+        vals = dict(zip(names, args))
+        return _ssm_mix(u, vals, cfg, None if c is None else dict(
+            zip(c, args[len(names):])), span)
+
+    out = each(mix, u, heads, *w.values(), *([] if c is None else c.values()),
+               spec=None)
+    bspec, mspec = u.spec[0], "model" if split else None
+    y = Placed([o[0] for o in out], mesh, (bspec, None, mspec))
+    y = gated_rmsnorm_mesh(y, shard_local(use_param(p.norm, cfg)), cfg)
+    w_out = shard_local(use_param(p.w_out, cfg))
+    new_cache = None
+    if cache is not None:
+        specs = {"ssm": (bspec, mspec, None, None),
+                 "conv_x": (bspec, None, mspec),
+                 "conv_b": (bspec, None, None), "conv_c": (bspec, None, None)}
+        new_cache = {k: reshard(Placed([o[1][k] for o in out], mesh,
+                                       specs[k]), cache[k].spec)
+                     for k in cache}
+    return _row_parallel(y, w_out, torch.matmul), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -412,19 +412,44 @@ def _embed_mesh(embed: Placed, tokens: Placed, cfg: ModelConfig) -> Placed:
     return each(lambda t: t.to(cfg.cdt), reduce_sum(x, "model"), spec=spec)
 
 
-def _unembed_mesh(x: Placed, model: Decoder, cfg: ModelConfig) -> Placed:
+def _unembed_mesh(x: Placed, model: nn.Module, cfg: ModelConfig) -> Placed:
     """Vocab-parallel logits (``transformer.py:260-267``): each model
-    shard's columns of ``unembed`` (its fsdp parts gathered), the padded
+    shard's columns of ``unembed`` (its fsdp parts gathered), or of a
+    tied model's ``embed`` its vocabulary rows, transposed; the padded
     vocabulary masked in each piece."""
-    w = L.use_param(model.unembed, cfg)
-    vspec = w.spec[1]
-    cols = w.pieces[0].shape[1]
+    if cfg.tie_embeddings:
+        w = L.use_param(model.embed, cfg)
+        vspec, cols = w.spec[0], w.pieces[0].shape[0]
+    else:
+        w = L.use_param(model.unembed, cfg)
+        vspec, cols = w.spec[1], w.pieces[0].shape[1]
 
     def logits(x, w, m):
-        return unembed_logits(x, w, cfg, first=m * cols if vspec else 0)
+        return unembed_logits(x, w.T if cfg.tie_embeddings else w, cfg,
+                              first=m * cols if vspec else 0)
 
     return each(logits, x, w, x.mesh.ranks("model"),
                 spec=(x.spec[0], None, vspec))
+
+
+def add_positions_mesh(x: Placed, table: Placed, start: int,
+                       cfg: ModelConfig) -> Placed:
+    """``x`` plus the rows ``start, ..., start + S - 1`` of a learned
+    position table (its fsdp parts gathered over ``data``), clamped as
+    the one-device slice is, in the compute dtype."""
+    table = gather_axis(table, "data")
+    s = x.shape[1]
+    return each(lambda x, t: x + _slice_clamped(t, start, s).to(cfg.cdt)[None],
+                x, table, spec=x.spec)
+
+
+def place_inputs(x: torch.Tensor, mesh, rules, cfg: ModelConfig) -> Placed:
+    """A whole ``(B, S, d)`` input (the vision frontend's patch
+    embeddings, an encoder's frames) placed ``(batch, None, None)`` and
+    cast to the compute dtype."""
+    bspec = physical_spec(rules, x.shape[:1], ("batch",))[0]
+    placed = place(x, mesh, (bspec, None, None))
+    return each(lambda t: t.to(cfg.cdt), placed, spec=placed.spec)
 
 
 def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
@@ -433,24 +458,36 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     """:func:`decoder_forward` over the model's device mesh, eagerly: the
     batch split over ``data`` (whole where the extent does not divide
     it), the residual stream whole on each model shard of a data group,
-    every layer tensor- and expert-parallel over ``model``.  The logits
-    come back whole on the mesh's first device; the caches are placed
-    and written in place; the aux loss is averaged over the shards.
-    The position is read to the host: a mesh step is not captured."""
-    if tokens.dim() == 3 or positions is not None or remat:
+    every layer tensor- and expert-parallel over ``model``.  Token ids
+    are looked up in the vocab-sharded table; ``(B, S, d)`` embeddings
+    are placed ``(batch, None, None)``, and M-RoPE ``positions (3, B,
+    S)`` ``(None, batch, None)`` for every layer.  The logits come back
+    whole on the mesh's first device; attention caches are written in
+    place and recurrent states returned anew, placed; the aux loss is
+    averaged over the shards.  The position is read to the host: a mesh
+    step is not captured."""
+    if remat:
         raise NotImplementedError(
-            "embeddings, M-RoPE positions and training over a device mesh "
-            "(ROADMAP, Queue 1 item 2)")
+            "training over a device mesh (ROADMAP, Queue 1 item 2)")
     mesh, rules = model.mesh, model.rules
     if isinstance(cache_index, torch.Tensor):
         cache_index = int(cache_index)
     bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
-    x = _embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
+    if tokens.dim() == 3:
+        x = place_inputs(tokens, mesh, rules, cfg)
+    else:
+        x = _embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
+    if not cfg.use_rope and model.pos_embed is not None:
+        x = add_positions_mesh(x, model.pos_embed,
+                               0 if cache_index is None else cache_index, cfg)
+    if positions is not None:
+        positions = place(positions, mesh, (None, bspec, None)
+                          if positions.dim() == 3 else (bspec, None))
     aux_total = None
     new_caches = None if caches is None else []
     for i, layer in enumerate(model.layers):
         x, nc, aux = layer(x, cache=None if caches is None else caches[i],
-                           cache_index=cache_index)
+                           cache_index=cache_index, positions=positions)
         if aux is not None:
             aux_total = aux if aux_total is None else \
                 each(torch.add, aux_total, aux, spec=())

@@ -62,7 +62,7 @@ class DecodeGraph:
         if getattr(params, "mesh", None) is not None:
             raise NotImplementedError(
                 "a decode step over a device mesh runs eagerly: its capture "
-                "as a CUDA graph is not ported (ROADMAP, Queue 1 item 2)")
+                "as a CUDA graph is not ported (ROADMAP, Queue 1 item 3)")
         t0 = time.perf_counter()
         self.caches = caches
         self.replays = 0

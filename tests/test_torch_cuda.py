@@ -1278,3 +1278,47 @@ def test_moe_block_over_a_mesh_on_card(cuda_device, arch):
     assert all(torch.equal(a.to(cuda_device), got_aux.pieces[0])
                for a in got_aux.pieces)
     assert abs(float(got_aux.pieces[0]) - float(aux)) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_370m", "whisper_small"])
+def test_lm_mesh_families_on_card_match_one_device(cuda_device, arch):
+    """mamba2's SSD stack and whisper's encoder-decoder (SMOKE, f32) on
+    ``make_mesh_for(4)`` with the one card repeated, a stream a shard:
+    prefill (whisper with its frames) and three teacher-forced decode
+    steps within the reference's tolerance of the one-device run on the
+    card."""
+    from _torch_port import LM_TOL, lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    rng = np.random.default_rng(7)
+    b, prompt, steps = 4, 14, 3
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (b, prompt + steps))).to(cuda_device)
+    inputs = {"tokens": tokens[:, :prompt]}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(cuda_device)
+
+    def run(mesh):
+        model = registry.init_params(
+            cfg, torch.Generator(device="cuda:0").manual_seed(0),
+            device="cuda:0", mesh=mesh)
+        caches = registry.init_caches(cfg, b, 20, device="cuda:0", mesh=mesh)
+        out = []
+        with torch.inference_mode():
+            logits, caches = registry.make_prefill(cfg)(model, inputs, caches)
+            out.append(logits)
+            for t in range(prompt, prompt + steps):
+                logits, caches = registry.make_decode(cfg)(
+                    model, tokens[:, t:t + 1], caches, t)
+                out.append(logits)
+        return out
+
+    want = run(None)
+    got = run(make_mesh_for(4, device="cuda:0"))
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert g.device == w.device
+        assert float((g - w).abs().max()) < LM_TOL, t

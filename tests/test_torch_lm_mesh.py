@@ -9,7 +9,9 @@ their default capacity factor, where the (2, 2) mesh drops other tokens
 than one device); the mesh run against the port's one-device run, in
 f32 and bf16; the MoE block at ``data = 1`` bitwise the one-device
 block; the collectives against plain tensor ops; the engine, the serve
-CLI, and the families that do not serve over a mesh raising."""
+CLI, training over a mesh raising, and an MoE whose expert count the
+model extent does not divide refused as the reference refuses it (the
+other four families' serving: ``tests/test_torch_lm_mesh_families.py``)."""
 import contextlib
 import dataclasses
 import io
@@ -27,6 +29,7 @@ from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models import moe as PM
 from repro_torch.models import registry as PR
 from repro_torch.serving import ServeEngine
+from test_torch_lm_mesh_families import ref_family_runs
 from test_torch_lm_models import BF16_MAX_REL
 
 #: the decoder LMs with token prompts, the ones that serve over a mesh
@@ -399,20 +402,63 @@ def test_decode_graph_refuses_a_mesh_model():
     from repro_torch.serving.engine import DecodeGraph
 
     cfg = lm_cfg(PR.get_config("llama3_8b", smoke=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         DecodeGraph(PR.make_decode(cfg), _seeded(cfg, _mesh("1x4")),
                     torch.zeros(B, 1, dtype=torch.long), [], None)
 
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b",
                                   "whisper_small", "qwen2_vl_72b"])
-def test_other_families_raise_over_a_mesh(arch):
-    cfg = PR.get_config(arch, smoke=True)
-    mesh = _mesh("1x4")
+def test_training_over_a_mesh_still_raises(arch):
+    """The four families serve over a mesh; their training forward over
+    one raises, naming its ROADMAP item."""
+    cfg = lm_cfg(PR.get_config(arch, smoke=True))
+    batch = {"tokens": _tokens(cfg)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros(B, cfg.enc_seq, cfg.d_model)
+    if cfg.frontend == "vision":
+        batch = {"tokens": torch.zeros(B, PROMPT, cfg.d_model),
+                 "positions": torch.zeros(3, B, PROMPT, dtype=torch.long)}
+    model = _seeded(cfg, _mesh("1x4"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        PR.init_params(cfg, torch.Generator().manual_seed(0), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        PR.init_caches(cfg, B, MAX_SEQ, mesh=mesh)
+        PR.make_train_forward(cfg)(model, batch)
+
+
+@pytest.fixture(scope="module")
+def ref_moe_refusals(multi_device, tmp_path_factory):
+    """The reference's verdict on dbrx_132b's SMOKE config with 2 and 6
+    experts on the (1, 4) mesh, from the families' reference subprocess
+    run with no family."""
+    return ref_family_runs(multi_device, tmp_path_factory.mktemp(
+        "ref_moe") / "runs.npz", archs=())[1]
+
+
+@pytest.mark.parametrize("n_experts,devices", [(2, 4), (6, 4), (4, 8)],
+                         ids=["2 on (1, 4)", "6 on (1, 4)", "4 on (1, 8)"])
+def test_moe_refuses_an_expert_count_the_model_extent_does_not_divide(
+        n_experts, devices, ref_moe_refusals):
+    """dbrx_132b's SMOKE config with an expert count the model extent of
+    ``make_mesh_for(devices)`` does not divide (its own 4 experts on the
+    (1, 8) mesh): the port raises ``ValueError`` where it used to keep
+    whole experts on every shard, as the reference's ``shard_map`` raises
+    on the (1, 4) mesh (its subprocess has four devices)."""
+    if devices == 4:
+        assert ref_moe_refusals[n_experts] == "ValueError"
+    cfg = dataclasses.replace(lm_cfg(PR.get_config("dbrx_132b", smoke=True)),
+                              n_experts=n_experts)
+    mesh = make_mesh_for(devices, device="cpu")
+    assert mesh.shape == {"data": 1, "model": devices}
+    with pytest.raises(ValueError, match="does not divide"):
+        _seeded(cfg, mesh)
+    # the former fallback's layout, whole experts on every shard, is
+    # refused by the block itself
+    block = _seeded(cfg).layers[0].moe
+    for name, p in list(block.named_parameters()):
+        del block._parameters[name]
+        setattr(block, name, S.place(p.detach(), mesh, (None,) * p.dim()))
+    with pytest.raises(ValueError, match="does not divide"):
+        PM.moe(block, S.place(torch.zeros(B, 2, cfg.d_model), mesh,
+                              (None, None, None)), cfg)
 
 
 def test_serve_cli_over_a_mesh():
@@ -425,6 +471,14 @@ def test_serve_cli_over_a_mesh():
     line = buf.getvalue().strip()
     assert line.startswith("llama3-smoke: (4, 4) tokens in ")
     assert line.endswith("on a (1, 4) mesh")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
         serve.main(["--arch", "mamba2_370m", "--smoke", "--mesh", "4",
-                    "--device", "cpu", "--gen", "2"])
+                    "--device", "cpu", "--prompt-len", "16", "--gen", "4"])
+    line = buf.getvalue().strip()
+    assert line.startswith("mamba2-smoke: (4, 4) tokens in ")
+    assert line.endswith("on a (1, 4) mesh")
+    for mesh in ([], ["--mesh", "4"]):
+        with pytest.raises(SystemExit, match="patch embeddings"):
+            serve.main(["--arch", "qwen2_vl_72b", "--smoke", "--device",
+                        "cpu", "--gen", "2"] + mesh)
