@@ -207,19 +207,25 @@ non-zero and prints no result line):
    the one card repeated, a stream a shard): (a) llama3_8b at full
    width and depth, bf16 compute, on ``make_mesh_for(4)`` (1, 4) answers
    4 requests of 512 tokens with 16 generated tokens through
-   ``ServeEngine.generate`` (eager prefill and decode steps), with its
-   prefill s, decode ms a token, tokens/s, every shard's parameter and
-   cache bytes against ``shard_shape``'s count and the peak bytes; (b)
-   llama3_8b at full width cut to 2 layers, f32, on (1, 4) and (2, 2):
-   prefill and decode logits against the same model's one-device run
-   within ``LM_REL_TOL``; (c) moonshot_v1_16b_a3b and dbrx_132b at full
-   width cut to one layer, f32, capacity factor 16: the same, and
-   whether the expert-parallel block at ``data = 1`` is bitwise the
-   one-device block; (d) with two or more cards, (b)'s meshes over
-   distinct cards bitwise the same meshes with every shard on the
-   first card (else a line ``"distinct_cards": "not run: 1 card
-   visible"``); (e) mamba2_370m at its full config (48 layers), bf16,
-   served as (a) is on ``make_mesh_for(4)``; (f) recurrentgemma_9b cut
+   ``ServeEngine.generate`` (an eager prefill, one eager decode step,
+   then replays of one CUDA-graph capture of the mesh's decode step),
+   with its prefill s, decode ms a token and the host's enqueue ms over
+   the replays, capture s, replays, tokens/s, every shard's parameter
+   and cache bytes against ``shard_shape``'s count and the peak bytes;
+   beside it an eager leg of 4 decode steps from the same prompt whose
+   tokens and logits must be the engine's bit for bit, with its ms and
+   host ms a step; (b) llama3_8b at full width cut to 2 layers, f32, on
+   (1, 4) and (2, 2): prefill and decode logits against the same model's
+   one-device run within ``LM_REL_TOL``, and its decode steps replayed
+   from a capture bitwise its eager steps; (c) moonshot_v1_16b_a3b and
+   dbrx_132b at full width cut to one layer, f32, capacity factor 16:
+   the same, and whether the expert-parallel block at ``data = 1`` is
+   bitwise the one-device block; (d) with two or more cards, (b)'s
+   meshes over distinct cards bitwise the same meshes with every shard
+   on the first card, eager and replayed steps (else a line
+   ``"distinct_cards": "not run: 1 card visible"``); (e) mamba2_370m at
+   its full config (48 layers), bf16, served as (a) is on
+   ``make_mesh_for(4)``; (f) recurrentgemma_9b cut
    to 4 layers, whisper_small whole and qwen2_vl_72b cut to one layer,
    full width, f32, as (b) is on both meshes (whisper with its frames,
    qwen2_vl prefilled on patch embeddings with three M-RoPE position
@@ -2750,14 +2756,16 @@ def lm_consistency(torch, cfg, batch: int, prompt: int, steps: int,
 
 
 def graph_vs_eager_decode(torch, cfg, model, inputs, prompt: int,
-                          steps: int) -> int:
+                          steps: int, mesh=None, seen=None) -> int:
     """``steps - 1`` decode steps after a prefill of ``prompt``
     positions, twice from the same prefill: eagerly with the position a
     0-d tensor, and as the engine runs them on the card (one eager step
     on a stream of its own, then replays of one ``DecodeGraph``
     capture).  Every step's logits must be bitwise the same (checked);
-    returns the count.  The text configs decode their true next tokens,
-    the vision config seeded token ids after its embeddings."""
+    returns the count, and appends the graph's logits to ``seen`` when
+    given.  The text configs decode their true next tokens, the vision
+    config seeded token ids after its embeddings.  ``model`` may be
+    placed on ``mesh`` (its caches are then placed too)."""
     from repro_torch.models import registry as R
     from repro_torch.serving.engine import DecodeGraph
 
@@ -2780,7 +2788,8 @@ def graph_vs_eager_decode(torch, cfg, model, inputs, prompt: int,
         stream.wait_stream(torch.cuda.current_stream(dev))
         logits_seen = []
         with torch.cuda.stream(stream), torch.inference_mode():
-            caches = R.init_caches(cfg, batch, prompt + steps, device=dev)
+            caches = R.init_caches(cfg, batch, prompt + steps, device=dev,
+                                   mesh=mesh)
             _, caches = R.make_prefill(cfg)(model, pre, caches)
             pos = torch.full((), prompt, dtype=torch.int32, device=dev)
             for t, tok in enumerate(toks):
@@ -2791,8 +2800,12 @@ def graph_vs_eager_decode(torch, cfg, model, inputs, prompt: int,
                         step = DecodeGraph(decode, model, tok, caches, stream)
                     logits = step(tok, prompt + t)
                 logits_seen.append(logits.clone())
+            if mesh is not None:
+                mesh.fork()
         torch.cuda.current_stream(dev).wait_stream(stream)
         runs.append(logits_seen)
+    if seen is not None:
+        seen.extend(runs[1])
     same = [bool(torch.equal(g, e)) for g, e in zip(runs[1], runs[0])]
     check(all(same), f"{cfg.name}: decode steps through the graph are not "
           f"the eager steps bit for bit: {same}")
@@ -3512,6 +3525,9 @@ def phase_dryrun_lm(torch) -> dict:
 MESH_LM_BATCH, MESH_LM_PROMPT, MESH_LM_GEN = 4, 512, 16
 #: (e): mamba2_370m's full CONFIG (bf16 compute), served as (a)
 MESH_LM_SSM_ARCH = "mamba2_370m"
+#: (a) and (e): the decode steps of the engine's warm-up (one eager, then
+#: replays), repeated eagerly from the same prompt for the eager ms a step
+MESH_LM_EAGER_STEPS = 4
 #: (b), (c) and (f): full width, f32, cut in depth (None: whole); batch
 #: 4 (split over data=2), a 64-token prompt and 4 decode steps
 MESH_LM_CUT = {"llama3_8b": 2, "moonshot_v1_16b_a3b": 1, "dbrx_132b": 1,
@@ -3542,13 +3558,19 @@ def _counted_bytes(R, structs, specs, rules) -> int:
 
 def mesh_lm_serve(torch, cfg) -> dict:
     """(a) and (e): ``cfg`` on ``make_mesh_for(4)`` serves through
-    ``ServeEngine.generate`` (a warm-up of 2 tokens, then the timed run):
-    the prefill seconds (CUDA events on the caller's stream, which waits
-    for every shard), the decode ms a token (events between consecutive
-    steps, median), the host's ms a token, the ATen ops one decode step
-    dispatches (counted apart from the timed run), tokens/s, each shard's
-    parameter and cache bytes against ``shard_shape``'s count (checked
-    equal), the peak bytes; the logits finite and the engine eager."""
+    ``ServeEngine.generate``, whose decode runs one eager step and then
+    replays one CUDA-graph capture.  The warm-up generates
+    ``MESH_LM_EAGER_STEPS + 1`` tokens (its capture included) and keeps
+    each step's logits; the eager leg (:func:`mesh_eager_leg`) runs as
+    many decode steps from its own prefill and must give the same tokens
+    and logits bit for bit.  Then the timed run: the prefill seconds
+    (CUDA events on the caller's stream, which waits for every shard),
+    the decode ms a token (events between consecutive replays after the
+    first, median), the host's enqueue ms over the same steps, the
+    capture seconds, the replays, tokens/s; the ATen ops one eager
+    decode step dispatches (counted apart from the timed run), each
+    shard's parameter and cache bytes against ``shard_shape``'s count
+    (checked equal), the peak bytes; the logits finite."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry as R
     from repro_torch.serving import ServeEngine
@@ -3563,10 +3585,18 @@ def mesh_lm_serve(torch, cfg) -> dict:
     prompt = torch.randint(0, cfg.vocab, (MESH_LM_BATCH, MESH_LM_PROMPT),
                            device=mesh.device, generator=torch.Generator(
                                device=mesh.device).manual_seed(1))
-    seq = MESH_LM_PROMPT + MESH_LM_GEN
     eng = ServeEngine(R.make_prefill(cfg), R.make_decode(cfg),
-                      lambda b, s: R.init_caches(cfg, b, seq, mesh=mesh))
-    eng.generate(model, prompt, 2)
+                      lambda b, s: R.init_caches(cfg, b, s, mesh=mesh))
+    warm_logits: list = []
+    warm = eng.generate(model, prompt, MESH_LM_EAGER_STEPS + 1,
+                        on_step=lambda i, logits: warm_logits.append(
+                            logits.clone()))
+    check(eng.stats["graph"] and eng.stats["eager_steps"] == 1
+          and eng.stats["replays"] == MESH_LM_EAGER_STEPS - 1,
+          f"{cfg.name}: the warm-up ran {eng.stats} over the mesh")
+    eager = mesh_eager_leg(torch, cfg, model, prompt, mesh, warm_logits,
+                           warm)
+    del warm_logits
     mesh.synchronize()
     marks: list = []
     start = torch.cuda.Event(enable_timing=True)
@@ -3576,16 +3606,20 @@ def mesh_lm_serve(torch, cfg) -> dict:
                        on_step=_step_marks(torch, marks))
     mesh.synchronize()
     wall = time.perf_counter() - t0
+    stats = dict(eng.stats)
     check(all(bool(m[3]) for m in marks), f"{cfg.name}: non-finite logits")
     check(tuple(out.shape) == (MESH_LM_BATCH, MESH_LM_GEN),
           f"{cfg.name}: out {out.shape}")
-    check(not eng.stats["graph"]
-          and eng.stats["eager_steps"] == MESH_LM_GEN - 1,
-          f"{cfg.name}: the engine ran {eng.stats} over the mesh")
+    check(stats["graph"] and stats["eager_steps"] == 1
+          and stats["replays"] == MESH_LM_GEN - 2,
+          f"{cfg.name}: the engine ran {stats} over the mesh, want one "
+          f"eager decode step and {MESH_LM_GEN - 2} replays")
+    # step i >= 3: one replay, the argmax and the static inputs' writes
     step_ms = [marks[i - 1][1].elapsed_time(marks[i][1])
-               for i in range(2, MESH_LM_GEN)]
+               for i in range(3, MESH_LM_GEN)]
     host_ms = [1e3 * (marks[i][2] - marks[i - 1][2])
-               for i in range(2, MESH_LM_GEN)]
+               for i in range(3, MESH_LM_GEN)]
+    seq = MESH_LM_PROMPT + MESH_LM_GEN
     caches = R.init_caches(cfg, MESH_LM_BATCH, seq, mesh=mesh)
     with torch.inference_mode():
         _, caches = R.make_prefill(cfg)(model, prompt, caches)
@@ -3601,11 +3635,16 @@ def mesh_lm_serve(torch, cfg) -> dict:
                d_model=cfg.d_model, compute=cfg.compute_dtype,
                batch=MESH_LM_BATCH, prompt=MESH_LM_PROMPT, gen=MESH_LM_GEN,
                init_s=init_s, prefill_s=start.elapsed_time(marks[0][1]) / 1e3,
+               first_step_and_capture_ms=marks[0][1].elapsed_time(
+                   marks[1][1]),
+               capture_s=stats["capture_s"], replays=stats["replays"],
                decode_ms_per_token=statistics.median(step_ms),
                decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
                decode_host_ms_per_token=statistics.median(host_ms),
-               decode_aten_ops=decode_ops,
+               **eager, decode_aten_ops=decode_ops,
                generate_s=wall, tokens_per_s=MESH_LM_BATCH * MESH_LM_GEN / wall,
+               tokens_per_s_without_capture=MESH_LM_BATCH * MESH_LM_GEN
+               / (wall - stats["capture_s"]),
                shard_param_bytes=params, shard_cache_bytes=cache,
                shard_shape_param_bytes=want_params,
                shard_shape_cache_bytes=want_cache,
@@ -3619,13 +3658,65 @@ def mesh_lm_serve(torch, cfg) -> dict:
     return rec
 
 
-def _mesh_logits(torch, cfg, mesh, device: str) -> list:
+def mesh_eager_leg(torch, cfg, model, prompt, mesh, seen: list,
+                   tokens) -> dict:
+    """``MESH_LM_EAGER_STEPS`` greedy decode steps over ``make_decode``
+    with a 0-d tensor position, from their own prefill into caches of
+    the warm-up's length, against the engine's warm-up (``seen``: its
+    logits, the prefill's first; ``tokens``: its tokens): every step's
+    logits and the tokens bit for bit (checked).  Timed with
+    ``_step_marks``: the eager decode ms a step (CUDA events) and the
+    host's ms a step, median over the steps after the first."""
+    from repro_torch.models import registry as R
+
+    b, s = prompt.shape
+    steps = MESH_LM_EAGER_STEPS
+    marks: list = []
+    mark = _step_marks(torch, marks)
+    kept = []
+    with torch.inference_mode():
+        caches = R.init_caches(cfg, b, s + steps + 1, mesh=mesh)
+        logits, caches = R.make_prefill(cfg)(model, prompt, caches)
+        mark(0, logits)
+        kept.append(logits.clone())
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+        toks = [tok]
+        decode = R.make_decode(cfg)
+        for i in range(1, steps + 1):
+            pos = torch.tensor(s + i - 1, dtype=torch.int32,
+                               device=mesh.device)
+            logits, caches = decode(model, tok, caches, pos)
+            mark(i, logits)
+            kept.append(logits.clone())
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+            toks.append(tok)
+    mesh.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(kept, seen)]
+    tokens_same = bool(torch.equal(torch.cat(toks, dim=1), tokens))
+    check(all(same) and tokens_same,
+          f"{cfg.name}: the engine's replays over the mesh are not the "
+          f"eager steps bit for bit: logits {same}, tokens {tokens_same}")
+    step_ms = [marks[i - 1][1].elapsed_time(marks[i][1])
+               for i in range(2, steps + 1)]
+    host_ms = [1e3 * (marks[i][2] - marks[i - 1][2])
+               for i in range(2, steps + 1)]
+    return dict(eager_leg_steps=steps,
+                eager_decode_ms_per_token=statistics.median(step_ms),
+                eager_host_ms_per_token=statistics.median(host_ms),
+                graph_steps_bitwise_eager=sum(same) - 1,
+                graph_tokens_identical_eager=tokens_same)
+
+
+def _mesh_logits(torch, cfg, mesh, device: str, replayed=None) -> list:
     """``cfg`` from seed 0 on ``mesh`` (or, with ``None``, on
     ``device``): the prefill's logits and each teacher-forced decode
     step's, on ``device``.  The inputs are ``_lm_inputs``': the
     encoder-decoder's prefill takes frames, the vision frontend's patch
     embeddings and three M-RoPE streams, its decode steps token ids
-    (seed 3)."""
+    (seed 3).  With a list ``replayed``, the same model's decode steps
+    also run through a ``DecodeGraph`` against their eager run
+    (:func:`graph_vs_eager_decode`, bitwise, checked), the replayed
+    logits appended to it."""
     from repro_torch.models import registry as R
 
     model = R.init_params(cfg, torch.Generator(device=device).manual_seed(0),
@@ -3641,6 +3732,15 @@ def _mesh_logits(torch, cfg, mesh, device: str) -> list:
         inputs = _lm_inputs(torch, cfg, b, p + steps, device)
         tokens = inputs["tokens"]
         inputs["tokens"] = tokens[:, :p]
+    if replayed is not None:
+        whole = inputs if cfg.frontend == "vision" else {**inputs,
+                                                         "tokens": tokens}
+        # the capture allocates from a private pool: give it the memory
+        # the eager runs before it left cached (dbrx_132b on (2, 2) needs
+        # about 2 GiB more there than the card has free otherwise)
+        torch.cuda.empty_cache()
+        graph_vs_eager_decode(torch, cfg, model, whole, p, steps, mesh=mesh,
+                              seen=replayed)
     out = []
     with torch.inference_mode():
         logits, caches = R.make_prefill(cfg)(model, inputs, caches)
@@ -3678,9 +3778,10 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
     """(b)-(d) and (f) for one config: full width, f32, cut to
     ``MESH_LM_CUT`` layers (MoE at capacity factor 16), on both meshes
     of the card against its one-device run, relative to the largest
-    |logit|; the MoE block bitwise or not at data = 1; with two or more
-    cards, each mesh over distinct cards against the same mesh on the
-    first card."""
+    |logit|, and its decode steps replayed from a ``DecodeGraph``
+    bitwise its eager steps; the MoE block bitwise or not at data = 1;
+    with two or more cards, each mesh over distinct cards, its eager
+    and replayed steps, against the same mesh on the first card."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry as R
 
@@ -3702,17 +3803,22 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
                max_abs_logit=scale, rel_tol=LM_REL_TOL)
     for name, mp in MESH_LM_MESHES.items():
         mesh = make_mesh_for(4, mp, device=dev)
-        got = _mesh_logits(torch, cfg, mesh, dev)
+        replayed: list = []
+        got = _mesh_logits(torch, cfg, mesh, dev, replayed)
         rec[f"rel_err_{name}"] = max(max_abs(g, w)
                                      for g, w in zip(got, want)) / scale
+        rec[f"graph_steps_bitwise_{name}"] = len(replayed)
         if cfg.n_experts > 0 and mesh.shape["data"] == 1:
             rec[f"moe_block_bitwise_{name}"] = _moe_block_bitwise(
                 torch, cfg, mesh)
         if cards > 1:
-            far = _mesh_logits(torch, cfg, make_mesh_for(4, mp), dev)
+            far_replayed: list = []
+            far = _mesh_logits(torch, cfg, make_mesh_for(4, mp), dev,
+                               far_replayed)
             rec[f"distinct_cards_bitwise_{name}"] = all(
-                bool(torch.equal(a, b)) for a, b in zip(far, got))
-        del got
+                bool(torch.equal(a, b)) for a, b in
+                zip(far + far_replayed, got + replayed))
+        del got, replayed
         torch.cuda.empty_cache()
     if cards <= 1:
         rec["distinct_cards"] = f"not run: {cards} card visible"
@@ -3731,9 +3837,10 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
 def phase_lm_mesh(torch) -> dict:
     """LM serving over a (data, model) device mesh: (a) llama3_8b at full
     width and depth, then (b)-(d), (e) mamba2_370m at full width and
-    depth, and (f) the other three families cut in depth.  The path has
-    no hand-written kernel: its launch counts are read and shown, and
-    must be 0."""
+    depth, and (f) the other three families cut in depth; every decode
+    through the engine one eager step and then graph replays.  The path
+    has no hand-written kernel: its launch counts are read and shown,
+    and must be 0."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry as R
 

@@ -380,6 +380,18 @@ class DataMesh:
         return ShardedVector([self.move(x[s * step:(s + 1) * step], s)
                               for s in range(self.nshards)], self)
 
+    def fork(self) -> None:
+        """Make every shard's stream wait for the current stream of shard
+        0's device (no host wait): each shard's next work sees all that
+        was queued there.  Under a stream capture on that stream, the
+        shard streams join the capture, so their work lands in the graph
+        (and :meth:`join` must follow before the capture ends)."""
+        if self.device.type != "cuda":
+            return
+        current = torch.cuda.current_stream(self.device)
+        for s in range(self.nshards):
+            self.stream(s).wait_stream(current)
+
     def join(self) -> None:
         """Make the current streams wait for every shard's queued work
         (no host wait): what runs there next sees all of it."""
@@ -587,6 +599,18 @@ def placed_full(shape: Sequence[int], spec: Spec, mesh: DeviceMesh,
             pieces.append(torch.full(piece, value, dtype=dtype,
                                      device=mesh.devices[s]))
     return Placed(pieces, mesh, spec)
+
+
+def on_every_shard(value, mesh: DataMesh) -> "PerShard":
+    """``value`` for every shard: a tensor moved to each shard's device
+    and stream (:meth:`DataMesh.move`, from the current stream of its
+    device), so that no shard reads another's memory; anything else (a
+    Python number) as it is.  Call it outside :meth:`DataMesh.on`."""
+    if isinstance(value, PerShard):
+        return value
+    if isinstance(value, torch.Tensor):
+        return PerShard(mesh.move(value, s) for s in range(mesh.nshards))
+    return PerShard((value,) * mesh.nshards)
 
 
 def each(fn, *args, spec, mesh: Optional[DeviceMesh] = None):

@@ -30,7 +30,10 @@ As the reference does, the LM path serves over ``make_mesh_for(n)``
 ``--device cpu``, on the CPU).  Every family with token prompts serves
 there: the decoder LMs, recurrentgemma's RG-LRU hybrid, mamba2's SSD
 stack and whisper's encoder-decoder (its frames zeros, as on one
-device); the vision arch is refused with or without a mesh::
+device); the vision arch is refused with or without a mesh.  On the
+card, one device or a mesh of one card, the decode runs one eager step
+and then replays one CUDA-graph capture, and a second line prints the
+engine's ``stats`` (graph, eager steps, replays, capture seconds)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
         --smoke --mesh 4 --device cpu
@@ -104,6 +107,11 @@ def _serve_lm(args) -> None:
         f" on a ({mesh.shape['data']}, {mesh.shape['model']}) mesh"
     print(f"{cfg.name}: {tuple(out.shape)} tokens in {wall:.2f}s "
           f"({args.batch*args.gen/wall:.1f} tok/s incl. compile){where}")
+    if dev.type == "cuda":
+        # the decode's route on the card: one eager step, then replays
+        st = eng.stats
+        print(f"  decode: graph={st['graph']} eager_steps={st['eager_steps']} "
+              f"replays={st['replays']} capture_s={st['capture_s']:.3f}")
 
 
 def _serve_solves(args) -> None:

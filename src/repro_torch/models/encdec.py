@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (Placed, each, gather_axis,
-                                              physical_spec, place, to_whole)
+                                              on_every_shard, physical_spec,
+                                              place, to_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -246,8 +247,9 @@ def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
     device.  The caches are placed: self K/V written in place, the
     cross K/V projected at prefill into the ``kv_seq``-sharded cache."""
     mesh, rules = model.mesh, model.rules
-    if isinstance(cache_index, torch.Tensor):
-        cache_index = int(cache_index)
+    if cache_index is not None:
+        # each shard's copy of the position, read on its device
+        cache_index = on_every_shard(cache_index, mesh)
     bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
     x = T._embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
     x = T.add_positions_mesh(x, model.dec_pos,

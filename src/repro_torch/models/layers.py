@@ -38,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (Placed, each, gather_axis,
                                               group_pieces, heads_to_seq,
-                                              ranges, reduce_sum)
+                                              on_every_shard, ranges,
+                                              reduce_sum)
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, torch.Tensor]
@@ -455,7 +456,7 @@ class Attention(nn.Module):
     # over a device mesh
     # ------------------------------------------------------------------
     def _forward_mesh(self, x: Placed, kind: str, cache: Optional[Dict],
-                      cache_index: Optional[int],
+                      cache_index: Optional[Position],
                       positions: Optional[Placed] = None,
                       kv_source: Optional[Placed] = None,
                       causal: bool = True):
@@ -470,10 +471,15 @@ class Attention(nn.Module):
         attends without a mask, as ``causal=False`` does.  A prefill
         writes its keys and values into the ``kv_seq``-sharded cache
         through the head-to-sequence relayout; a decode step attends with
-        :meth:`_decode_mesh`.  ``cache_index`` is an int (the mesh path
-        runs eagerly)."""
+        :meth:`_decode_mesh`.  ``cache_index`` is an int, a 0-d integer
+        tensor, or either already on every shard (a ``PerShard`` of
+        :func:`~repro_torch.distributed.sharding.on_every_shard`, as the
+        decoder hands it to each layer): a tensor is read on each shard's
+        device, never on the host."""
         cfg = self.cfg
         mesh = x.mesh
+        if cache_index is not None:
+            cache_index = on_every_shard(cache_index, mesh)
         b, s, _ = x.shape
         h, kh = cfg.n_heads, cfg.n_kv_heads
         g = h // kh
@@ -486,9 +492,11 @@ class Attention(nn.Module):
         v = each(project_heads, kv_in, wv, spec=k.spec)
         if kv_source is None and cfg.use_rope:
             if positions is None:
-                start = 0 if cache_index is None else cache_index
+                # each shard's first position: its rows are counted from it
+                positions = on_every_shard(
+                    0 if cache_index is None else cache_index, mesh)
 
-                def rope(t):
+                def rope(t, start):
                     pos = torch.arange(s, device=t.device)[None] + start
                     return apply_rope(t, pos, cfg.rope_theta)
             elif cfg.mrope:
@@ -499,9 +507,8 @@ class Attention(nn.Module):
                 def rope(t, pos):
                     return apply_rope(t, pos, cfg.rope_theta)
 
-            pos = () if positions is None else (positions,)
-            q = each(rope, q, *pos, spec=q.spec)
-            k = each(rope, k, *pos, spec=k.spec)
+            q = each(rope, q, positions, spec=q.spec)
+            k = each(rope, k, positions, spec=k.spec)
         if cache is not None and s == 1 and kv_source is None:
             return self._decode_mesh(q, k, v, kind, cache, cache_index)
         new_cache = None if cache is None else _prefill_cache(k, v, cache, s)
@@ -533,39 +540,69 @@ class Attention(nn.Module):
             new_cache
 
     def _decode_mesh(self, q: Placed, k: Placed, v: Placed, kind: str,
-                     cache: Dict, cache_index: int):
+                     cache: Dict, cache_index):
         """One decode step against the ``kv_seq``-sharded cache (the
         reference's flash-decode layout, ``transformer.py:95-115``): the
         new row, every kv head, written by the shard whose part of the
         cache holds its slot (a ring's ``pos`` with it), then every query
-        head against the cache through :func:`attend_kv_seq`."""
+        head against the cache through :func:`attend_kv_seq`.
+        ``cache_index`` holds each shard's position (a ``PerShard``):
+        with tensors, every shard computes its clamped local row on its
+        device and writes it, the owner the new row and every other shard
+        its old row back (:func:`_write_decode_row`)."""
         cfg = self.cfg
         ck, cv = cache["k"], cache["v"]
         ring = "pos" in cache
         n = ck.shape[1]
-        slot = min(max(cache_index % n if ring else cache_index, 0), n - 1)
-        spans = ranges(ck, 1)
         k_all, v_all = gather_axis(k, "model"), gather_axis(v, "model")
 
-        def write(ck, cv, k, v, span, cpos=None):
-            lo, hi = span
-            if lo <= slot < hi:
-                ck.narrow(1, slot - lo, 1).copy_(k.to(ck.dtype))
-                cv.narrow(1, slot - lo, 1).copy_(v.to(cv.dtype))
-                if cpos is not None:
-                    cpos[slot - lo] = cache_index
+        def write(ck, cv, k, v, span, index, cpos=None):
+            _write_decode_row(ck, cv, k, v, span, index, n, ring, cpos)
 
         pos = [cache["pos"]] if ring else []
-        each(write, ck, cv, k_all, v_all, spans, *pos, spec=None)
+        each(write, ck, cv, k_all, v_all, ranges(ck, 1), cache_index, *pos,
+             spec=None)
 
-        def valid(span, device, cpos=None):
+        def valid(span, device, index, cpos=None):
             kv_pos = (cpos[None, :] if cpos is not None else
                       torch.arange(span[0], span[1], device=device)[None, :])
-            return _decode_valid(kv_pos, cache_index, kind, cfg)
+            return _decode_valid(kv_pos, index, kind, cfg)
 
         out = attend_kv_seq(gather_axis(q, "model"), ck, cv, valid, cfg,
-                            pos)
+                            [cache_index] + pos)
         return heads_out(out, q, use_param(self.wo, cfg)), cache
+
+
+def _write_decode_row(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, span: Tuple[int, int], index: Position,
+                      n: int, ring: bool, cpos: Optional[torch.Tensor] = None
+                      ) -> None:
+    """A decode step's key and value row (and a ring's position) written
+    into one shard's part ``span = (lo, hi)`` of an ``n``-slot cache, at
+    the slot of position ``index`` (``index % n`` in a ring), clamped
+    into the cache as XLA clamps it.  An int index is resolved on the
+    host and only the owning shard writes.  A 0-d tensor index stays on
+    the device: every shard writes its clamped local row, the owner's
+    new row and any other shard's old row, so that no shard reads back
+    which one owns it; the result is the int form's bit for bit."""
+    lo, hi = span
+    if not isinstance(index, torch.Tensor):
+        slot = min(max(index % n if ring else index, 0), n - 1)
+        if lo <= slot < hi:
+            ck.narrow(1, slot - lo, 1).copy_(k.to(ck.dtype))
+            cv.narrow(1, slot - lo, 1).copy_(v.to(cv.dtype))
+            if cpos is not None:
+                cpos[slot - lo] = index
+        return
+    slot = (index % n if ring else index).clamp(0, n - 1)
+    owner = (slot >= lo) & (slot < hi)
+    row = (slot - lo).clamp(0, hi - lo - 1).reshape(1).long()
+    for buf, new in ((ck, k), (cv, v)):
+        buf.index_copy_(1, row, torch.where(owner, new.to(buf.dtype),
+                                            buf.index_select(1, row)))
+    if cpos is not None:
+        cpos.index_copy_(0, row, torch.where(owner, index.reshape(1).to(
+            cpos.dtype), cpos.index_select(0, row)))
 
 
 def attend_kv_seq(q_all: Placed, ck: Placed, cv: Placed, valid,
@@ -577,8 +614,9 @@ def attend_kv_seq(q_all: Placed, ck: Placed, cv: Placed, valid,
     softmax (running max, sum and weighted values, f32), and the
     partials combine in rank order on each shard of the group.
     ``valid(span, device, *extra)`` is the ``(1, n)`` mask of the
-    positions ``span`` of a shard's part (``extra``: placed per-position
-    entries, a ring's ``pos``).  A cache whose positions the model
+    positions ``span`` of a shard's part (``extra``: per-shard arguments,
+    placed or ``PerShard``, such as the decode position and a ring's
+    ``pos``).  A cache whose positions the model
     extent does not divide is whole on every shard, which attends as
     one device does (:func:`_decode_attend`)."""
     mesh = q_all.mesh

@@ -38,8 +38,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distributed.sharding import (Placed, each, gather_axis,
-                                              mean_over_mesh, physical_spec,
-                                              place, reduce_sum, to_whole)
+                                              mean_over_mesh, on_every_shard,
+                                              physical_spec, place,
+                                              reduce_sum, to_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
@@ -432,15 +433,17 @@ def _unembed_mesh(x: Placed, model: nn.Module, cfg: ModelConfig) -> Placed:
                 spec=(x.spec[0], None, vspec))
 
 
-def add_positions_mesh(x: Placed, table: Placed, start: int,
+def add_positions_mesh(x: Placed, table: Placed, start,
                        cfg: ModelConfig) -> Placed:
     """``x`` plus the rows ``start, ..., start + S - 1`` of a learned
     position table (its fsdp parts gathered over ``data``), clamped as
-    the one-device slice is, in the compute dtype."""
+    the one-device slice is, in the compute dtype.  ``start`` is an int,
+    a 0-d integer tensor or each shard's (``on_every_shard``'s): a
+    tensor is read on each shard's device, never on the host."""
     table = gather_axis(table, "data")
     s = x.shape[1]
-    return each(lambda x, t: x + _slice_clamped(t, start, s).to(cfg.cdt)[None],
-                x, table, spec=x.spec)
+    return each(lambda x, t, st: x + _slice_clamped(t, st, s).to(cfg.cdt)[None],
+                x, table, on_every_shard(start, x.mesh), spec=x.spec)
 
 
 def place_inputs(x: torch.Tensor, mesh, rules, cfg: ModelConfig) -> Placed:
@@ -464,14 +467,16 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     S)`` ``(None, batch, None)`` for every layer.  The logits come back
     whole on the mesh's first device; attention caches are written in
     place and recurrent states returned anew, placed; the aux loss is
-    averaged over the shards.  The position is read to the host: a mesh
-    step is not captured."""
+    averaged over the shards.  A 0-d tensor position is moved to every
+    shard once (``on_every_shard``) and read there, so a decode step
+    reads nothing back to the host and can be captured as a CUDA graph
+    (``serving.engine.DecodeGraph``)."""
     if remat:
         raise NotImplementedError(
             "training over a device mesh (ROADMAP, Queue 1 item 2)")
     mesh, rules = model.mesh, model.rules
-    if isinstance(cache_index, torch.Tensor):
-        cache_index = int(cache_index)
+    if cache_index is not None:
+        cache_index = on_every_shard(cache_index, mesh)
     bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
     if tokens.dim() == 3:
         x = place_inputs(tokens, mesh, rules, cfg)

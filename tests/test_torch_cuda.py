@@ -1322,3 +1322,197 @@ def test_lm_mesh_families_on_card_match_one_device(cuda_device, arch):
     for t, (g, w) in enumerate(zip(got, want)):
         assert g.device == w.device
         assert float((g - w).abs().max()) < LM_TOL, t
+
+
+# ----------------------------------------------------------------------
+# the decode step over a (data, model) mesh as a CUDA graph
+# ----------------------------------------------------------------------
+def _mesh_graph_inputs(cfg, b, s, dev):
+    """Seeded prompt token ids ``(b, s)`` on ``dev`` and the prefill that
+    serves them: with frames for the encoder-decoder; patch embeddings
+    and three M-RoPE streams (the ids only give the prompt's shape) for
+    the vision frontend."""
+    from repro_torch.models import registry
+
+    rng = np.random.default_rng(11)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    if cfg.frontend == "vision":
+        extra = {"embeds": torch.as_tensor(rng.standard_normal(
+                     (b, s, cfg.d_model)).astype(np.float32)).to(dev),
+                 "positions": torch.as_tensor(rng.integers(
+                     0, 4 * s, (3, b, s))).to(dev)}
+    prefill_fn = registry.make_prefill(cfg)
+
+    def prefill(model, tokens, caches):
+        inputs = {"tokens": tokens, **extra}
+        if "embeds" in extra:
+            inputs = {"tokens": extra["embeds"],
+                      "positions": extra["positions"]}
+        return prefill_fn(model, inputs, caches)
+
+    return prompt, prefill
+
+
+def _placed_equal(a, b) -> bool:
+    from repro_torch.models import registry
+
+    return all(x.spec == y.spec and all(torch.equal(p, q) for p, q in
+                                        zip(x.pieces, y.pieces))
+               for (_, x), (_, y) in zip(registry.placed_leaves(a),
+                                         registry.placed_leaves(b)))
+
+
+def _mesh_decode_graph_vs_eager(cfg, mesh, dev, b=4, s=14, steps=7,
+                                max_seq=20):
+    """Greedy ``ServeEngine.generate`` on ``mesh`` against a hand-written
+    eager loop over ``make_decode`` from its own prefill (0-d tensor
+    positions): the engine's stats, each step's logits and the tokens;
+    then ``steps - 1`` teacher-forced steps through one ``DecodeGraph``
+    (one eager step, then replays) against the eager steps, the logits
+    and every cache piece after them bit for bit."""
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.engine import DecodeGraph
+
+    model = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        mesh=mesh)
+    prompt, prefill = _mesh_graph_inputs(cfg, b, s, dev)
+    decode = registry.make_decode(cfg)
+
+    def caches():
+        return registry.init_caches(cfg, b, max_seq, device=dev, mesh=mesh)
+
+    eng = ServeEngine(prefill, decode, lambda bb, ss: caches())
+    seen = []
+    out = eng.generate(model, prompt, steps,
+                       on_step=lambda i, logits: seen.append(logits.clone()))
+    stats = dict(eng.stats)
+    with torch.inference_mode():
+        logits, c = prefill(model, prompt, caches())
+        assert torch.equal(logits, seen[0])
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        want = [tok]
+        for i in range(1, steps):
+            pos = torch.tensor(s + i - 1, dtype=torch.int32, device=dev)
+            logits, c = decode(model, tok, c, pos)
+            assert torch.equal(logits, seen[i]), (cfg.name, i)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            want.append(tok)
+    assert torch.equal(out, torch.cat(want, dim=1))
+    # teacher-forced: the graph's caches against the eager caches
+    toks = [out[:, i:i + 1] for i in range(steps - 1)]
+    runs = []
+    for graph in (False, True):
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        logits_seen = []
+        with torch.cuda.stream(stream), torch.inference_mode():
+            _, c = prefill(model, prompt, caches())
+            for t, tok in enumerate(toks):
+                if t == 0 or not graph:
+                    pos = torch.full((), s + t, dtype=torch.int32, device=dev)
+                    logits, c = decode(model, tok, c, pos)
+                else:
+                    if t == 1:
+                        step = DecodeGraph(decode, model, tok, c, stream)
+                    logits = step(tok, s + t)
+                logits_seen.append(logits.clone())
+            mesh.fork()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        runs.append((logits_seen, c))
+    mesh.synchronize()
+    for t, (g, e) in enumerate(zip(runs[1][0], runs[0][0])):
+        assert torch.equal(g, e), (cfg.name, t)
+    assert _placed_equal(runs[1][1], runs[0][1]), cfg.name
+    return stats, out, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_parallel", [None, 2])
+@pytest.mark.parametrize("arch", ["llama3_8b", "gemma3_12b", "starcoder2_3b",
+                                  "granite_20b", "dbrx_132b",
+                                  "moonshot_v1_16b_a3b", "mamba2_370m",
+                                  "recurrentgemma_9b", "whisper_small",
+                                  "qwen2_vl_72b"])
+def test_lm_mesh_decode_graph_is_the_eager_mesh_decode_on_card(
+        cuda_device, arch, model_parallel):
+    """The ten SMOKE configs (f32) on a (1, 4) and a (2, 2) mesh of the
+    one card, a stream a shard: the engine captures the decode step (one
+    eager step, the rest replays), its logits and tokens are an eager
+    loop's bit for bit, and a graph's caches after teacher-forced steps
+    are the eager steps' (gemma3's and recurrentgemma's 16-slot rings
+    wrap at position 16)."""
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    mesh = make_mesh_for(4, model_parallel, device="cuda:0")
+    steps = 7
+    stats, _, _ = _mesh_decode_graph_vs_eager(cfg, mesh, "cuda:0",
+                                              steps=steps)
+    assert stats["graph"] and stats["eager_steps"] == 1, stats
+    assert stats["replays"] == steps - 2 and stats["capture_s"] > 0, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_parallel", [None, 2])
+@pytest.mark.parametrize("arch", ["llama3_8b", "moonshot_v1_16b_a3b",
+                                  "mamba2_370m", "whisper_small"])
+def test_lm_mesh_decode_graph_over_distinct_cards(cuda_device, arch,
+                                                  model_parallel):
+    """A mesh over distinct cards (``make_mesh_for(4)``, card ``s * c //
+    4``): the engine captures its decode step too, and the replays are
+    the eager steps and the one-card mesh's bit for bit; the capture's
+    allocations on the other cards lie in private pools of the graph's
+    pool id there; the replays stay bitwise while the other cards
+    allocate and fill memory between and during them.  Skips with fewer
+    than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two visible cards")
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    far = make_mesh_for(4, model_parallel)
+    assert far.distinct
+    near = make_mesh_for(4, model_parallel, device="cuda:0")
+    steps = 7
+    stats, got, graph = _mesh_decode_graph_vs_eager(cfg, far, "cuda:0",
+                                                    steps=steps)
+    assert stats["graph"] and stats["replays"] == steps - 2, stats
+    cards = sorted({d.index for d in far.devices} - {0})
+    pool = tuple(graph.graph.pool())
+    pooled = {seg["device"] for seg in torch.cuda.memory_snapshot()
+              if tuple(seg["segment_pool_id"]) == pool}
+    assert pooled == {0, *cards}, (pooled, cards)
+    del graph
+    _, want, _ = _mesh_decode_graph_vs_eager(cfg, near, "cuda:0", steps=steps)
+    assert torch.equal(got, want)
+    # the other cards' memory churned while the replays run
+    model = registry.init_params(
+        cfg, torch.Generator(device="cuda:0").manual_seed(0),
+        device="cuda:0", mesh=far)
+    prompt, prefill = _mesh_graph_inputs(cfg, 4, 14, "cuda:0")
+
+    def churn(i, logits):
+        for d in cards:
+            with torch.cuda.device(d):
+                for n in (1 << 10, 1 << 16, 1 << 20):
+                    torch.full((n,), float("nan"), device=d)
+
+    seen = []
+    eng = ServeEngine(prefill, registry.make_decode(cfg),
+                      lambda b, s: registry.init_caches(cfg, b, s, mesh=far))
+    out = eng.generate(model, prompt, steps, on_step=lambda i, logits: (
+        churn(i, logits), seen.append(logits.clone())))
+    assert eng.stats["replays"] == steps - 2
+    assert torch.equal(out, want)
+    assert all(bool(torch.isfinite(x[..., :cfg.vocab]).all()) for x in seen)

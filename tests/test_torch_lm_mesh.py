@@ -8,10 +8,11 @@ jitted as the reference's ``ServeEngine`` jits them, the MoE configs at
 their default capacity factor, where the (2, 2) mesh drops other tokens
 than one device); the mesh run against the port's one-device run, in
 f32 and bf16; the MoE block at ``data = 1`` bitwise the one-device
-block; the collectives against plain tensor ops; the engine, the serve
-CLI, training over a mesh raising, and an MoE whose expert count the
-model extent does not divide refused as the reference refuses it (the
-other four families' serving: ``tests/test_torch_lm_mesh_families.py``)."""
+block; the collectives against plain tensor ops; the decode step with
+a 0-d ``int32`` position, the form a CUDA graph captures (no host read,
+bitwise the int-position step); the engine, the serve CLI, training
+over a mesh raising, and an MoE whose expert count the model extent
+does not divide refused as the reference refuses it (the other four families' serving: ``tests/test_torch_lm_mesh_families.py``)."""
 import contextlib
 import dataclasses
 import io
@@ -29,7 +30,8 @@ from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models import moe as PM
 from repro_torch.models import registry as PR
 from repro_torch.serving import ServeEngine
-from test_torch_lm_mesh_families import ref_family_runs
+from test_torch_lm_mesh_families import (ref_family_runs,
+                                        tensor_position_steps)
 from test_torch_lm_models import BF16_MAX_REL
 
 #: the decoder LMs with token prompts, the ones that serve over a mesh
@@ -260,6 +262,32 @@ def test_mesh_run_matches_the_references_mesh_run(arch, mesh_name,
         assert max_abs_diff(got.numpy(), want) < LM_TOL, t
 
 
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_tensor_position_decode_reads_nothing_back(arch, mesh_name,
+                                                   ref_mesh_runs):
+    """The six decoder LMs on both meshes, from the reference's
+    parameters (f32, MoE at its default capacity factor): three decode
+    steps with the position a 0-d ``int32`` tensor make no host read
+    (the sequence-sharded cache write, gemma3's ring wrapping at position
+    16, the MoE routing, starcoder2's and granite's learned positions),
+    are the int-position steps bit for bit, logits and every cache piece,
+    and their logits are within ``LM_TOL`` of the reference's mesh run."""
+    cfg = dataclasses.replace(PR.get_config(arch, smoke=True),
+                              compute_dtype="float32")
+    mesh = _mesh(mesh_name)
+    model = lm_params_from_numpy(cfg, _ref_tree(ref_mesh_runs, arch),
+                                 mesh=mesh)
+    tokens = torch.as_tensor(ref_mesh_runs[arch + "|tokens"]).long()
+    logits, _ = tensor_position_steps(
+        cfg, model, tokens, {"tokens": tokens[:, :PROMPT]},
+        PR.init_caches(cfg, B, MAX_SEQ, mesh=mesh))
+    assert len(logits) == STEPS + 1
+    for t, got in enumerate(logits):
+        want = ref_mesh_runs[f"{arch}|{mesh_name}|{t}"]
+        assert max_abs_diff(got.numpy(), want) < LM_TOL, t
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_capacity_is_per_data_shard(arch, ref_mesh_runs):
     """At the default capacity factor the (2, 2) mesh routes each data
@@ -396,15 +424,6 @@ def test_engine_generates_over_a_mesh():
         out[name] = eng.generate(_seeded(cfg, m), prompt, 5)
         assert eng.stats["eager_steps"] == 4 and not eng.stats["graph"]
     assert torch.equal(out["mesh"], out["one"])
-
-
-def test_decode_graph_refuses_a_mesh_model():
-    from repro_torch.serving.engine import DecodeGraph
-
-    cfg = lm_cfg(PR.get_config("llama3_8b", smoke=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        DecodeGraph(PR.make_decode(cfg), _seeded(cfg, _mesh("1x4")),
-                    torch.zeros(B, 1, dtype=torch.long), [], None)
 
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b",

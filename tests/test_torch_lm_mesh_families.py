@@ -13,13 +13,17 @@ logits and the caches after them, against the reference's own mesh run
 steps jitted as the reference's ``ServeEngine`` jits them) and against
 the port's one-device run; the SSD block's gated RMSNorm over a sharded
 ``d_inner`` apart; bf16 within bf16 noise; the engine's greedy tokens;
-caches across ``convert``; and the MoE refusal both packages share."""
+caches across ``convert``; the MoE refusal both packages share; and the
+decode step with its position a 0-d ``int32`` tensor, the form the
+engine captures as a CUDA graph on the card: no host read, bitwise the
+int-position step, within ``LM_TOL`` of the reference's mesh run."""
 import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_port import LM_TOL, lm_cfg, max_abs_diff
 from repro_torch.convert import (lm_caches_from_numpy, lm_caches_to_numpy,
@@ -433,3 +437,100 @@ def test_moe_refusal_is_the_references(n_experts, ref_runs):
                               n_experts=n_experts)
     with pytest.raises(ValueError, match="does not divide"):
         _seeded(cfg, _mesh("1x4"))
+
+
+# ----------------------------------------------------------------------
+# the decode step with a device position: what a CUDA graph captures
+# ----------------------------------------------------------------------
+_HOST_READS = (torch.ops.aten._local_scalar_dense.default,
+               torch.ops.aten.is_nonzero.default)
+
+
+class HostReads(TorchDispatchMode):
+    """The ATen calls that read a tensor's value back to the host
+    (``.item()``, ``int()``, ``bool()`` of a tensor), by name, in the
+    order seen: a decode step that makes one cannot be captured."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _HOST_READS:
+            self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _copy_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_leaves(v) for v in tree]
+    return S.Placed([p.clone() for p in tree.pieces], tree.mesh, tree.spec)
+
+
+def tensor_position_steps(cfg, model, tokens, inputs, caches):
+    """Prefill ``inputs``, then teacher-forced decode steps over the rest
+    of ``tokens`` twice from the same caches: with the position an int,
+    and with it a 0-d ``int32`` tensor under :class:`HostReads`.  Checks
+    that the tensor steps read nothing back and that their logits and
+    every cache piece are the int steps' bit for bit (the ring's ``pos``
+    included); returns the tensor steps' logits (the prefill's first)
+    and caches."""
+    decode = PR.make_decode(cfg)
+    with torch.inference_mode():
+        logits, by_int = PR.make_prefill(cfg)(model, inputs, caches)
+        by_tensor = _copy_leaves(by_int)
+        out = [logits]
+        for t in range(inputs["tokens"].shape[1], tokens.shape[1]):
+            tok = tokens[:, t:t + 1]
+            want, by_int = decode(model, tok, by_int, t)
+            with HostReads() as reads:
+                got, by_tensor = decode(model, tok, by_tensor,
+                                        torch.tensor(t, dtype=torch.int32))
+            assert reads.seen == [], (t, reads.seen)
+            assert torch.equal(got, want), t
+            for (name, g), (_, w) in zip(PR.placed_leaves(by_tensor),
+                                         PR.placed_leaves(by_int)):
+                assert g.spec == w.spec and all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(g.pieces, w.pieces)), (t, name)
+            out.append(got)
+    return out, by_tensor
+
+
+@pytest.mark.parametrize("mesh_name", REF_MESHES)
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_tensor_position_decode_reads_nothing_back(arch, mesh_name,
+                                                   ref_runs):
+    """The four families on the (1, 4) and (2, 2) meshes, from the
+    reference's parameters and inputs (f32): three decode steps with the
+    position a 0-d ``int32`` tensor make no host read (the SSD and RG-LRU
+    states, the ring over recurrentgemma's 16 slots wrapping at position
+    16, whisper's self and cross caches, qwen2_vl's RoPE at decode), are
+    the int-position steps bit for bit, and their logits and caches are
+    within ``LM_TOL`` of the reference's own mesh run."""
+    runs, _ = ref_runs
+    cfg = dataclasses.replace(PR.get_config(arch, smoke=True),
+                              compute_dtype="float32")
+    mesh = _mesh(mesh_name)
+    model = lm_params_from_numpy(cfg, _ref_tree(runs, arch), mesh=mesh)
+    tokens = torch.as_tensor(runs[arch + "|tokens"]).long()
+    prefix = arch + "|inputs|"
+    inputs = {k[len(prefix):]: torch.as_tensor(v) for k, v in runs.items()
+              if k.startswith(prefix)}
+    if "positions" in inputs:
+        inputs["positions"] = inputs["positions"].long()
+    if inputs["tokens"].dim() == 2:
+        inputs["tokens"] = inputs["tokens"].long()
+    logits, caches = tensor_position_steps(
+        cfg, model, tokens, inputs, PR.init_caches(cfg, B, MAX_SEQ,
+                                                   mesh=mesh))
+    assert len(logits) == STEPS + 1
+    for t, got in enumerate(logits):
+        want = runs[f"{arch}|{mesh_name}|{t}"]
+        assert max_abs_diff(got.numpy(), want) < LM_TOL, t
+    prefix = f"{arch}|{mesh_name}|caches|"
+    _assert_caches_close(_flat(lm_caches_to_numpy(cfg, caches)),
+                         {k[len(prefix):]: v for k, v in runs.items()
+                          if k.startswith(prefix)})
