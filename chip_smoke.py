@@ -230,14 +230,38 @@ non-zero and prints no result line):
    full width, f32, as (b) is on both meshes (whisper with its frames,
    qwen2_vl prefilled on patch embeddings with three M-RoPE position
    streams), with (d)'s distinct-card leg.  No hand-written kernel
-   runs: the launch counts must read 0.
+   runs: the launch counts must read 0;
+17. lm-train-mesh — LM training over a ``(data, model)`` device mesh of
+   the one card (``make_mesh_for(4)`` (1, 4) and ``make_mesh_for(4, 2)``
+   (2, 2), a stream a shard): (a) starcoder2_3b at its full ``CONFIG``
+   (30 layers, bf16 compute) takes two AdamW steps of batch 2 x 1024
+   on each mesh through ``make_train_step(make_train_forward(cfg))``:
+   each step's seconds (CUDA events) and host enqueue ms, loss and grad
+   norm, tokens/s, ``train_mfu``, the peak bytes, every shard's
+   parameter and moment bytes against ``shard_shape``'s count, every
+   replica bitwise; (b) moonshot_v1_16b_a3b at full width cut to 2
+   layers (64 experts, 16 a model shard), two steps on each mesh, the
+   same lines; (c) the six decoder LMs at full width, f32 (MoE at
+   capacity factor 16), cut to 2 layers (dbrx_132b to 1), two steps of
+   2 x 64 on one device and on each mesh: loss, grad norm and every
+   parameter and moment within 1e-4 of each leaf's scale of the
+   one-device run (an MoE's one-device aux on the (2, 2) mesh the mean
+   of the two data shards' rows' aux, as the mesh computes it), every
+   replica bitwise, the (1, 4) steps run twice bitwise for llama3_8b
+   and moonshot; (d) a checkpoint slot of starcoder2_3b cut to 2 layers
+   written on (1, 4), restored onto (2, 2) and onto one device, two
+   more steps each within rtol = atol = 1e-6 of the uninterrupted run;
+   (e) with two or more cards, (c)'s meshes over distinct cards bitwise
+   the one-card meshes (else ``"distinct_cards": "not run: 1 card
+   visible"``).  No hand-written kernel runs: the launch counts must
+   read 0.
 
 Every bound comes from ``repro_torch.launch.roofline`` (each function's
 compulsory bytes and operations) over the card's rates in
 ``repro_torch.launch.mesh``.  Kernel launches are counted from a reset
 just before each path (phases 4, 5, 7, 8, 9, each run of 10, the
 sharded solve of 11, in their own processes the two CLIs of 12, 13,
-14 and the dry-run processes of 15) to
+14 and the dry-run processes of 15; 16 and 17 read their own) to
 a reading just after it, graph replays included, and summed into the
 kernel summary; the halo mode's and det_dot's entries also give the
 launches of recovery's local CG on the main path, phase 4, with its
@@ -255,6 +279,10 @@ its output ends without the ``ok`` line.
 serving over the mesh; on a machine with several cards its
 distinct-card leg runs); its output also ends without the ``ok`` line.
 
+``python3 chip_smoke.py --lm-train-mesh-only`` runs phases 1, 2 and 17
+(LM training over the mesh); its output also ends without the ``ok``
+line.
+
 ``python3 chip_smoke.py --times-only [--src DIR]`` runs phases 1-2,
 prints both timing columns of every kernel at the main path's shapes and
 runs phase 14's starcoder2_3b steps (step seconds, peak, ``train_mfu``),
@@ -265,6 +293,7 @@ smoke: its output ends without the ``ok`` line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3735,10 +3764,6 @@ def _mesh_logits(torch, cfg, mesh, device: str, replayed=None) -> list:
     if replayed is not None:
         whole = inputs if cfg.frontend == "vision" else {**inputs,
                                                          "tokens": tokens}
-        # the capture allocates from a private pool: give it the memory
-        # the eager runs before it left cached (dbrx_132b on (2, 2) needs
-        # about 2 GiB more there than the card has free otherwise)
-        torch.cuda.empty_cache()
         graph_vs_eager_decode(torch, cfg, model, whole, p, steps, mesh=mesh,
                               seen=replayed)
     out = []
@@ -3862,6 +3887,560 @@ def phase_lm_mesh(torch) -> dict:
     return counts
 
 
+#: phase 17: LM training over a (data, model) mesh of the one card.
+#: (a) starcoder2_3b at its full CONFIG on both meshes, two steps of
+#: batch 2 x 1024 (its state, params, grads and two f32 moments, is 16 B
+#: a parameter: 51 GB); the second step is the timed one (cut from three
+#: to keep the smoke inside its 900 s budget)
+MESH_TRAIN_ARCH = "starcoder2_3b"
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 2
+#: (b) moonshot_v1_16b_a3b at full width cut to 2 layers (64 experts, 16
+#: a model shard; 1.81 B parameters, 29 GB of state), two steps on the
+#: (1, 4) mesh alone (the (2, 2) mesh cut for the smoke's budget; (c)
+#: runs moonshot on both)
+MESH_TRAIN_MOE_ARCH, MESH_TRAIN_MOE_LAYERS = "moonshot_v1_16b_a3b", 2
+MESH_TRAIN_MOE_STEPS, MESH_TRAIN_MOE_MESHES = 2, ("1x4",)
+#: (c) the six configs at full width, f32 (MoE at capacity factor 16),
+#: cut in depth: 2 layers, dbrx_132b 1 (one layer holds 3.37 B
+#: parameters, 16 experts x 3 x 6144 x 10752: with its embeddings 4.6 B,
+#: 74 GB of training state, which fills the card; two layers would need
+#: 122 GB); two steps of batch 2 x 64
+MESH_TRAIN_CUT = {"llama3_8b": 2, "gemma3_12b": 2, "starcoder2_3b": 2,
+                  "granite_20b": 2, "dbrx_132b": 1,
+                  "moonshot_v1_16b_a3b": 2}
+MESH_TRAIN_CUT_BATCH, MESH_TRAIN_CUT_SEQ, MESH_TRAIN_CUT_STEPS = 2, 64, 2
+#: (c)'s meshes by config: both, but dbrx_132b on (1, 4) alone.  On
+#: (2, 2) each shard gathers its 8 experts' f32 weights over ``data``
+#: (3 x 2.1 GB a shard, 25 GB on the card, saved for the backward, and
+#: as much again for their gradients) beside its 74 GB of training
+#: state: more than the card.  tests/test_torch_lm_mesh_train.py holds
+#: dbrx_132b on (2, 2) against one device and the reference.
+MESH_TRAIN_CUT_MESHES = {"dbrx_132b": ("1x4",)}
+#: (c)'s config whose (1, 4) mesh step also runs twice, bitwise (the MoE:
+#: its combine and gather are where an atomic add would show)
+MESH_TRAIN_TWICE = ("moonshot_v1_16b_a3b",)
+#: the CPU test's tolerance: each leaf within 1e-4 of its largest value
+MESH_TRAIN_REL = 1e-4
+#: (d) the checkpoint cycle: starcoder2_3b at full width cut to 1 layer
+#: (its 4.8 GB slot: embeddings and head are three quarters of it), two
+#: steps on (1, 4), a slot, two more steps on (2, 2) and on one device
+#: within rtol = atol of the uninterrupted (1, 4) run's four.  The CPU
+#: test holds PERF.md section 2's 1e-6; on the card the continuations'
+#: steps sum in other orders than the (1, 4) run's: at 2 layers they
+#: read up to 1.16e-6 on an H100, 1.5e-7 over 1e-6 * (1 + |w|) (see
+#: PERF.md), so the card is held at 1e-5
+MESH_TRAIN_FT_LAYERS, MESH_TRAIN_FT_TOL = 1, 1e-5
+MESH_TRAIN_MESHES = {"1x4": None, "2x2": 2}
+#: the one card the meshes of phase 17 repeat, whatever cards are
+#: visible ((e) spans them with ``make_mesh_for(4, mp)``)
+ONE_CARD = "cuda:0"
+
+
+def _aux_over_data(R, cfg, data: int):
+    """The training forward of ``cfg`` on one device whose aux loss is
+    the mean of the aux losses of ``data`` equal row blocks of the batch:
+    what the mesh's MoE computes with ``data`` shards (each routes its
+    own rows; the reference's ``pmean``).  Without experts, or with one
+    data shard, the plain training forward."""
+    base = R.make_train_forward(cfg)
+    if cfg.n_experts == 0 or data == 1:
+        return base
+
+    def forward(model, batch):
+        logits, _ = base(model, batch)
+        rows = batch["tokens"].shape[0] // data
+        parts = [base(model, {k: v[d * rows:(d + 1) * rows]
+                              for k, v in batch.items()})[1]
+                 for d in range(data)]
+        return logits, sum(parts[1:], parts[0]) / data
+    return forward
+
+
+def _leaves_of(R, model, opt, parts=("p", "m", "v")):
+    """``(key, leaf)``: every parameter (``"p|name"``) and moment
+    (``"m|name"``, ``"v|name"``) of a model and its optimizer state."""
+    for name, leaf in R.named_leaves(model):
+        for part in parts:
+            yield f"{part}|{name}", (leaf if part == "p" else
+                                     opt[part][name])
+
+
+def _whole(t):
+    """A leaf whole on the mesh's first device (a plain tensor as it
+    is), detached."""
+    from repro_torch.distributed import sharding
+
+    if isinstance(t, sharding.Placed):
+        return sharding.to_whole(t).detach()
+    return t.detach()
+
+
+def _worst_off(R, model, opt, want: dict, lr_sum: float) -> dict:
+    """How far a run's parameters and moments are from ``want``
+    (``"p|name"`` and kin, on the card or the host), each leaf gathered
+    whole and compared on the card one at a time: for the moments the
+    largest difference over the leaf's largest |value|, with its leaf;
+    for the parameters the largest excess of ``|got - want|`` over
+    ``MESH_TRAIN_REL * |want| + 2 * lr_sum``, with its leaf and its
+    largest relative difference.  Adam's normalised update moves an
+    element by up to ``lr`` a step, of either sign where its gradient is
+    near zero, so that limit holds the parameters' layout (a piece
+    misplaced or taken from the wrong shard is off by the weights' own
+    size), not their update: a wrong gradient shows in the moments."""
+    out = {"p_excess": -math.inf, "p_rel": 0.0}
+    for key, t in _leaves_of(R, model, opt):
+        if key not in want:
+            continue
+        part, name = key.split("|", 1)
+        g = _whole(t)
+        w = want[key].to(g.device)
+        diff = (g - w).abs()
+        rel = float(diff.max()) / max(float(w.abs().max()), 1e-30)
+        if part == "p":
+            excess = float((diff - MESH_TRAIN_REL * w.abs()
+                            - 2 * lr_sum).max())
+            if excess > out["p_excess"]:
+                out["p_excess"], out["p_excess_leaf"] = excess, name
+            if rel > out["p_rel"]:
+                out["p_rel"], out["p_rel_leaf"] = rel, name
+        elif rel >= out.get(f"{part}_rel", 0.0):
+            out[f"{part}_rel"], out[f"{part}_rel_leaf"] = rel, name
+        del g, w, diff
+    return out
+
+
+def _runs_bitwise(R, a, b) -> bool:
+    """Whether two runs' parameters and moments (``(model, opt)`` each,
+    on meshes of one shape) are the same bits, piece by piece."""
+    for (_, x), (_, y) in zip(_leaves_of(R, *a), _leaves_of(R, *b)):
+        xs = x.pieces if hasattr(x, "pieces") else (x,)
+        ys = y.pieces if hasattr(y, "pieces") else (y,)
+        if not all(torch_equal(p, q.to(p.device)) for p, q in zip(xs, ys)):
+            return False
+    return True
+
+
+def _replicas_bitwise(R, model, opt) -> bool:
+    from repro_torch.distributed import sharding
+
+    for _, t in _leaves_of(R, model, opt):
+        for group in sharding.replica_groups(t):
+            if not all(torch_equal(t.pieces[r], t.pieces[group[0]])
+                       for r in group[1:]):
+                return False
+    return True
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def _train_run(torch, cfg, mesh, batches, forward=None, dev=DEVICE):
+    """``len(batches)`` AdamW steps of ``cfg`` from seed 0 on ``mesh`` (or
+    one device): the model, its optimizer state and each step's
+    metrics."""
+    from repro_torch.models import registry as R
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, mesh=mesh)
+    opt = adamw_init(model)
+    step = make_train_step(forward or R.make_train_forward(cfg),
+                           AdamWConfig())
+    metrics = [step(model, opt, batch) for batch in batches]
+    return model, opt, metrics
+
+
+class _GcClock:
+    """The seconds and the count of the cyclic collector's runs while it
+    is entered (``gc.callbacks``): how much of a host-bound step is the
+    collector's."""
+
+    def __enter__(self):
+        self.seconds, self.runs, self._t0 = 0.0, 0, None
+        gc.callbacks.append(self._on)
+        return self
+
+    def _on(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self.runs += 1
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._on)
+
+
+def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
+                     meshes=tuple(MESH_TRAIN_MESHES)) -> list:
+    """(a) and (b): ``cfg`` on ``meshes`` of the one card (the (1, 4)
+    and (2, 2) ones by default) takes ``steps`` steps of the seeded
+    corpus: each step's seconds (CUDA events on the caller's stream,
+    which waits for every shard at the step's end) and the host's
+    enqueue ms, its loss and grad norm; tokens/s and ``train_mfu`` over
+    the median step after the first, the peak bytes, the collector's
+    seconds and the caching allocator's retries over the steps, and
+    every shard's parameter and moment bytes against ``shard_shape``'s
+    count (checked equal)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device(DEVICE)
+    data = SyntheticCorpus(vocab=cfg.vocab, batch=batch, seq=seq, seed=0)
+    flops = RL.model_flops(cfg, R.Shape("train", "train", seq, batch),
+                           "train")
+    out = []
+    for name in meshes:
+        mesh = make_mesh_for(4, MESH_TRAIN_MESHES[name], device=ONE_CARD)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              mesh=mesh)
+        opt = adamw_init(model)
+        mesh.synchronize()
+        init_s = time.perf_counter() - t0
+        step = make_train_step(R.make_train_forward(cfg), AdamWConfig())
+        marks = []
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        with _GcClock() as collector:
+            for s in range(steps):
+                b = to_tensors(data.batch_at(s), dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                metrics = step(model, opt, b)
+                end.record()
+                marks.append((start, end, 1e3 * (time.perf_counter() - t0),
+                              metrics))
+            mesh.synchronize()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                0) - retries
+        steps_rec = [dict(step=i, seconds=st.elapsed_time(en) / 1e3,
+                          enqueue_ms=host,
+                          **{k: float(v) for k, v in m.items()})
+                     for i, (st, en, host, m) in enumerate(marks)]
+        later = steps_rec[1:] or steps_rec
+        step_s = statistics.median(r["seconds"] for r in later)
+        enqueue_ms = statistics.median(r["enqueue_ms"] for r in later)
+        params = _shard_bytes(R.placed_leaves(model), mesh.nshards)
+        moments = _shard_bytes([(n, t) for part in ("m", "v")
+                                for n, t in opt[part].items()], mesh.nshards)
+        want = _counted_bytes(R, *R.abstract_params(cfg), model.rules)
+        rec = dict(arch=cfg.name, mesh=mesh.shape, layers=cfg.n_layers,
+                   d_model=cfg.d_model, compute=cfg.compute_dtype,
+                   params=sum(math.prod(leaf.shape) for _, leaf in
+                              R.placed_leaves(model)),
+                   batch=batch, seq=seq, init_s=init_s, steps=steps_rec,
+                   first_step_s=steps_rec[0]["seconds"], step_s=step_s,
+                   enqueue_ms=enqueue_ms,
+                   host_share=enqueue_ms / 1e3 / step_s,
+                   tokens_per_s=batch * seq / step_s,
+                   train_tflop=flops / 1e12,
+                   train_mfu=flops / step_s / M.PEAK_OPS["bfloat16"],
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   gc_s=collector.seconds, gc_runs=collector.runs,
+                   alloc_retries=retries,
+                   shard_param_bytes=params, shard_moment_bytes=moments,
+                   shard_shape_param_bytes=want,
+                   replicas_bitwise=_replicas_bitwise(R, model, opt),
+                   card=CARD)
+        say("lm-train-mesh", **rec)
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in steps_rec), f"{cfg.name} on {name}: a non-finite "
+              f"loss or grad norm")
+        check(params == [want] * mesh.nshards
+              and moments == [2 * want] * mesh.nshards,
+              f"{cfg.name} on {name}: a shard's parameter or moment bytes "
+              f"differ from shard_shape's count")
+        check(rec["replicas_bitwise"], f"{cfg.name} on {name}: replicas of "
+              f"a leaf differ after the steps")
+        out.append(rec)
+        del model, opt, marks, metrics
+    return out
+
+
+def _cut_config(arch: str):
+    from repro_torch.models import registry as R
+
+    base = R.get_config(arch)
+    kw = {"compute_dtype": "float32", "n_layers": MESH_TRAIN_CUT[arch]}
+    if base.n_experts > 0:
+        kw["capacity_factor"] = 16.0
+    return dataclasses.replace(base, **kw)
+
+
+def _cut_batches(torch, cfg, steps: int, dev=DEVICE):
+    from repro_torch.training.data import SyntheticCorpus, to_tensors
+
+    data = SyntheticCorpus(vocab=cfg.vocab, batch=MESH_TRAIN_CUT_BATCH,
+                           seq=MESH_TRAIN_CUT_SEQ, seed=7)
+    return [to_tensors(data.batch_at(s), dev) for s in range(steps)]
+
+
+def mesh_train_agreement(torch, arch: str, cards: int) -> dict:
+    """(c) and (e) for one config: ``_cut_config(arch)`` takes two steps
+    on one device and on both meshes of the one card: loss and grad norm
+    within ``MESH_TRAIN_REL``, every moment within ``MESH_TRAIN_REL`` of
+    its leaf's scale and every parameter within ``MESH_TRAIN_REL`` of
+    itself plus twice the steps' summed ``lr`` (:func:`_worst_off`) of
+    the one-device run's (its aux over the mesh's data shards,
+    :func:`_aux_over_data`), every replica bitwise; the
+    (1, 4) run twice, bitwise, for ``MESH_TRAIN_TWICE``; with two or
+    more cards, each mesh over distinct cards bitwise the one-card
+    mesh.  The one-device state stays on the card when it fits beside
+    the mesh runs; else its first moments alone are kept, on the card
+    where they fit, else on the host, each leaf moved back to the card
+    for its comparison (the parameters and second moments too would
+    triple the copies), and the record says which (``compared``,
+    ``reference_on``).  The meshes are
+    ``MESH_TRAIN_CUT_MESHES``' where it names them."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+
+    t0 = time.perf_counter()
+    cfg = _cut_config(arch)
+    batches = _cut_batches(torch, cfg, MESH_TRAIN_CUT_STEPS)
+    total = torch.cuda.get_device_properties(0).total_memory
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               compute=cfg.compute_dtype, batch=MESH_TRAIN_CUT_BATCH,
+               seq=MESH_TRAIN_CUT_SEQ, steps=MESH_TRAIN_CUT_STEPS,
+               rel_tol=MESH_TRAIN_REL)
+    refs = {}
+    meshes = MESH_TRAIN_CUT_MESHES.get(arch, tuple(MESH_TRAIN_MESHES))
+    for name in MESH_TRAIN_MESHES:
+        if name not in meshes:
+            rec[name] = ("not run: more than the card holds "
+                         "(MESH_TRAIN_CUT_MESHES)")
+    for name in meshes:
+        mesh = make_mesh_for(4, MESH_TRAIN_MESHES[name], device=ONE_CARD)
+        data = mesh.shape["data"] if cfg.n_experts > 0 else 1
+        if data not in refs:
+            refs.clear()
+            torch.cuda.empty_cache()
+            model, opt, metrics = _train_run(
+                torch, cfg, None, batches, _aux_over_data(R, cfg, data))
+            nparams = sum(p.numel() for p in model.parameters())
+            rec["params"] = nparams
+            # beside it: a mesh run (16 B a parameter; a config run twice
+            # is an MoE, whose reference is dropped before its second);
+            # the reference's parameters and moments take 12 B a
+            # parameter, its first moments alone 4 (they carry both
+            # steps' gradients; the parameters' limit holds their layout)
+            if 28 * nparams < 0.8 * total:
+                parts, on_card = ("p", "m", "v"), True
+            else:
+                parts, on_card = ("m",), 20 * nparams < 0.8 * total
+            state = {k: t.detach() if on_card else t.detach().cpu()
+                     for k, t in _leaves_of(R, model, opt, parts)}
+            rec["reference_on"] = "card" if on_card else "host"
+            rec["compared"] = parts
+            refs[data] = ([{k: float(v) for k, v in m.items()}
+                           for m in metrics], state)
+            del model, opt, metrics, state
+            torch.cuda.empty_cache()
+        want_metrics, want = refs[data]
+        run = _train_run(torch, cfg, mesh, batches)
+        mesh.synchronize()
+        rec[f"replicas_bitwise_{name}"] = _replicas_bitwise(R, *run[:2])
+        lr_sum = sum(w["lr"] for w in want_metrics)
+        rec[name] = _worst_off(R, *run[:2], want, lr_sum)
+        rec[f"metric_rel_err_{name}"] = max(
+            abs(float(m[k]) - w[k]) / max(abs(w[k]), 1e-30)
+            for m, w in zip(run[2], want_metrics)
+            for k in ("loss", "grad_norm"))
+        if cfg.n_experts > 0 or name == "2x2":
+            refs.clear()        # no later mesh reads this reference
+        del want
+        torch.cuda.empty_cache()
+        if name == "1x4" and arch in MESH_TRAIN_TWICE:
+            again = _train_run(torch, cfg, mesh, batches)
+            rec["one_card_mesh_bitwise_across_runs"] = _runs_bitwise(
+                R, run[:2], again[:2])
+            del again
+            torch.cuda.empty_cache()
+        if cards > 1:
+            far = _train_run(torch, cfg, make_mesh_for(
+                4, MESH_TRAIN_MESHES[name]), batches)
+            rec[f"distinct_cards_bitwise_{name}"] = _runs_bitwise(
+                R, run[:2], far[:2])
+            del far
+        del run
+        torch.cuda.empty_cache()
+    if cards <= 1:
+        rec["distinct_cards"] = f"not run: {cards} card visible"
+    rec["seconds"] = time.perf_counter() - t0
+    say("lm-train-mesh", **rec)
+    for name in meshes:
+        off = rec[name]
+        check(off["p_excess"] <= 0.0
+              and off.get("m_rel", 0.0) <= MESH_TRAIN_REL
+              and off.get("v_rel", 0.0) <= MESH_TRAIN_REL
+              and rec[f"metric_rel_err_{name}"] <= MESH_TRAIN_REL,
+              f"{cfg.name} on the {name} mesh: off the one-device run "
+              f"by {off}, its metrics by "
+              f"{rec[f'metric_rel_err_{name}']:.3g}")
+        check(rec[f"replicas_bitwise_{name}"], f"{cfg.name} on the {name} "
+              f"mesh: replicas of a leaf differ")
+        check(rec.get(f"distinct_cards_bitwise_{name}", True),
+              f"{cfg.name} on the {name} mesh over distinct cards is not "
+              f"the one-card mesh bit for bit")
+    check(rec.get("one_card_mesh_bitwise_across_runs", True),
+          f"{cfg.name}: two runs of the (1, 4) mesh's steps differ")
+    return rec
+
+
+def mesh_train_ft_cycle(torch) -> dict:
+    """(d): ``starcoder2_3b`` at full width cut to
+    ``MESH_TRAIN_FT_LAYERS`` (f32 compute) takes two steps on the (1, 4)
+    mesh; its state is written into a slot through
+    ``NVMCheckpointManager.save`` in a fresh temporary directory (its
+    free space checked), and the same run goes on two more steps, the
+    uninterrupted run.  The slot restored is the state written, array
+    for array; placed on the (2, 2) mesh and on one device it takes the
+    same two more steps, each held within rtol = atol =
+    ``MESH_TRAIN_FT_TOL`` of the uninterrupted run's parameters."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.ft import CheckpointConfig, NVMCheckpointManager
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry as R
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(_cut_config(MESH_TRAIN_ARCH),
+                              n_layers=MESH_TRAIN_FT_LAYERS)
+    batches = _cut_batches(torch, cfg, 4)
+    step = make_train_step(R.make_train_forward(cfg), AdamWConfig())
+    model, opt, _ = _train_run(torch, cfg, make_mesh_for(4, device=ONE_CARD),
+                               batches[:2])
+    nparams = sum(math.prod(leaf.shape) for _, leaf in R.placed_leaves(model))
+    directory = tempfile.mkdtemp(prefix="mesh_train_ft_")
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, params=nparams,
+               tol=MESH_TRAIN_FT_TOL)
+    try:
+        free = shutil.disk_usage(directory).free
+        if free < 2 * 12 * nparams:
+            raise SmokeFailure(f"the checkpoint cycle needs {24 * nparams} "
+                               f"bytes in {directory}; {free} are free")
+        mgr = NVMCheckpointManager(CheckpointConfig(directory))
+        written = convert.train_state_to_numpy(model, opt)
+        t1 = time.perf_counter()
+        mgr.save(written, 2)
+        rec["save_s"] = time.perf_counter() - t1
+        rec["slot_bytes"] = mgr.last_persist_bytes
+        for batch in batches[2:]:
+            step(model, opt, batch)
+        uninterrupted = {k: _whole(t) for k, t in
+                         _leaves_of(R, model, opt, ("p",))}
+        del model, opt
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        tree, at, _ = mgr.restore(convert.train_state_like(cfg))
+        rec["restore_s"] = time.perf_counter() - t1
+        check(at == 2, f"the slot restored step {at}, want 2")
+        got, want = _flat_arrays(tree), _flat_arrays(written)
+        rec["slot_is_the_state_written"] = got.keys() == want.keys() and all(
+            np.array_equal(got[k], w) for k, w in want.items())
+        del written, got, want
+        for name, target in (("2x2", make_mesh_for(4, 2, device=ONE_CARD)),
+                             ("one_device", None)):
+            model, opt = convert.train_state_from_numpy(cfg, tree, DEVICE,
+                                                        mesh=target)
+            for batch in batches[2:]:
+                step(model, opt, batch)
+            worst = {"excess": -math.inf}
+            for k, t in _leaves_of(R, model, opt, ("p",)):
+                w = uninterrupted[k]
+                diff = (_whole(t) - w).abs()
+                excess = float((diff - MESH_TRAIN_FT_TOL * (1 + w.abs())).max())
+                if excess > worst["excess"]:
+                    worst = {"excess": excess, "leaf": k.split("|", 1)[1],
+                             "abs": float(diff.max())}
+            rec[f"against_uninterrupted_{name}"] = worst
+            del model, opt
+            torch.cuda.empty_cache()
+        del tree, uninterrupted
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t0
+    say("lm-train-mesh", ft=rec)
+    check(rec["slot_is_the_state_written"], "the slot restored is not the "
+          "state written, array for array")
+    for name in ("2x2", "one_device"):
+        check(rec[f"against_uninterrupted_{name}"]["excess"] <= 0.0,
+              f"the run restored on {name} is off the uninterrupted (1, 4) "
+              f"run beyond rtol = atol = {MESH_TRAIN_FT_TOL}: "
+              f"{rec[f'against_uninterrupted_{name}']}")
+    return rec
+
+
+def _flat_arrays(tree, prefix="") -> dict:
+    """A nested dict of arrays as ``{"a/b/c": array}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_arrays(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def phase_lm_train_mesh(torch) -> dict:
+    """LM training over a (data, model) device mesh: (a) starcoder2_3b at
+    full width and depth on both meshes of the one card, (b) the MoE leg,
+    (c) the six configs' agreement with one device, with (e) the
+    distinct-card leg, (d) the checkpoint cycle across mesh shapes.  The
+    path has no hand-written kernel: its launch counts are read and
+    shown, and must be 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry as R
+
+    t_phase = time.perf_counter()
+    # the earlier phases' objects out of the collector's reach: the eager
+    # mesh step is bound by the host, and each full collection walks
+    # every object still alive (_GcClock shows what is left of it)
+    gc.collect()
+    gc.freeze()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    ops.reset_launch_counts()
+    mesh_train_timed(torch, R.get_config(MESH_TRAIN_ARCH), MESH_TRAIN_STEPS,
+                     MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    moe = dataclasses.replace(R.get_config(MESH_TRAIN_MOE_ARCH),
+                              n_layers=MESH_TRAIN_MOE_LAYERS)
+    mesh_train_timed(torch, moe, MESH_TRAIN_MOE_STEPS, MESH_TRAIN_BATCH,
+                     MESH_TRAIN_SEQ, MESH_TRAIN_MOE_MESHES)
+    torch.cuda.empty_cache()
+    for arch in MESH_TRAIN_CUT:
+        mesh_train_agreement(torch, arch, cards)
+    mesh_train_ft_cycle(torch)
+    gc.unfreeze()
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    say("lm-train-mesh", launches=counts,
+        phase_seconds=time.perf_counter() - t_phase, card=CARD,
+        note="the LM training path runs no hand-written kernel")
+    check(not any(counts.values()),
+          f"the LM mesh training path launched {counts}")
+    return counts
+
+
 def kernel_times(torch, rate: float) -> dict:
     """Both timing columns of every kernel at the main path's shapes,
     through the wrappers every slice of the port has had, so the same
@@ -3908,6 +4487,7 @@ def main() -> int:
     times_only = "--times-only" in args
     mesh_only = "--mesh-only" in args
     lm_mesh_only = "--lm-mesh-only" in args
+    lm_train_mesh_only = "--lm-train-mesh-only" in args
     if "--src" in args:
         SRC = os.path.abspath(args[args.index("--src") + 1])
     if not torch.cuda.is_available():
@@ -3944,6 +4524,9 @@ def main() -> int:
         if lm_mesh_only:
             phase_lm_mesh(torch)
             return 0
+        if lm_train_mesh_only:
+            phase_lm_train_mesh(torch)
+            return 0
         records = phase_kernels(torch, rate)
         found = {"steps": {}, "reports": [], "advice": []}
         counts, problem, recovered = phase_main_path(torch, found, records)
@@ -3961,6 +4544,7 @@ def main() -> int:
         paths.append(phase_train(torch))
         paths.append(phase_dryrun_lm(torch))
         paths.append(phase_lm_mesh(torch))
+        paths.append(phase_lm_train_mesh(torch))
         counts = {name: sum(path[name] for path in paths) for name in records}
         say("launches", by_path=paths, total=counts)
     except SmokeFailure as e:

@@ -18,7 +18,12 @@ one cache, a layer, so layer ``g * period + j`` is row ``g`` of slot
 values (exact both ways).  With ``mesh=`` the parameters and caches are
 placed on a :class:`~repro_torch.distributed.sharding.DeviceMesh` leaf
 by leaf (each crosses whole to the mesh's first device, then is split
-onto the shards), and placed caches are gathered whole on the way back.
+onto the shards), and placed parameters, moments and caches are
+gathered whole on the way back, one leaf at a time (never the whole
+model on one device).  A training state crosses the same way: a
+checkpoint slot holds whole leaves in the reference's layout, whatever
+mesh wrote it, and :func:`train_state_from_numpy` with ``mesh=`` places
+each leaf by its spec on any mesh shape (the elastic restore).
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from repro_torch.distributed.sharding import (DeviceMesh, Placed,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
 from repro_torch.models import transformer as T
-from repro_torch.models.registry import (build_model, place_parameters,
+from repro_torch.models.registry import (build_model, named_leaves,
+                                         place_parameters,
                                          reference_cache_path,
                                          reference_path, serving_rules)
 from repro_torch.solvers.bicgstab import BiCGStabState
@@ -211,8 +217,9 @@ def _ref_tree(cfg: ModelConfig, named) -> Dict[str, Any]:
 
 def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`lm_params_from_numpy`: the reference's
-    pytree of the model's parameters, as numpy arrays."""
-    return _ref_tree(model.cfg, model.named_parameters())
+    pytree of the model's parameters, as numpy arrays (a placed model's
+    leaves gathered whole one at a time)."""
+    return _ref_tree(model.cfg, named_leaves(model))
 
 
 def train_state_to_numpy(model: torch.nn.Module,
@@ -220,8 +227,10 @@ def train_state_to_numpy(model: torch.nn.Module,
     """The training state as the reference's tree: ``{"params": tree,
     "opt": {"m": tree, "v": tree, "step": int32}}`` with stacked groups,
     as numpy arrays (host copies; bfloat16 moments as their float32
-    values).  It is what a checkpoint slot holds in both packages.  The
-    error-feedback residual of ``compress_grads`` is not carried."""
+    values).  It is what a checkpoint slot holds in both packages.  A
+    placed model's parameters and moments are gathered whole one leaf at
+    a time, so its tree is the one-device state's of the same values.
+    The error-feedback residual of ``compress_grads`` is not carried."""
     if "ef" in opt_state:
         raise ValueError("the error-feedback residual (opt_state['ef']) "
                          "has no place in the reference's train state")
@@ -245,22 +254,28 @@ def train_state_like(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def train_state_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
-                           device: Union[str, torch.device] = "cuda"
+                           device: Union[str, torch.device] = "cuda",
+                           mesh: Optional[DeviceMesh] = None
                            ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
     """The inverse of :func:`train_state_to_numpy`: the model of ``cfg``
     and its optimizer state (``adamw_init``'s layout; each moment keeps
     its array's dtype) on ``device``, from the reference's train state
-    ``tree`` (numpy arrays)."""
-    dev = resolve_device(device)
-    model = lm_params_from_numpy(cfg, tree["params"], dev)
+    ``tree`` (numpy arrays).  With ``mesh`` the parameters are placed by
+    the serving rules (:func:`lm_params_from_numpy`) and each moment
+    with its parameter's spec, leaf by leaf, whatever mesh (or one
+    device) the tree was written from; ``step`` lives on the mesh's
+    first device."""
+    dev = resolve_device(device if mesh is None else mesh.device)
+    model = lm_params_from_numpy(cfg, tree["params"], dev, mesh=mesh)
     moments = {}
     for part in ("m", "v"):
         moments[part] = {}
-        for name, param in model.named_parameters():
+        for name, param in named_leaves(model):
             path, row = reference_path(cfg, name)
             arr = _get(tree["opt"][part], path)
-            moments[part][name] = _tensor(
-                arr if row is None else np.asarray(arr)[row], dev)
+            val = _tensor(arr if row is None else np.asarray(arr)[row], dev)
+            moments[part][name] = (place(val, mesh, param.spec)
+                                   if isinstance(param, Placed) else val)
     step = torch.tensor(int(np.asarray(tree["opt"]["step"])),
                         dtype=torch.int32, device=dev)
     return model, {"m": moments["m"], "v": moments["v"], "step": step}

@@ -47,6 +47,39 @@ cases), :func:`reduce_sum` in rank order, :func:`heads_to_seq` and
 :func:`to_whole`, every one of them built on :meth:`DataMesh.move`.
 :func:`shard` stays the identity: where the reference constrains a
 layout, the port's mesh code lays the tensor out explicitly.
+
+The gradient convention
+-----------------------
+The LM stack trains over a :class:`DeviceMesh` with autograd.  In the
+forward each shard's piece is a tensor of its own, and the loss reads
+the whole logits through :func:`to_whole`, so the gradient a replica's
+piece receives is a *partial*: the gradient of the whole value is the
+rank-order sum of its pieces' gradients.  Every collective is a
+``torch.autograd.Function`` whose backward holds to that, summing in
+rank order (shard order), never in the order autograd would add the
+gradients that reach one tensor from several shards (arrival order,
+which over distinct cards is that of a worker thread a device):
+
+- :meth:`DataMesh.move` (without ``out``): the transpose is a move
+  back to the producer's shard and stream;
+- :func:`reshard` (:func:`gather_axis`, a replication, the fsdp gather
+  of ``layers.use_param``) and :func:`place`: a reduce-scatter, each
+  source part the sum of the gradients of every copy made of it, in
+  rank order;
+- :func:`reduce_sum`: the group's output gradients summed in rank
+  order, the sum handed to every input piece;
+- :func:`to_whole`: each part's slice of the whole gradient to the
+  piece it came from, nothing to the replicas it skipped;
+- :func:`mean_over_mesh`: each piece ``1 / nshards`` of the gradient.
+
+:func:`heads_to_seq` and the partial softmaxes of
+``layers.attend_kv_seq`` are decode-only: a training forward writes no
+cache and reaches neither, so they have no backward.  A placed
+parameter's pieces are leaves that require grad (``registry.
+place_parameters``); after the backward, :func:`sum_replica_grads`
+sums the partial gradients of each part's replicas once, in rank order,
+and hands every replica the same sum, so that after the optimizer the
+replicas stay bitwise copies.
 """
 from __future__ import annotations
 
@@ -347,7 +380,18 @@ class DataMesh:
         A peer copy across cards, a device-to-device copy on one card, a
         clone on the CPU: always a new tensor (or ``out``), never an
         alias.  Call it outside :meth:`on`, where the current streams are
-        the caller's."""
+        the caller's.  Without ``out`` the copy is a
+        ``torch.autograd.Function`` (:class:`_Move`) whose backward moves
+        the gradient back to the producer's shard and stream."""
+        if out is not None:
+            return self._copy(t, dst, src, out)
+        return _Move.apply(t, self, dst, src)
+
+    def _copy(self, t: torch.Tensor, dst: Union[int, torch.device, None],
+              src: Optional[int] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`move`'s copy, outside autograd: what the collectives'
+        forwards and backwards enqueue, where autograd is off."""
         if isinstance(dst, int):
             dev = self.devices[dst]
         else:
@@ -568,21 +612,124 @@ def ranges(x: Placed, dim: int) -> "PerShard":
                     for s in range(x.mesh.nshards))
 
 
+def _region(t: torch.Tensor, region) -> torch.Tensor:
+    """``t`` narrowed to ``region``: one ``(lo, hi)`` a dimension
+    (``None``: the whole tensor)."""
+    if region is None:
+        return t
+    for dim, (lo, hi) in enumerate(region):
+        if (lo, hi) != (0, t.shape[dim]):
+            t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def _whole_region(region, shape) -> bool:
+    return region is None or all((lo, hi) == (0, n)
+                                 for (lo, hi), n in zip(region, shape))
+
+
+def wait_current(mesh: DataMesh) -> None:
+    """Every shard's stream waits on the current stream of every card of
+    the mesh (no host wait; nothing to do on the CPU): in a collective's
+    backward, where autograd ordered the gradients coming in, and after
+    a backward, where it ordered the leaves' ``.grad``."""
+    if mesh.device.type != "cuda":
+        return
+    currents = [torch.cuda.current_stream(d)
+                for d in dict.fromkeys(mesh.devices)]
+    for s in range(mesh.nshards):
+        stream = mesh.stream(s)
+        for cur in currents:
+            if cur != stream:
+                stream.wait_stream(cur)
+
+
+def join_current(mesh: DataMesh) -> None:
+    """The current stream of every card of the mesh waits on that card's
+    shards' streams (no host wait): what runs there next sees all of
+    their work."""
+    if mesh.device.type != "cuda":
+        return
+    for dev in dict.fromkeys(mesh.devices):
+        cur = torch.cuda.current_stream(dev)
+        for s, d in enumerate(mesh.devices):
+            if d == dev:
+                cur.wait_stream(mesh.stream(s))
+
+
+def _bw_join(mesh: DataMesh, grads) -> tuple:
+    """In a collective's backward: :func:`join_current`, so that
+    whatever autograd runs next sees the gradients going out, each of
+    them marked as read there."""
+    grads = tuple(grads)
+    if mesh.device.type != "cuda":
+        return grads
+    join_current(mesh)
+    for g in grads:
+        if isinstance(g, torch.Tensor) and g.device.type == "cuda":
+            g.record_stream(torch.cuda.current_stream(g.device))
+    return grads
+
+
+class _Move(torch.autograd.Function):
+    """:meth:`DataMesh.move` under autograd: the gradient moves back to
+    the producer's shard and stream (or, with ``src=None``, to the
+    current stream of the input's device)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dst, src):
+        ctx.mesh, ctx.dst, ctx.src, ctx.device = mesh, dst, src, t.device
+        return mesh._copy(t, dst, src=src)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dst, src = ctx.mesh, ctx.dst, ctx.src
+        wait_current(mesh)
+        back = src if isinstance(src, int) else ctx.device
+        out = mesh._copy(g, back, src=dst if isinstance(dst, int) else None)
+        return _bw_join(mesh, [out])[0], None, None, None
+
+
+def _place_pieces(t: torch.Tensor, mesh: DeviceMesh, spec: Spec):
+    """``place``'s pieces and each one's region of ``t``."""
+    ext = mesh.shape
+    pieces, regions = [], []
+    for s in range(mesh.nshards):
+        c = mesh.coords(s)
+        region = tuple(_part(t.shape[dim], ax, c, ext)
+                       for dim, ax in enumerate(spec))
+        regions.append(region)
+        pieces.append(mesh._copy(_region(t, region), s))
+    return pieces, regions
+
+
+class _Place(torch.autograd.Function):
+    """:func:`place` under autograd: the whole tensor's gradient is the
+    sum of its pieces' gradients, each moved back from its shard, added
+    into its part in rank order."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, spec):
+        pieces, ctx.regions = _place_pieces(t, mesh, spec)
+        ctx.mesh, ctx.shape, ctx.device = mesh, t.shape, t.device
+        return tuple(pieces)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        wait_current(mesh)
+        acc = torch.zeros(ctx.shape, dtype=grads[0].dtype, device=ctx.device)
+        for s, (g, region) in enumerate(zip(grads, ctx.regions)):
+            _region(acc, region).add_(mesh._copy(g, ctx.device, src=s))
+        return _bw_join(mesh, [acc])[0], None, None
+
+
 def place(t: torch.Tensor, mesh: DeviceMesh, spec: Spec) -> Placed:
     """The whole tensor ``t`` placed on ``mesh`` by ``spec``: each
     piece a copy of its part, moved onto its shard (from the current
-    stream of ``t``'s device)."""
-    ext = mesh.shape
-    pieces = []
-    for s in range(mesh.nshards):
-        c = mesh.coords(s)
-        part = t
-        for dim, ax in enumerate(spec):
-            lo, hi = _part(t.shape[dim], ax, c, ext)
-            if (lo, hi) != (0, t.shape[dim]):
-                part = part.narrow(dim, lo, hi - lo)
-        pieces.append(mesh.move(part, s))
-    return Placed(pieces, mesh, spec)
+    stream of ``t``'s device).  Under autograd its transpose sums the
+    pieces' gradients into the whole in rank order (:class:`_Place`)."""
+    return Placed(_Place.apply(t, mesh, tuple(spec)), mesh, spec)
 
 
 def placed_full(shape: Sequence[int], spec: Spec, mesh: DeviceMesh,
@@ -637,18 +784,13 @@ def each(fn, *args, spec, mesh: Optional[DeviceMesh] = None):
     return Placed(outs, mesh, spec)
 
 
-def reshard(x: Placed, spec: Spec) -> Placed:
-    """``x`` laid out by ``spec``: each shard's new piece assembled from
-    the pieces that hold its parts (for an axis the old spec does not
-    use, the replica at the shard's own rank), each part moved from its
-    shard and written into place.  A piece that is already the new one
-    is kept as it is.  Gathering a dimension over an axis (the
-    all-gather) is a reshard to ``None`` on it."""
-    spec = tuple(spec)
-    if spec == x.spec:
-        return x
+def _reshard_plan(x: Placed, spec: Spec):
+    """Each shard's new piece under ``spec``: ``None`` where the old
+    piece is already the new one, else its shape and the copies that
+    assemble it, ``(source shard, region of the source piece, region of
+    the new piece)`` in the order :func:`reshard` makes them."""
     mesh, ext, shape = x.mesh, x.mesh.shape, x.shape
-    pieces = []
+    plan = []
     for s in range(mesh.nshards):
         c = mesh.coords(s)
         want = [_part(n, ax, c, ext) for n, ax in zip(shape, spec)]
@@ -667,22 +809,100 @@ def reshard(x: Placed, spec: Spec) -> Placed:
         sources = [d * mesh.model + m for d in options[0] for m in options[1]]
         have = [_part(n, ax, c, ext) for n, ax in zip(shape, x.spec)]
         if sources == [s] and have == want:
-            pieces.append(x.pieces[s])
+            plan.append(None)
             continue
-        with mesh.on(s):
-            out = torch.empty(tuple(hi - lo for lo, hi in want),
-                              dtype=x.dtype, device=mesh.devices[s])
+        copies = []
         for r in sources:
-            src, dst = x.pieces[r], out
             rc = mesh.coords(r)
+            src_reg, dst_reg = [], []
             for dim, (n, ax) in enumerate(zip(shape, x.spec)):
                 slo, shi = _part(n, ax, rc, ext)
                 lo, hi = max(slo, want[dim][0]), min(shi, want[dim][1])
-                src = src.narrow(dim, lo - slo, hi - lo)
-                dst = dst.narrow(dim, lo - want[dim][0], hi - lo)
-            mesh.move(src, s, src=r, out=dst)
-        pieces.append(out)
-    return Placed(pieces, mesh, spec)
+                src_reg.append((lo - slo, hi - slo))
+                dst_reg.append((lo - want[dim][0], hi - want[dim][0]))
+            copies.append((r, tuple(src_reg), tuple(dst_reg)))
+        plan.append((tuple(hi - lo for lo, hi in want), copies))
+    return plan
+
+
+def _reshard_pieces(pieces, mesh: DeviceMesh, plan, dtype) -> list:
+    out = []
+    for s, entry in enumerate(plan):
+        if entry is None:
+            out.append(pieces[s])
+            continue
+        shape, copies = entry
+        with mesh.on(s):
+            buf = torch.empty(shape, dtype=dtype, device=mesh.devices[s])
+        for r, src_reg, dst_reg in copies:
+            mesh._copy(_region(pieces[r], src_reg), s, src=r,
+                       out=_region(buf, dst_reg))
+        out.append(buf)
+    return out
+
+
+class _Reshard(torch.autograd.Function):
+    """:func:`reshard` under autograd.  Its transpose is the
+    reduce-scatter: each source piece's gradient is the sum, in rank
+    order of the new pieces, of the gradients of every copy made of its
+    parts, each moved back from the shard that holds it; a source piece
+    copied once, whole, takes that copy's gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, mesh, plan, *pieces):
+        ctx.mesh, ctx.plan = mesh, plan
+        ctx.shapes = [p.shape for p in pieces]
+        return tuple(_reshard_pieces(pieces, mesh, plan, pieces[0].dtype))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, plan = ctx.mesh, ctx.plan
+        wait_current(mesh)
+        # every source piece's copies, in the rank order of the new pieces
+        uses = [[] for _ in plan]
+        for s, entry in enumerate(plan):
+            if entry is None:
+                uses[s].append((s, None, None))
+            else:
+                for r, src_reg, dst_reg in entry[1]:
+                    uses[r].append((s, src_reg, dst_reg))
+        out = []
+        for r, copies in enumerate(uses):
+            shape = ctx.shapes[r]
+            if not copies:
+                out.append(None)
+                continue
+            if len(copies) == 1 and _whole_region(copies[0][1], shape):
+                s, _, dst_reg = copies[0]
+                g = _region(grads[s], dst_reg)
+                out.append(g if s == r else mesh._copy(g, r, src=s))
+                continue
+            with mesh.on(r):
+                acc = torch.zeros(shape, dtype=grads[0].dtype,
+                                  device=mesh.devices[r])
+            for s, src_reg, dst_reg in copies:
+                g = _region(grads[s], dst_reg)
+                if s != r:
+                    g = mesh._copy(g, r, src=s)
+                with mesh.on(r):
+                    _region(acc, src_reg).add_(g)
+            out.append(acc)
+        return (None, None) + _bw_join(mesh, out)
+
+
+def reshard(x: Placed, spec: Spec) -> Placed:
+    """``x`` laid out by ``spec``: each shard's new piece assembled from
+    the pieces that hold its parts (for an axis the old spec does not
+    use, the replica at the shard's own rank), each part moved from its
+    shard and written into place.  A piece that is already the new one
+    is kept as it is.  Gathering a dimension over an axis (the
+    all-gather) is a reshard to ``None`` on it.  Under autograd its
+    transpose is the reduce-scatter of :class:`_Reshard`."""
+    spec = tuple(spec)
+    if spec == x.spec:
+        return x
+    return Placed(_Reshard.apply(x.mesh, _reshard_plan(x, spec), *x.pieces),
+                  x.mesh, spec)
 
 
 def gather_axis(x: Placed, axis: str) -> Placed:
@@ -704,20 +924,48 @@ def group_pieces(x: Union[Placed, PerShard], axis: str,
         for s in range(mesh.nshards))
 
 
+def _rank_sum(parts):
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def _reduce_pieces(pieces, mesh: DeviceMesh, axis: str) -> list:
+    out = []
+    for s, group in enumerate(group_pieces(PerShard(pieces), axis, mesh)):
+        with mesh.on(s):
+            out.append(_rank_sum(group))
+    return out
+
+
+class _ReduceSum(torch.autograd.Function):
+    """:func:`reduce_sum` under autograd.  Every output of a group is
+    the same sum, and each carries a partial of its gradient: each input
+    piece's gradient is its group's output gradients summed in rank
+    order (moved to it), the same bits on every shard of the group."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *pieces):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(_reduce_pieces(pieces, mesh, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        wait_current(ctx.mesh)
+        out = _reduce_pieces(grads, ctx.mesh, ctx.axis)
+        return (None, None) + _bw_join(ctx.mesh, out)
+
+
 def reduce_sum(x: Placed, axis: str) -> Placed:
     """The sum over ``axis`` (the reference's ``psum``): every shard
     gets its group's pieces moved to it and added in rank order, from
-    rank 0's, so every shard of a group holds the same bits."""
+    rank 0's, so every shard of a group holds the same bits.  Under
+    autograd the transpose is the same sum of the output gradients
+    (:class:`_ReduceSum`)."""
     if x.mesh.shape[axis] == 1:
         return x
-
-    def total(parts):
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = acc + part
-        return acc
-
-    return each(total, group_pieces(x, axis), spec=x.spec, mesh=x.mesh)
+    return Placed(_ReduceSum.apply(x.mesh, axis, *x.pieces), x.mesh, x.spec)
 
 
 def heads_to_seq(x: Placed, ranges: Sequence[Tuple[int, int]],
@@ -744,33 +992,123 @@ def heads_to_seq(x: Placed, ranges: Sequence[Tuple[int, int]],
     return PerShard(pieces)
 
 
-def to_whole(x: Placed) -> torch.Tensor:
-    """The whole tensor on shard 0's device (the current stream there),
-    each part moved from the first shard that holds it."""
+def _whole_regions(x: Placed) -> list:
+    """Each shard's region of the whole tensor in :func:`to_whole`, or
+    ``None`` for a replica that rank 0 of its axis gives instead."""
     mesh, ext, shape = x.mesh, x.mesh.shape, x.shape
-    out = torch.empty(shape, dtype=x.dtype, device=mesh.device)
+    out = []
     for s in range(mesh.nshards):
         c = mesh.coords(s)
         if any(c[a] for a in mesh.axis_names if a not in x.spec):
-            continue            # a replica: rank 0 of that axis gives it
-        dst = out
-        for dim, (n, ax) in enumerate(zip(shape, x.spec)):
-            lo, hi = _part(n, ax, c, ext)
-            dst = dst.narrow(dim, lo, hi - lo)
-        mesh.move(x.pieces[s], None, src=s, out=dst)
+            out.append(None)
+        else:
+            out.append(tuple(_part(n, ax, c, ext)
+                             for n, ax in zip(shape, x.spec)))
     return out
+
+
+def _whole(pieces, mesh: DeviceMesh, shape, regions) -> torch.Tensor:
+    out = torch.empty(shape, dtype=pieces[0].dtype, device=mesh.device)
+    for s, region in enumerate(regions):
+        if region is not None:
+            mesh._copy(pieces[s], None, src=s, out=_region(out, region))
+    return out
+
+
+class _ToWhole(torch.autograd.Function):
+    """:func:`to_whole` under autograd: each part's slice of the whole
+    gradient goes back to the piece it came from, nothing to the
+    replicas it skipped."""
+
+    @staticmethod
+    def forward(ctx, mesh, shape, regions, *pieces):
+        ctx.mesh, ctx.regions = mesh, regions
+        return _whole(pieces, mesh, shape, regions)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        wait_current(mesh)
+        out = [None if region is None else mesh._copy(_region(g, region), s)
+               for s, region in enumerate(ctx.regions)]
+        return (None, None, None) + _bw_join(mesh, out)
+
+
+def to_whole(x: Placed) -> torch.Tensor:
+    """The whole tensor on shard 0's device (the current stream there),
+    each part moved from the first shard that holds it.  Under autograd
+    each part's gradient goes back to that shard (:class:`_ToWhole`)."""
+    return _ToWhole.apply(x.mesh, x.shape, _whole_regions(x), *x.pieces)
+
+
+def _mean(pieces, mesh: DeviceMesh) -> torch.Tensor:
+    parts = [mesh._copy(p, None, src=s) for s, p in enumerate(pieces)]
+    return _rank_sum(parts) / mesh.nshards
+
+
+class _MeanOverMesh(torch.autograd.Function):
+    """:func:`mean_over_mesh` under autograd: each piece gets ``1 /
+    nshards`` of the gradient, moved to its shard."""
+
+    @staticmethod
+    def forward(ctx, mesh, *pieces):
+        ctx.mesh = mesh
+        return _mean(pieces, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        wait_current(mesh)
+        share = g / mesh.nshards
+        out = [mesh._copy(share, s) for s in range(mesh.nshards)]
+        return (None,) + _bw_join(mesh, out)
 
 
 def mean_over_mesh(x: Placed) -> torch.Tensor:
     """The mean of a 0-d placed value over every shard (the reference's
     ``pmean`` over all axes), summed in shard order on shard 0's
     device."""
+    return _MeanOverMesh.apply(x.mesh, *x.pieces)
+
+
+def replica_groups(x: Placed) -> list:
+    """The shards holding each part of ``x``, one tuple a part in the
+    order of its first shard, each in rank (shard) order: the shards
+    that differ only on the axes ``x``'s spec does not use."""
     mesh = x.mesh
-    parts = [mesh.move(p, None, src=s) for s, p in enumerate(x.pieces)]
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part
-    return acc / mesh.nshards
+    groups: Dict[Tuple[int, ...], list] = {}
+    for s in range(mesh.nshards):
+        c = mesh.coords(s)
+        key = tuple(c[a] for a in mesh.axis_names if a in x.spec)
+        groups.setdefault(key, []).append(s)
+    return [tuple(g) for g in groups.values()]
+
+
+def sum_replica_grads(x: Placed, grads: Sequence[Optional[torch.Tensor]]
+                      ) -> Placed:
+    """The gradient of the placed parameter ``x`` from its pieces'
+    partial gradients ``grads`` (``None``: zero): each part's replicas'
+    gradients summed once, in rank order, on the part's first shard, and
+    that sum copied to every other replica, so that every replica holds
+    the same bits.  An fsdp leaf's data parts were reduce-scattered by
+    its gather's backward; here its model replicas are summed, and a
+    replicated leaf's over data and model."""
+    mesh = x.mesh
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(x.pieces, grads)]
+    out = list(grads)
+    for group in replica_groups(x):
+        if len(group) == 1:
+            continue
+        first = group[0]
+        parts = [grads[first]] + [mesh.move(grads[r], first, src=r)
+                                  for r in group[1:]]
+        with mesh.on(first):
+            total = _rank_sum(parts)
+        out[first] = total
+        for r in group[1:]:
+            out[r] = mesh.move(total, r, src=first)
+    return Placed(out, mesh, x.spec)
 
 
 # ----------------------------------------------------------------------

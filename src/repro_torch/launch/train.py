@@ -10,8 +10,22 @@ resumable data::
         --smoke --steps 100 --batch 8 --seq 256
 
 ``--device cpu`` runs on the CPU; the default is the card, and with no
-card visible the run raises.  On one card the mesh is ``(1, 1)``
-(``launch.mesh.make_mesh_for``), so no axis rules are set.  The stub
+card visible the run raises.  The mesh follows the reference
+(``repro/launch/train.py``: ``make_mesh_for(ndev)`` when more than one
+device is visible): with several cards visible the model trains over
+``launch.mesh.make_mesh_for(torch.cuda.device_count())``, its shards
+spanning the cards; on one card, or with ``--device cpu``, on one
+device, unless ``--mesh N`` asks for the ``(data, model)`` mesh of ``N``
+shards (``make_mesh_for(N)``: on one card or the CPU, ``N`` shards of
+it; ``--mesh 1`` is one device).  Over a mesh the parameters and
+moments are placed, and a checkpoint slot holds whole leaves in the
+reference's layout, so a run resumes from a slot written on any mesh
+shape or on one device.  The six decoder LMs with token prompts train
+over a mesh (``models.transformer.trains_over_mesh``); the other four
+families (mamba2, recurrentgemma, whisper, qwen2_vl) do not yet
+(ROADMAP, Queue 1 item 2b): by default they train on one card, as
+before, whatever cards are visible, and ``--mesh N`` with ``N > 1``
+refuses them before anything is built.  The stub
 inputs of a vision arch (patch embeddings and M-RoPE positions) and of
 the encoder-decoder (frames) are drawn from a ``torch.Generator``
 seeded with the step, not from ``jax.random``: they are the reference's
@@ -22,6 +36,7 @@ accident.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -35,7 +50,9 @@ from repro_torch.ft.checkpoint import CheckpointConfig, NVMCheckpointManager
 from repro_torch.ft.period import PersistencePeriodTuner
 from repro_torch.ft.recovery import TrainingRecovery
 from repro_torch.ft.straggler import StragglerMonitor
+from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models import registry as R
+from repro_torch.models import transformer as T
 from repro_torch.training.data import SyntheticCorpus, to_tensors
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train_step import TrainConfig, make_train_step
@@ -58,6 +75,25 @@ def stub_inputs(cfg, batch: dict, step: int, dev: torch.device) -> dict:
     return batch
 
 
+def mesh_shards(cfg, dev: torch.device, asked: Optional[int]) -> int:
+    """The shard count ``cfg`` trains over on ``dev``: ``asked``
+    (``--mesh``) where given, else every visible card when there are
+    several and ``dev`` names none of them; one device for a family that
+    does not train over a mesh.  Raises ``NotImplementedError`` when
+    ``asked`` is more than one for such a family."""
+    trains = T.trains_over_mesh(cfg)
+    if asked is not None:
+        if asked > 1 and not trains:
+            raise NotImplementedError(
+                f"training {cfg.name} over a device mesh is not ported "
+                f"(ROADMAP, Queue 1 item 2b): pass --mesh 1, or leave "
+                f"--mesh out, to train on one device")
+        return asked
+    if not trains or dev.type != "cuda" or dev.index is not None:
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True, choices=R.ARCH_IDS)
@@ -74,14 +110,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="assumed MTBF seconds for the Young/Daly period")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: the card (default) or cpu")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="train over make_mesh_for(N), a (data, model) mesh "
+                         "of N shards (default: every visible card when "
+                         "there are several, else one device; one device "
+                         "for the families that do not train over a mesh)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = R.get_config(args.arch, smoke=args.smoke)
+    shards = mesh_shards(cfg, dev, args.mesh)
+    mesh = make_mesh_for(shards, device=dev) if shards > 1 else None
+    if mesh is not None:
+        dev = mesh.device
     model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                          device=dev)
-    n = sum(p.numel() for p in model.parameters())
-    print(f"arch {cfg.name}: {n/1e6:.1f}M params on 1 device(s)")
+                          device=dev, mesh=mesh)
+    n = sum(math.prod(p.shape) for _, p in R.named_leaves(model))
+    where = "" if mesh is None else (
+        f" as a ({mesh.shape['data']}, {mesh.shape['model']}) mesh")
+    print(f"arch {cfg.name}: {n/1e6:.1f}M params on {shards} device(s)"
+          f"{where}")
 
     step_fn = make_train_step(R.make_train_forward(cfg), AdamWConfig(lr=args.lr),
                               TrainConfig(microbatches=args.microbatches))
@@ -96,14 +144,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     restored = mgr.restore(convert.train_state_like(cfg))
     if restored is not None:
         tree, start, _ = restored
-        model, opt = convert.train_state_from_numpy(cfg, tree, dev)
+        model, opt = convert.train_state_from_numpy(cfg, tree, dev,
+                                                    mesh=mesh)
         print(f"elastic restore: resuming from step {start}")
 
     for s in range(start, args.steps):
         t0 = time.perf_counter()
         batch = stub_inputs(cfg, to_tensors(data.batch_at(s), dev), s, dev)
         m = step_fn(model, opt, batch)
-        if dev.type == "cuda":
+        if mesh is not None:
+            mesh.synchronize()
+        elif dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         rec.observe_step(dt)

@@ -127,7 +127,8 @@ def _check_serving(model: EncDec, remat: bool) -> bool:
     placed = isinstance(model.embed, Placed)
     if placed and remat:
         raise NotImplementedError(
-            "training over a device mesh (ROADMAP, Queue 1 item 2)")
+            "training over a device mesh: the encoder-decoder trains on "
+            "one device (ROADMAP, Queue 1 item 2b)")
     return placed
 
 

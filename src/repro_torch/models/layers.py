@@ -211,9 +211,19 @@ def _chunk_checkpoint(fn, *args):
     operations on the same inputs, so the values and gradients are
     those of the plain call; with grad off (serving) it is the plain
     call.  The bodies draw no random numbers, so no RNG state is stashed
-    for the recompute."""
+    for the recompute.  On the card the recompute is enqueued on the
+    stream the chunk ran on (a mesh shard's, inside ``sharding.each``),
+    whichever stream the backward that needs it runs on."""
     if torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            body = fn
+
+            def fn(*a):
+                with torch.cuda.stream(stream):
+                    return body(*a)
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)

@@ -20,8 +20,10 @@ positions, the hybrid RG-LRU and SSD stacks and the encoder-decoder.
 logical spec under :func:`serving_rules` (one
 :class:`~repro_torch.distributed.sharding.Placed` a leaf, made leaf by
 leaf, never the whole model on one device), and the step functions run
-under those rules.  Training over a mesh raises (ROADMAP, Queue 1 item
-2).
+under those rules.  The six
+decoder LMs with token prompts also train over a mesh
+(:func:`make_train_forward`); the other four families' training over
+one raises (ROADMAP, Queue 1 item 2b).
 
 The reference keeps parameters in a pytree with a pattern group's layers
 stacked along a leading axis; :func:`reference_path` says where each of
@@ -185,7 +187,10 @@ def place_parameters(model: nn.Module, mesh: DeviceMesh, values
     ``mesh``: ``values`` yields ``(name, whole tensor)`` pairs, one at a
     time, and each is placed by its logical spec under
     :func:`serving_rules` and set on its module as a :class:`Placed` in
-    place of the parameter.  The model gets ``mesh`` and ``rules``."""
+    place of the parameter.  The model gets ``mesh`` and ``rules``.  The
+    pieces require no grad until the model trains (:func:`trainable`):
+    a serving step's matrix products then take the path they took before
+    training existed, and give its bits."""
     cfg = model.cfg
     check_mesh_config(cfg, mesh)
     rules = serving_rules(cfg, mesh)
@@ -200,6 +205,17 @@ def place_parameters(model: nn.Module, mesh: DeviceMesh, values
         setattr(module, leaf, place(value, mesh, physical_spec(
             rules, value.shape, logical)))
     model.mesh, model.rules = mesh, rules
+    return model
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """``model`` with every placed piece a leaf that requires grad, its
+    ``.grad`` landing on its own shard, as a one-device model's
+    parameters are (the training forward calls it on a placed model)."""
+    for _, leaf in placed_leaves(model):
+        for piece in leaf.pieces:
+            if not piece.requires_grad:
+                piece.requires_grad_(True)
     return model
 
 
@@ -286,12 +302,22 @@ def reference_cache_path(cfg: ModelConfig, layer: int
     return ("tail", str(layer - cfg.n_groups * period)), None
 
 
+def named_leaves(model: nn.Module) -> List[Tuple[str, Union[torch.Tensor,
+                                                          Placed]]]:
+    """The model's parameters by name: ``named_parameters()`` for a
+    one-device model, :func:`placed_leaves` for a placed one (whose
+    leaves ``named_parameters()`` does not see)."""
+    if getattr(model, "mesh", None) is not None:
+        return placed_leaves(model)
+    return list(model.named_parameters())
+
+
 def reference_leaf_order(model: nn.Module) -> List[List[str]]:
     """The model's parameter names grouped by the reference's leaves, in
     the order ``jax.tree.leaves`` visits them (sorted dict keys, so
     sorted paths), a stacked leaf's rows in row order."""
     leaves: Dict[Tuple[str, ...], list] = {}
-    for name, _ in model.named_parameters():
+    for name, _ in named_leaves(model):
         path, row = reference_path(model.cfg, name)
         leaves.setdefault(path, []).append((row or 0, name))
     return [[name for _, name in sorted(rows)]
@@ -300,20 +326,28 @@ def reference_leaf_order(model: nn.Module) -> List[List[str]]:
 
 def make_train_forward(cfg: ModelConfig) -> Callable:
     """forward(model, batch) -> (logits, aux), every layer checkpointed
-    (``remat=True``); the encoder-decoder's aux is a zero f32 scalar."""
+    (``remat=True``); the encoder-decoder's aux is a zero f32 scalar.  A
+    placed model runs under its mesh rules, as prefill and decode do,
+    its pieces made leaves that require grad (:func:`trainable`): the
+    logits come back whole and the aux averaged over the shards, on the
+    mesh's first device."""
     if cfg.family == "encdec":
         def forward(model, batch):
-            enc_out = E.encode(model, batch["frames"], cfg, remat=True)
-            logits, _ = E.decode(model, batch["tokens"], enc_out, cfg,
-                                 remat=True)
+            with _rules_of(model):
+                enc_out = E.encode(model, batch["frames"], cfg, remat=True)
+                logits, _ = E.decode(model, batch["tokens"], enc_out, cfg,
+                                     remat=True)
             return logits, torch.zeros((), dtype=torch.float32,
                                        device=logits.device)
         return forward
 
     def forward(model, batch):
-        logits, _, aux = T.decoder_forward(
-            model, batch["tokens"], cfg, positions=batch.get("positions"),
-            remat=True)
+        if getattr(model, "mesh", None) is not None:
+            trainable(model)
+        with _rules_of(model):
+            logits, _, aux = T.decoder_forward(
+                model, batch["tokens"], cfg, positions=batch.get("positions"),
+                remat=True)
         return logits, aux
     return forward
 

@@ -30,6 +30,7 @@ each chunk (``layers._chunk_checkpoint``).
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -290,12 +291,84 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+class _MeshCheckpoint:
+    """Activation checkpointing of a call over a device mesh, saving
+    nothing but its arguments: every tensor the call saves for the
+    backward is packed as its index (:meth:`pack`, :meth:`unpack` as the
+    call's saved-tensor hooks, :func:`remat_call`), and the first unpack
+    recomputes the call (with grad, on the same shard streams: the mesh
+    code names each shard's stream itself) and keeps what the recompute
+    saves, in the same order.  ``torch.utils.checkpoint``'s
+    non-reentrant form does the same, but the first unpacks of a mesh
+    layer come from the worker thread of every card its shards live on
+    at once, and its recompute is not guarded against that; here a lock
+    makes one of them recompute and the others wait for it.  The
+    recompute runs the same operations on the same inputs, so the
+    values and gradients are those of the plain call.  The frame holds
+    no reference to the hooks that hold it: it goes with the backward's
+    graph, not with the next cyclic collection (the layer it holds
+    holds its parameters)."""
+
+    def __init__(self, fn: Callable, args, kwargs):
+        self.fn, self.args, self.kwargs = fn, args, kwargs
+        self.packed = 0
+        self.saved: Optional[list] = None
+        self.lock = threading.Lock()
+
+    def pack(self, t: torch.Tensor) -> int:
+        self.packed += 1
+        return self.packed - 1
+
+    def unpack(self, i: int) -> torch.Tensor:
+        with self.lock:
+            if self.saved is None:
+                self.saved = self._recompute()
+            t, self.saved[i] = self.saved[i], None
+        if t is None:
+            raise RuntimeError("a tensor saved by a checkpointed mesh call "
+                               "was unpacked twice")
+        return t
+
+    def _recompute(self) -> list:
+        saved: list = []
+
+        def keep(t):
+            # detached: a tensor the recompute saves may be an output of
+            # the op saving it, and holding it with its grad_fn would keep
+            # the recompute's graph alive in a cycle
+            saved.append(t.detach())
+            return saved[-1]
+
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+            self.fn(*self.args, **self.kwargs)
+        if len(saved) != self.packed:
+            raise RuntimeError(f"the recompute of a checkpointed mesh call "
+                               f"saved {len(saved)} tensors, its forward "
+                               f"{self.packed}")
+        return saved
+
+
 def remat_call(fn: Callable, policy: str, *args, **kwargs):
     """``fn(*args, **kwargs)`` under activation checkpointing: its
     activations are recomputed in the backward, except the weight
     products with ``policy="dots"`` (any other policy saves nothing).
     The recompute runs the same operations on the same inputs, so the
-    values and gradients are those of the plain call."""
+    values and gradients are those of the plain call.  With a placed
+    argument (a layer over a device mesh) it is :class:`_MeshCheckpoint`,
+    which saves nothing; the ``"dots"`` policy is not ported there and
+    raises."""
+    if any(isinstance(a, Placed) for a in args):
+        if policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' over a device mesh: the mesh layers "
+                "are checkpointed whole, saving nothing")
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        frame = _MeshCheckpoint(fn, args, kwargs)
+        with torch.autograd.graph.saved_tensors_hooks(frame.pack,
+                                                      frame.unpack):
+            return fn(*args, **kwargs)
     if policy == "dots":
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
@@ -455,6 +528,33 @@ def place_inputs(x: torch.Tensor, mesh, rules, cfg: ModelConfig) -> Placed:
     return each(lambda t: t.to(cfg.cdt), placed, spec=placed.spec)
 
 
+def trains_over_mesh(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` trains over a device mesh: the decoder LMs with
+    token prompts.  The ssm, hybrid and vision families (and the
+    encoder-decoder, ``encdec._check_serving``) train on one device
+    (ROADMAP, Queue 1 item 2b)."""
+    return cfg.family == "lm" and cfg.frontend == "none"
+
+
+def check_mesh_training(cfg: ModelConfig, tokens: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` for a training forward over a mesh
+    that is not ported: the SSD heads' and the RG-LRU channels' backward
+    (the ssm and hybrid families) and the vision frontend's patch
+    embeddings with M-RoPE positions placed for training (ROADMAP, Queue
+    1 item 2b)."""
+    what = None
+    if cfg.family == "ssm":
+        what = "the SSD heads' backward"
+    elif cfg.family == "hybrid":
+        what = "the RG-LRU channels' backward"
+    elif cfg.frontend == "vision" or tokens.dim() == 3:
+        what = "patch embeddings with M-RoPE positions placed for training"
+    if what is not None:
+        raise NotImplementedError(
+            f"training {cfg.name} over a device mesh: {what} is not ported "
+            f"(ROADMAP, Queue 1 item 2b); it trains on one device")
+
+
 def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
                           cfg: ModelConfig, caches, cache_index, positions,
                           remat: bool):
@@ -470,10 +570,16 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     averaged over the shards.  A 0-d tensor position is moved to every
     shard once (``on_every_shard``) and read there, so a decode step
     reads nothing back to the host and can be captured as a CUDA graph
-    (``serving.engine.DecodeGraph``)."""
+    (``serving.engine.DecodeGraph``).
+
+    With ``remat=True`` (training, no caches) every layer runs under
+    :func:`remat_call` over its placed input, and the backward goes
+    through the mesh's collectives' rank-order transposes
+    (:mod:`repro_torch.distributed.sharding`).  Only the decoder LMs
+    with token prompts train over a mesh: the SSD and RG-LRU stacks and
+    the vision frontend raise (ROADMAP, Queue 1 item 2b)."""
     if remat:
-        raise NotImplementedError(
-            "training over a device mesh (ROADMAP, Queue 1 item 2)")
+        check_mesh_training(cfg, tokens)
     mesh, rules = model.mesh, model.rules
     if cache_index is not None:
         cache_index = on_every_shard(cache_index, mesh)
@@ -491,8 +597,12 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     aux_total = None
     new_caches = None if caches is None else []
     for i, layer in enumerate(model.layers):
-        x, nc, aux = layer(x, cache=None if caches is None else caches[i],
-                           cache_index=cache_index, positions=positions)
+        if remat and caches is None:
+            x, nc, aux = remat_call(layer, cfg.remat_policy, x,
+                                    positions=positions)
+        else:
+            x, nc, aux = layer(x, cache=None if caches is None else caches[i],
+                               cache_index=cache_index, positions=positions)
         if aux is not None:
             aux_total = aux if aux_total is None else \
                 each(torch.add, aux_total, aux, spec=())

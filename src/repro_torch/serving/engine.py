@@ -27,6 +27,12 @@ is in the graph, and the position reaches each shard as a copy recorded
 in the graph.  On distinct cards the other cards' allocations during the
 capture go into private pools of their own (``_device.capturing``'s
 ``devices``), as the capture's own card's do.
+
+A capture allocates from its private pool, which cannot reuse what the
+regular pool holds cached: before it, :class:`DecodeGraph` gives the
+caching allocator's unused blocks back on every card of the step
+(:func:`release_cached`), so that the memory the eager steps left
+cached is free for the graph.
 """
 from __future__ import annotations
 
@@ -38,6 +44,15 @@ import torch
 
 from repro_torch._device import capturing, release_pools
 from repro_torch.distributed.sharding import Placed
+
+
+def release_cached(devices) -> None:
+    """Give the caching allocator's unused blocks back to the driver on
+    each card of ``devices`` (indices): what a capture's private pool
+    cannot take from the regular pool otherwise."""
+    for d in sorted(set(devices)):
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
 
 def _write_back(caches, new) -> None:
@@ -77,8 +92,9 @@ class DecodeGraph:
 
     Capture after at least one eager step on ``stream`` (and on the
     shards' streams), so that the libraries the step calls set up their
-    per-stream state outside the capture.  A capture that fails raises;
-    nothing falls back to eager.  :meth:`__call__` writes the token and
+    per-stream state outside the capture.  The unused cached blocks of
+    every card of the step are released first (:func:`release_cached`).
+    A capture that fails raises; nothing falls back to eager.  :meth:`__call__` writes the token and
     the position into the static inputs and replays; the logits it
     returns are a static tensor that the next replay overwrites."""
 
@@ -88,6 +104,7 @@ class DecodeGraph:
         others = [] if mesh is None else sorted(
             {d.index for d in mesh.devices} - {tok.device.index})
         t0 = time.perf_counter()
+        release_cached([tok.device.index, *others])
         self.caches = caches
         self.replays = 0
         self.graph = torch.cuda.CUDAGraph()

@@ -7,6 +7,17 @@ The step is family-agnostic: it takes a ``forward(model, batch) ->
 checkpointed), differentiates ``ce + z_weight * mean(logz^2) +
 aux_weight * aux`` with autograd, and applies
 :func:`~repro_torch.training.optimizer.adamw_update` in place.
+
+A model placed on a ``(data, model)`` device mesh trains the same way:
+the forward runs over the mesh and returns the whole logits on its
+first device, where the loss is taken; the backward goes through the
+collectives' rank-order transposes into each piece's ``.grad`` on its
+shard (:mod:`repro_torch.distributed.sharding`); then each parameter's
+gradient is a :class:`~repro_torch.distributed.sharding.Placed` with
+its spec, its replicas' partials summed once in rank order
+(:func:`~repro_torch.distributed.sharding.sum_replica_grads`).
+Microbatches are split off the whole batch and their gradients
+accumulate in order in ``.grad`` before that sum.
 """
 from __future__ import annotations
 
@@ -15,8 +26,11 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.models.registry import reference_leaf_order
-from repro_torch.training.optimizer import AdamWConfig, adamw_update
+from repro_torch.distributed.sharding import (Placed, each, join_current,
+                                              sum_replica_grads, wait_current)
+from repro_torch.models.registry import named_leaves, reference_leaf_order
+from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                            leaf_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +76,35 @@ def _split(batch: Dict[str, torch.Tensor], n: int):
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
+def _pieces(p):
+    return p.pieces if isinstance(p, Placed) else (p,)
+
+
+def _clear_grads(named) -> None:
+    for p in named.values():
+        for t in _pieces(p):
+            t.grad = None
+
+
+def _take_grads(named, n: int) -> Dict[str, object]:
+    """Every parameter's gradient, divided by ``n`` microbatches when
+    ``n > 1`` (zeros where none reached it), taken off the parameters:
+    a placed one's pieces' partials summed over its replicas."""
+    grads = {}
+    for k, p in named.items():
+        if isinstance(p, Placed):
+            g = sum_replica_grads(p, [t.grad for t in p.pieces])
+            if n > 1:
+                g = each(lambda t: t / n, g, spec=g.spec)
+        else:
+            g = p.grad if n == 1 or p.grad is None else p.grad / n
+            if g is None:
+                g = torch.zeros_like(p)
+        grads[k] = g
+    _clear_grads(named)
+    return grads
+
+
 def make_train_step(forward: Callable, opt_cfg: AdamWConfig,
                     tcfg: TrainConfig = TrainConfig()) -> Callable:
     """Returns ``step(model, opt_state, batch) -> metrics``: the model's
@@ -69,13 +112,15 @@ def make_train_step(forward: Callable, opt_cfg: AdamWConfig,
     ``loss`` (the mean CE), ``aux``, ``grad_norm`` and ``lr`` as 0-d
     tensors.  With ``microbatches > 1`` the f32 gradients of the
     microbatches accumulate in order and are divided by their count, and
-    ``aux`` is 0, as in the reference."""
+    ``aux`` is 0, as in the reference.  A placed model's batch lives on
+    its mesh's first device, as do the metrics; its gradients are
+    placed (module docstring)."""
     loss_fn = make_loss_fn(forward, tcfg)
 
     def step(model, opt_state, batch):
-        named = dict(model.named_parameters())
-        for p in named.values():
-            p.grad = None
+        named = dict(named_leaves(model))
+        mesh = getattr(model, "mesh", None)
+        _clear_grads(named)
         if tcfg.microbatches > 1:
             n = tcfg.microbatches
             lsum = 0.0
@@ -83,20 +128,18 @@ def make_train_step(forward: Callable, opt_cfg: AdamWConfig,
                 total, m = loss_fn(model, mb)
                 total.backward()
                 lsum = lsum + m["loss"].detach()
-            grads = {k: None if p.grad is None else p.grad / n
-                     for k, p in named.items()}
-            dev = next(iter(named.values())).device
+            dev = leaf_device(next(iter(named.values())))
             metrics = {"loss": lsum / n,
                        "aux": torch.zeros((), dtype=torch.float32, device=dev)}
         else:
+            n = 1
             total, m = loss_fn(model, batch)
             total.backward()
-            grads = {k: p.grad for k, p in named.items()}
             metrics = {k: v.detach() for k, v in m.items()}
-        for p in named.values():
-            p.grad = None
-        grads = {k: torch.zeros_like(named[k]) if g is None else g
-                 for k, g in grads.items()}
+        if mesh is not None:
+            # the leaves' .grad is ordered on the current streams
+            wait_current(mesh)
+        grads = _take_grads(named, n)
 
         if tcfg.compress_grads:
             from repro_torch.training.compression import GradCompression
@@ -108,6 +151,8 @@ def make_train_step(forward: Callable, opt_cfg: AdamWConfig,
 
         metrics.update(adamw_update(grads, opt_state, named, opt_cfg,
                                     reference_leaf_order(model)))
+        if mesh is not None:
+            join_current(mesh)
         return metrics
 
     return step

@@ -1516,3 +1516,138 @@ def test_lm_mesh_decode_graph_over_distinct_cards(cuda_device, arch,
     assert eng.stats["replays"] == steps - 2
     assert torch.equal(out, want)
     assert all(bool(torch.isfinite(x[..., :cfg.vocab]).all()) for x in seen)
+
+
+# ----------------------------------------------------------------------
+# LM training over a (data, model) mesh on the card
+# ----------------------------------------------------------------------
+def _mesh_train_run(cfg, mesh, device, steps=2):
+    """``steps`` train steps of ``cfg`` on ``mesh`` over the seeded
+    batch, from the parameters a CPU generator seeded 0 draws (carried
+    by ``convert``, so the card and the CPU start from the same values):
+    the metrics of each step, and every parameter and moment gathered
+    whole on the host."""
+    from _torch_port import to_torch, train_inputs
+    from repro_torch import convert
+    from repro_torch.models import registry
+    from repro_torch.training import optimizer, train_step
+
+    tree = convert.lm_params_to_numpy(registry.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    model = convert.lm_params_from_numpy(cfg, tree, device=device, mesh=mesh)
+    opt = optimizer.adamw_init(model)
+    step = train_step.make_train_step(registry.make_train_forward(cfg),
+                                      optimizer.AdamWConfig())
+    batch = {k: v.to(device) for k, v in
+             to_torch(train_inputs(cfg, 4, 4, 32)).items()}
+    metrics = [{k: v.cpu() for k, v in step(model, opt, batch).items()}
+               for _ in range(steps)]
+    return metrics, convert.train_state_to_numpy(model, opt)
+
+
+def _flat_state(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _flat_state(v, prefix + k + "/")
+        else:
+            yield prefix + k, np.asarray(v)
+
+
+def _same_runs(a, b) -> bool:
+    (ma, sa), (mb, sb) = a, b
+    return (all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb) for k in x)
+            and all(np.array_equal(x, y) for (_, x), (_, y) in
+                    zip(_flat_state(sa), _flat_state(sb))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "moonshot_v1_16b_a3b"])
+def test_lm_mesh_train_step_on_card_bitwise_and_matches_the_cpu(cuda_device,
+                                                               arch):
+    """A SMOKE config (f32, the MoE at capacity factor 16) trained two
+    steps on the (1, 4) mesh of the one card, a stream a shard: two runs
+    bitwise equal (the MoE's gathers and their backward included), and
+    within 1e-4 of each leaf's scale of the same mesh on the CPU."""
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    cfg = lm_cfg(registry.get_config(arch, smoke=True))
+    first = _mesh_train_run(cfg, make_mesh_for(4, device="cuda:0"), "cuda:0")
+    again = _mesh_train_run(cfg, make_mesh_for(4, device="cuda:0"), "cuda:0")
+    assert _same_runs(first, again)
+    cpu = _mesh_train_run(cfg, make_mesh_for(4, device="cpu"), "cpu")
+    for got, want in zip(first[0], cpu[0]):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(float(got[k]) - float(want[k])) <= \
+                1e-4 * abs(float(want[k])), k
+    for (key, got), (_, want) in zip(_flat_state(first[1]),
+                                     _flat_state(cpu[1])):
+        scale = max(float(np.abs(want).max()) if want.size else 0.0, 1e-30)
+        assert float(np.abs(got - want).max() if want.size else 0.0) \
+            <= 1e-4 * scale, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_parallel", [None, 2])
+def test_lm_mesh_train_over_distinct_cards(cuda_device, model_parallel):
+    """The (1, 4) and (2, 2) meshes with the shards on distinct cards:
+    two train steps bitwise the same mesh with every shard on one card
+    (metrics, parameters and moments).  Skips with fewer than two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two visible cards")
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    for arch in ("llama3_8b", "moonshot_v1_16b_a3b"):
+        cfg = lm_cfg(registry.get_config(arch, smoke=True))
+        cards = make_mesh_for(4, model_parallel)
+        assert cards.distinct
+        far = _mesh_train_run(cfg, cards, "cuda:0")
+        near = _mesh_train_run(cfg, make_mesh_for(4, model_parallel,
+                                                  device="cuda:0"), "cuda:0")
+        assert _same_runs(far, near), arch
+
+
+@pytest.mark.cuda
+def test_decode_graph_capture_starts_with_nothing_cached_unused(
+        cuda_device, monkeypatch):
+    """The engine's capture starts with no segment of the regular pool
+    held cached and unused on the mesh's cards: ``DecodeGraph`` gives
+    them back first, so the graph's private pool can take that memory
+    (a 256 MiB block freed before the run is such a segment)."""
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+    from repro_torch.serving import ServeEngine, engine
+
+    cfg = lm_cfg(registry.get_config("llama3_8b", smoke=True))
+    mesh = make_mesh_for(4, device="cuda:0")
+    cards = {d.index for d in mesh.devices}
+    model = registry.init_params(
+        cfg, torch.Generator(device="cuda:0").manual_seed(0), mesh=mesh)
+    seen = []
+    capturing = engine.capturing
+
+    def watched(*args, **kwargs):
+        seen.append([seg for seg in torch.cuda.memory_snapshot()
+                     if seg["device"] in cards and seg["allocated_size"] == 0
+                     and tuple(seg.get("segment_pool_id", (0, 0)))
+                     == (0, 0)])
+        return capturing(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "capturing", watched)
+    block = torch.empty(1 << 28, dtype=torch.uint8, device="cuda:0")
+    del block
+    assert any(seg["allocated_size"] == 0
+               for seg in torch.cuda.memory_snapshot())
+    prompt = torch.randint(0, cfg.vocab, (4, 14), device="cuda:0",
+                           generator=torch.Generator(device="cuda:0")
+                           .manual_seed(1))
+    eng = ServeEngine(registry.make_prefill(cfg), registry.make_decode(cfg),
+                      lambda b, s: registry.init_caches(cfg, b, s, mesh=mesh))
+    eng.generate(model, prompt, 5)
+    assert eng.stats["replays"] == 3
+    assert seen == [[]]

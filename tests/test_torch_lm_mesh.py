@@ -10,8 +10,8 @@ than one device); the mesh run against the port's one-device run, in
 f32 and bf16; the MoE block at ``data = 1`` bitwise the one-device
 block; the collectives against plain tensor ops; the decode step with
 a 0-d ``int32`` position, the form a CUDA graph captures (no host read,
-bitwise the int-position step); the engine, the serve CLI, training
-over a mesh raising, and an MoE whose expert count the model extent
+bitwise the int-position step); the engine, the serve CLI, the four
+families' training over a mesh raising, and an MoE whose expert count the model extent
 does not divide refused as the reference refuses it (the other four families' serving: ``tests/test_torch_lm_mesh_families.py``)."""
 import contextlib
 import dataclasses
@@ -430,7 +430,8 @@ def test_engine_generates_over_a_mesh():
                                   "whisper_small", "qwen2_vl_72b"])
 def test_training_over_a_mesh_still_raises(arch):
     """The four families serve over a mesh; their training forward over
-    one raises, naming its ROADMAP item."""
+    one raises, naming its ROADMAP item (the six decoder LMs with token
+    prompts train over one: ``tests/test_torch_lm_mesh_train.py``)."""
     cfg = lm_cfg(PR.get_config(arch, smoke=True))
     batch = {"tokens": _tokens(cfg)}
     if cfg.family == "encdec":
@@ -439,7 +440,7 @@ def test_training_over_a_mesh_still_raises(arch):
         batch = {"tokens": torch.zeros(B, PROMPT, cfg.d_model),
                  "positions": torch.zeros(3, B, PROMPT, dtype=torch.long)}
     model = _seeded(cfg, _mesh("1x4"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
         PR.make_train_forward(cfg)(model, batch)
 
 
