@@ -235,22 +235,28 @@ non-zero and prints no result line):
    the one card (``make_mesh_for(4)`` (1, 4) and ``make_mesh_for(4, 2)``
    (2, 2), a stream a shard): (a) starcoder2_3b at its full ``CONFIG``
    (30 layers, bf16 compute) takes two AdamW steps of batch 2 x 1024
-   on each mesh through ``make_train_step(make_train_forward(cfg))``:
+   on (1, 4) through ``make_train_step(make_train_forward(cfg))``:
    each step's seconds (CUDA events) and host enqueue ms, loss and grad
    norm, tokens/s, ``train_mfu``, the peak bytes, every shard's
    parameter and moment bytes against ``shard_shape``'s count, every
    replica bitwise; (b) moonshot_v1_16b_a3b at full width cut to 2
-   layers (64 experts, 16 a model shard), two steps on each mesh, the
-   same lines; (c) the six decoder LMs at full width, f32 (MoE at
-   capacity factor 16), cut to 2 layers (dbrx_132b to 1), two steps of
-   2 x 64 on one device and on each mesh: loss, grad norm and every
-   parameter and moment within 1e-4 of each leaf's scale of the
-   one-device run (an MoE's one-device aux on the (2, 2) mesh the mean
+   layers (64 experts, 16 a model shard), two steps on (1, 4), the
+   same lines; (a') mamba2_370m at its full ``CONFIG`` (48 layers, 32
+   SSD heads), one step of 2 x 1024 on (1, 4) after an untimed step of
+   its first 2 layers there, the same lines; (c) the
+   ten configs at full width, f32 (MoE at capacity factor 16), cut in
+   depth (2 layers, dbrx_132b and qwen2_vl_72b 1, recurrentgemma_9b
+   3, one (rec, rec, local) group, whisper_small whole), two steps of
+   2 x 64 (with the train CLI's stub frames, patch embeddings and
+   M-RoPE positions) on one device and on each mesh of
+   ``MESH_TRAIN_CUT_MESHES``: loss, grad norm and every
+   moment within 1e-4 of each leaf's scale of the one-device run, every
+   parameter within 1e-4 of itself plus twice the summed ``lr`` (an MoE's one-device aux on the (2, 2) mesh the mean
    of the two data shards' rows' aux, as the mesh computes it), every
-   replica bitwise, the (1, 4) steps run twice bitwise for llama3_8b
-   and moonshot; (d) a checkpoint slot of starcoder2_3b cut to 2 layers
+   replica bitwise, the (1, 4) steps run twice bitwise for
+   moonshot; (d) a checkpoint slot of starcoder2_3b cut to 1 layer
    written on (1, 4), restored onto (2, 2) and onto one device, two
-   more steps each within rtol = atol = 1e-6 of the uninterrupted run;
+   more steps each within rtol = atol = 1e-5 of the uninterrupted run;
    (e) with two or more cards, (c)'s meshes over distinct cards bitwise
    the one-card meshes (else ``"distinct_cards": "not run: 1 card
    visible"``).  No hand-written kernel runs: the launch counts must
@@ -3888,11 +3894,13 @@ def phase_lm_mesh(torch) -> dict:
 
 
 #: phase 17: LM training over a (data, model) mesh of the one card.
-#: (a) starcoder2_3b at its full CONFIG on both meshes, two steps of
-#: batch 2 x 1024 (its state, params, grads and two f32 moments, is 16 B
-#: a parameter: 51 GB); the second step is the timed one (cut from three
-#: to keep the smoke inside its 900 s budget)
-MESH_TRAIN_ARCH = "starcoder2_3b"
+#: (a) starcoder2_3b at its full CONFIG, two steps of batch 2 x 1024 (its
+#: state, params, grads and two f32 moments, is 16 B a parameter: 51 GB);
+#: the second step is the timed one (cut from three to keep the smoke
+#: inside its 900 s budget), on the (1, 4) mesh alone (the (2, 2) mesh,
+#: 9-10 s, cut for the same budget when (a') came; (c) runs nine configs
+#: on (2, 2))
+MESH_TRAIN_ARCH, MESH_TRAIN_ARCH_MESHES = "starcoder2_3b", ("1x4",)
 MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 2
 #: (b) moonshot_v1_16b_a3b at full width cut to 2 layers (64 experts, 16
 #: a model shard; 1.81 B parameters, 29 GB of state), two steps on the
@@ -3900,22 +3908,49 @@ MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 2
 #: runs moonshot on both)
 MESH_TRAIN_MOE_ARCH, MESH_TRAIN_MOE_LAYERS = "moonshot_v1_16b_a3b", 2
 MESH_TRAIN_MOE_STEPS, MESH_TRAIN_MOE_MESHES = 2, ("1x4",)
+#: (a') mamba2_370m at its full CONFIG (48 layers, d_model 1024, 32 SSD
+#: heads of 64, 8 a model shard; 0.42 B parameters, 6.7 GB of state at
+#: 16 B a parameter), one timed step of batch 2 x 1024 on the (1, 4)
+#: mesh alone, after an untimed step of the config cut to 2 layers on
+#: that mesh (a full-depth first step, 12.4-12.5 s, cut for the smoke's
+#: budget: the step is the host's enqueue, which the shallow step warms
+#: as well)
+MESH_TRAIN_SSM_ARCH, MESH_TRAIN_SSM_MESHES = "mamba2_370m", ("1x4",)
+MESH_TRAIN_SSM_STEPS, MESH_TRAIN_SSM_WARM = 1, 2
 #: (c) the six configs at full width, f32 (MoE at capacity factor 16),
 #: cut in depth: 2 layers, dbrx_132b 1 (one layer holds 3.37 B
 #: parameters, 16 experts x 3 x 6144 x 10752: with its embeddings 4.6 B,
 #: 74 GB of training state, which fills the card; two layers would need
-#: 122 GB); two steps of batch 2 x 64
+#: 122 GB); two steps of batch 2 x 64.  The other four families, their
+#: batches with the train CLI's stub inputs: mamba2_370m at 2 layers
+#: (0.12 B parameters); whisper_small whole, 12 + 12 layers (0.26 B with
+#: its 32768-row decoder position table, 4.2 GB of state); recurrentgemma_9b
+#: at 3 layers, one (rec, rec, local) group (untied 256000 x 4096
+#: tables: 2.8 B parameters, 44 GB of state);
+#: qwen2_vl_72b at 1 layer (3.4 B parameters, 54 GB of state)
 MESH_TRAIN_CUT = {"llama3_8b": 2, "gemma3_12b": 2, "starcoder2_3b": 2,
                   "granite_20b": 2, "dbrx_132b": 1,
-                  "moonshot_v1_16b_a3b": 2}
+                  "moonshot_v1_16b_a3b": 2, "mamba2_370m": 2,
+                  "whisper_small": 12, "recurrentgemma_9b": 3,
+                  "qwen2_vl_72b": 1}
 MESH_TRAIN_CUT_BATCH, MESH_TRAIN_CUT_SEQ, MESH_TRAIN_CUT_STEPS = 2, 64, 2
 #: (c)'s meshes by config: both, but dbrx_132b on (1, 4) alone.  On
 #: (2, 2) each shard gathers its 8 experts' f32 weights over ``data``
 #: (3 x 2.1 GB a shard, 25 GB on the card, saved for the backward, and
 #: as much again for their gradients) beside its 74 GB of training
 #: state: more than the card.  tests/test_torch_lm_mesh_train.py holds
-#: dbrx_132b on (2, 2) against one device and the reference.
-MESH_TRAIN_CUT_MESHES = {"dbrx_132b": ("1x4",)}
+#: dbrx_132b on (2, 2) against one device and the reference.  The other
+#: four families run one mesh each, for the smoke's budget: mamba2_370m
+#: and recurrentgemma_9b on (2, 2), where ``w_dt``, ``w_a`` and ``w_i``
+#: are gathered over ``data`` and the heads and channels split over
+#: ``model``; whisper_small and qwen2_vl_72b on (1, 4) (qwen2_vl's 54 GB
+#: of state beside its one-device reference's first moments).
+#: tests/test_torch_lm_mesh_train_families.py holds all four on both.
+MESH_TRAIN_CUT_MESHES = {"dbrx_132b": ("1x4",), "mamba2_370m": ("2x2",),
+                         "recurrentgemma_9b": ("2x2",),
+                         "whisper_small": ("1x4",), "qwen2_vl_72b": ("1x4",)}
+#: why a mesh of (c) is left out, by config
+MESH_TRAIN_CUT_WHY = {"dbrx_132b": "more than the card holds"}
 #: (c)'s config whose (1, 4) mesh step also runs twice, bitwise (the MoE:
 #: its combine and gather are where an atomic add would show)
 MESH_TRAIN_TWICE = ("moonshot_v1_16b_a3b",)
@@ -4076,7 +4111,8 @@ class _GcClock:
 
 
 def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
-                     meshes=tuple(MESH_TRAIN_MESHES)) -> list:
+                     meshes=tuple(MESH_TRAIN_MESHES),
+                     warm_layers: int = 0) -> list:
     """(a) and (b): ``cfg`` on ``meshes`` of the one card (the (1, 4)
     and (2, 2) ones by default) takes ``steps`` steps of the seeded
     corpus: each step's seconds (CUDA events on the caller's stream,
@@ -4085,7 +4121,9 @@ def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
     the median step after the first, the peak bytes, the collector's
     seconds and the caching allocator's retries over the steps, and
     every shard's parameter and moment bytes against ``shard_shape``'s
-    count (checked equal)."""
+    count (checked equal).  With ``warm_layers``, a step of ``cfg`` cut
+    to that depth runs first on the same mesh, untimed, and every step
+    of ``cfg`` counts (one step is then a timed warm step)."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch import roofline as RL
     from repro_torch.launch.mesh import make_mesh_for
@@ -4110,6 +4148,14 @@ def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
         mesh.synchronize()
         init_s = time.perf_counter() - t0
         step = make_train_step(R.make_train_forward(cfg), AdamWConfig())
+        if warm_layers:
+            shallow = dataclasses.replace(cfg, n_layers=warm_layers)
+            warm = R.init_params(shallow, torch.Generator(
+                device=dev).manual_seed(0), mesh=mesh)
+            make_train_step(R.make_train_forward(shallow), AdamWConfig())(
+                warm, adamw_init(warm), to_tensors(data.batch_at(0), dev))
+            mesh.synchronize()
+            del warm
         marks = []
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         with _GcClock() as collector:
@@ -4130,7 +4176,7 @@ def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
                           enqueue_ms=host,
                           **{k: float(v) for k, v in m.items()})
                      for i, (st, en, host, m) in enumerate(marks)]
-        later = steps_rec[1:] or steps_rec
+        later = steps_rec if warm_layers else steps_rec[1:] or steps_rec
         step_s = statistics.median(r["seconds"] for r in later)
         enqueue_ms = statistics.median(r["enqueue_ms"] for r in later)
         params = _shard_bytes(R.placed_leaves(model), mesh.nshards)
@@ -4181,11 +4227,16 @@ def _cut_config(arch: str):
 
 
 def _cut_batches(torch, cfg, steps: int, dev=DEVICE):
+    """The seeded corpus' batches, with the train CLI's stub inputs:
+    frames for the encoder-decoder, patch embeddings and M-RoPE
+    positions for the vision frontend."""
+    from repro_torch.launch.train import stub_inputs
     from repro_torch.training.data import SyntheticCorpus, to_tensors
 
     data = SyntheticCorpus(vocab=cfg.vocab, batch=MESH_TRAIN_CUT_BATCH,
                            seq=MESH_TRAIN_CUT_SEQ, seed=7)
-    return [to_tensors(data.batch_at(s), dev) for s in range(steps)]
+    return [stub_inputs(cfg, to_tensors(data.batch_at(s), dev), s,
+                        torch.device(dev)) for s in range(steps)]
 
 
 def mesh_train_agreement(torch, arch: str, cards: int) -> dict:
@@ -4220,8 +4271,8 @@ def mesh_train_agreement(torch, arch: str, cards: int) -> dict:
     meshes = MESH_TRAIN_CUT_MESHES.get(arch, tuple(MESH_TRAIN_MESHES))
     for name in MESH_TRAIN_MESHES:
         if name not in meshes:
-            rec[name] = ("not run: more than the card holds "
-                         "(MESH_TRAIN_CUT_MESHES)")
+            why = MESH_TRAIN_CUT_WHY.get(arch, "the smoke's time budget")
+            rec[name] = f"not run: {why} (MESH_TRAIN_CUT_MESHES)"
     for name in meshes:
         mesh = make_mesh_for(4, MESH_TRAIN_MESHES[name], device=ONE_CARD)
         data = mesh.shape["data"] if cfg.n_experts > 0 else 1
@@ -4402,9 +4453,11 @@ def _flat_arrays(tree, prefix="") -> dict:
 
 def phase_lm_train_mesh(torch) -> dict:
     """LM training over a (data, model) device mesh: (a) starcoder2_3b at
-    full width and depth on both meshes of the one card, (b) the MoE leg,
-    (c) the six configs' agreement with one device, with (e) the
-    distinct-card leg, (d) the checkpoint cycle across mesh shapes.  The
+    full width and depth on the (1, 4) mesh of the one card, (b) the MoE
+    leg,
+    (a') mamba2_370m at its full config on (1, 4), (c) the ten configs'
+    agreement with one device, with (e) the distinct-card leg, (d) the
+    checkpoint cycle across mesh shapes.  The
     path has no hand-written kernel: its launch counts are read and
     shown, and must be 0."""
     from repro_torch.kernels import ops
@@ -4420,12 +4473,16 @@ def phase_lm_train_mesh(torch) -> dict:
     cards = torch.cuda.device_count()
     ops.reset_launch_counts()
     mesh_train_timed(torch, R.get_config(MESH_TRAIN_ARCH), MESH_TRAIN_STEPS,
-                     MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+                     MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_ARCH_MESHES)
     torch.cuda.empty_cache()
     moe = dataclasses.replace(R.get_config(MESH_TRAIN_MOE_ARCH),
                               n_layers=MESH_TRAIN_MOE_LAYERS)
     mesh_train_timed(torch, moe, MESH_TRAIN_MOE_STEPS, MESH_TRAIN_BATCH,
                      MESH_TRAIN_SEQ, MESH_TRAIN_MOE_MESHES)
+    torch.cuda.empty_cache()
+    mesh_train_timed(torch, R.get_config(MESH_TRAIN_SSM_ARCH),
+                     MESH_TRAIN_SSM_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
+                     MESH_TRAIN_SSM_MESHES, MESH_TRAIN_SSM_WARM)
     torch.cuda.empty_cache()
     for arch in MESH_TRAIN_CUT:
         mesh_train_agreement(torch, arch, cards)

@@ -20,12 +20,10 @@ shards (``make_mesh_for(N)``: on one card or the CPU, ``N`` shards of
 it; ``--mesh 1`` is one device).  Over a mesh the parameters and
 moments are placed, and a checkpoint slot holds whole leaves in the
 reference's layout, so a run resumes from a slot written on any mesh
-shape or on one device.  The six decoder LMs with token prompts train
-over a mesh (``models.transformer.trains_over_mesh``); the other four
-families (mamba2, recurrentgemma, whisper, qwen2_vl) do not yet
-(ROADMAP, Queue 1 item 2b): by default they train on one card, as
-before, whatever cards are visible, and ``--mesh N`` with ``N > 1``
-refuses them before anything is built.  The stub
+shape or on one device.  Every family trains over a mesh, as the
+reference's does: the decoder LMs, mamba2's SSD heads, recurrentgemma's
+RG-LRU channels, whisper's encoder-decoder and qwen2_vl's patch
+embeddings with M-RoPE positions.  The stub
 inputs of a vision arch (patch embeddings and M-RoPE positions) and of
 the encoder-decoder (frames) are drawn from a ``torch.Generator``
 seeded with the step, not from ``jax.random``: they are the reference's
@@ -52,7 +50,6 @@ from repro_torch.ft.recovery import TrainingRecovery
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models import registry as R
-from repro_torch.models import transformer as T
 from repro_torch.training.data import SyntheticCorpus, to_tensors
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train_step import TrainConfig, make_train_step
@@ -75,21 +72,14 @@ def stub_inputs(cfg, batch: dict, step: int, dev: torch.device) -> dict:
     return batch
 
 
-def mesh_shards(cfg, dev: torch.device, asked: Optional[int]) -> int:
-    """The shard count ``cfg`` trains over on ``dev``: ``asked``
+def mesh_shards(dev: torch.device, asked: Optional[int]) -> int:
+    """The shard count a model trains over on ``dev``: ``asked``
     (``--mesh``) where given, else every visible card when there are
-    several and ``dev`` names none of them; one device for a family that
-    does not train over a mesh.  Raises ``NotImplementedError`` when
-    ``asked`` is more than one for such a family."""
-    trains = T.trains_over_mesh(cfg)
+    several and ``dev`` names none of them (the reference's
+    ``make_mesh_for(ndev)``, for every family), else one device."""
     if asked is not None:
-        if asked > 1 and not trains:
-            raise NotImplementedError(
-                f"training {cfg.name} over a device mesh is not ported "
-                f"(ROADMAP, Queue 1 item 2b): pass --mesh 1, or leave "
-                f"--mesh out, to train on one device")
         return asked
-    if not trains or dev.type != "cuda" or dev.index is not None:
+    if dev.type != "cuda" or dev.index is not None:
         return 1
     return max(torch.cuda.device_count(), 1)
 
@@ -113,13 +103,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--mesh", type=int, default=None,
                     help="train over make_mesh_for(N), a (data, model) mesh "
                          "of N shards (default: every visible card when "
-                         "there are several, else one device; one device "
-                         "for the families that do not train over a mesh)")
+                         "there are several, else one device)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = R.get_config(args.arch, smoke=args.smoke)
-    shards = mesh_shards(cfg, dev, args.mesh)
+    shards = mesh_shards(dev, args.mesh)
     mesh = make_mesh_for(shards, device=dev) if shards > 1 else None
     if mesh is not None:
         dev = mesh.device

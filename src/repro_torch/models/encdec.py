@@ -121,31 +121,20 @@ def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig
     return T._residual(x, lp.mlp(lp.ln2(x, cfg.norm_eps)))
 
 
-def _check_serving(model: EncDec, remat: bool) -> bool:
-    """Whether ``model`` is placed on a device mesh; raises for training
-    over one."""
-    placed = isinstance(model.embed, Placed)
-    if placed and remat:
-        raise NotImplementedError(
-            "training over a device mesh: the encoder-decoder trains on "
-            "one device (ROADMAP, Queue 1 item 2b)")
-    return placed
-
-
 def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
            remat: bool = False):
     """frames: (B, enc_seq, d) precomputed embeddings (stub frontend).
     A placed model places them ``(batch, None, None)`` and returns the
     encoder output placed so (each model shard of a data group holding
-    it whole), its attention non-causal and tensor-parallel."""
+    it whole), its attention non-causal and tensor-parallel.  With
+    ``remat=True`` each layer is checkpointed (:func:`remat_call`), as
+    the reference checkpoints its encoder scan's body."""
     cdt = cfg.cdt
-    if _check_serving(model, remat):
+    if isinstance(model.embed, Placed):
         x = T.place_inputs(frames, model.mesh, model.rules, cfg)
         x = T.add_positions_mesh(x, model.enc_pos, 0, cfg)
-        for lp in model.enc:
-            x = _enc_layer(lp, x, cfg)
-        return model.enc_norm(x, cfg.norm_eps)
-    x = frames.to(cdt) + model.enc_pos.to(cdt)[None]
+    else:
+        x = frames.to(cdt) + model.enc_pos.to(cdt)[None]
     for lp in model.enc:
         x = (remat_call(_enc_layer, "none", lp, x, cfg) if remat
              else _enc_layer(lp, x, cfg))
@@ -195,8 +184,9 @@ def decode(
     cache_index: Optional[L.Position] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
-    if _check_serving(model, remat):
-        return _decode_mesh(model, tokens, enc_out, cfg, caches, cache_index)
+    if isinstance(model.embed, Placed):
+        return _decode_mesh(model, tokens, enc_out, cfg, caches, cache_index,
+                            remat)
     cdt = cfg.cdt
     s = tokens.shape[1]
     x = model.embed[tokens].to(cdt)
@@ -238,7 +228,7 @@ def _cross_from_cache(pa: L.Attention, hx: torch.Tensor,
 # ----------------------------------------------------------------------
 def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
                  cfg: ModelConfig, caches: Optional[List[Cache]],
-                 cache_index: Optional[L.Position]
+                 cache_index: Optional[L.Position], remat: bool = False
                  ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
     """:func:`decode` over the model's device mesh, eagerly: the tokens
     looked up in the vocab-sharded table with the batch on ``data``, the
@@ -246,7 +236,12 @@ def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
     layer's self-attention, cross-attention and MLP tensor-parallel, the
     tied logits vocab-parallel and gathered whole on the mesh's first
     device.  The caches are placed: self K/V written in place, the
-    cross K/V projected at prefill into the ``kv_seq``-sharded cache."""
+    cross K/V projected at prefill into the ``kv_seq``-sharded cache.
+    With ``remat=True`` (training, no caches) each layer is checkpointed
+    with the placed ``enc_out`` among its arguments, so every layer's
+    cross-attention gradient reaches the encoder output through that
+    layer's recompute, as the reference's checkpointed decoder scan
+    (``encdec.py:126-161``) carries it."""
     mesh, rules = model.mesh, model.rules
     if cache_index is not None:
         # each shard's copy of the position, read on its device
@@ -257,8 +252,12 @@ def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
                              0 if cache_index is None else cache_index, cfg)
     new_caches = None if caches is None else []
     for i, lp in enumerate(model.dec):
-        x, nc = _dec_layer(lp, x, enc_out, None if caches is None
-                           else caches[i], cfg, cache_index)
+        if remat and caches is None:
+            x, nc = remat_call(_dec_layer, "none", lp, x, enc_out, None, cfg,
+                               cache_index)
+        else:
+            x, nc = _dec_layer(lp, x, enc_out, None if caches is None
+                               else caches[i], cfg, cache_index)
         if new_caches is not None:
             new_caches.append(nc)
     x = model.final_norm(x, cfg.norm_eps)

@@ -20,10 +20,8 @@ positions, the hybrid RG-LRU and SSD stacks and the encoder-decoder.
 logical spec under :func:`serving_rules` (one
 :class:`~repro_torch.distributed.sharding.Placed` a leaf, made leaf by
 leaf, never the whole model on one device), and the step functions run
-under those rules.  The six
-decoder LMs with token prompts also train over a mesh
-(:func:`make_train_forward`); the other four families' training over
-one raises (ROADMAP, Queue 1 item 2b).
+under those rules.  Every family also trains over a mesh
+(:func:`make_train_forward`).
 
 The reference keeps parameters in a pytree with a pattern group's layers
 stacked along a leading axis; :func:`reference_path` says where each of
@@ -333,6 +331,8 @@ def make_train_forward(cfg: ModelConfig) -> Callable:
     mesh's first device."""
     if cfg.family == "encdec":
         def forward(model, batch):
+            if getattr(model, "mesh", None) is not None:
+                trainable(model)
             with _rules_of(model):
                 enc_out = E.encode(model, batch["frames"], cfg, remat=True)
                 logits, _ = E.decode(model, batch["tokens"], enc_out, cfg,

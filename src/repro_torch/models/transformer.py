@@ -528,33 +528,6 @@ def place_inputs(x: torch.Tensor, mesh, rules, cfg: ModelConfig) -> Placed:
     return each(lambda t: t.to(cfg.cdt), placed, spec=placed.spec)
 
 
-def trains_over_mesh(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` trains over a device mesh: the decoder LMs with
-    token prompts.  The ssm, hybrid and vision families (and the
-    encoder-decoder, ``encdec._check_serving``) train on one device
-    (ROADMAP, Queue 1 item 2b)."""
-    return cfg.family == "lm" and cfg.frontend == "none"
-
-
-def check_mesh_training(cfg: ModelConfig, tokens: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` for a training forward over a mesh
-    that is not ported: the SSD heads' and the RG-LRU channels' backward
-    (the ssm and hybrid families) and the vision frontend's patch
-    embeddings with M-RoPE positions placed for training (ROADMAP, Queue
-    1 item 2b)."""
-    what = None
-    if cfg.family == "ssm":
-        what = "the SSD heads' backward"
-    elif cfg.family == "hybrid":
-        what = "the RG-LRU channels' backward"
-    elif cfg.frontend == "vision" or tokens.dim() == 3:
-        what = "patch embeddings with M-RoPE positions placed for training"
-    if what is not None:
-        raise NotImplementedError(
-            f"training {cfg.name} over a device mesh: {what} is not ported "
-            f"(ROADMAP, Queue 1 item 2b); it trains on one device")
-
-
 def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
                           cfg: ModelConfig, caches, cache_index, positions,
                           remat: bool):
@@ -575,11 +548,14 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     With ``remat=True`` (training, no caches) every layer runs under
     :func:`remat_call` over its placed input, and the backward goes
     through the mesh's collectives' rank-order transposes
-    (:mod:`repro_torch.distributed.sharding`).  Only the decoder LMs
-    with token prompts train over a mesh: the SSD and RG-LRU stacks and
-    the vision frontend raise (ROADMAP, Queue 1 item 2b)."""
-    if remat:
-        check_mesh_training(cfg, tokens)
+    (:mod:`repro_torch.distributed.sharding`).  Every family trains so:
+    the SSD heads, the RG-LRU channels and the vision frontend's patch
+    embeddings with their M-RoPE positions as the decoder LMs' tokens.
+    recurrentgemma's pattern groups are not checkpointed around their
+    layers here (:func:`nests_groups` is the one-device path's): the
+    values and gradients are the same, each layer's input is kept in
+    place of each group's, and every layer runs forward twice, not
+    three times."""
     mesh, rules = model.mesh, model.rules
     if cache_index is not None:
         cache_index = on_every_shard(cache_index, mesh)

@@ -9,7 +9,7 @@ locally and re-injects it the next step, preserving convergence.
 Usage::
 
     comp = GradCompression.init(params)
-    grads_q, comp = comp.compress(grads)     # int8 + scales (+ residual)
+    grads_q, comp = comp.compress(grads, groups)  # int8 + scales (+ residual)
     # ... all-reduce the int8 payload ...
     grads = decompress(grads_q)
 
@@ -17,6 +17,13 @@ Trees are mappings of names to tensors.  On one card nothing is reduced:
 :func:`apply` quantizes and dequantizes around the optimizer update, so
 the numerics are exercised as a reducer would see them.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+The scale is per leaf of the reference's tree: the port keeps a
+pattern group's layers apart where the reference stacks them into one
+leaf, so ``groups`` (``registry.reference_leaf_order``) names the port's
+tensors that make up each reference leaf, which share one scale, the
+largest ``max |g|`` among them.  :class:`Compressed` keeps one scale a
+group, keyed by the group's names.
 
 A placed gradient (a model on a device mesh) is quantized piece by
 piece on each shard's stream, its residual placed with its spec.  Its
@@ -28,7 +35,7 @@ quantizes with the same scale.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -36,23 +43,34 @@ from repro_torch.distributed.sharding import (Placed, each, on_every_shard,
                                               placed_full, replica_groups)
 
 Tree = Dict[str, Union[torch.Tensor, Placed]]
+#: one scale a group of names (one reference leaf)
+Scales = Dict[Tuple[str, ...], torch.Tensor]
 
 
-def _scale(corrected: Union[torch.Tensor, Placed]) -> torch.Tensor:
-    """``clamp(max |corrected|, 1e-12) / 127`` over the whole leaf (a
-    placed one's parts' maxima, one replica each, compared on the mesh's
-    first device)."""
+def _top(corrected: Union[torch.Tensor, Placed]) -> torch.Tensor:
+    """``max |corrected|`` over the whole tensor (a placed one's parts'
+    maxima, one replica each, compared on the mesh's first device)."""
     if not isinstance(corrected, Placed):
-        top = torch.max(torch.abs(corrected))
-    else:
-        mesh, parts = corrected.mesh, []
-        for group in replica_groups(corrected):
-            s = group[0]
-            with mesh.on(s):
-                part = torch.max(torch.abs(corrected.pieces[s]))
-            parts.append(mesh.move(part, None, src=s))
-        top = torch.max(torch.stack(parts))
-    return torch.clamp(top, min=1e-12) / 127.0
+        return torch.max(torch.abs(corrected))
+    mesh, parts = corrected.mesh, []
+    for group in replica_groups(corrected):
+        s = group[0]
+        with mesh.on(s):
+            part = torch.max(torch.abs(corrected.pieces[s]))
+        parts.append(mesh.move(part, None, src=s))
+    return torch.max(torch.stack(parts))
+
+
+def _scales(corrected: Mapping[str, Union[torch.Tensor, Placed]],
+            groups: Sequence[Sequence[str]]) -> Scales:
+    """Each group's ``clamp(max |corrected|, 1e-12) / 127``, the maximum
+    taken over the group's tensors (one reference leaf)."""
+    out = {}
+    for names in groups:
+        tops = [_top(corrected[n]) for n in names]
+        top = tops[0] if len(tops) == 1 else torch.max(torch.stack(tops))
+        out[tuple(names)] = torch.clamp(top, min=1e-12) / 127.0
+    return out
 
 
 def _quantize(corrected: torch.Tensor, scale: torch.Tensor):
@@ -61,8 +79,8 @@ def _quantize(corrected: torch.Tensor, scale: torch.Tensor):
 
 
 class Compressed(NamedTuple):
-    q: Tree       # int8 tensors
-    scale: Tree   # fp32 per-tensor scales (0-d)
+    q: Tree         # int8 tensors
+    scale: Scales   # fp32 scales (0-d), one a group, keyed by its names
 
 
 class GradCompression(NamedTuple):
@@ -79,47 +97,56 @@ class GradCompression(NamedTuple):
             torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for n, p in params.items()})
 
-    def compress(self, grads: Mapping[str, Union[torch.Tensor, Placed]]
+    def compress(self, grads: Mapping[str, Union[torch.Tensor, Placed]],
+                 groups: Sequence[Sequence[str]]
                  ) -> Tuple[Compressed, "GradCompression"]:
-        q, s, r = {}, {}, {}
+        """``groups``: the names that share a scale, one reference leaf
+        each, every name of ``grads`` in one of them."""
+        q, r = {}, {}
         with torch.no_grad():
+            corrected = {}
             for name, g in grads.items():
                 res = self.residual[name]
-                if not isinstance(g, Placed):
-                    corrected = g.float() + res
-                    s[name] = _scale(corrected)
-                    q[name], r[name] = _quantize(corrected, s[name])
-                    continue
-                corrected = each(lambda g, res: g.float() + res, g, res,
-                                 spec=g.spec)
-                s[name] = _scale(corrected)
-                q[name], r[name] = each(
-                    _quantize, corrected, on_every_shard(s[name], g.mesh),
-                    spec=[g.spec, g.spec])
+                corrected[name] = (
+                    each(lambda g, res: g.float() + res, g, res, spec=g.spec)
+                    if isinstance(g, Placed) else g.float() + res)
+            s = _scales(corrected, groups)
+            scale_of = {n: scale for names, scale in s.items() for n in names}
+            for name, c in corrected.items():
+                if isinstance(c, Placed):
+                    q[name], r[name] = each(
+                        _quantize, c, on_every_shard(scale_of[name], c.mesh),
+                        spec=[c.spec, c.spec])
+                else:
+                    q[name], r[name] = _quantize(c, scale_of[name])
         return Compressed(q, s), GradCompression(residual=r)
 
 
 def decompress(c: Compressed) -> Tree:
     out = {}
-    for n, q in c.q.items():
-        if isinstance(q, Placed):
-            out[n] = each(lambda q, sc: q.float() * sc, q,
-                          on_every_shard(c.scale[n], q.mesh), spec=q.spec)
-        else:
-            out[n] = q.float() * c.scale[n]
+    for names, scale in c.scale.items():
+        for n in names:
+            q = c.q[n]
+            if isinstance(q, Placed):
+                out[n] = each(lambda q, sc: q.float() * sc, q,
+                              on_every_shard(scale, q.mesh), spec=q.spec)
+            else:
+                out[n] = q.float() * scale
     return out
 
 
 def compressed_bytes(c: Compressed) -> int:
     """The int8 payload's bytes (each leaf's whole gradient once) and
-    its scales'."""
+    its scales' (one a group)."""
     return (sum(math.prod(q.shape) for q in c.q.values())
             + 4 * len(c.scale))
 
 
-def apply(grads: Mapping[str, torch.Tensor], ef_state: GradCompression
+def apply(grads: Mapping[str, torch.Tensor], ef_state: GradCompression,
+          groups: Sequence[Sequence[str]]
           ) -> Tuple[Tree, GradCompression]:
-    """Quantize -> (conceptual reduce) -> dequantize, with error feedback.
-    Returns (approx_grads, new_ef_state)."""
-    c, new_state = ef_state.compress(grads)
+    """Quantize -> (conceptual reduce) -> dequantize, with error feedback,
+    each group of ``groups`` under one scale.  Returns (approx_grads,
+    new_ef_state)."""
+    c, new_state = ef_state.compress(grads, groups)
     return decompress(c), new_state

@@ -141,16 +141,16 @@ def make_train_step(forward: Callable, opt_cfg: AdamWConfig,
             wait_current(mesh)
         grads = _take_grads(named, n)
 
+        order = reference_leaf_order(model)
         if tcfg.compress_grads:
             from repro_torch.training.compression import GradCompression
             from repro_torch.training.compression import apply as _ef
             ef = opt_state.get("ef")
             if ef is None:
                 ef = GradCompression.init(named)
-            grads, opt_state["ef"] = _ef(grads, ef)
+            grads, opt_state["ef"] = _ef(grads, ef, order)
 
-        metrics.update(adamw_update(grads, opt_state, named, opt_cfg,
-                                    reference_leaf_order(model)))
+        metrics.update(adamw_update(grads, opt_state, named, opt_cfg, order))
         if mesh is not None:
             join_current(mesh)
         return metrics

@@ -1521,12 +1521,12 @@ def test_lm_mesh_decode_graph_over_distinct_cards(cuda_device, arch,
 # ----------------------------------------------------------------------
 # LM training over a (data, model) mesh on the card
 # ----------------------------------------------------------------------
-def _mesh_train_run(cfg, mesh, device, steps=2):
-    """``steps`` train steps of ``cfg`` on ``mesh`` over the seeded
-    batch, from the parameters a CPU generator seeded 0 draws (carried
-    by ``convert``, so the card and the CPU start from the same values):
-    the metrics of each step, and every parameter and moment gathered
-    whole on the host."""
+def _mesh_train_run(cfg, mesh, device, steps=2, seed=4, batch=4, seq=32):
+    """``steps`` train steps of ``cfg`` on ``mesh`` (or one device) over
+    the batch ``train_inputs`` draws from ``seed``, from the parameters a
+    CPU generator seeded 0 draws (carried by ``convert``, so the card and
+    the CPU start from the same values): the metrics of each step, and
+    every parameter and moment gathered whole on the host."""
     from _torch_port import to_torch, train_inputs
     from repro_torch import convert
     from repro_torch.models import registry
@@ -1538,9 +1538,9 @@ def _mesh_train_run(cfg, mesh, device, steps=2):
     opt = optimizer.adamw_init(model)
     step = train_step.make_train_step(registry.make_train_forward(cfg),
                                       optimizer.AdamWConfig())
-    batch = {k: v.to(device) for k, v in
-             to_torch(train_inputs(cfg, 4, 4, 32)).items()}
-    metrics = [{k: v.cpu() for k, v in step(model, opt, batch).items()}
+    inputs = {k: v.to(device) for k, v in
+              to_torch(train_inputs(cfg, seed, batch, seq)).items()}
+    metrics = [{k: v.cpu() for k, v in step(model, opt, inputs).items()}
                for _ in range(steps)]
     return metrics, convert.train_state_to_numpy(model, opt)
 
@@ -1560,13 +1560,21 @@ def _same_runs(a, b) -> bool:
                     zip(_flat_state(sa), _flat_state(sb))))
 
 
+#: a decoder LM, an MoE and the other four families: the SSD heads, the
+#: RG-LRU channels, the encoder-decoder with
+#: its tied embedding's two uses, the patch embeddings with M-RoPE
+MESH_TRAIN_ARCHS = ["llama3_8b", "moonshot_v1_16b_a3b", "mamba2_370m",
+                    "recurrentgemma_9b", "whisper_small", "qwen2_vl_72b"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3_8b", "moonshot_v1_16b_a3b"])
+@pytest.mark.parametrize("arch", MESH_TRAIN_ARCHS)
 def test_lm_mesh_train_step_on_card_bitwise_and_matches_the_cpu(cuda_device,
                                                                arch):
     """A SMOKE config (f32, the MoE at capacity factor 16) trained two
     steps on the (1, 4) mesh of the one card, a stream a shard: two runs
-    bitwise equal (the MoE's gathers and their backward included), and
+    bitwise equal (the MoE's gathers, the checkpointed layers'
+    recomputes on the shard streams and their backward included), and
     within 1e-4 of each leaf's scale of the same mesh on the CPU."""
     from _torch_port import lm_cfg
     from repro_torch.launch.mesh import make_mesh_for
@@ -1588,20 +1596,76 @@ def test_lm_mesh_train_step_on_card_bitwise_and_matches_the_cpu(cuda_device,
             <= 1e-4 * scale, key
 
 
+def _rel_off(got, want) -> float:
+    """The largest ``|got - want|`` over ``want``'s largest magnitude."""
+    scale = max(float(np.abs(want).max()) if want.size else 0.0, 1e-30)
+    return float(np.abs(got - want).max() if want.size else 0.0) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [4, 5])
+def test_mamba2_mesh_moments_differ_from_one_device_as_the_cpu_does(
+        cuda_device, seed):
+    """mamba2_370m at full width cut to 2 layers, f32, two steps of 2 x 64
+    on the (2, 2) mesh of the one card, on one device of the card and on
+    the CPU, all from the same parameters: each leaf's first moment (its
+    ``a_log`` rows alone too: a sum over the batch, the positions and the
+    head's channels, whose terms cancel) as far from the card's one-device
+    run on the mesh as the CPU's one-device run is, within 1e-4 of the
+    leaf's scale and within 4x the CPU's distance (at least 1e-6).  A
+    mesh fault would show as a distance that the CPU's summation order
+    does not have.  The readings are printed as one JSON line."""
+    import dataclasses
+    import json
+
+    from _torch_port import lm_cfg
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(lm_cfg(registry.get_config("mamba2_370m")),
+                              n_layers=2)
+    run = dict(seed=seed, batch=2, seq=64)
+    card = _mesh_train_run(cfg, None, "cuda:0", **run)[1]
+    mesh = _mesh_train_run(cfg, make_mesh_for(4, 2, device="cuda:0"),
+                           "cuda:0", **run)[1]
+    cpu = _mesh_train_run(cfg, None, "cpu", **run)[1]
+    out, worst = {}, {}
+    for (key, c), (_, m), (_, h) in zip(_flat_state(card), _flat_state(mesh),
+                                        _flat_state(cpu)):
+        if not key.startswith("opt/m/"):
+            continue
+        rows = ([(f"{key}[{i}]", c[i], m[i], h[i]) for i in range(len(c))]
+                if key.endswith("a_log") else [(key, c, m, h)])
+        for name, c_, m_, h_ in rows:
+            off = dict(mesh_vs_card=_rel_off(m_, c_),
+                       cpu_vs_card=_rel_off(h_, c_),
+                       mesh_vs_cpu=_rel_off(m_, h_))
+            if "a_log" in name:
+                out[name] = off
+            if off["mesh_vs_card"] > worst.get("mesh_vs_card", -1.0):
+                worst = dict(leaf=name, **off)
+            assert off["mesh_vs_card"] <= 1e-4, (name, off)
+            assert off["mesh_vs_card"] <= max(4 * off["cpu_vs_card"],
+                                               1e-6), (name, off)
+    print(json.dumps({"seed": seed, "a_log": out, "worst": worst}))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model_parallel", [None, 2])
 def test_lm_mesh_train_over_distinct_cards(cuda_device, model_parallel):
     """The (1, 4) and (2, 2) meshes with the shards on distinct cards:
-    two train steps bitwise the same mesh with every shard on one card
-    (metrics, parameters and moments).  Skips with fewer than two
-    cards."""
+    two train steps of each family bitwise the same mesh with every
+    shard on one card (metrics, parameters and moments; the whisper
+    decoder's tied embedding takes its lookup's and its logits' partials
+    on one shard, whatever order the cards' autograd threads run in).
+    Skips with fewer than two cards."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs at least two visible cards")
     from _torch_port import lm_cfg
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry
 
-    for arch in ("llama3_8b", "moonshot_v1_16b_a3b"):
+    for arch in MESH_TRAIN_ARCHS:
         cfg = lm_cfg(registry.get_config(arch, smoke=True))
         cards = make_mesh_for(4, model_parallel)
         assert cards.distinct

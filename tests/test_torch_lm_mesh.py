@@ -11,7 +11,7 @@ f32 and bf16; the MoE block at ``data = 1`` bitwise the one-device
 block; the collectives against plain tensor ops; the decode step with
 a 0-d ``int32`` position, the form a CUDA graph captures (no host read,
 bitwise the int-position step); the engine, the serve CLI, the four
-families' training over a mesh raising, and an MoE whose expert count the model extent
+families' training forward over a mesh against one device, and an MoE whose expert count the model extent
 does not divide refused as the reference refuses it (the other four families' serving: ``tests/test_torch_lm_mesh_families.py``)."""
 import contextlib
 import dataclasses
@@ -428,20 +428,26 @@ def test_engine_generates_over_a_mesh():
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b",
                                   "whisper_small", "qwen2_vl_72b"])
-def test_training_over_a_mesh_still_raises(arch):
-    """The four families serve over a mesh; their training forward over
-    one raises, naming its ROADMAP item (the six decoder LMs with token
-    prompts train over one: ``tests/test_torch_lm_mesh_train.py``)."""
+def test_training_over_a_mesh_returns_the_one_device_loss(arch):
+    """The four families' training forward over the (1, 4) mesh (the SSD
+    heads, the RG-LRU channels, the
+    encoder-decoder, the patch embeddings with M-RoPE positions) returns
+    the loss of the one-device forward on the same batch, within
+    ``LM_TOL`` (their gradients: ``tests/test_torch_lm_mesh_train_families.py``)."""
+    from _torch_port import to_torch, train_inputs
+    from repro_torch.training import train_step as PTS
+
     cfg = lm_cfg(PR.get_config(arch, smoke=True))
-    batch = {"tokens": _tokens(cfg)}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.zeros(B, cfg.enc_seq, cfg.d_model)
-    if cfg.frontend == "vision":
-        batch = {"tokens": torch.zeros(B, PROMPT, cfg.d_model),
-                 "positions": torch.zeros(3, B, PROMPT, dtype=torch.long)}
-    model = _seeded(cfg, _mesh("1x4"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-        PR.make_train_forward(cfg)(model, batch)
+    batch = to_torch(train_inputs(cfg, 3, B, PROMPT))
+    losses = []
+    for mesh in (_mesh("1x4"), None):
+        with torch.no_grad():
+            logits, aux = PR.make_train_forward(cfg)(_seeded(cfg, mesh),
+                                                     batch)
+        loss, _ = PTS.token_xent(logits, batch["targets"], 1e-4)
+        losses.append(float(loss + 1e-2 * aux))
+    assert math.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= LM_TOL * abs(losses[1])
 
 
 @pytest.fixture(scope="module")

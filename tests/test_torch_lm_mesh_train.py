@@ -29,7 +29,9 @@ capacity factor 16, where no token is dropped).
   one written from the one-device state of the same values, and restores
   onto the (2, 2) mesh and onto one device, each continuing within
   1e-6 (rtol = atol) of the uninterrupted run.
-- The train CLI over ``--mesh 4`` and its resume over ``--mesh 2``.
+- The train CLI over ``--mesh 4`` and its resume over ``--mesh 2``,
+  for a decoder LM and for each of the other four families, and its
+  default mesh over four visible cards for every config.
 
 The module runs torch on one thread: its SMOKE tensors gain nothing
 from more, and under the test runner's workers the threads only
@@ -564,7 +566,8 @@ def ref_mesh_train(_ref_procs, multi_device):
 
 
 def _tree(runs, prefix):
-    tree = {"tail": {}}
+    """The reference's tree of the keys under ``prefix``."""
+    tree = {}
     for key, val in runs.items():
         if key.startswith(prefix):
             node = tree
@@ -712,43 +715,67 @@ OTHER_FAMILIES = ["mamba2_370m", "recurrentgemma_9b", "whisper_small",
 
 @pytest.mark.parametrize("arch", MESH_ARCHS + OTHER_FAMILIES)
 def test_train_cli_default_mesh_by_family(arch, monkeypatch):
-    """With four cards visible the CLI's default mesh spans them for the
-    six decoder LMs and is one device for the four families that do not
-    train over a mesh (ROADMAP, Queue 1 item 2b), decided from the
-    config before anything is built; ``--device cpu`` is one device and
-    ``--mesh`` is taken as given."""
+    """With four cards visible the CLI trains every family over
+    ``make_mesh_for(4)`` on the cards by default, as the reference's
+    ``make_mesh_for(ndev)``; ``--device cpu`` and ``--device cuda:1``
+    train on one device, and ``--mesh`` is taken as given.  The model is
+    never built: ``init_params`` stops the run once it is asked for."""
+    import types
+
     from repro_torch.launch import train
 
+    class Built(Exception):
+        pass
+
+    def mesh_for(n, device):
+        return types.SimpleNamespace(device=torch.device("cpu"), n=n,
+                                     on=torch.device(device))
+
+    def init_params(cfg, generator, device, mesh):
+        raise Built(None if mesh is None else (mesh.n, mesh.on))
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    cfg = PR.get_config(arch, smoke=True)
+    monkeypatch.setattr(train, "resolve_device", torch.device)
+    monkeypatch.setattr(train, "make_mesh_for", mesh_for)
+    monkeypatch.setattr(train.R, "init_params", init_params)
+    # no card here: the model's generator is made on the CPU
+    cpu_generator = torch.Generator
+    monkeypatch.setattr(torch, "Generator", lambda device: cpu_generator())
     cuda = torch.device("cuda")
-    trains = arch in MESH_ARCHS
-    assert train.mesh_shards(cfg, cuda, None) == (4 if trains else 1)
-    assert train.mesh_shards(cfg, torch.device("cpu"), None) == 1
-    assert train.mesh_shards(cfg, torch.device("cuda", 1), None) == 1
-    assert train.mesh_shards(cfg, cuda, 1) == 1
-    if trains:
-        assert train.mesh_shards(cfg, cuda, 2) == 2
+    for argv, want in ((["--device", "cuda"], (4, cuda)),
+                       (["--device", "cpu"], None),
+                       (["--device", "cuda:1"], None),
+                       (["--device", "cuda", "--mesh", "1"], None),
+                       (["--device", "cuda", "--mesh", "2"], (2, cuda))):
+        with pytest.raises(Built) as built:
+            train.main(["--arch", arch, "--smoke"] + argv)
+        assert built.value.args[0] == want, argv
+    assert train.mesh_shards(torch.device("cuda"), None) == 4
 
 
 @pytest.mark.parametrize("arch", OTHER_FAMILIES)
-def test_train_cli_refuses_a_mesh_up_front(arch, tmp_path):
-    """``--mesh 2`` for a family that does not train over a mesh raises
-    before the model is built, naming ROADMAP Queue 1 item 2b and
-    ``--mesh 1``; without ``--mesh`` it trains on one device."""
+def test_train_cli_trains_each_family_over_a_mesh_and_resumes(arch,
+                                                              tmp_path):
+    """``--mesh 4`` trains the SSD, RG-LRU, encoder-decoder and vision
+    families over the (1, 4) mesh on the CPU, their stub inputs placed
+    by the forward, and a run over ``--mesh 2`` resumes from its slot."""
     from repro_torch.launch import train
 
     common = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
-              "--seq", "16", "--steps", "1", "--ckpt-dir", str(tmp_path)]
+              "--seq", "16", "--mtbf", "1", "--ckpt-dir", str(tmp_path)]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 2b.*--mesh 1"):
-            train.main(common + ["--mesh", "2"])
-    assert "params on" not in buf.getvalue()
+        train.main(common + ["--mesh", "4", "--steps", "6"])
+    out = buf.getvalue()
+    assert "params on 4 device(s) as a (1, 4) mesh" in out
+    assert out.rstrip().endswith("done.")
+    buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        train.main(common)
-    assert "params on 1 device(s)\n" in buf.getvalue()
+        train.main(common + ["--mesh", "2", "--steps", "7"])
+    out = buf.getvalue()
+    assert "params on 2 device(s) as a (1, 2) mesh" in out
+    assert "elastic restore: resuming from step 5" in out
+    assert out.rstrip().endswith("done.")
 
 
 # ----------------------------------------------------------------------

@@ -191,11 +191,12 @@ def test_compression_matches_the_reference(seed):
                               np.float32) * float(np.max(np.abs(g["b"]))) / 127.0
         r_res = {n: np.asarray(v) for n, v in rs.residual.items()}
         rc, rs = rs.compress({n: jnp.asarray(v) for n, v in g.items()})
-        pc, ps = ps.compress({n: torch.as_tensor(v) for n, v in g.items()})
+        pc, ps = ps.compress({n: torch.as_tensor(v) for n, v in g.items()},
+                             [[n] for n in shapes])
         assert PC.compressed_bytes(pc) == RC.compressed_bytes(rc)
         for n in shapes:
             scale = float(rc.scale[n])
-            _close(pc.scale[n].numpy(), rc.scale[n])
+            _close(pc.scale[(n,)].numpy(), rc.scale[n])
             q_r, q_p = np.asarray(rc.q[n], np.int32), pc.q[n].numpy().astype(np.int32)
             assert pc.q[n].dtype == torch.int8
             differ = q_r != q_p
@@ -210,6 +211,33 @@ def test_compression_matches_the_reference(seed):
             _close(back_p[n].numpy()[same], np.asarray(back_r[n])[same])
 
 
+def test_compression_scales_a_stacked_leaf_once():
+    """A reference leaf that stacks a pattern group's layers has one
+    scale, its largest ``max |g|``: the port's per-layer tensors of that
+    leaf, named as one group, quantize with it, ``q`` equal to the
+    reference's rows except by one on a .5 tie; without the group each
+    takes its own."""
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((2, 16, 5)).astype(np.float32)
+    rows[1] *= 4.0
+    rc, _ = RC.GradCompression.init({"w": jnp.zeros(rows.shape)}).compress(
+        {"w": jnp.asarray(rows)})
+    tree = {"w.0": torch.as_tensor(rows[0]), "w.1": torch.as_tensor(rows[1])}
+    ef = PC.GradCompression.init(tree)
+    pc, _ = ef.compress(tree, groups=[["w.0", "w.1"]])
+    assert PC.compressed_bytes(pc) == RC.compressed_bytes(rc)
+    scale = float(rc.scale["w"])
+    _close(pc.scale[("w.0", "w.1")].numpy(), rc.scale["w"])
+    for i, name in enumerate(tree):
+        q_r = np.asarray(rc.q["w"][i], np.int32)
+        q_p = pc.q[name].numpy().astype(np.int32)
+        differ = q_r != q_p
+        assert np.all(np.abs(q_r - q_p) <= 1)
+        assert np.all(_tie(rows[i][differ], scale))
+    alone, _ = ef.compress(tree, [["w.0"], ["w.1"]])
+    assert float(alone.scale[("w.0",)]) < 0.5 * scale
+
+
 def test_round_half_to_even_like_jnp():
     x = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5], np.float32)
     assert np.array_equal(torch.round(torch.as_tensor(x)).numpy(),
@@ -219,7 +247,7 @@ def test_round_half_to_even_like_jnp():
 def test_roundtrip_error_bounded():
     tree = {"a": torch.linspace(-3, 3, 128), "b.c": torch.ones((4, 4)) * 0.1}
     ef = PC.GradCompression.init(tree)
-    c, ef = ef.compress(tree)
+    c, ef = ef.compress(tree, [[n] for n in tree])
     back = PC.decompress(c)
     for n, x in tree.items():
         scale = float(torch.max(torch.abs(x))) / 127.0
@@ -228,7 +256,7 @@ def test_roundtrip_error_bounded():
 
 def test_compression_ratio():
     tree = {"w": torch.zeros((1024, 1024))}
-    c, _ = PC.GradCompression.init(tree).compress(tree)
+    c, _ = PC.GradCompression.init(tree).compress(tree, [["w"]])
     assert PC.compressed_bytes(c) < 1024 * 1024 * 4 / 3.9  # ~4x
 
 
@@ -245,7 +273,7 @@ def test_error_feedback_accumulates_to_truth(seed, steps):
         g = {"w": torch.as_tensor(rng.standard_normal(64).astype(np.float32)
                                   * np.float32(0.1 ** s))}
         total_true = total_true + g["w"]
-        c, ef = ef.compress(g)
+        c, ef = ef.compress(g, [["w"]])
         total_q = total_q + PC.decompress(c)["w"]
     np.testing.assert_allclose((total_q + ef.residual["w"]).numpy(),
                                total_true.numpy(), rtol=1e-5, atol=1e-5)
