@@ -111,7 +111,13 @@ non-zero and prints no result line):
    run: 1 card visible"``); fetch bytes halving from 2 to 4 to 8 shards
    (6-iteration runs on ``nvm-homogeneous``); the 4-shard float32
    ``make_shardmap_pcg_step`` for 10 steps within rtol 1e-4 of the
-   unsharded fused step;
+   unsharded fused step; both grid steps on sharded 256^3 float32 grids
+   (``DataMesh.place``'s z-slabs, the in-memory ESR replica a whole copy
+   a card) on the 4-shard mesh of the one card for 3 steps, every field
+   bitwise the same steps on views of one buffer, and with two or more
+   cards the same over distinct cards and ``pcg_128m``'s first step on
+   256 shards spread over every card, x and r finite (else a line
+   ``"distinct_cards": "not run: 1 card visible"``);
 12. launch — the roofline share (``repro_torch.launch.roofline``) of
    the 256^3 float64 steps phases 4, 8, 10 and 11 timed; the report
    tables of phases 4, 5 and 9 and the capability matrix; the serve CLI
@@ -217,7 +223,11 @@ non-zero and prints no result line):
    host ms a step; (b) llama3_8b at full width cut to 2 layers, f32, on
    (1, 4) and (2, 2): prefill and decode logits against the same model's
    one-device run within ``LM_REL_TOL``, and its decode steps replayed
-   from a capture bitwise its eager steps; (c) moonshot_v1_16b_a3b and
+   from a capture bitwise its eager steps; on (1, 4) its prefill with
+   the residual stream seq-placed (the default rules) against the same
+   model with ``"seq"`` on no axis: the logits' largest difference,
+   bitwise or not, and each shard's stream bytes between layers, the
+   seq layout's 1/4 of the whole's; (c) moonshot_v1_16b_a3b and
    dbrx_132b at full width cut to one layer, f32, capacity factor 16:
    the same, and whether the expert-parallel block at ``data = 1`` is
    bitwise the one-device block; (d) with two or more cards, (b)'s
@@ -226,7 +236,8 @@ non-zero and prints no result line):
    ``"distinct_cards": "not run: 1 card visible"``); (e) mamba2_370m at
    its full config (48 layers), bf16, served as (a) is on
    ``make_mesh_for(4)``; (f) recurrentgemma_9b cut
-   to 4 layers, whisper_small whole and qwen2_vl_72b cut to one layer,
+   to 4 layers, whisper_small to 4 encoder and 4 decoder layers and
+   qwen2_vl_72b to one layer,
    full width, f32, as (b) is on both meshes (whisper with its frames,
    qwen2_vl prefilled on patch embeddings with three M-RoPE position
    streams), with (d)'s distinct-card leg.  No hand-written kernel
@@ -243,7 +254,9 @@ non-zero and prints no result line):
    layers (64 experts, 16 a model shard), two steps on (1, 4), the
    same lines; (a') mamba2_370m at its full ``CONFIG`` (48 layers, 32
    SSD heads), one step of 2 x 1024 on (1, 4) after an untimed step of
-   its first 2 layers there, the same lines; (c) the
+   its first 2 layers there, the same lines; (a) and (a')'s peaks
+   beside those measured with the residual stream whole, with the
+   saving the seq-placed stream is reckoned to bring; (c) the
    ten configs at full width, f32 (MoE at capacity factor 16), cut in
    depth (2 layers, dbrx_132b and qwen2_vl_72b 1, recurrentgemma_9b
    3, one (rec, rec, local) group, whisper_small whole), two steps of
@@ -1816,6 +1829,10 @@ MESH_NSHARDS, MESH_MAXITER, MESH_FAIL_AT = 4, 20, 10
 MESH_HALO_SHARDS = (2, 4, 8)
 MESH_SCALING_MAXITER, MESH_SCALING_FAIL_AT = 6, 4
 MESH_GRID_STEPS = 10
+#: the grid steps on sharded grids: steps of each variant against the
+#: same steps on views of one buffer, and the dry-run cell whose first
+#: step runs over every card where there are two or more
+MESH_SHARDED_STEPS, MESH_SHARDED_CELL = 3, "pcg_128m"
 
 
 def mesh_kernels(torch, rate: float, records: dict, found) -> None:
@@ -2232,8 +2249,104 @@ def phase_mesh(torch, rate: float, records: dict, found) -> dict:
     del b, z, st, ref, inv
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    grid_steps_sharded(torch, cards)
     say("mesh", phase_seconds=time.perf_counter() - t_phase)
     return counts
+
+
+def grid_steps_sharded(torch, cards: int) -> None:
+    """The PCG grid steps on sharded grids (``DataMesh.place``'s
+    ``(nz / n, ny, nx)`` slabs, each its own tensor on its shard): on
+    the 4-shard mesh of the one card, a stream a shard, 256^3 float32,
+    ``MESH_SHARDED_STEPS`` steps of both variants with the in-memory ESR
+    replica, every field bitwise the same steps on views of one buffer;
+    with two or more cards the same over ``make_data_mesh(4)``, and
+    ``MESH_SHARDED_CELL``'s first step on the 16x16 layout's 256 shards
+    spread over every card, its x and r finite.  These launches are
+    checks: they count toward no path."""
+    from repro_torch.configs.poisson_pcg import GRIDS
+    from repro_torch.core import spmv
+    from repro_torch.distributed import make_data_mesh, sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    b = torch.randn(GRID, GRID, GRID, generator=gen, device="cuda:0",
+                    dtype=torch.float32)
+    meshes = {"one card": make_data_mesh(MESH_NSHARDS, "cuda:0")}
+    if cards >= 2:
+        meshes["distinct cards"] = make_data_mesh(MESH_NSHARDS)
+    views_dot = spmv.make_det_dot(MESH_NSHARDS, meshes["one card"])
+    for label, mesh in meshes.items():
+        rec = dict(check="grid steps on sharded grids vs views of one "
+                         "buffer", mesh=label,
+                   devices=[str(d) for d in mesh.devices],
+                   grid=[GRID] * 3, steps=MESH_SHARDED_STEPS)
+        for variant, make in (("auto", spmv.make_sharded_pcg_step),
+                              ("shardmap", spmv.make_shardmap_pcg_step)):
+            step, _ = make(mesh, esr_mode="inmemory")
+            z = b * (1.0 / 6.0)
+            views = dict(x=torch.zeros_like(b), r=b, z=z, p=z.clone(),
+                         rz=views_dot(b.reshape(-1), z.reshape(-1)))
+            placed = {f: mesh.place(v) if v.dim() == 3 else v
+                      for f, v in views.items()}
+            views["esr_red_cur"] = z.clone()
+            placed["esr_red_cur"] = sharding.replicate(placed["p"])
+            same, walls = True, {"views": 0.0, "sharded": 0.0}
+            for _ in range(MESH_SHARDED_STEPS):
+                for name in walls:
+                    mesh.synchronize()
+                    t0 = time.perf_counter()
+                    if name == "views":
+                        views = step(views)
+                    else:
+                        placed = step(placed)
+                    mesh.synchronize()
+                    walls[name] += time.perf_counter() - t0
+                for f, v in views.items():
+                    got = placed[f]
+                    if isinstance(got, tuple):
+                        same &= all(bool(torch.equal(t.to("cuda:0"), v))
+                                    for t in got)
+                    else:
+                        same &= bool(torch.equal(sharding.gather(got), v))
+                same &= [s.device for s in placed["x"].slabs] == list(
+                    mesh.devices)
+                views = {f: v for f, v in views.items()
+                         if f not in ("beta", "esr_red_prev")}
+                placed = {f: v for f, v in placed.items() if f in views}
+            rec[f"{variant}_bitwise"] = same
+            rec[f"{variant}_ms_per_step"] = {
+                k: 1e3 * v / MESH_SHARDED_STEPS for k, v in walls.items()}
+            check(same, f"the {variant} grid step on sharded grids ({label})"
+                        f" != the step on views of one buffer")
+            del views, placed, z
+        say("mesh", **rec)
+    if cards < 2:
+        say("mesh", check="grid steps over distinct cards",
+            distinct_cards=f"not run: {cards} card visible")
+        del b
+        return
+    sc = GRIDS[MESH_SHARDED_CELL]
+    mesh = M.make_data_mesh(M.LAYOUTS["16x16"])
+    step, spec = dryrun.cell_step(sc, mesh)
+    _, structs = spec(*sc.grid)
+    state = dryrun.cell_state(structs, mesh, mesh.device)
+    mesh.synchronize()
+    t0 = time.perf_counter()
+    out = step(state)
+    mesh.synchronize()
+    first_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(slab).all())
+                 for slab in out["x"].slabs + out["r"].slabs)
+    say("mesh", check="dry-run cell over distinct cards",
+        cell=sc.name, shards=mesh.nshards,
+        cards=len(set(mesh.devices)), sharded=isinstance(
+            out["x"], sharding.ShardedVector),
+        first_step_s=first_s, x_r_finite=finite)
+    check(finite, f"{sc.name} over {cards} cards: x or r not finite")
+    del b, state, out
+    torch.cuda.empty_cache()
 
 
 #: phase 12: the serve CLI's trace (seed, requests, lanes, failures, and
@@ -3563,14 +3676,20 @@ MESH_LM_SSM_ARCH = "mamba2_370m"
 #: (a) and (e): the decode steps of the engine's warm-up (one eager, then
 #: replays), repeated eagerly from the same prompt for the eager ms a step
 MESH_LM_EAGER_STEPS = 4
-#: (b), (c) and (f): full width, f32, cut in depth (None: whole); batch
-#: 4 (split over data=2), a 64-token prompt and 4 decode steps
+#: (b), (c) and (f): full width, f32, cut in depth (None: whole; the
+#: encoder-decoder's encoder cut as its decoder: whisper_small at 4 + 4
+#: of its 12 + 12 layers, cut from whole for the smoke's budget when the
+#: seq layout came); batch 4 (split over data=2), a 64-token prompt and
+#: 4 decode steps
 MESH_LM_CUT = {"llama3_8b": 2, "moonshot_v1_16b_a3b": 1, "dbrx_132b": 1,
-               "recurrentgemma_9b": 4, "whisper_small": None,
+               "recurrentgemma_9b": 4, "whisper_small": 4,
                "qwen2_vl_72b": 1}
 MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, MESH_LM_CUT_STEPS = 4, 64, 4
 #: make_mesh_for's model_parallel for the two meshes of (b)-(d)
 MESH_LM_MESHES = {"1x4": None, "2x2": 2}
+#: (b)'s seq-layout leg: the config and mesh whose prefill also runs with
+#: the residual stream whole (rules with "seq" on no axis)
+MESH_LM_SEQ_CHECK = ("llama3_8b", "1x4")
 
 
 def _shard_bytes(leaves, nshards: int) -> list:
@@ -3742,7 +3861,8 @@ def mesh_eager_leg(torch, cfg, model, prompt, mesh, seen: list,
                 graph_tokens_identical_eager=tokens_same)
 
 
-def _mesh_logits(torch, cfg, mesh, device: str, replayed=None) -> list:
+def _mesh_logits(torch, cfg, mesh, device: str, replayed=None,
+                 seq_check=None) -> list:
     """``cfg`` from seed 0 on ``mesh`` (or, with ``None``, on
     ``device``): the prefill's logits and each teacher-forced decode
     step's, on ``device``.  The inputs are ``_lm_inputs``': the
@@ -3751,7 +3871,9 @@ def _mesh_logits(torch, cfg, mesh, device: str, replayed=None) -> list:
     (seed 3).  With a list ``replayed``, the same model's decode steps
     also run through a ``DecodeGraph`` against their eager run
     (:func:`graph_vs_eager_decode`, bitwise, checked), the replayed
-    logits appended to it."""
+    logits appended to it.  With a dict ``seq_check``, the same model's
+    prefill runs once more under its rules with ``"seq"`` on no axis
+    (:func:`_seq_layout`), and the dict gets the comparison."""
     from repro_torch.models import registry as R
 
     model = R.init_params(cfg, torch.Generator(device=device).manual_seed(0),
@@ -3780,7 +3902,63 @@ def _mesh_logits(torch, cfg, mesh, device: str, replayed=None) -> list:
             logits, caches = R.make_decode(cfg)(
                 model, tokens[:, p + t:p + t + 1], caches, p + t)
             out.append(logits)
+    if seq_check is not None:
+        del caches
+        seq_check.update(_seq_layout(torch, cfg, model, inputs, mesh,
+                                     device))
     return out
+
+
+def _seq_layout(torch, cfg, model, inputs, mesh, device: str) -> dict:
+    """Phase 16 (b)'s seq-layout leg: the prefill of ``inputs`` under the
+    model's rules (the residual stream seq-placed, ``"seq": "model"``)
+    and under the same rules with ``"seq"`` on no axis (the stream whole
+    on each model shard), on the same model: the logits' largest
+    difference, whether they are bitwise, and each shard's stream bytes
+    between layers 0 and 1 (the input of layer 1, read by a forward
+    pre-hook), the seq layout's checked at ``1 / model`` of the whole
+    layout's."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry as R
+
+    b, p, steps = MESH_LM_CUT_BATCH, MESH_LM_CUT_PROMPT, MESH_LM_CUT_STEPS
+    rules = model.rules
+    layouts = {"seq": rules, "whole": sharding.AxisRules(
+        mesh, {**rules.rules, "seq": None})}
+    seen, runs = [], {}
+    hook = model.layers[1].register_forward_pre_hook(
+        lambda module, args: seen.append(args[0]))
+    try:
+        for name, layout in layouts.items():
+            model.rules = layout
+            caches = R.init_caches(cfg, b, p + steps, device=device,
+                                   mesh=mesh)
+            with torch.inference_mode():
+                logits, _ = R.make_prefill(cfg)(model, inputs, caches)
+            x = seen.pop()
+            runs[name] = (logits, x.spec, [t.numel() * t.element_size()
+                                           for t in x.pieces])
+            del caches
+    finally:
+        model.rules = rules
+        hook.remove()
+    (got, spec, got_bytes), (want, wspec, want_bytes) = runs["seq"], \
+        runs["whole"]
+    scale = float(want[..., :cfg.vocab].abs().max())
+    rec = dict(seq_spec=spec, whole_spec=wspec,
+               seq_stream_bytes=got_bytes, whole_stream_bytes=want_bytes,
+               seq_vs_whole_max_abs=float((got - want).abs().max()),
+               seq_vs_whole_rel=float((got - want).abs().max()) / scale,
+               seq_vs_whole_bitwise=bool(torch.equal(got, want)))
+    n = mesh.shape["model"]
+    check(spec[1] == "model" and wspec[1] is None
+          and [g * n for g in got_bytes] == want_bytes,
+          f"{cfg.name}: the seq layout's stream bytes {got_bytes} are not "
+          f"1/{n} of the whole layout's {want_bytes}")
+    check(rec["seq_vs_whole_rel"] <= LM_REL_TOL,
+          f"{cfg.name}: the seq layout's logits are off the whole layout's "
+          f"by {rec['seq_vs_whole_rel']:.3g} of the largest logit")
+    return rec
 
 
 def _moe_block_bitwise(torch, cfg, mesh) -> bool:
@@ -3812,7 +3990,10 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
     |logit|, and its decode steps replayed from a ``DecodeGraph``
     bitwise its eager steps; the MoE block bitwise or not at data = 1;
     with two or more cards, each mesh over distinct cards, its eager
-    and replayed steps, against the same mesh on the first card."""
+    and replayed steps, against the same mesh on the first card.  For
+    ``MESH_LM_SEQ_CHECK`` (llama3_8b on (1, 4)) the prefill also runs
+    with the residual stream whole, against its seq layout
+    (:func:`_seq_layout`)."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry as R
 
@@ -3821,6 +4002,8 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
     kw = {"compute_dtype": "float32"}
     if MESH_LM_CUT[arch] is not None:
         kw["n_layers"] = MESH_LM_CUT[arch]
+        if base.family == "encdec":
+            kw["enc_layers"] = MESH_LM_CUT[arch]
     if base.n_experts > 0:
         kw["capacity_factor"] = 16.0
     cfg = dataclasses.replace(base, **kw)
@@ -3835,7 +4018,10 @@ def mesh_lm_consistency(torch, arch: str, cards: int) -> dict:
     for name, mp in MESH_LM_MESHES.items():
         mesh = make_mesh_for(4, mp, device=dev)
         replayed: list = []
-        got = _mesh_logits(torch, cfg, mesh, dev, replayed)
+        seq = {} if (arch, name) == MESH_LM_SEQ_CHECK else None
+        got = _mesh_logits(torch, cfg, mesh, dev, replayed, seq)
+        if seq is not None:
+            rec[f"seq_layout_{name}"] = seq
         rec[f"rel_err_{name}"] = max(max_abs(g, w)
                                      for g, w in zip(got, want)) / scale
         rec[f"graph_steps_bitwise_{name}"] = len(replayed)
@@ -3893,6 +4079,14 @@ def phase_lm_mesh(torch) -> dict:
     return counts
 
 
+#: phase 17 (a) and (a')'s peaks as this script measured them while the
+#: residual stream was whole on each model shard (NVIDIA H100 80GB HBM3,
+#: 700 W), printed beside this run's with the saving the seq layout is
+#: reckoned to bring: each layer's checkpointed input, layers x batch x
+#: seq x d_model in the compute dtype a shard, (model - 1) / model of it
+#: on every shard
+MESH_TRAIN_WHOLE_STREAM_PEAK = {"starcoder2_3b": 55311702528,
+                                "mamba2_370m": 10239138816}
 #: phase 17: LM training over a (data, model) mesh of the one card.
 #: (a) starcoder2_3b at its full CONFIG, two steps of batch 2 x 1024 (its
 #: state, params, grads and two f32 moments, is 16 B a parameter: 51 GB);
@@ -4118,8 +4312,11 @@ def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
     corpus: each step's seconds (CUDA events on the caller's stream,
     which waits for every shard at the step's end) and the host's
     enqueue ms, its loss and grad norm; tokens/s and ``train_mfu`` over
-    the median step after the first, the peak bytes, the collector's
-    seconds and the caching allocator's retries over the steps, and
+    the median step after the first, the peak bytes (and the last
+    step's own peak, and at its backward start the bytes alive and its
+    peak up to then), the
+    collector's seconds and the caching allocator's retries over the
+    steps, and
     every shard's parameter and moment bytes against ``shard_shape``'s
     count (checked equal).  With ``warm_layers``, a step of ``cfg`` cut
     to that depth runs first on the same mesh, untimed, and every step
@@ -4147,7 +4344,24 @@ def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
         opt = adamw_init(model)
         mesh.synchronize()
         init_s = time.perf_counter() - t0
-        step = make_train_step(R.make_train_forward(cfg), AdamWConfig())
+        forward = R.make_train_forward(cfg)
+        at_backward, peaks = {}, []
+
+        def marked(model, batch):
+            # each step's own peak counted from its start (the run's
+            # peak kept in ``peaks``), and the bytes alive as its
+            # backward starts, every layer's checkpointed input among
+            # them, with the step's peak up to then
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            logits, aux = forward(model, batch)
+            if logits.requires_grad:
+                logits.register_hook(lambda g: at_backward.update(
+                    allocated=torch.cuda.memory_allocated(),
+                    peak=torch.cuda.max_memory_allocated()))
+            return logits, aux
+
+        step = make_train_step(marked, AdamWConfig())
         if warm_layers:
             shallow = dataclasses.replace(cfg, n_layers=warm_layers)
             warm = R.init_params(shallow, torch.Generator(
@@ -4194,7 +4408,10 @@ def mesh_train_timed(torch, cfg, steps: int, batch: int, seq: int,
                    tokens_per_s=batch * seq / step_s,
                    train_tflop=flops / 1e12,
                    train_mfu=flops / step_s / M.PEAK_OPS["bfloat16"],
-                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   peak_bytes=max(peaks + [torch.cuda.max_memory_allocated()]),
+                   last_step_peak_bytes=torch.cuda.max_memory_allocated(),
+                   backward_start_bytes=at_backward.get("allocated"),
+                   forward_peak_bytes=at_backward.get("peak"),
                    gc_s=collector.seconds, gc_runs=collector.runs,
                    alloc_retries=retries,
                    shard_param_bytes=params, shard_moment_bytes=moments,
@@ -4451,6 +4668,30 @@ def _flat_arrays(tree, prefix="") -> dict:
     return {prefix.rstrip("/"): tree}
 
 
+def _peak_vs_whole_stream(torch, arch: str, recs: list) -> None:
+    """(a) and (a')'s peak beside the one measured with the stream whole
+    (``MESH_TRAIN_WHOLE_STREAM_PEAK``) and the saving the seq layout is
+    reckoned to bring."""
+    from repro_torch.models import registry as R
+
+    cfg = R.get_config(arch)
+    for rec in recs:
+        n = rec["mesh"]["model"]
+        item = torch.empty((), dtype=cfg.cdt).element_size()
+        saving = (cfg.n_layers * rec["batch"] * rec["seq"] * cfg.d_model
+                  * item * (n - 1))
+        before = MESH_TRAIN_WHOLE_STREAM_PEAK[arch]
+        say("lm-train-mesh", arch=cfg.name, mesh=rec["mesh"],
+            peak_bytes=rec["peak_bytes"],
+            last_step_peak_bytes=rec["last_step_peak_bytes"],
+            forward_peak_bytes=rec["forward_peak_bytes"],
+            backward_start_bytes=rec["backward_start_bytes"],
+            whole_stream_peak_bytes=before,
+            predicted_saving_bytes=saving,
+            measured_saving_bytes=before - rec["peak_bytes"], card=CARD,
+            note="the peaks of two runs, each on its own call's card")
+
+
 def phase_lm_train_mesh(torch) -> dict:
     """LM training over a (data, model) device mesh: (a) starcoder2_3b at
     full width and depth on the (1, 4) mesh of the one card, (b) the MoE
@@ -4472,17 +4713,21 @@ def phase_lm_train_mesh(torch) -> dict:
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     ops.reset_launch_counts()
-    mesh_train_timed(torch, R.get_config(MESH_TRAIN_ARCH), MESH_TRAIN_STEPS,
-                     MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_ARCH_MESHES)
+    recs = mesh_train_timed(torch, R.get_config(MESH_TRAIN_ARCH),
+                            MESH_TRAIN_STEPS, MESH_TRAIN_BATCH,
+                            MESH_TRAIN_SEQ, MESH_TRAIN_ARCH_MESHES)
+    _peak_vs_whole_stream(torch, MESH_TRAIN_ARCH, recs)
     torch.cuda.empty_cache()
     moe = dataclasses.replace(R.get_config(MESH_TRAIN_MOE_ARCH),
                               n_layers=MESH_TRAIN_MOE_LAYERS)
     mesh_train_timed(torch, moe, MESH_TRAIN_MOE_STEPS, MESH_TRAIN_BATCH,
                      MESH_TRAIN_SEQ, MESH_TRAIN_MOE_MESHES)
     torch.cuda.empty_cache()
-    mesh_train_timed(torch, R.get_config(MESH_TRAIN_SSM_ARCH),
-                     MESH_TRAIN_SSM_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
-                     MESH_TRAIN_SSM_MESHES, MESH_TRAIN_SSM_WARM)
+    recs = mesh_train_timed(torch, R.get_config(MESH_TRAIN_SSM_ARCH),
+                            MESH_TRAIN_SSM_STEPS, MESH_TRAIN_BATCH,
+                            MESH_TRAIN_SEQ, MESH_TRAIN_SSM_MESHES,
+                            MESH_TRAIN_SSM_WARM)
+    _peak_vs_whole_stream(torch, MESH_TRAIN_SSM_ARCH, recs)
     torch.cuda.empty_cache()
     for arch in MESH_TRAIN_CUT:
         mesh_train_agreement(torch, arch, cards)

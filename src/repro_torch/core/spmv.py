@@ -26,9 +26,13 @@ round to bfloat16 before the chain.
 
 :func:`make_sharded_pcg_step` and :func:`make_shardmap_pcg_step` are the
 reference's sharded grid iterations (its dry-run and roofline path) on
-dict states of ``(nz, ny, nx)`` grids of one device, z-sharded over
-the mesh's views of them: the local stencil is K1's halo mode and the
-update K2; a mesh over distinct devices raises.  The reference's
+dict states of ``(nz, ny, nx)`` grids, z-sharded over the mesh: the
+local stencil is K1's halo mode and the update K2.  A state of plain
+grids of one device runs on the mesh's views of them; a state of
+sharded grids (:class:`~repro_torch.distributed.sharding.ShardedVector`
+s of ``(nz / n, ny, nx)`` slabs, placed by ``DataMesh.place``, on a
+mesh of one card or of distinct cards) runs each slab on its shard, as
+a sharded solve does, and is bitwise the views' step.  The reference's
 ``lower_pcg_step`` returns an XLA ``Lowered`` for its dry-run launcher
 and has no counterpart here.
 """
@@ -157,7 +161,7 @@ def sharded_fused_update(x, r, p, ap, alpha: torch.Tensor,
             *vectors, rz = ops.fused_cg_update_lanes(
                 xs, rs, ps, aps, alpha_s.reshape(1).repeat(bps), invs)
         for got, v in zip(new, vectors):
-            got.append(v.view(-1))
+            got.append(v.view(slabs[0][0][s].shape))
         mesh.move(rz, None, src=s, out=out)
     if mesh is None:
         return xo, ro, zo, sums
@@ -222,7 +226,8 @@ def sharded_stencil7(u: torch.Tensor, nshards: int) -> torch.Tensor:
 # ----------------------------------------------------------------------
 def _grid_update(x, r, p, ap, alpha, inv6, nshards: int):
     """K2 once per z-slab shard of the grids, one lane a shard: ``x', r',
-    z'`` grids and the ``(nshards,)`` shard sums of ``r' z'``."""
+    z'`` grids (sharded ones for sharded grids) and the ``(nshards,)``
+    shard sums of ``r' z'`` on shard 0's device."""
     flat = (t.reshape(-1) for t in (x, r, p, ap))
     xo, ro, zo, sums = sharded_fused_update(*flat, alpha, inv6.reshape(-1),
                                             nshards, nshards)
@@ -230,21 +235,42 @@ def _grid_update(x, r, p, ap, alpha, inv6, nshards: int):
 
 
 def _mesh_axes(mesh, shard_axes) -> Tuple[str, ...]:
-    devices = getattr(mesh, "devices", None)
-    if devices is not None and len(set(devices)) > 1:
-        raise NotImplementedError(
-            "the sharded PCG grid steps run every shard on one device; on a "
-            "mesh over distinct devices they wait for their own slice "
-            "(ROADMAP, Queue 1 item 5)")
     return tuple(a for a in shard_axes if a in mesh.axis_names)
+
+
+def _grid_apply(p: torch.Tensor, nshards: int) -> torch.Tensor:
+    """``A p`` of a grid: K1's halo mode on each slab of a sharded grid,
+    on its shard, or on the ``nshards`` z-slab views of a plain one."""
+    slabs = getattr(p, "slabs", None)
+    if slabs is None:
+        return sharded_stencil7(p, nshards)
+    if len(slabs) != nshards:
+        raise ValueError(f"a grid of {len(slabs)} slabs for a step over "
+                         f"{nshards} shards")
+    from repro_torch.distributed.sharding import ShardedVector
+
+    return ShardedVector(slab_stencil7(slabs, p.mesh), p.mesh)
 
 
 def _grid_block_sums(a: torch.Tensor, b: torch.Tensor,
                      nshards: int) -> torch.Tensor:
-    """The ``(nshards,)`` shard sums of ``a * b`` over two grids of one
-    device, one block a shard."""
-    return slab_block_sums(_slabs(a.reshape(-1), nshards)[0],
-                           _slabs(b.reshape(-1), nshards)[0], nshards)
+    """The ``(nshards,)`` shard sums of ``a * b`` over two grids, one
+    block a shard, on shard 0's device (of a sharded grid's mesh, or
+    the plain grids' one device)."""
+    a_slabs, mesh = _slabs(a.reshape(-1), nshards)
+    return slab_block_sums(a_slabs, _slabs(b.reshape(-1), nshards)[0],
+                           nshards, mesh)
+
+
+def esr_replica(p: torch.Tensor):
+    """The in-memory ESR copy of ``p``: a clone of a plain grid; for a
+    sharded grid a whole copy on each distinct device of its mesh (the
+    reference's replicated ``P()``, ``sharding.replicate``)."""
+    if getattr(p, "slabs", None) is None:
+        return p.clone()
+    from repro_torch.distributed.sharding import replicate
+
+    return replicate(p)
 
 
 def _grid_spec(mesh, axes, esr_mode: str, grid_dtype: torch.dtype,
@@ -268,8 +294,8 @@ def _grid_spec(mesh, axes, esr_mode: str, grid_dtype: torch.dtype,
 
 def _inv6(p: torch.Tensor, cache: Dict) -> torch.Tensor:
     """The Jacobi ``M^{-1} = 1/6`` as the vector K2 reads, one per grid
-    shape, dtype and device."""
-    key = (tuple(p.shape), p.dtype, p.device)
+    shape, dtype, device and mesh (a sharded grid's is sharded)."""
+    key = (tuple(p.shape), p.dtype, p.device, getattr(p, "mesh", None))
     inv = cache.get(key)
     if inv is None:
         inv = cache[key] = torch.full_like(p, 1.0 / 6.0)
@@ -282,19 +308,24 @@ def make_sharded_pcg_step(mesh, shard_axes=("pod", "data", "model"),
                           ) -> Tuple[Callable, Callable]:
     """Build ``(step_fn, spec_fn)`` for one sharded PCG iteration on a
     dict state of ``(nz, ny, nx)`` grids (``x, r, z, p``) and the 0-d
-    ``rz``, z-sharded over ``mesh``.  ``A p`` is K1's halo mode shard by
-    shard; ``p.Ap`` and ``r'z'`` are the dtype's own sums (block sums a
-    shard, chained); the update is K2 with Jacobi's ``1/6``.  With
-    ``esr_mode="inmemory"`` the step also keeps the replicated ``p`` of
-    the last two iterations (``esr_red_prev``, ``esr_red_cur``: the
-    peer-RAM redundancy of Algorithm 2, a full copy each)."""
+    ``rz``, z-sharded over ``mesh``: plain grids of one device (the
+    shards views of them) or sharded grids on the mesh's shards, which
+    may span distinct cards (``rz`` and ``beta`` then live on shard 0's
+    device, as ``make_det_dot``'s result does).  ``A p`` is K1's halo
+    mode shard by shard; ``p.Ap`` and ``r'z'`` are the dtype's own sums
+    (block sums a shard, chained on shard 0's device); the update is K2
+    with Jacobi's ``1/6``.  With ``esr_mode="inmemory"`` the step also
+    keeps the replicated ``p`` of the last two iterations
+    (``esr_red_prev``, ``esr_red_cur``: the peer-RAM redundancy of
+    Algorithm 2, a full copy each, one on each distinct card of a
+    sharded state's mesh)."""
     axes = _mesh_axes(mesh, shard_axes)
     nshards = _nshards(mesh, axes)
     cache: Dict = {}
 
     def step(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         x, r, p, rz = state["x"], state["r"], state["p"], state["rz"]
-        ap = sharded_stencil7(p, nshards)                 # halo exchange on z
+        ap = _grid_apply(p, nshards)                      # halo exchange on z
         pap = chain_plain(_grid_block_sums(p, ap, nshards))
         alpha = rz / pap
         xn, rn, zn, sums = _grid_update(x, r, p, ap, alpha, _inv6(p, cache),
@@ -305,7 +336,7 @@ def make_sharded_pcg_step(mesh, shard_axes=("pod", "data", "model"),
         out = dict(x=xn, r=rn, z=zn, p=pn, rz=rz_new, beta=beta)
         if esr_mode == "inmemory":
             out["esr_red_prev"] = state["esr_red_cur"]
-            out["esr_red_cur"] = pn.clone()
+            out["esr_red_cur"] = esr_replica(pn)
         return out
 
     return step, _grid_spec(mesh, axes, esr_mode, dtype, dtype)
@@ -322,7 +353,7 @@ def make_shardmap_pcg_step(mesh, shard_axes=("pod", "data", "model"),
     whatever the grid's dtype, and ``alpha``/``beta`` are cast back to
     it.  Float64 grids sum each shard at float64 and round the shard sum
     to float32.  Same state and spec as :func:`make_sharded_pcg_step`,
-    with a float32 ``rz``."""
+    with a float32 ``rz``, on plain or sharded grids as there."""
     axes = _mesh_axes(mesh, shard_axes)
     nshards = _nshards(mesh, axes)
     cache: Dict = {}
@@ -332,7 +363,7 @@ def make_shardmap_pcg_step(mesh, shard_axes=("pod", "data", "model"),
 
     def step(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         x, r, p, rz = state["x"], state["r"], state["p"], state["rz"]
-        ap = sharded_stencil7(p, nshards)
+        ap = _grid_apply(p, nshards)
         pap = psum(_grid_block_sums(p, ap, nshards))
         alpha = (rz / pap).to(p.dtype)
         xn, rn, zn, sums = _grid_update(x, r, p, ap, alpha, _inv6(p, cache),
@@ -343,7 +374,7 @@ def make_shardmap_pcg_step(mesh, shard_axes=("pod", "data", "model"),
         out = dict(x=xn, r=rn, z=zn, p=pn, rz=rz_new, beta=beta)
         if esr_mode == "inmemory":
             out["esr_red_prev"] = state["esr_red_cur"]
-            out["esr_red_cur"] = pn.clone()
+            out["esr_red_cur"] = esr_replica(pn)
         return out
 
     return step, _grid_spec(mesh, axes, esr_mode, dtype, torch.float32)
@@ -351,6 +382,11 @@ def make_shardmap_pcg_step(mesh, shard_axes=("pod", "data", "model"),
 
 def nvm_persist_host(state: Dict[str, torch.Tensor]) -> np.ndarray:
     """NVM-ESR persistence tap: pull ``p``'s shards to the host, in shard
-    order (one device holds every shard, so all are addressable).  No
-    collective, no device memory."""
-    return state["p"].detach().reshape(-1).cpu().numpy()
+    order (a sharded grid slab by slab from its shards,
+    ``sharding.to_host``).  No collective, no device memory."""
+    p = state["p"]
+    if getattr(p, "slabs", None) is not None:
+        from repro_torch.distributed.sharding import to_host
+
+        return to_host(p).reshape(-1)
+    return p.detach().reshape(-1).cpu().numpy()

@@ -43,7 +43,8 @@ tensors are :class:`Placed`: one piece a coordinate, laid out by the
 physical spec :func:`spec_for_shape` gives under the rules.  The model
 code runs shard by shard (:func:`each`) and writes each collective out:
 :func:`reshard` (the all-gather of :func:`gather_axis` among its
-cases), :func:`reduce_sum` in rank order, :func:`heads_to_seq` and
+cases), :func:`reduce_sum` and :func:`reduce_scatter` in rank order,
+:func:`heads_to_seq` and
 :func:`to_whole`, every one of them built on :meth:`DataMesh.move`.
 :func:`shard` stays the identity: where the reference constrains a
 layout, the port's mesh code lays the tensor out explicitly.
@@ -68,6 +69,8 @@ which over distinct cards is that of a worker thread a device):
   rank order;
 - :func:`reduce_sum`: the group's output gradients summed in rank
   order, the sum handed to every input piece;
+- :func:`reduce_scatter`: the all-gather of the group's output
+  gradients in rank order, each input piece the whole of them;
 - :func:`to_whole`: each part's slice of the whole gradient to the
   piece it came from, nothing to the replicas it skipped;
 - :func:`mean_over_mesh`: each piece ``1 / nshards`` of the gradient.
@@ -85,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import math
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
@@ -414,11 +418,12 @@ class DataMesh:
         return out
 
     def place(self, x: torch.Tensor) -> "ShardedVector":
-        """The vector ``x`` (of a length the shard count divides) as a
-        :class:`ShardedVector`: slab ``s`` a copy of the ``s``-th equal
-        range, moved onto shard ``s``."""
-        if x.dim() != 1 or x.shape[0] % self.nshards:
-            raise ValueError(f"cannot split a vector of shape "
+        """The vector ``x`` (of a length the shard count divides), or the
+        grid ``x`` (its first dimension so), as a :class:`ShardedVector`:
+        slab ``s`` a copy of the ``s``-th equal range of the first
+        dimension, moved onto shard ``s``."""
+        if x.dim() < 1 or x.shape[0] % self.nshards:
+            raise ValueError(f"cannot split a tensor of shape "
                              f"{tuple(x.shape)} into {self.nshards} slabs")
         step = x.shape[0] // self.nshards
         return ShardedVector([self.move(x[s * step:(s + 1) * step], s)
@@ -846,7 +851,12 @@ class _Reshard(torch.autograd.Function):
     reduce-scatter: each source piece's gradient is the sum, in rank
     order of the new pieces, of the gradients of every copy made of its
     parts, each moved back from the shard that holds it; a source piece
-    copied once, whole, takes that copy's gradient as it is."""
+    copied once, whole, takes that copy's gradient as it is.  The sum
+    starts from zeros and adds the copies' gradients in shard order,
+    which along the gathered axis is its rank order: the all-gather of
+    the residual stream's positions over ``model`` (:func:`gather_axis`)
+    has as its transpose each position piece's gradient summed over its
+    model group from rank 0's, as :func:`reduce_sum` sums."""
 
     @staticmethod
     def forward(ctx, mesh, plan, *pieces):
@@ -966,6 +976,65 @@ def reduce_sum(x: Placed, axis: str) -> Placed:
     if x.mesh.shape[axis] == 1:
         return x
     return Placed(_ReduceSum.apply(x.mesh, axis, *x.pieces), x.mesh, x.spec)
+
+
+def _scatter_pieces(pieces, mesh: DeviceMesh, axis: str, dim: int) -> list:
+    """Each shard's range of ``dim`` of its group's pieces, moved to it
+    (its own as it is) and added in rank order from rank 0's."""
+    step = pieces[0].shape[dim] // mesh.shape[axis]
+    out = []
+    for s in range(mesh.nshards):
+        lo = mesh.coords(s)[axis] * step
+        parts = [pieces[r].narrow(dim, lo, step) if r == s else
+                 mesh._copy(pieces[r].narrow(dim, lo, step), s, src=r)
+                 for r in mesh.group(axis, s)]
+        with mesh.on(s):
+            out.append(_rank_sum(parts))
+    return out
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter` under autograd.  Its transpose is the
+    all-gather: each input piece's gradient is its group's output
+    gradients joined along the scattered dimension in rank order."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, spec, *pieces):
+        ctx.mesh, ctx.spec = mesh, spec
+        ctx.out_spec = tuple(axis if i == dim else ax
+                             for i, ax in enumerate(spec))
+        return tuple(_scatter_pieces(pieces, mesh, axis, dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        wait_current(mesh)
+        # the all-gather: a reshard of the output gradients to the input's
+        # spec, each part copied into place in rank order
+        g = Placed(grads, mesh, ctx.out_spec)
+        out = _reshard_pieces(grads, mesh, _reshard_plan(g, ctx.spec),
+                              grads[0].dtype)
+        return (None, None, None, None) + _bw_join(mesh, out)
+
+
+def reduce_scatter(x: Placed, axis: str, dim: int) -> Placed:
+    """The sum over ``axis`` of the partial pieces of ``x``, each shard
+    keeping its rank's range of dimension ``dim`` (whole in ``x``, cut
+    into the axis' extent of equal parts): only that range of each of
+    its group's pieces is moved to it, and the ranges are added in rank
+    order from rank 0's, so each piece is element for element the
+    matching rows of :func:`reduce_sum`'s.  Under autograd the transpose
+    is the all-gather of the output gradients in rank order
+    (:class:`_ReduceScatter`)."""
+    n = x.mesh.shape[axis]
+    if n == 1:
+        return x
+    if x.spec[dim] is not None or axis in x.spec or x.shape[dim] % n:
+        raise ValueError(f"cannot reduce-scatter dimension {dim} of {x} "
+                         f"over {axis!r}")
+    pieces = _ReduceScatter.apply(x.mesh, axis, dim, x.spec, *x.pieces)
+    return Placed(pieces, x.mesh, tuple(axis if i == dim else ax
+                                        for i, ax in enumerate(x.spec)))
 
 
 def heads_to_seq(x: Placed, ranges: Sequence[Tuple[int, int]],
@@ -1128,15 +1197,19 @@ _POINTWISE = {_aten.add.Tensor, _aten.sub.Tensor, _aten.mul.Tensor,
 class ShardedVector(torch.Tensor):
     """A vector of a sharded solve: one slab a shard, each a tensor of its
     own on its shard's device (``slabs``, in shard order, and ``mesh``).
+    A sharded grid of the PCG grid steps is one too: its slabs are
+    ``(nz / n, ny, nx)`` z-slabs, the first dimension split.
 
-    It is a wrapper tensor of the whole length (shard 0's device is its
+    It is a wrapper tensor of the whole shape (shard 0's device is its
     ``device``), so the solvers' step bodies run on it unchanged: the
     elementwise ops in ``_POINTWISE`` run slab by slab on each shard's
-    stream, ``copy_`` copies slab into slab, a view of the whole shape is
-    an alias, and an index range inside one shard is that slab's piece.
+    stream, ``copy_`` copies slab into slab, a view that keeps every
+    slab whole (the whole shape, a grid flattened, a vector viewed as
+    whole planes) is the same view of each slab, and an index range of
+    the first dimension inside one shard is that slab's piece.
     Every other op raises ``NotImplementedError`` naming it: nothing
-    gathers the slabs onto one device but :func:`gather`, called where
-    the API hands a result back."""
+    gathers the slabs onto one device but :func:`gather` (and
+    :func:`replicate`), called where the API hands a result back."""
 
     slabs: Tuple[torch.Tensor, ...]
     mesh: DataMesh
@@ -1147,32 +1220,37 @@ class ShardedVector(torch.Tensor):
         if len(slabs) != mesh.nshards:
             raise ValueError(f"{len(slabs)} slabs for a mesh of "
                              f"{mesh.nshards} shards")
+        rest = slabs[0].shape[1:]
         for s, slab in enumerate(slabs):
-            if (slab.dim() != 1 or slab.device != mesh.devices[s]
+            if (slab.dim() < 1 or slab.shape[1:] != rest
+                    or slab.device != mesh.devices[s]
                     or slab.dtype != slabs[0].dtype):
                 raise ValueError(
-                    f"slab {s} must be a 1-D {slabs[0].dtype} tensor on "
-                    f"{mesh.devices[s]}, got {slab.dtype} of shape "
-                    f"{tuple(slab.shape)} on {slab.device}")
-        n = sum(slab.numel() for slab in slabs)
+                    f"slab {s} must be a {slabs[0].dtype} tensor of shape "
+                    f"(n, *{tuple(rest)}) on {mesh.devices[s]}, got "
+                    f"{slab.dtype} of shape {tuple(slab.shape)} on "
+                    f"{slab.device}")
+        n = sum(slab.shape[0] for slab in slabs)
         out = torch.Tensor._make_wrapper_subclass(
-            cls, (n,), dtype=slabs[0].dtype, device=mesh.device)
+            cls, (n, *rest), dtype=slabs[0].dtype, device=mesh.device)
         out.slabs, out.mesh = slabs, mesh
         return out
 
     def __repr__(self) -> str:
-        return (f"ShardedVector(n={self.shape[0]}, dtype={self.dtype}, "
+        shape = self.shape[0] if self.dim() == 1 else tuple(self.shape)
+        return (f"ShardedVector(n={shape}, dtype={self.dtype}, "
                 f"devices={[str(d) for d in self.mesh.devices]})")
 
     __torch_function__ = torch._C._disabled_torch_function_impl
 
     @property
     def offsets(self) -> Tuple[int, ...]:
-        """Each slab's first index in the whole vector."""
+        """Each slab's first index in the whole vector (of the first
+        dimension, for a grid)."""
         out, at = [], 0
         for slab in self.slabs:
             out.append(at)
-            at += slab.numel()
+            at += slab.shape[0]
         return tuple(out)
 
     @classmethod
@@ -1214,10 +1292,10 @@ def _pointwise(func, args, kwargs) -> ShardedVector:
     if kwargs.get("device") is not None:
         raise NotImplementedError(f"{func} with device= on a ShardedVector")
     first = next(a for a in args if isinstance(a, ShardedVector))
-    mesh, lengths = first.mesh, [len(slab) for slab in first.slabs]
+    mesh, shapes = first.mesh, [slab.shape for slab in first.slabs]
     for a in args:
         if isinstance(a, ShardedVector) and (
-                a.mesh != mesh or [len(x) for x in a.slabs] != lengths):
+                a.mesh != mesh or [x.shape for x in a.slabs] != shapes):
             raise ValueError(f"{func}: sharded vectors on different meshes "
                              f"or layouts")
     outs = []
@@ -1233,7 +1311,7 @@ def _pointwise(func, args, kwargs) -> ShardedVector:
 def _copy_into(dst, src, non_blocking: bool = False) -> ShardedVector:
     if not (isinstance(dst, ShardedVector) and isinstance(src, ShardedVector)
             and dst.mesh == src.mesh
-            and [len(x) for x in dst.slabs] == [len(x) for x in src.slabs]):
+            and [x.shape for x in dst.slabs] == [x.shape for x in src.slabs]):
         raise NotImplementedError(
             "copy_ runs between sharded vectors of one layout only")
     for s, (d, v) in enumerate(zip(dst.slabs, src.slabs)):
@@ -1243,11 +1321,17 @@ def _copy_into(dst, src, non_blocking: bool = False) -> ShardedVector:
 
 
 def _alias(func, x: ShardedVector, shape=None) -> ShardedVector:
-    if shape is not None and tuple(shape) not in ((x.shape[0],), (-1,)):
+    if shape is None or tuple(shape) == tuple(x.shape):
+        return ShardedVector(x.slabs, x.mesh)
+    shape = tuple(shape)
+    rest = shape[1:]
+    row = math.prod(rest)
+    if (-1 in rest or row < 1 or any(slab.numel() % row for slab in x.slabs)
+            or shape[0] not in (-1, x.numel() // row)):
         raise NotImplementedError(
-            f"{func} to shape {tuple(shape)}: a ShardedVector is one "
-            f"dimension, slab by slab")
-    return ShardedVector(x.slabs, x.mesh)
+            f"{func} to shape {tuple(shape)}: a ShardedVector views each "
+            f"slab whole, along its first dimension")
+    return ShardedVector([slab.view(-1, *rest) for slab in x.slabs], x.mesh)
 
 
 def _slab_piece(x: ShardedVector, dim: int = 0, start=None, end=None,
@@ -1263,17 +1347,30 @@ def _slab_piece(x: ShardedVector, dim: int = 0, start=None, end=None,
         f"ShardedVector")
 
 
+def _whole_on(t: ShardedVector, device: torch.device) -> torch.Tensor:
+    """The whole of ``t`` on ``device`` (the current stream there), each
+    slab moved into its place from its shard."""
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    for s, (off, slab) in enumerate(zip(t.offsets, t.slabs)):
+        t.mesh.move(slab, device, src=s, out=out[off:off + len(slab)])
+    return out
+
+
 def gather(t: torch.Tensor) -> torch.Tensor:
     """The whole vector on shard 0's device (the current stream there):
     the one function that gathers a sharded vector's slabs, called where
     the API hands a result back.  A plain tensor comes back as it is."""
     if not isinstance(t, ShardedVector):
         return t
-    mesh = t.mesh
-    out = torch.empty(t.shape, dtype=t.dtype, device=mesh.device)
-    for s, (off, slab) in enumerate(zip(t.offsets, t.slabs)):
-        mesh.move(slab, None, src=s, out=out[off:off + len(slab)])
-    return out
+    return _whole_on(t, t.mesh.device)
+
+
+def replicate(t: ShardedVector) -> Tuple[torch.Tensor, ...]:
+    """A whole copy of ``t`` on each distinct device of its mesh, in the
+    order of their first shards: the reference's replicated ``P()``
+    value on a mesh (the grid steps' in-memory ESR copy of ``p``).  One
+    copy where every shard shares a device."""
+    return tuple(_whole_on(t, dev) for dev in dict.fromkeys(t.mesh.devices))
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

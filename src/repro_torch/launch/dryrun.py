@@ -67,14 +67,16 @@ shapes, and from real steps on the card.
 compiles one sharded PCG iteration; one H100 holds the paper's grids
 whole, so each ``GRIDS`` cell really runs:
 
-1. the layout's one-card data mesh (256 or 512 shards,
-   :func:`repro_torch.launch.mesh.make_data_mesh`);
+1. the layout's data mesh (256 or 512 shards,
+   :func:`repro_torch.launch.mesh.make_data_mesh`), spread over every
+   visible card (one card holds every shard);
 2. the cell's step, :func:`~repro_torch.core.spmv.make_sharded_pcg_step`
    (``variant="auto"``) or :func:`~repro_torch.core.spmv.
    make_shardmap_pcg_step` (``"shardmap"``), on float32 grids;
 3. the spec's state materialised at the full grid (a seeded right-hand
    side ``b``: ``x = 0``, ``r = b``, ``z = p = b / 6``, the in-memory ESR
-   replica a copy of ``p``);
+   replica a copy of ``p``), placed slab by slab on the cards when they
+   are several (:func:`cell_state`);
 4. one step, then a synchronize: ``compile_s`` is that first step's wall
    seconds (the kernels are built before the first cell, so it holds no
    ``nvcc``; it does hold the step's first-call work: workspaces and the
@@ -86,13 +88,14 @@ whole, so each ``GRIDS`` cell really runs:
 
 Each cell appends one JSON row with the reference's keys (``arch,
 shape, mesh, chips`` (the shard count), ``esr_mode, compile_s,
-memory.peak_bytes`` (``torch.cuda.max_memory_allocated`` of the cell
-after ``reset_peak_memory_stats``; not measured on the CPU),
-``roofline`` (the counts per shard), ``coll_by_kind,
-model_flops_per_chip = 18 n / chips, useful_flop_ratio``), plus the card's name, power limit and memory, the
-step's bound and its share of the warm step (on the card only).  A cell
-whose state alone exceeds the device's memory is refused before anything
-is allocated.
+memory.peak_bytes`` (the largest card's ``torch.cuda.max_memory_allocated``
+of the cell after ``reset_peak_memory_stats``; not measured on the
+CPU), ``roofline`` (the counts per shard), ``coll_by_kind,
+model_flops_per_chip = 18 n / chips, useful_flop_ratio``), plus
+``cards``, the card's name, power limit and memory, the step's bound
+and its share of the warm step (on the card only).  A cell whose state
+alone exceeds a card's memory (its slabs and its replicas) is refused
+before anything is allocated.
 
 Usage::
 
@@ -173,29 +176,58 @@ def cell_step(sc: SolverConfig, mesh):
 
 def cell_state(structs: Dict[str, torch.Tensor], mesh, device: torch.device,
                seed: int = SEED) -> Dict[str, torch.Tensor]:
-    """The spec's state on ``device``: every field of ``structs`` its own
-    tensor, from a seeded right-hand side."""
+    """The spec's state: every field of ``structs`` its own tensor, from
+    a seeded right-hand side drawn on ``device``.  On a mesh whose
+    shards span distinct cards (``mesh.distinct``) the right-hand side
+    is placed (``DataMesh.place``) and every grid is a sharded grid, its
+    slabs on their shards, ``rz`` on shard 0's device and the in-memory
+    ESR replica a whole copy on each card; otherwise the grids are whole
+    on ``device`` and the step runs on views of them.  Both states hold
+    the same values bit for bit."""
     grid = structs["x"]
     gen = torch.Generator(device=device).manual_seed(seed)
     b = torch.randn(grid.shape, generator=gen, device=device,
                     dtype=grid.dtype)
+    if getattr(mesh, "distinct", False):
+        b = mesh.place(b)
     z = b * (1.0 / 6.0)
     dot = spmv.make_det_dot(int(mesh.shape["data"]), mesh)
     state = dict(x=torch.zeros_like(b), r=b, z=z, p=z.clone(),
                  rz=dot(b.reshape(-1), z.reshape(-1)).to(structs["rz"].dtype))
     if "esr_red_cur" in structs:
-        state["esr_red_cur"] = state["p"].clone()
+        state["esr_red_cur"] = spmv.esr_replica(state["p"])
     return state
 
 
-def _timed_step(step, state, device: torch.device):
+def card_state_bytes(shardings: Dict[str, object],
+                     structs: Dict[str, torch.Tensor], mesh
+                     ) -> Dict[torch.device, int]:
+    """The state's bytes on each distinct device of ``mesh``: its slabs
+    of the z-sharded grids (``shardings`` not ``None``) and a whole copy
+    of each replicated field."""
+    out = {}
+    for dev in dict.fromkeys(mesh.devices):
+        share = mesh.devices.count(dev) / mesh.nshards
+        out[dev] = int(sum(
+            t.numel() * t.element_size() * (share if shardings[f] else 1)
+            for f, t in structs.items()))
+    return out
+
+
+def _grid_finite(t: torch.Tensor) -> bool:
+    """Whether every value of a grid (a sharded one slab by slab) is
+    finite."""
+    return all(bool(torch.isfinite(slab).all())
+               for slab in getattr(t, "slabs", (t,)))
+
+
+def _timed_step(step, state, mesh):
     """(the step's output, seconds until the call returned with every
-    launch enqueued, seconds until the device finished)."""
+    launch enqueued, seconds until every card of ``mesh`` finished)."""
     t0 = time.perf_counter()
     out = step(state)
     enqueued = time.perf_counter() - t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    mesh.synchronize()
     return out, enqueued, time.perf_counter() - t0
 
 
@@ -206,58 +238,68 @@ def run_solver_cell(cell: Union[str, SolverConfig], multi_pod: bool = False,
                     memory_bytes: Optional[int] = None,
                     hbm_rate: Optional[float] = None) -> dict:
     """Run one solver cell (a ``GRIDS`` name or a :class:`SolverConfig`)
-    for ``1 + WARM_STEPS`` steps on the layout's one-card mesh (16x16, or
+    for ``1 + WARM_STEPS`` steps on the layout's data mesh (16x16, or
     2x16x16 with ``multi_pod``; ``nshards`` replaces the layout's shard
     count, and the row's mesh is then that count) and return, and append
-    to ``results_path``, its row.  ``memory_bytes`` and ``hbm_rate`` are
-    the device's memory and memory rate on the CPU
+    to ``results_path``, its row.  With ``device="cuda"`` (no index) the
+    shards span the visible cards (:func:`~repro_torch.distributed.
+    sharding.make_data_mesh`: 256 shards on four cards are 64 slabs a
+    card), and the state is placed card by card (:func:`cell_state`);
+    an indexed card or the CPU holds every shard.  The state must fit
+    each card (:func:`card_state_bytes`); ``memory.state_bytes`` and
+    ``memory.peak_bytes`` are the largest card's.  ``memory_bytes`` and
+    ``hbm_rate`` are the device's memory and memory rate on the CPU
     (:func:`repro_torch.launch.mesh.device_memory_bytes`,
     :func:`~repro_torch.launch.mesh.device_hbm_rate`)."""
     sc = GRIDS[cell] if isinstance(cell, str) else cell
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        # every shard of a grid step on the one current card
-        dev = torch.device("cuda", torch.cuda.current_device())
     layout = "2x16x16" if multi_pod else "16x16"
     if nshards is None:
-        mesh = M.make_data_mesh(M.LAYOUTS[layout], dev)
+        mesh = M.make_data_mesh(M.LAYOUTS[layout], device)
     else:
-        mesh, layout = make_data_mesh(nshards, dev), str(nshards)
+        mesh, layout = make_data_mesh(nshards, device), str(nshards)
+    dev = mesh.device
+    cards = tuple(dict.fromkeys(mesh.devices))
     chips = int(mesh.shape["data"])
     step, spec = cell_step(sc, mesh)
     nz, ny, nx = sc.grid
-    _, structs = spec(nz, ny, nx)
+    shardings, structs = spec(nz, ny, nx)
     capacity = M.device_memory_bytes(dev, memory_bytes)
-    state_bytes = sum(t.numel() * t.element_size() for t in structs.values())
-    if state_bytes > capacity:
-        raise MemoryError(
-            f"{sc.name} on {layout}: the state alone is {state_bytes} bytes, "
-            f"more than the device's {capacity}: it does not fit")
+    by_card = card_state_bytes(shardings, structs, mesh)
+    for c, nbytes in by_card.items():
+        room = M.device_memory_bytes(c, memory_bytes)
+        if nbytes > room:
+            raise MemoryError(
+                f"{sc.name} on {layout}: the state alone is {nbytes} bytes "
+                f"on {c}, more than the device's {room}: it does not fit")
+    state_bytes = max(by_card.values())
     card = M.card_identity(dev)
     rate = M.device_hbm_rate(dev, hbm_rate)
 
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(c)
     state = cell_state(structs, mesh, dev)
-    out, _, first_s = _timed_step(step, state, dev)
+    out, _, first_s = _timed_step(step, state, mesh)
     enqueues, steps = [], []
     for _ in range(WARM_STEPS):
         del state
         state = {k: out[k] for k in structs}
         del out
-        out, enqueued, stepped = _timed_step(step, state, dev)
+        out, enqueued, stepped = _timed_step(step, state, mesh)
         enqueues.append(enqueued)
         steps.append(stepped)
     del state
     enqueue_s, step_s = statistics.median(enqueues), statistics.median(steps)
-    finite = bool(torch.isfinite(out["x"]).all() and
-                  torch.isfinite(out["r"]).all())
+    finite = _grid_finite(out["x"]) and _grid_finite(out["r"])
     del out
-    peak = (int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
-            else None)
+    peak = (max(int(torch.cuda.max_memory_allocated(c)) for c in cards)
+            if dev.type == "cuda" else None)
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
     if not finite:
         raise FloatingPointError(f"{sc.name} on {layout}: x or r is not "
                                  f"finite after the step")
@@ -268,7 +310,8 @@ def run_solver_cell(cell: Union[str, SolverConfig], multi_pod: bool = False,
     row_counts = roof.as_row()
     row = {
         "arch": "poisson_pcg", "shape": sc.name, "mesh": layout,
-        "chips": chips, "esr_mode": sc.esr_mode, "variant": sc.variant,
+        "chips": chips, "cards": len(cards), "esr_mode": sc.esr_mode,
+        "variant": sc.variant,
         "grid": list(sc.grid), "dtype": str(DTYPE).replace("torch.", ""),
         "compile_s": first_s, "step_s": step_s, "enqueue_s": enqueue_s,
         "warm_steps_s": steps,
@@ -292,7 +335,8 @@ def run_solver_cell(cell: Union[str, SolverConfig], multi_pod: bool = False,
         share = row["roofline_share"]
         share_s = "not measured" if share is None else f"{share:.3f}"
         print(f"[pcg {sc.name} ({sc.esr_mode}, {sc.variant}) x {layout} on "
-              f"{card['name']}] first step {first_s:.3f}s, step "
+              f"{len(cards)} x {card['name']}] first step {first_s:.3f}s, "
+              f"step "
               f"{step_s:.4f}s (median of {WARM_STEPS}, enqueued in "
               f"{enqueue_s:.4f}s) | peak "
               f"{peak_s} | bound "
@@ -338,9 +382,11 @@ OPT_LEVERS = {
     "micro2": {"microbatches": 2},
     "micro4": {"microbatches": 4},
 }
-#: levers that change nothing on one card (the port's residual stream is
-#: never sharded, so there is no sequence-parallel transition to pin):
-#: a row lists them under ``levers_inert``
+#: levers that change nothing in the port: ``explicit_sp`` pins the
+#: reference's sequence-parallel gather to the normed block input in the
+#: compute dtype, which is what the port's seq-placed residual stream
+#: always gathers (``layers.to_stream``), so the lever changes neither
+#: values nor bytes; a row lists them under ``levers_inert``
 INERT_LEVERS = ("explicit_sp",)
 
 

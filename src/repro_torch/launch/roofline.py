@@ -462,16 +462,28 @@ def lm_collectives(cell) -> Dict[str, int]:
       ``bf16_gather``), and every gradient is all-reduced over the batch
       axes its parameter is not sharded on (``all-reduce``,
       ``2 (n - 1) / n x`` its per-device bytes), once a step;
-    - **row-parallel products** (``all-reduce`` over ``model``,
-      ``n_m`` chips): the output of each product whose contraction
-      dimension is sharded over ``model`` (attention's ``wo`` over
-      ``heads``, the MLP's, recurrent and SSM blocks' ``w_out`` over
-      ``mlp``, the MoE combine over ``experts``) is summed across its
-      shards: ``2 (n_m - 1) / n_m x b_dev x tokens x d_model`` in the
-      compute dtype a layer (``b_dev`` the per-device batch, ``tokens``
-      the step's sequence, 1 for decode, ``enc_seq`` for the encoder),
-      in the forward and, in training, again in the backward (the input
-      gradient of the column-parallel products);
+    - **row-parallel products** (over ``model``, ``n_m`` chips): the
+      output of each product whose contraction dimension is sharded
+      over ``model`` (attention's ``wo`` over ``heads``, the MLP's,
+      recurrent and SSM blocks' ``w_out`` over ``mlp``, the MoE combine
+      over ``experts``) is summed across its shards, in the forward
+      and, in training, again in the backward (the input gradient of
+      the column-parallel products).  Where the residual stream is
+      seq-placed (the rules put ``seq`` on ``model`` and ``n_m``
+      divides the stream's positions) the sum is a ``reduce-scatter``
+      onto the positions and the next block's input an ``all-gather``
+      of them, each ``(n_m - 1) / n_m x b_dev x tokens x d_model`` in
+      the compute dtype a layer (``b_dev`` the per-device batch,
+      ``tokens`` the step's sequence, ``enc_seq`` for the encoder);
+      where it is whole (a decode step's one position) an
+      ``all-reduce`` of twice that: the same bytes;
+    - **the embedding** of token ids, vocabulary-sharded over
+      ``model``: its partial rows are summed as a row-parallel output
+      is, the seq layout's ``all-gather`` being the gather of the final
+      norm's output before the logits (a stream that is not looked up,
+      or whose table is whole, has that gather alone); the encoder's
+      seq-placed output is gathered once (``all-gather``) for the cross
+      K/V;
     - **the decode softmax over a ``kv_seq``-sharded cache**
       (``all-reduce`` over the cache's sequence shards, ``n``): each
       attention layer combines its shards' partial outputs with their
@@ -503,6 +515,23 @@ def lm_collectives(cell) -> Dict[str, int]:
     gathers = 2 * cfg.microbatches if train else 1
     model_n = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
     tokens = shape.seq if shape.kind != "decode" else 1
+    passes = 2 if train else 1
+    act_item = cfg.d_model * cdt * b_dev * passes
+
+    def seq_split(seq: int) -> bool:
+        spec = spec_for_shape(rules, (shape.batch, seq, cfg.d_model),
+                              ("batch", "seq", None))
+        return model_n > 1 and "model" in _axes(spec[1])
+
+    def summed(seq: int, rows: int = 1) -> None:
+        # a (b_dev, seq, d) partial over model, ``rows`` layers of it
+        act = rows * seq * act_item
+        if seq_split(seq):
+            add("reduce-scatter", ring(model_n) * act)
+            add("all-gather", ring(model_n) * act)
+        else:
+            add("all-reduce", 2 * ring(model_n) * act)
+
     specs = param_specs(cfg)
     structs, physical = cell.in_structs[0], cell.in_shardings[0]
     for path, st in structs.items():
@@ -525,11 +554,17 @@ def lm_collectives(cell) -> Dict[str, int]:
         dim = 1 if stacked else 0
         if (logical[dim] in want and "model" in _axes(ph.spec[dim])
                 and not (path[0] == "enc" and shape.kind == "decode")):
-            rows = st.shape[0] if stacked else 1
-            seq = cfg.enc_seq if path[0] == "enc" else tokens
-            act = b_dev * seq * cfg.d_model * cdt
-            add("all-reduce", rows * (2 if train else 1) * 2 * ring(model_n)
-                * act)
+            summed(cfg.enc_seq if path[0] == "enc" else tokens,
+                   st.shape[0] if stacked else 1)
+
+    looked_up = cfg.frontend != "vision" or shape.kind == "decode"
+    if looked_up and "model" in _axes(physical[("embed",)].spec[0]):
+        summed(tokens)
+    elif seq_split(tokens):
+        add("all-gather", ring(model_n) * tokens * act_item)
+    if (cfg.family == "encdec" and shape.kind != "decode"
+            and seq_split(cfg.enc_seq)):
+        add("all-gather", ring(model_n) * cfg.enc_seq * act_item)
 
     if shape.kind == "decode":
         for path, ph in cell.in_shardings[2].items():

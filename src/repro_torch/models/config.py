@@ -7,9 +7,11 @@ reads ``remat_policy`` (``"dots"`` keeps the weight products through
 each layer's checkpoint).  ``microbatches`` is the value a train cell
 hands to ``TrainConfig(microbatches=...)``, as the reference's
 ``build_cell`` does.  The dry run reads ``serve_resident`` (its rules)
-and ``bf16_gather`` (its counted gathers); ``unroll_groups`` and
-``explicit_sp`` change nothing on one card.  ``pdt`` and ``cdt`` are
-``torch.dtype`` s.
+and ``bf16_gather`` (its counted gathers); ``unroll_groups`` changes
+nothing on one card, and ``explicit_sp`` nothing at all: over a mesh
+the port's seq-placed residual stream always gathers the normed block
+input in the compute dtype, the transition the lever pins.  ``pdt``
+and ``cdt`` are ``torch.dtype`` s.
 """
 from __future__ import annotations
 

@@ -23,8 +23,8 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (Placed, each, gather_axis,
-                                              on_every_shard, physical_spec,
-                                              place, to_whole)
+                                              on_every_shard, place,
+                                              to_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -124,9 +124,14 @@ def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig
 def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
            remat: bool = False):
     """frames: (B, enc_seq, d) precomputed embeddings (stub frontend).
-    A placed model places them ``(batch, None, None)`` and returns the
-    encoder output placed so (each model shard of a data group holding
-    it whole), its attention non-causal and tensor-parallel.  With
+    A placed model places them in the residual stream's layout
+    (``transformer.stream_spec``: each model shard's positions where the
+    model extent divides ``enc_seq``), runs every layer as the decoder's
+    (attention non-causal and tensor-parallel, each block's input
+    gathered over ``model`` and its output reduce-scattered back), norms
+    the pieces and returns the encoder output gathered over ``model``
+    once, whole on each model shard of a data group, for every decoder
+    layer's cross K/V.  With
     ``remat=True`` each layer is checkpointed (:func:`remat_call`), as
     the reference checkpoints its encoder scan's body."""
     cdt = cfg.cdt
@@ -138,7 +143,8 @@ def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
     for lp in model.enc:
         x = (remat_call(_enc_layer, "none", lp, x, cfg) if remat
              else _enc_layer(lp, x, cfg))
-    return model.enc_norm(x, cfg.norm_eps)
+    x = model.enc_norm(x, cfg.norm_eps)
+    return gather_axis(x, "model") if isinstance(x, Placed) else x
 
 
 def _dec_layer(lp: DecLayer, x: torch.Tensor,
@@ -232,10 +238,14 @@ def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
                  ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
     """:func:`decode` over the model's device mesh, eagerly: the tokens
     looked up in the vocab-sharded table with the batch on ``data``, the
-    learned positions added (``dec_pos``'s fsdp parts gathered), each
-    layer's self-attention, cross-attention and MLP tensor-parallel, the
-    tied logits vocab-parallel and gathered whole on the mesh's first
-    device.  The caches are placed: self K/V written in place, the
+    learned positions added (``dec_pos``'s fsdp parts gathered), the
+    residual stream in the decoder's layout
+    (``transformer.stream_spec``: seq-placed where the model extent
+    divides the tokens), each layer's self-attention, cross-attention
+    (against the whole encoder output) and MLP tensor-parallel, the final
+    norm on the pieces, the tied logits vocab-parallel over the gathered
+    stream and gathered whole on the mesh's first device.  The caches
+    are placed: self K/V written in place, the
     cross K/V projected at prefill into the ``kv_seq``-sharded cache.
     With ``remat=True`` (training, no caches) each layer is checkpointed
     with the placed ``enc_out`` among its arguments, so every layer's
@@ -246,8 +256,9 @@ def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
     if cache_index is not None:
         # each shard's copy of the position, read on its device
         cache_index = on_every_shard(cache_index, mesh)
-    bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
-    x = T._embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
+    stream = T.stream_spec(rules, tokens.shape[:2] + (cfg.d_model,))
+    x = T._embed_mesh(model.embed, place(tokens, mesh, (stream[0], None)),
+                      cfg, stream)
     x = T.add_positions_mesh(x, model.dec_pos,
                              0 if cache_index is None else cache_index, cfg)
     new_caches = None if caches is None else []
@@ -261,7 +272,8 @@ def _decode_mesh(model: EncDec, tokens: torch.Tensor, enc_out: Optional[Placed],
         if new_caches is not None:
             new_caches.append(nc)
     x = model.final_norm(x, cfg.norm_eps)
-    return to_whole(T._unembed_mesh(x, model, cfg)), new_caches
+    return to_whole(T._unembed_mesh(gather_axis(x, "model"), model, cfg)), \
+        new_caches
 
 
 def _cache_cross_mesh(pa: L.Attention, enc_out: Placed,
@@ -285,7 +297,9 @@ def _cross_from_cache_mesh(pa: L.Attention, hx: Placed,
     steps): q column-parallel over ``heads``, gathered over ``model``;
     every query head against each shard's part of the encoder positions
     (all valid), the partial softmaxes combined in rank order
-    (``layers.attend_kv_seq``); ``wo`` row-parallel."""
+    (``layers.attend_kv_seq``); ``wo`` row-parallel, its output in the
+    stream's layout of ``hx`` (gathered first where seq-placed)."""
+    stream, hx = hx.spec, gather_axis(hx, "model")
     wq = L.use_param(pa.wq, cfg)
     q = each(L.project_heads, hx, wq, spec=(hx.spec[0], None, wq.spec[1], None))
 
@@ -295,4 +309,4 @@ def _cross_from_cache_mesh(pa: L.Attention, hx: Placed,
 
     out = L.attend_kv_seq(gather_axis(q, "model"), cross["k"], cross["v"],
                           valid, cfg)
-    return L.heads_out(out, q, L.use_param(pa.wo, cfg))
+    return L.heads_out(out, q, L.use_param(pa.wo, cfg), stream)

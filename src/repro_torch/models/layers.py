@@ -25,6 +25,12 @@ Conventions
 - Every module is built on the device its caller names
   (:func:`repro_torch.models.registry.init_params`) and filled from an
   explicit ``torch.Generator`` on that device.
+- Over a device mesh every mixer and MLP takes the residual stream's
+  normed block input in the stream's layout and gives its output in the
+  same layout: a stream placed ``(batch, "model", None)`` (the
+  reference's sequence parallelism, the ``"seq"`` rule) is gathered
+  over ``model`` first (:func:`gather_axis`, in the compute dtype) and
+  the output brought back by :func:`to_stream`.
 """
 from __future__ import annotations
 
@@ -36,10 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (Placed, each, gather_axis,
-                                              group_pieces, heads_to_seq,
-                                              on_every_shard, ranges,
-                                              reduce_sum)
+from repro_torch.distributed.sharding import (Placed, Spec, each,
+                                              gather_axis, group_pieces,
+                                              heads_to_seq, on_every_shard,
+                                              ranges, reduce_scatter,
+                                              reduce_sum, reshard)
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, torch.Tensor]
@@ -475,7 +482,9 @@ class Attention(nn.Module):
         column-parallel over ``heads`` and ``kv_heads`` (whole where the
         model extent does not divide them), K/V repeated to the shard's
         query heads, ``wo`` row-parallel with its partials summed over
-        ``model`` in rank order.  Placed ``positions`` (M-RoPE's three
+        ``model`` in rank order.  A seq-placed ``x`` is gathered over
+        ``model`` first and the output reduce-scattered back onto its
+        positions (:func:`to_stream`).  Placed ``positions`` (M-RoPE's three
         streams, or plain RoPE positions) rotate each shard's heads;
         cross-attention takes k and v from the placed ``kv_source`` and
         attends without a mask, as ``causal=False`` does.  A prefill
@@ -490,6 +499,7 @@ class Attention(nn.Module):
         mesh = x.mesh
         if cache_index is not None:
             cache_index = on_every_shard(cache_index, mesh)
+        stream, x = x.spec, gather_axis(x, "model")
         b, s, _ = x.shape
         h, kh = cfg.n_heads, cfg.n_kv_heads
         g = h // kh
@@ -520,7 +530,8 @@ class Attention(nn.Module):
             q = each(rope, q, positions, spec=q.spec)
             k = each(rope, k, positions, spec=k.spec)
         if cache is not None and s == 1 and kv_source is None:
-            return self._decode_mesh(q, k, v, kind, cache, cache_index)
+            return self._decode_mesh(q, k, v, kind, cache, cache_index,
+                                     stream)
         new_cache = None if cache is None else _prefill_cache(k, v, cache, s)
 
         hl = h // mesh.shape["model"] if hspec else h
@@ -546,11 +557,11 @@ class Attention(nn.Module):
                 return _sdpa_chunked(q, k, v, causal=True, window=0,
                                      chunk_q=cfg.attn_chunk)
         out = each(attend, q, kf, vf, spec=q.spec)
-        return _row_parallel(out, use_param(self.wo, cfg), merge_heads), \
-            new_cache
+        return _row_parallel(out, use_param(self.wo, cfg), merge_heads,
+                             stream), new_cache
 
     def _decode_mesh(self, q: Placed, k: Placed, v: Placed, kind: str,
-                     cache: Dict, cache_index):
+                     cache: Dict, cache_index, stream: Spec):
         """One decode step against the ``kv_seq``-sharded cache (the
         reference's flash-decode layout, ``transformer.py:95-115``): the
         new row, every kv head, written by the shard whose part of the
@@ -580,7 +591,7 @@ class Attention(nn.Module):
 
         out = attend_kv_seq(gather_axis(q, "model"), ck, cv, valid, cfg,
                             [cache_index] + pos)
-        return heads_out(out, q, use_param(self.wo, cfg)), cache
+        return heads_out(out, q, use_param(self.wo, cfg), stream), cache
 
 
 def _write_decode_row(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
@@ -669,16 +680,17 @@ def attend_kv_seq(q_all: Placed, ck: Placed, cv: Placed, valid,
                 spec=q_all.spec, mesh=mesh)
 
 
-def heads_out(out: Placed, q: Placed, wo: Placed) -> Placed:
+def heads_out(out: Placed, q: Placed, wo: Placed, stream: Spec) -> Placed:
     """The output projection of attention computed with every head on
     each shard (``out``): each shard keeps the query heads of its ``q``
     piece where ``wo`` is sharded over ``heads``, then ``wo``
-    row-parallel."""
+    row-parallel, its output in the residual stream's layout
+    ``stream``."""
     if wo.spec[0] is not None:
         hl = q.pieces[0].shape[2]
         out = each(lambda o, m: o[:, :, m * hl:(m + 1) * hl], out,
                    out.mesh.ranks("model"), spec=q.spec)
-    return _row_parallel(out, wo, merge_heads)
+    return _row_parallel(out, wo, merge_heads, stream)
 
 
 def _prefill_cache(k: Placed, v: Placed, cache: Dict, s: int) -> Dict:
@@ -721,12 +733,28 @@ def _prefill_cache(k: Placed, v: Placed, cache: Dict, s: int) -> Dict:
     return cache
 
 
-def _row_parallel(x: Placed, w: Placed, product) -> Placed:
-    """``product(x, w)`` shard by shard, its partials summed over
-    ``model`` in rank order when ``w``'s contracted (first) dimension is
-    on ``model``; whole otherwise."""
+def to_stream(y: Placed, stream: Spec, partial: bool) -> Placed:
+    """A block's output ``y`` (positions whole on every shard) in the
+    residual stream's layout ``stream``.  A ``partial`` output (each
+    model shard's share of a sum) is reduce-scattered onto the positions
+    where the stream is seq-placed (``stream[1] == "model"``) and
+    all-reduced where it is whole, both in rank order
+    (:func:`reduce_scatter`, :func:`reduce_sum`).  A whole output (the
+    MoE combine, a block every model shard runs whole) is narrowed to
+    each shard's positions, and never summed."""
+    if stream[1] is not None:
+        return reduce_scatter(y, stream[1], 1) if partial else \
+            reshard(y, stream)
+    return reduce_sum(y, "model") if partial else y
+
+
+def _row_parallel(x: Placed, w: Placed, product, stream: Spec) -> Placed:
+    """``product(x, w)`` shard by shard, in the residual stream's
+    layout ``stream`` (:func:`to_stream`): its partials summed over
+    ``model`` when ``w``'s contracted (first) dimension is on ``model``,
+    whole otherwise."""
     y = each(product, x, w, spec=(x.spec[0], None, None))
-    return reduce_sum(y, "model") if w.spec[0] is not None else y
+    return to_stream(y, stream, w.spec[0] is not None)
 
 
 def _decode_valid(kv_pos: torch.Tensor, cache_index: Position, kind: str,
@@ -797,8 +825,10 @@ class MLP(nn.Module):
     def _forward_mesh(self, x: Placed) -> Placed:
         """Column-parallel ``w_in``/``w_gate`` over ``mlp``, then
         row-parallel ``w_out``, its partials summed over ``model`` in
-        rank order."""
+        rank order; the input gathered from, and the output brought back
+        to, the residual stream's layout (:func:`to_stream`)."""
         cfg = self.cfg
+        stream, x = x.spec, gather_axis(x, "model")
         w_in = use_param(self.w_in, cfg)
         spec = (x.spec[0], None, w_in.spec[1])
         h = each(torch.matmul, x, w_in, spec=spec)
@@ -807,4 +837,5 @@ class MLP(nn.Module):
         else:
             g = each(torch.matmul, x, use_param(self.w_gate, cfg), spec=spec)
             a = each(lambda h, g: _act(cfg.mlp_act, h, g), h, g, spec=spec)
-        return _row_parallel(a, use_param(self.w_out, cfg), torch.matmul)
+        return _row_parallel(a, use_param(self.w_out, cfg), torch.matmul,
+                             stream)

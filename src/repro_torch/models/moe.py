@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.sharding import (Placed, current_rules, each,
-                                              gather_axis)
+                                              gather_axis, reshard)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init, gelu, use_param
 
@@ -202,8 +202,13 @@ def _moe_mesh(p: MoE, x: Placed, cfg: ModelConfig):
     router (capacity from ``t``), runs its ``e / model`` experts on the
     slots it owns, and every shard of a data group gathers the group's
     expert outputs over ``model`` and combines them in the one-device
-    slot order.  Returns the output and each shard's aux loss."""
+    slot order.  A seq-placed ``x`` is gathered over ``model`` first, so
+    each data shard routes the same tokens with the same capacity as a
+    whole stream; the combined output is whole on every model shard, and
+    each keeps its own positions of it (no sum).  Returns the output and
+    each shard's aux loss."""
     mesh = x.mesh
+    stream, x = x.spec, gather_axis(x, "model")
     check_expert_split(cfg, mesh)
     if mesh.shape["data"] > 1 and x.spec[0] is None:
         raise ValueError(f"the expert-parallel MoE splits the batch over "
@@ -242,4 +247,4 @@ def _moe_mesh(p: MoE, x: Placed, cfg: ModelConfig):
             xp.shape).to(xp.dtype)
 
     aux = each(lambda tables: tables[2], routed, spec=(), mesh=mesh)
-    return each(out, x, y, routed, spec=x.spec), aux
+    return reshard(each(out, x, y, routed, spec=x.spec), stream), aux

@@ -207,8 +207,12 @@ def _rglru_block_mesh(p: RGLRUBlock, u: Placed, cfg: ModelConfig,
     ``b_a``, ``b_i`` and ``lam`` sliced to the shard's channels; the
     scan or the decode step local per channel, the caches' ``h`` and
     ``conv`` the shard's channels; ``w_out`` row-parallel.  Channels the
-    model extent does not divide are whole on every shard."""
+    model extent does not divide are whole on every shard.  A seq-placed
+    ``u`` is gathered over ``model`` first, and the output goes back to
+    the stream's layout (:func:`~repro_torch.models.layers.to_stream`):
+    reduce-scattered where ``w_out`` is split, narrowed where whole."""
     cdt = cfg.cdt
+    stream, u = u.spec, gather_axis(u, "model")
     w_gate, w_lin = use_param(p.w_gate, cfg), use_param(p.w_lin, cfg)
     conv = use_param(p.conv, cfg)
     w_a, w_i = gather_axis(p.w_a, "data"), gather_axis(p.w_i, "data")
@@ -252,7 +256,8 @@ def _rglru_block_mesh(p: RGLRUBlock, u: Placed, cfg: ModelConfig,
         y, h_final = each(scan, xc, xc_all, g, gate, *h0,
                           spec=[spec, spec[::2]])
         new_cache = None if cache is None else {"h": h_final, "conv": ntail}
-    return _row_parallel(y, use_param(p.w_out, cfg), torch.matmul), new_cache
+    return _row_parallel(y, use_param(p.w_out, cfg), torch.matmul,
+                         stream), new_cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

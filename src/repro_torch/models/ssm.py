@@ -296,9 +296,14 @@ def _ssm_block_mesh(p: SSMBlock, u: Placed, cfg: ModelConfig,
     are whole on every model shard (their fsdp parts gathered over
     ``data``).  Without the split each model shard runs the block
     whole, its split leaves gathered, and keeps its part of the new
-    ``conv_x``."""
+    ``conv_x``.  The scan and the convolutions run on the input gathered
+    over ``model`` from a seq-placed stream; the output goes back to the
+    stream's layout (:func:`~repro_torch.models.layers.to_stream`):
+    reduce-scattered where ``w_out`` is split (a partial), narrowed to
+    each shard's positions where the block ran whole."""
     mesh = u.mesh
     split = heads_split(cfg, mesh)
+    stream, u = u.spec, gather_axis(u, "model")
 
     def shard_local(t: Placed) -> Placed:
         return t if split else gather_axis(t, "model")
@@ -333,7 +338,7 @@ def _ssm_block_mesh(p: SSMBlock, u: Placed, cfg: ModelConfig,
         new_cache = {k: reshard(Placed([o[1][k] for o in out], mesh,
                                        specs[k]), cache[k].spec)
                      for k in cache}
-    return _row_parallel(y, w_out, torch.matmul), new_cache
+    return _row_parallel(y, w_out, torch.matmul, stream), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

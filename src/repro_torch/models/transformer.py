@@ -38,10 +38,11 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import (Placed, each, gather_axis,
-                                              mean_over_mesh, on_every_shard,
-                                              physical_spec, place,
-                                              reduce_sum, to_whole)
+from repro_torch.distributed.sharding import (Placed, Spec, each,
+                                              gather_axis, mean_over_mesh,
+                                              on_every_shard, physical_spec,
+                                              place, ranges, reshard,
+                                              to_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
@@ -109,14 +110,13 @@ class Layer(nn.Module):
 
 
 def _residual(x, y):
-    """``x + y``, shard by shard for a placed residual stream (whole on
-    each model shard of its data group)."""
+    """``x + y``, shard by shard for a placed residual stream: its pieces
+    and the block output's, both in the stream's layout (each model
+    shard's positions where it is seq-placed, whole otherwise)."""
     if isinstance(x, Placed):
         return each(torch.add, x, y, spec=x.spec)
     return x + y
 
-
-Spec = Tuple[Optional[str], ...]
 
 
 def layer_specs(cfg: ModelConfig, kind: str) -> Dict[str, Dict[str, Spec]]:
@@ -465,16 +465,31 @@ def decoder_forward(
 # ----------------------------------------------------------------------
 # over a device mesh
 # ----------------------------------------------------------------------
-def _embed_mesh(embed: Placed, tokens: Placed, cfg: ModelConfig) -> Placed:
-    """The embedding looked up from the vocab-sharded table: the table's
-    fsdp parts gathered over ``data``, each model shard's rows of the
-    tokens in its vocabulary range (zero elsewhere), summed over
-    ``model`` in rank order (one term is the row, the rest exact zeros),
-    then cast to the compute dtype."""
+def stream_spec(rules, shape) -> Spec:
+    """The residual stream's layout for a ``(B, S, d)`` stream under the
+    axis rules: ``(batch, seq, None)`` by :func:`physical_spec`, so the
+    positions are on ``model`` (the default rules' ``"seq"``, the
+    reference's sequence parallelism) where its extent divides ``S``,
+    and whole where it does not (a decode step's one position), or where
+    the rules map ``"seq"`` to ``None``."""
+    return physical_spec(rules, shape, ("batch", "seq", None))
+
+
+def _embed_mesh(embed: Placed, tokens: Placed, cfg: ModelConfig,
+                stream: Spec) -> Placed:
+    """The embedding looked up from the vocab-sharded table, in the
+    residual stream's layout ``stream``: the table's fsdp parts gathered
+    over ``data``, each model shard's rows of the tokens in its
+    vocabulary range (zero elsewhere), summed over ``model`` in rank
+    order (one term is the row, the rest exact zeros; reduce-scattered
+    onto each shard's positions where the stream is seq-placed,
+    :func:`~repro_torch.models.layers.to_stream`), then cast to the
+    compute dtype.  A table whole on every model shard looks up each
+    shard's own positions."""
     table = gather_axis(embed, "data")
-    spec = (tokens.spec[0], None, None)
     if table.spec[0] is None:
-        return each(lambda t, i: t[i].to(cfg.cdt), table, tokens, spec=spec)
+        return each(lambda t, i: t[i].to(cfg.cdt), table,
+                    reshard(tokens, stream[:2]), spec=stream)
     rows = table.pieces[0].shape[0]
 
     def look(t, i, m):
@@ -482,8 +497,10 @@ def _embed_mesh(embed: Placed, tokens: Placed, cfg: ModelConfig) -> Placed:
         hit = (local >= 0) & (local < rows)
         return torch.where(hit[..., None], t[local.clamp(0, rows - 1)], 0)
 
-    x = each(look, table, tokens, tokens.mesh.ranks("model"), spec=spec)
-    return each(lambda t: t.to(cfg.cdt), reduce_sum(x, "model"), spec=spec)
+    x = each(look, table, tokens, tokens.mesh.ranks("model"),
+             spec=(tokens.spec[0], None, None))
+    return each(lambda t: t.to(cfg.cdt), L.to_stream(x, stream, True),
+                spec=stream)
 
 
 def _unembed_mesh(x: Placed, model: nn.Module, cfg: ModelConfig) -> Placed:
@@ -510,21 +527,28 @@ def add_positions_mesh(x: Placed, table: Placed, start,
                        cfg: ModelConfig) -> Placed:
     """``x`` plus the rows ``start, ..., start + S - 1`` of a learned
     position table (its fsdp parts gathered over ``data``), clamped as
-    the one-device slice is, in the compute dtype.  ``start`` is an int,
-    a 0-d integer tensor or each shard's (``on_every_shard``'s): a
-    tensor is read on each shard's device, never on the host."""
+    the one-device slice is, in the compute dtype: each shard adds the
+    rows of its own positions of ``x`` (the start clamped for the whole
+    ``S``, then the shard's offset).  ``start`` is an int, a 0-d integer
+    tensor or each shard's (``on_every_shard``'s): a tensor is read on
+    each shard's device, never on the host."""
     table = gather_axis(table, "data")
     s = x.shape[1]
-    return each(lambda x, t, st: x + _slice_clamped(t, st, s).to(cfg.cdt)[None],
-                x, table, on_every_shard(start, x.mesh), spec=x.spec)
+
+    def add(x, t, st, span):
+        lo, hi = span
+        return x + _slice_clamped(t, st, s)[lo:hi].to(cfg.cdt)[None]
+
+    return each(add, x, table, on_every_shard(start, x.mesh), ranges(x, 1),
+                spec=x.spec)
 
 
 def place_inputs(x: torch.Tensor, mesh, rules, cfg: ModelConfig) -> Placed:
     """A whole ``(B, S, d)`` input (the vision frontend's patch
-    embeddings, an encoder's frames) placed ``(batch, None, None)`` and
-    cast to the compute dtype."""
-    bspec = physical_spec(rules, x.shape[:1], ("batch",))[0]
-    placed = place(x, mesh, (bspec, None, None))
+    embeddings, an encoder's frames) placed in the residual stream's
+    layout (:func:`stream_spec`: each shard holds its own positions
+    where the stream is seq-placed) and cast to the compute dtype."""
+    placed = place(x, mesh, stream_spec(rules, x.shape))
     return each(lambda t: t.to(cfg.cdt), placed, spec=placed.spec)
 
 
@@ -533,11 +557,21 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
                           remat: bool):
     """:func:`decoder_forward` over the model's device mesh, eagerly: the
     batch split over ``data`` (whole where the extent does not divide
-    it), the residual stream whole on each model shard of a data group,
-    every layer tensor- and expert-parallel over ``model``.  Token ids
-    are looked up in the vocab-sharded table; ``(B, S, d)`` embeddings
-    are placed ``(batch, None, None)``, and M-RoPE ``positions (3, B,
-    S)`` ``(None, batch, None)`` for every layer.  The logits come back
+    it), every layer tensor- and expert-parallel over ``model``.  The
+    residual stream between blocks is placed by the rules'
+    ``(batch, seq, None)`` (:func:`stream_spec`): with the default rules
+    each model shard holds ``1 / model`` of the positions, and every
+    block norms its own positions, gathers them over ``model``, runs its
+    mixer or MLP and reduce-scatters the output back onto them
+    (:func:`~repro_torch.models.layers.to_stream`); where the model
+    extent does not divide ``S`` (a decode step) or the rules map
+    ``"seq"`` to ``None`` the stream is whole on each model shard of a
+    data group and the outputs are all-reduced.  Token ids are looked
+    up in the vocab-sharded table; ``(B, S, d)`` embeddings are placed
+    in the stream's layout, and M-RoPE ``positions (3, B, S)`` ``(None,
+    batch, None)`` for every layer (attention reads them after its
+    gather).  The final norm runs on the pieces, which are gathered
+    before the vocab-parallel logits.  The logits come back
     whole on the mesh's first device; attention caches are written in
     place and recurrent states returned anew, placed; the aux loss is
     averaged over the shards.  A 0-d tensor position is moved to every
@@ -548,7 +582,8 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     With ``remat=True`` (training, no caches) every layer runs under
     :func:`remat_call` over its placed input, and the backward goes
     through the mesh's collectives' rank-order transposes
-    (:mod:`repro_torch.distributed.sharding`).  Every family trains so:
+    (:mod:`repro_torch.distributed.sharding`); each layer's checkpoint
+    keeps its seq piece of the stream.  Every family trains so:
     the SSD heads, the RG-LRU channels and the vision frontend's patch
     embeddings with their M-RoPE positions as the decoder LMs' tokens.
     recurrentgemma's pattern groups are not checkpointed around their
@@ -559,11 +594,13 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
     mesh, rules = model.mesh, model.rules
     if cache_index is not None:
         cache_index = on_every_shard(cache_index, mesh)
-    bspec = physical_spec(rules, tokens.shape[:1], ("batch",))[0]
+    stream = stream_spec(rules, tokens.shape[:2] + (cfg.d_model,))
+    bspec = stream[0]
     if tokens.dim() == 3:
         x = place_inputs(tokens, mesh, rules, cfg)
     else:
-        x = _embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg)
+        x = _embed_mesh(model.embed, place(tokens, mesh, (bspec, None)), cfg,
+                        stream)
     if not cfg.use_rope and model.pos_embed is not None:
         x = add_positions_mesh(x, model.pos_embed,
                                0 if cache_index is None else cache_index, cfg)
@@ -585,7 +622,7 @@ def _decoder_forward_mesh(model: Decoder, tokens: torch.Tensor,
         if new_caches is not None:
             new_caches.append(nc)
     x = model.final_norm(x, cfg.norm_eps)
-    logits = to_whole(_unembed_mesh(x, model, cfg))
+    logits = to_whole(_unembed_mesh(gather_axis(x, "model"), model, cfg))
     aux_total = (torch.zeros((), dtype=torch.float32, device=mesh.device)
                  if aux_total is None else mean_over_mesh(aux_total))
     return logits, new_caches, aux_total

@@ -472,23 +472,32 @@ def test_every_lever_runs_and_moves_what_it_should(base_row, lever):
     ``remat_dots`` saves products (fewer operations), ``micro2`` and
     ``micro4`` run that many microbatches, ``serve_resident`` keeps the
     decode weights whole over ``data``, ``bf16_gather`` halves the
-    gathered bytes, ``explicit_sp`` changes nothing and says so."""
+    gathered bytes, ``explicit_sp`` changes nothing and says so.  The
+    weights' gathers are held apart from the residual stream's
+    (``seq``), which neither lever moves: the gathers of the same cell
+    less those of its rules with ``"seq"`` on no axis."""
     shape = {"serve_resident": "decode_32k",
              "logit_bf16": "prefill_32k"}.get(lever, "train_4k")
     base, row = base_row(shape), _run("llama3_8b", shape, lever)
+    cell = _smoke_cell("llama3_8b", shape, "16x16")
+    whole = PR.build_cell(cell.cfg, "llama3_8b", cell.shape, PS.AxisRules(
+        cell.rules.mesh, {**cell.rules.rules, "seq": None}))
+    seq = RL.lm_collectives(cell).get("all-gather", 0) - \
+        RL.lm_collectives(whole).get("all-gather", 0)
     assert row["arch"] == f"llama3_8b+{lever}@smoke" and row["ok"]
     assert row["levers"] == [lever]
     assert row["levers_inert"] == ([lever] if lever == "explicit_sp" else [])
     cb, cr = base["coll_by_kind"], row["coll_by_kind"]
     fb, fr = (r["roofline"]["flops_per_chip"] for r in (base, row))
     if lever == "bf16_gather":
-        assert cr["all-gather"] * 2 == cb["all-gather"]
+        assert (cr["all-gather"] - seq) * 2 == cb["all-gather"] - seq
     elif lever == "serve_resident":
         assert "all-gather" not in cr and "all-gather" in cb
         assert row["memory"]["argument_bytes"] > \
             base["memory"]["argument_bytes"]
     elif lever in ("micro2", "micro4"):
-        assert cr["all-gather"] == cb["all-gather"] * int(lever[-1])
+        assert cr["all-gather"] - seq == \
+            (cb["all-gather"] - seq) * int(lever[-1])
         assert fr == pytest.approx(fb, rel=0.05)
     elif lever == "remat_dots":
         assert fr < fb and cr == cb
@@ -752,10 +761,15 @@ def test_lm_collectives_against_the_reference_hlo(multi_device):
     embedding rows a lookup needs, gathers every attention weight three
     times a layer in training (forward, recompute, backward; the port
     counts the forward and the backward), has no reduce-scatter (no
-    rewrite on the CPU), and gathers and reshards activations
-    (``all-to-all``) the port does not count.  On n = 2 a ring moves
-    ``(n-1)/n``, half, of a gather's output and ``2 (n-1)/n``, all, of
-    an all-reduce's operand, so the decode cell agrees term by term."""
+    rewrite on the CPU), and reshards activations (``all-to-all``) the
+    port does not count.  The port counts the residual stream's seq
+    layout where the 128 training positions split over ``model``: each
+    row-parallel output, and the vocabulary-sharded lookup's sum,
+    reduce-scattered and the next input gathered, where a whole stream
+    all-reduces.  On n = 2 a ring moves ``(n-1)/n``, half, of a gather's
+    output and ``2 (n-1)/n``, all, of an all-reduce's operand, so the
+    decode cell, whose one position leaves the stream whole, agrees term
+    by term."""
     ref = multi_device.run(_REF_HLO, ndevices=8, timeout=480)
     mesh = PS.LogicalMesh(("pod", "data", "model"),
                           {"pod": 2, "data": 2, "model": 2})
@@ -779,20 +793,27 @@ def test_lm_collectives_against_the_reference_hlo(multi_device):
     weight_gathers = 2 * (dec["all-gather"] - per_dev[("embed",)])
     assert dec_ref["kinds"]["all-gather"] - weight_gathers == \
         16 + 8 * 32 * 4 + 2 * (2 * 256 + 512)
-    # all-reduces: each row-parallel output (four of (2, 1, 64): bf16 in
-    # the port, f32 in the HLO), the softmax's partial outputs with their
-    # maximum and sum (f32 in both), and the vocabulary-sharded lookup's
-    # partial sum (the HLO only)
-    rowpar = 4 * 2 * 64 * 2
+    # all-reduces: each row-parallel output and the vocabulary-sharded
+    # lookup's partial sum (five of (2, 1, 64): bf16 in the port, f32 in
+    # the HLO; a decode step's one position leaves the stream whole) and
+    # the softmax's partial outputs with their maximum and sum (f32 in
+    # both)
+    rowpar = 5 * 2 * 64 * 2
     combine = dec["all-reduce"] - rowpar
     assert combine == 2 * 2 * 4 * (16 + 2) * 4
-    assert dec_ref["kinds"]["all-reduce"] == 2 * rowpar + combine + 2 * 64 * 4
+    assert dec_ref["kinds"]["all-reduce"] == 2 * rowpar + combine
 
     tr, tr_ref = got["train_4k"], ref["train_4k"]
     assert set(tr) == {"all-gather", "reduce-scatter", "all-reduce"}
     assert set(tr_ref["kinds"]) == {"all-gather", "all-reduce", "all-to-all"}
-    assert tr["all-gather"] == 2 * dec["all-gather"]
-    assert tr["reduce-scatter"] == dec["all-gather"]
+    # the 128 positions split over model = 2: each row-parallel output
+    # and the lookup's sum reduce-scattered onto the stream's halves, and
+    # each block's input and the final norm's output gathered (five of
+    # (2, 128, 64) bf16, in the forward and the backward), in place of
+    # the all-reduces; beside them the weights' gathers and gradients
+    seq_parallel = 2 * 5 * (2 * 128 * 64 * 2) // 2
+    assert tr["all-gather"] == 2 * dec["all-gather"] + seq_parallel
+    assert tr["reduce-scatter"] == dec["all-gather"] + seq_parallel
     attn = [p for p in params if p[:3] == ("groups", "0", "attn")]
     whole = {tuple(2 * n if "data" in RL._axes(a) else n
                    for n, a in zip(phys[p].shape[1:], phys[p].spec[1:]))

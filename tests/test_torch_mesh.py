@@ -22,9 +22,14 @@ own unsharded solves and the reference package.
   another order, ROADMAP N3).
 - The sharded PCG grid steps against the reference's on an in-process
   1-device mesh at float32 tolerance (rtol 1e-4: five float32
-  iterations summed in different orders).
+  iterations summed in different orders), on plain grids and on sharded
+  grids (``DataMesh.place``'s z-slabs); the steps on sharded grids
+  bitwise the steps on views of one buffer, and the dry run's state
+  placed where the shards spread over distinct devices.
 - The API's and the mesh's errors raise the reference's exception types.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -303,17 +308,38 @@ def _grid_state(nz, ny, nx, seed, esr_mode):
     return state
 
 
+def _placed_state(state, mesh):
+    """A grid-step state of sharded grids: every grid placed on ``mesh``
+    (``DataMesh.place``, z-slabs), the in-memory ESR replica a whole
+    copy on each distinct device (``sharding.replicate``)."""
+    out = {f: mesh.place(v) if v.dim() == 3 else v for f, v in state.items()
+           if f != "esr_red_cur"}
+    if "esr_red_cur" in state:
+        out["esr_red_cur"] = sharding.replicate(mesh.place(
+            state["esr_red_cur"]))
+    return out
+
+
+def _grid(v):
+    """A state field whole: a sharded grid gathered, a replica's first
+    copy."""
+    if isinstance(v, tuple):
+        return v[0]
+    return sharding.gather(v)
+
+
+@pytest.mark.parametrize("grids", ["plain", "sharded"])
 @pytest.mark.parametrize("nshards", [1, 4])
 @pytest.mark.parametrize("esr_mode", ["nvm", "inmemory"])
 @pytest.mark.parametrize("variant", ["auto", "shardmap"])
-def test_grid_steps_match_reference(variant, esr_mode, nshards):
+def test_grid_steps_match_reference(variant, esr_mode, nshards, grids):
     make = {"auto": (spmv.make_sharded_pcg_step,
                      ref_spmv.make_sharded_pcg_step),
             "shardmap": (spmv.make_shardmap_pcg_step,
                          ref_spmv.make_shardmap_pcg_step)}[variant]
     grid = (8, 6, 5)
-    step, spec = make[0](sharding.make_data_mesh(nshards, "cpu"),
-                         esr_mode=esr_mode)
+    mesh = sharding.make_data_mesh(nshards, "cpu")
+    step, spec = make[0](mesh, esr_mode=esr_mode)
     ref_step, ref_spec = make[1](ref_sharding.make_data_mesh(1),
                                  esr_mode=esr_mode)
     shardings, structs = spec(*grid)
@@ -324,20 +350,95 @@ def test_grid_steps_match_reference(variant, esr_mode, nshards):
         assert str(s.dtype).split(".")[-1] == str(ref_structs[f].dtype), f
     init = _grid_state(*grid, seed=7, esr_mode=esr_mode)
     st = {f: torch.from_numpy(v.copy()) for f, v in init.items()}
+    if grids == "sharded":
+        st = _placed_state(st, mesh)
     ref_st = {f: jnp.asarray(v) for f, v in init.items()}
     ref_step = jax.jit(ref_step)
     for _ in range(5):
         st = {f: v for f, v in step(st).items() if f in init}
         ref_st = {f: v for f, v in ref_step(ref_st).items() if f in init}
+    if grids == "sharded":
+        assert isinstance(st["x"], sharding.ShardedVector)
+        assert [tuple(s.shape) for s in st["x"].slabs] == \
+            [(8 // nshards, 6, 5)] * nshards
     for f in init:
         want = np.asarray(ref_st[f])
-        assert st[f].dtype == torch.float32, f
-        np.testing.assert_allclose(st[f].numpy(), want, rtol=1e-4,
+        got = _grid(st[f])
+        assert got.dtype == torch.float32, f
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(want).max()),
                                    err_msg=f)
     host = spmv.nvm_persist_host(st)
     assert host.shape == (int(np.prod(grid)),)
-    assert np.array_equal(host, st["p"].reshape(-1).numpy())
+    assert np.array_equal(host, _grid(st["p"]).reshape(-1).numpy())
+
+
+@pytest.mark.parametrize("nshards", [2, 4, 8])
+@pytest.mark.parametrize("esr_mode", ["nvm", "inmemory"])
+@pytest.mark.parametrize("variant", ["auto", "shardmap"])
+def test_grid_steps_on_sharded_grids_are_the_views_steps(variant, esr_mode,
+                                                         nshards):
+    """Three steps on sharded grids (each slab its own tensor on its
+    shard) against the same steps on views of one buffer: ``x, r, z, p,
+    rz, beta`` and the replica bit for bit, the grids sharded
+    throughout."""
+    make = {"auto": spmv.make_sharded_pcg_step,
+            "shardmap": spmv.make_shardmap_pcg_step}[variant]
+    mesh = sharding.make_data_mesh(nshards, "cpu")
+    step, _ = make(mesh, esr_mode=esr_mode)
+    init = _grid_state(16, 6, 5, seed=3, esr_mode=esr_mode)
+    views = {f: torch.from_numpy(v.copy()) for f, v in init.items()}
+    placed = _placed_state(views, mesh)
+    for _ in range(3):
+        views, placed = step(views), step(placed)
+        assert set(views) == set(placed)
+        for f in views:
+            if f != "beta":
+                assert isinstance(placed[f], tuple if f.startswith("esr")
+                                  else sharding.ShardedVector
+                                  if placed[f].dim() else torch.Tensor), f
+            assert torch.equal(_grid(placed[f]), views[f]), f
+        views = {f: v for f, v in views.items() if f in init}
+        placed = {f: v for f, v in placed.items() if f in init}
+
+
+@dataclasses.dataclass(frozen=True)
+class _SpreadMesh(sharding.DataMesh):
+    """A CPU data mesh that reports its shards as spread over distinct
+    devices, as a mesh over several cards does."""
+
+    @property
+    def distinct(self) -> bool:
+        return True
+
+
+@pytest.mark.parametrize("esr_mode", ["nvm", "inmemory"])
+@pytest.mark.parametrize("variant", ["auto", "shardmap"])
+def test_dry_run_state_is_placed_where_the_shards_spread(variant, esr_mode):
+    """On a mesh over distinct devices the dry run's state is sharded
+    grids (a replica a device), its bytes a device counted by
+    ``card_state_bytes``, and its steps bitwise those of the same cell's
+    state on views of one buffer."""
+    from repro_torch.configs.poisson_pcg import SolverConfig
+    from repro_torch.launch import dryrun
+
+    sc = SolverConfig("pcg_16", (16, 8, 8), 8, esr_mode=esr_mode,
+                      variant=variant)
+    views_mesh = sharding.make_data_mesh(8, "cpu")
+    outs = []
+    for mesh in (views_mesh, _SpreadMesh(views_mesh.devices)):
+        step, spec = dryrun.cell_step(sc, mesh)
+        shardings, structs = spec(*sc.grid)
+        state = dryrun.cell_state(structs, mesh, torch.device("cpu"))
+        assert isinstance(state["x"], sharding.ShardedVector) == \
+            mesh.distinct
+        assert dryrun.card_state_bytes(shardings, structs, mesh) == {
+            torch.device("cpu"): sum(t.numel() * t.element_size()
+                                     for t in structs.values())}
+        outs.append(step(step(state)))
+    views, placed = outs
+    for f in views:
+        assert torch.equal(_grid(placed[f]), views[f]), f
 
 
 # ----------------------------------------------------------------------
@@ -399,13 +500,16 @@ def test_sharded_operator_errors_match_reference():
             ref_op, ref_sharding.ShardLayout(*layout), ref_mesh))
         assert got is not None and got == want, layout
     # shards on distinct cards: the mesh takes them (streams are made at
-    # first use, on the card); the grid steps refuse them
+    # first use, on the card), and so do the grid steps, whose sharded
+    # grids then span the cards
     cards = sharding.DataMesh((torch.device("cuda", 0),
                                torch.device("cuda", 1)))
     assert cards.distinct and cards.device == torch.device("cuda", 0)
     for make in (spmv.make_sharded_pcg_step, spmv.make_shardmap_pcg_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(cards)
+        _, spec = make(cards)
+        shardings, structs = spec(4, 3, 2)
+        assert shardings["x"] == ("data",) and shardings["rz"] is None
+        assert tuple(structs["x"].shape) == (4, 3, 2)
     with pytest.raises(ValueError, match="one kind"):
         sharding.DataMesh((torch.device("cpu"), torch.device("cuda", 0)))
     with pytest.raises(ValueError):
